@@ -1,0 +1,86 @@
+"""Convert the JAX package's inference params into the port's.
+
+``params_from_jax`` takes the params tree of ``onebit_tpu`` after
+``jax.tree.map(np.asarray, params)`` (numpy leaves) and returns the port's
+params on ``device``. It is duck-typed: a projection is any object with
+``packed``, ``weight_scale``, ``input_factor`` and ``bias`` attributes, so
+this module imports nothing of the JAX package. Packed words arrive in the
+TPU byte-plane layout and are converted to the port's K-major layout once,
+here, one layer at a time on the target device.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from onebit_tpu_torch.core.packing import device_to_kmajor
+from onebit_tpu_torch.kernels.bitlinear import BitLinearWeights
+from onebit_tpu_torch.model.bitllama import PROJ_NAMES, _proj_dims
+from onebit_tpu_torch.model.config import BitLlamaConfig
+from onebit_tpu_torch.utils.device import resolve_device
+
+
+def to_tensor(a, device, dtype=None) -> torch.Tensor:
+    """numpy array (bfloat16 included) -> tensor on ``device``."""
+    a = np.ascontiguousarray(np.asarray(a))
+    if not a.flags.writeable:             # arrays viewed from jax
+        a = a.copy()
+    if a.dtype.name == "bfloat16":        # ml_dtypes' bfloat16, as jax gives
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    t = t.to(device)
+    return t if dtype is None else t.to(dtype)
+
+
+def _convert_words(packed: np.ndarray, device) -> torch.Tensor:
+    words = torch.empty(packed.shape, dtype=torch.int32, device=device)
+    for layer in range(packed.shape[0]):
+        words[layer] = device_to_kmajor(to_tensor(packed[layer], device))
+    return words
+
+
+def params_from_jax(tree: Dict[str, Any], config: BitLlamaConfig,
+                    device=None, dtype=None) -> Dict[str, Any]:
+    """The port's params from the JAX package's packed params.
+
+    Float leaves keep their dtype unless ``dtype`` is given; weight scales
+    and biases are stored in fp32, as the kernels read them. Only unfused
+    packed projections convert: apply the port's ``fuse_for_decode`` after.
+    """
+    device = resolve_device(device)
+    src = tree["layers"]
+    for name in ("qkv_proj", "gateup_proj"):
+        if name in src:
+            raise ValueError(f"{name}: convert the params before "
+                             "fuse_for_decode, then fuse with the port's")
+    layers: Dict[str, Any] = {
+        n: to_tensor(src[n], device, dtype)
+        for n in ("input_layernorm", "post_attention_layernorm")}
+    L = config.num_hidden_layers
+    for name in PROJ_NAMES:
+        w = src[name]
+        packed = getattr(w, "packed", None)
+        if packed is None:
+            raise ValueError(f"{name}: only packed projections convert")
+        packed = np.asarray(packed)
+        out, inp = _proj_dims(config)[name]
+        if packed.shape != (L, inp // 32, out) or packed.dtype != np.int32:
+            raise ValueError(f"{name}: packed {packed.shape} {packed.dtype}, "
+                             f"want {(L, inp // 32, out)} int32")
+        bias = getattr(w, "bias", None)
+        layers[name] = BitLinearWeights(
+            weight_scale=to_tensor(w.weight_scale, device, torch.float32),
+            input_factor=to_tensor(w.input_factor, device, dtype),
+            packed=_convert_words(packed, device),
+            bias=None if bias is None else to_tensor(bias, device,
+                                                     torch.float32))
+    return {
+        "embed_tokens": to_tensor(tree["embed_tokens"], device, dtype),
+        "lm_head": to_tensor(tree["lm_head"], device, dtype),
+        "final_norm": to_tensor(tree["final_norm"], device, dtype),
+        "layers": layers,
+    }

@@ -1,0 +1,262 @@
+"""Continuous batching engine: host-side scheduler over one dense KV cache.
+
+Port of the dense path of ``onebit_tpu/engine/batching.py``:
+
+* a fixed pool of ``max_batch`` slots shares one preallocated KV cache;
+* waiting requests are admitted into free slots; admissions of one round
+  are prefilled together, one ``prefill_rows`` call per prompt bucket
+  (prompts padded to a power of two, at least 32, at most ``max_len``);
+* every ``step()`` runs one ``ragged_decode_step`` for all slots, each row
+  at its own cache position;
+* a finished row (EOS or ``max_new_tokens``) frees its slot at once.
+
+Options of the JAX engine that this port does not have yet raise
+``NotImplementedError`` naming the slice that brings them (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import time
+from collections import deque
+from typing import Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from onebit_tpu_torch.engine.sampler import SamplingConfig, sample_token
+from onebit_tpu_torch.model.bitllama import init_kv_cache
+from onebit_tpu_torch.model.config import BitLlamaConfig
+from onebit_tpu_torch.model.ragged_decode import (prefill_rows,
+                                                  ragged_decode_step)
+from onebit_tpu_torch.utils.device import resolve_device
+from onebit_tpu_torch.utils.profiling import ThroughputMeter
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: List[int]
+    max_new_tokens: int
+    generated: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+    # streaming hooks, run on the engine thread: keep them cheap
+    on_token: Optional[Callable[[int], None]] = None
+    on_done: Optional[Callable[[], None]] = None
+    # latency accounting (perf_counter timestamps)
+    t_submit: float = 0.0
+    t_first_token: float = 0.0
+    t_done: float = 0.0
+
+
+def _bucket(n: int, minimum: int = 32) -> int:
+    b = minimum
+    while b < n:
+        b *= 2
+    return b
+
+
+def _reject_unported(paged, quantized_kv, block_steps, prefill_chunk_size,
+                     prefix_cache, draft_params, tp_mesh, pipeline_blocks):
+    later = [
+        (paged, "paged", 3),
+        (prefix_cache, "prefix_cache", 3),
+        (quantized_kv, "quantized_kv", 2),
+        (draft_params is not None, "draft_params", 3),
+        (tp_mesh is not None, "tp_mesh", 6),
+        (prefill_chunk_size, "prefill_chunk_size", 3),
+        (block_steps > 1, "block_steps > 1", 3),
+        (pipeline_blocks, "pipeline_blocks", 3),
+    ]
+    for given, name, slice_no in later:
+        if given:
+            raise NotImplementedError(
+                f"{name} is not ported yet: it comes with slice {slice_no} "
+                "of the PyTorch port (ROADMAP.md)")
+
+
+class ContinuousBatchingEngine:
+    def __init__(self, params, config: BitLlamaConfig, *, max_batch: int = 8,
+                 max_len: int = 2048, sampling: Optional[SamplingConfig] = None,
+                 impl: str = "auto", compute_dtype=torch.bfloat16,
+                 seed: int = 0, device=None, paged: bool = False,
+                 quantized_kv=False, block_steps: int = 1,
+                 prefill_chunk_size: Optional[int] = None,
+                 prefix_cache: bool = False, draft_params=None,
+                 tp_mesh=None, pipeline_blocks: bool = False):
+        _reject_unported(paged, quantized_kv, block_steps, prefill_chunk_size,
+                         prefix_cache, draft_params, tp_mesh, pipeline_blocks)
+        self.device = resolve_device(device)
+        self.params = params
+        self.config = config
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.sampling = sampling or SamplingConfig(greedy=True)
+        self.impl = impl
+        self.compute_dtype = compute_dtype
+        self.cache = init_kv_cache(config, max_batch, max_len,
+                                   dtype=compute_dtype, device=self.device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+        self._uid = itertools.count()
+        self.waiting: List[Request] = []
+        self.slots: List[Optional[Request]] = [None] * max_batch
+        self.row_pos = np.zeros(max_batch, np.int32)
+        self.next_token = np.zeros(max_batch, np.int32)
+        self.finished: Dict[int, Request] = {}
+        self.total_tokens = 0
+        self.total_requests = 0
+        self.completed_requests = 0
+        self.meter = ThroughputMeter()
+        self._lat_ttft = deque(maxlen=1024)
+        self._lat_tpot = deque(maxlen=1024)
+
+    # -- public API ---------------------------------------------------------
+    def add_request(self, prompt: Sequence[int], max_new_tokens: int = 64,
+                    on_token: Optional[Callable[[int], None]] = None,
+                    on_done: Optional[Callable[[], None]] = None) -> int:
+        total = len(prompt) + max_new_tokens
+        if total > self.max_len:
+            raise ValueError(f"request needs {total} > max_len {self.max_len}")
+        req = Request(uid=next(self._uid), prompt=list(prompt),
+                      max_new_tokens=max_new_tokens, on_token=on_token,
+                      on_done=on_done, t_submit=time.perf_counter())
+        self.waiting.append(req)
+        self.total_requests += 1
+        return req.uid
+
+    def has_work(self) -> bool:
+        return bool(self.waiting) or any(s is not None for s in self.slots)
+
+    def run(self) -> Dict[int, List[int]]:
+        """Drive until all requests complete; returns uid -> generated."""
+        while self.has_work():
+            self.step()
+        out = {uid: r.generated for uid, r in self.finished.items()}
+        self.finished.clear()
+        return out
+
+    # -- scheduler ----------------------------------------------------------
+    def step(self) -> None:
+        self._admit()
+        self._decode()
+
+    def _admit(self) -> None:
+        planned = []
+        for slot in range(self.max_batch):
+            if self.slots[slot] is not None or not self.waiting:
+                continue
+            req = self.waiting.pop(0)
+            plen = len(req.prompt)
+            planned.append((slot, req, plen,
+                            min(_bucket(plen), self.max_len)))
+        admitted = self._batched_prefill(planned)
+        if admitted:
+            # one batched sample and one host read for the whole round
+            toks = sample_token(torch.stack([lg for _, lg in admitted]),
+                                self.generator, self.sampling).cpu().numpy()
+            for (slot, _), tok in zip(admitted, toks):
+                self._emit(slot, int(tok))
+
+    def _batched_prefill(self, planned):
+        """One ``prefill_rows`` call per prompt bucket. The row count is
+        padded to a power of two (at most ``max_batch``) by repeating entry
+        0, whose duplicate writes are identical."""
+        admitted = []
+        by_bucket: Dict[int, list] = {}
+        for item in planned:
+            by_bucket.setdefault(item[3], []).append(item)
+        for bucket, group in by_bucket.items():
+            r_pad = 1
+            while r_pad < len(group):
+                r_pad *= 2
+            r_pad = min(r_pad, self.max_batch)
+            ids = np.zeros((r_pad, bucket), np.int64)
+            lens = np.zeros(r_pad, np.int64)
+            rows = np.zeros(r_pad, np.int64)
+            for j, (slot, req, plen, _) in enumerate(group):
+                ids[j, :plen] = req.prompt
+                lens[j] = plen
+                rows[j] = slot
+            for j in range(len(group), r_pad):
+                ids[j], lens[j], rows[j] = ids[0], lens[0], rows[0]
+            dev = self.device
+            logits, self.cache = prefill_rows(
+                self.params, self.cache, torch.from_numpy(ids).to(dev),
+                torch.from_numpy(lens).to(dev),
+                torch.from_numpy(rows).to(dev), self.config, impl=self.impl,
+                compute_dtype=self.compute_dtype)
+            for j, (slot, req, plen, _) in enumerate(group):
+                self.slots[slot] = req
+                self.row_pos[slot] = plen
+                admitted.append((slot, logits[j]))
+        return admitted
+
+    def _decode(self) -> None:
+        active = np.asarray([s is not None for s in self.slots])
+        if not active.any():
+            return
+        tokens = torch.from_numpy(self.next_token[:, None].astype(np.int64))
+        logits, self.cache = ragged_decode_step(
+            self.params, self.cache, tokens.to(self.device), self.row_pos,
+            active, self.config, impl=self.impl,
+            compute_dtype=self.compute_dtype)
+        toks = sample_token(logits[:, 0], self.generator,
+                            self.sampling).cpu().numpy()
+        for slot in range(self.max_batch):
+            if self.slots[slot] is None:
+                continue
+            self.row_pos[slot] += 1
+            self._emit(slot, int(toks[slot]))
+
+    def _emit(self, slot: int, tok: int) -> None:
+        """Record one generated token: bookkeeping, streaming callback,
+        throughput counters, completion check."""
+        req = self.slots[slot]
+        if not req.generated:
+            req.t_first_token = time.perf_counter()
+        req.generated.append(tok)
+        self.next_token[slot] = tok
+        self.total_tokens += 1
+        self.meter.tick(1)
+        if req.on_token:
+            req.on_token(tok)
+        self._maybe_finish(slot, tok)
+
+    def metrics(self) -> Dict[str, float]:
+        """Engine counters for a metrics endpoint."""
+        out = {
+            "total_requests": self.total_requests,
+            "completed_requests": self.completed_requests,
+            "total_tokens": self.total_tokens,
+            "tokens_per_second_ema": self.meter.rate or 0.0,
+            "queue_depth": len(self.waiting),
+            "active_slots": sum(s is not None for s in self.slots),
+            "max_batch": self.max_batch,
+        }
+        if self._lat_ttft:
+            q = np.quantile(np.asarray(self._lat_ttft), [0.5, 0.99])
+            out["ttft_p50_s"], out["ttft_p99_s"] = float(q[0]), float(q[1])
+        if self._lat_tpot:
+            q = np.quantile(np.asarray(self._lat_tpot), [0.5, 0.99])
+            out["tpot_p50_s"], out["tpot_p99_s"] = float(q[0]), float(q[1])
+        return out
+
+    def _maybe_finish(self, slot: int, tok: int) -> None:
+        req = self.slots[slot]
+        if req is None:
+            return
+        if tok == self.config.eos_token_id or \
+                len(req.generated) >= req.max_new_tokens:
+            req.done = True
+            req.t_done = time.perf_counter()
+            self._lat_ttft.append(req.t_first_token - req.t_submit)
+            if len(req.generated) > 1:
+                self._lat_tpot.append((req.t_done - req.t_first_token)
+                                      / (len(req.generated) - 1))
+            self.finished[req.uid] = req
+            self.slots[slot] = None
+            self.completed_requests += 1
+            if req.on_done:
+                req.on_done()
