@@ -15,6 +15,10 @@ Entry points run on the card unless the caller passes ``device="cpu"``::
     engine = ContinuousBatchingEngine(params, config, max_batch=8, max_len=256)
     uid = engine.add_request([1, 15043, 29892], max_new_tokens=32)
     print(engine.run()[uid])
+
+``quantized_kv=True`` serves from int8 KV pools and ``quantized_kv="int4"``
+from nibble-packed int4 pools (half and a quarter of the bf16 cache's
+bytes), each decode layer in one fused append+attend kernel.
 """
 
 from onebit_tpu_torch.convert import params_from_jax
@@ -22,9 +26,16 @@ from onebit_tpu_torch.engine.batching import ContinuousBatchingEngine
 from onebit_tpu_torch.engine.sampler import SamplingConfig
 from onebit_tpu_torch.model.bitllama import fuse_for_decode
 from onebit_tpu_torch.model.config import BitLlamaConfig
+from onebit_tpu_torch.model.kv_cache import (QuantKVCache, QuantKVCacheKT,
+                                             QuantKVCacheKT4,
+                                             init_quant_kv_cache,
+                                             init_quant_kv_cache_kt,
+                                             init_quant_kv_cache_kt4)
 from onebit_tpu_torch.utils.randinit import host_random_packed_params
 
 __all__ = [
-    "BitLlamaConfig", "ContinuousBatchingEngine", "SamplingConfig",
-    "fuse_for_decode", "host_random_packed_params", "params_from_jax",
+    "BitLlamaConfig", "ContinuousBatchingEngine", "QuantKVCache",
+    "QuantKVCacheKT", "QuantKVCacheKT4", "SamplingConfig", "fuse_for_decode",
+    "host_random_packed_params", "init_quant_kv_cache",
+    "init_quant_kv_cache_kt", "init_quant_kv_cache_kt4", "params_from_jax",
 ]

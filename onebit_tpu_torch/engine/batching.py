@@ -1,8 +1,13 @@
-"""Continuous batching engine: host-side scheduler over one dense KV cache.
+"""Continuous batching engine: host-side scheduler over one KV cache.
 
-Port of the dense path of ``onebit_tpu/engine/batching.py``:
+Port of the dense and dense-quantized paths of
+``onebit_tpu/engine/batching.py``:
 
-* a fixed pool of ``max_batch`` slots shares one preallocated KV cache;
+* a fixed pool of ``max_batch`` slots shares one preallocated KV cache:
+  dense in ``compute_dtype``, or with ``quantized_kv=True`` the int8
+  transposed-K pools and with ``quantized_kv="int4"`` the nibble-packed
+  int4 pools (``model/kv_cache.py``), whose decode attention runs the fused
+  append+attend kernels;
 * waiting requests are admitted into free slots; admissions of one round
   are prefilled together, one ``prefill_rows`` call per prompt bucket
   (prompts padded to a power of two, at least 32, at most ``max_len``);
@@ -28,6 +33,8 @@ import torch
 from onebit_tpu_torch.engine.sampler import SamplingConfig, sample_token
 from onebit_tpu_torch.model.bitllama import init_kv_cache
 from onebit_tpu_torch.model.config import BitLlamaConfig
+from onebit_tpu_torch.model.kv_cache import (init_quant_kv_cache_kt,
+                                             init_quant_kv_cache_kt4)
 from onebit_tpu_torch.model.ragged_decode import (prefill_rows,
                                                   ragged_decode_step)
 from onebit_tpu_torch.utils.device import resolve_device
@@ -57,12 +64,37 @@ def _bucket(n: int, minimum: int = 32) -> int:
     return b
 
 
-def _reject_unported(paged, quantized_kv, block_steps, prefill_chunk_size,
-                     prefix_cache, draft_params, tp_mesh, pipeline_blocks):
+def _check_quantized_kv(paged, quantized_kv, draft_params,
+                        prefill_chunk_size) -> None:
+    """The reference engine's exclusions, with its wording
+    (batching.py:101-125), checked before anything else."""
+    if paged and quantized_kv == "int4":
+        raise ValueError(
+            "quantized_kv='int4' requires paged=False (int4 "
+            "nibble-packed pools exist only in the dense quantized "
+            "engine; paged pools support int8/fp8)")
+    if quantized_kv and not paged:
+        if quantized_kv == "fp8":
+            raise ValueError(
+                "quantized_kv='fp8' requires paged=True (the dense "
+                "quantized engine uses the int8 transposed-K fused "
+                "kernel; fp8 pools exist only in the paged family)")
+        if quantized_kv == "int4" and draft_params is not None:
+            raise ValueError(
+                "quantized_kv='int4' + speculative decoding is not "
+                "supported (no int4 verify-window path; use int8)")
+        if quantized_kv == "int4" and prefill_chunk_size:
+            raise ValueError(
+                "quantized_kv='int4' + prefill_chunk_size is not "
+                "supported (no int4 chunk-append path; use the "
+                "default bucketed prefill, or int8)")
+
+
+def _reject_unported(paged, block_steps, prefill_chunk_size, prefix_cache,
+                     draft_params, tp_mesh, pipeline_blocks):
     later = [
         (paged, "paged", 3),
         (prefix_cache, "prefix_cache", 3),
-        (quantized_kv, "quantized_kv", 2),
         (draft_params is not None, "draft_params", 3),
         (tp_mesh is not None, "tp_mesh", 6),
         (prefill_chunk_size, "prefill_chunk_size", 3),
@@ -85,8 +117,10 @@ class ContinuousBatchingEngine:
                  prefill_chunk_size: Optional[int] = None,
                  prefix_cache: bool = False, draft_params=None,
                  tp_mesh=None, pipeline_blocks: bool = False):
-        _reject_unported(paged, quantized_kv, block_steps, prefill_chunk_size,
-                         prefix_cache, draft_params, tp_mesh, pipeline_blocks)
+        _check_quantized_kv(paged, quantized_kv, draft_params,
+                            prefill_chunk_size)
+        _reject_unported(paged, block_steps, prefill_chunk_size, prefix_cache,
+                         draft_params, tp_mesh, pipeline_blocks)
         self.device = resolve_device(device)
         self.params = params
         self.config = config
@@ -95,8 +129,18 @@ class ContinuousBatchingEngine:
         self.sampling = sampling or SamplingConfig(greedy=True)
         self.impl = impl
         self.compute_dtype = compute_dtype
-        self.cache = init_kv_cache(config, max_batch, max_len,
-                                   dtype=compute_dtype, device=self.device)
+        if quantized_kv == "int4":
+            # nibble-packed pools: a quarter of the bf16 cache's bytes
+            self.cache = init_quant_kv_cache_kt4(config, max_batch, max_len,
+                                                 device=self.device)
+        elif quantized_kv:
+            # int8 transposed-K pools, half the bf16 cache's bytes
+            self.cache = init_quant_kv_cache_kt(config, max_batch, max_len,
+                                                device=self.device)
+        else:
+            self.cache = init_kv_cache(config, max_batch, max_len,
+                                       dtype=compute_dtype,
+                                       device=self.device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self._uid = itertools.count()

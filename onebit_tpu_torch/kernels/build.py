@@ -21,7 +21,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("bitlinear_small_m.cu", "bitlinear_large_m.cu")
+SOURCES = ("bitlinear_small_m.cu", "bitlinear_large_m.cu",
+           "kv_attention_int8.cu", "kv_attention_int4.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-lineinfo", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")

@@ -1,0 +1,206 @@
+"""Fused decode attention over the quantized KT pools: the wrappers of
+kernels B5-B8, each with its plain PyTorch version beside it.
+
+Port of ``onebit_tpu/kernels/kv_attention.py`` for the transposed-K pools
+of ``model/kv_cache.py``:
+
+* B5 :func:`kv_attention_append_kt` and B6 :func:`kv_attention_decode_kt`
+  over the int8 pools (``QuantKVCacheKT``);
+* B7 :func:`kv_attention_append_kt4` and B8 :func:`kv_attention_decode_kt4`
+  over the nibble-packed int4 pools (``QuantKVCacheKT4``), with the scales
+  in their natural layout ``k_st [L,B,nkv,T]``, ``v_s [L,B,T,nkv]`` (the
+  JAX ``_planar`` form exists only for XLA buffer forwarding).
+
+Each attends layer ``layer`` of the pools for query ``q [B, nh, hd]`` over
+positions ``[starts[b], lengths[b])`` of each row: scores
+``(q·k) * k_scale * hd**-0.5`` in fp32, softmax in fp32, ``P * v_scale``
+rounded to q's dtype, ``ctx`` in q's dtype. ``lengths``, ``starts`` and
+``pos`` are ``[B]`` integer tensors; on the card they must be int32
+tensors on the device (the wrapper raises otherwise, rather than copying
+them once per layer: the decode step copies them once per step). The
+stored scales are pre-divided (int8 absmax/127, int4 absmax/7), so a value
+is its integer times its scale.
+
+Given CPU tensors a wrapper returns its plain version; given CUDA tensors it
+launches its kernel (``kernels/kv_attention_cuda.py``) or raises. A row with
+no position to attend (an inactive engine slot, ``length == 0``) gets a
+finite context that is never read: the plain version gives the uniform
+average the reference gives, the kernel zeros.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from onebit_tpu_torch.kernels import kv_attention_cuda as kc
+from onebit_tpu_torch.model.kv_cache import (merge_nibbles,
+                                             unpack_int4_halfplane)
+
+
+def _rows(x, b: int, device) -> torch.Tensor:
+    """``[B]`` int32 on ``device`` from a tensor, array or scalar (no copy
+    when it already is one)."""
+    t = torch.as_tensor(x)
+    if t.dim() == 0:
+        t = t.expand(b)
+    return t.to(device=device, dtype=torch.int32).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def _attention_quant(q, k_q, k_s, v_q, v_s, mask, *,
+                     num_kv_groups: int) -> torch.Tensor:
+    """GQA attention directly on an int8 (or int4-valued) cache, with no
+    dequantized copy of it: the per-(position, head) scales fold exactly
+    into the scores, ``(q·k_qᵀ) * k_s``, and into P, ``(probs ⊙ v_s) ·
+    v_q``. q ``[B,S,nh,hd]``; k_q/v_q ``[B,T,nkv,hd]`` int8; k_s/v_s
+    ``[B,T,nkv]`` f32; mask ``[B,1,S,T]`` bool. Scores and softmax in fp32;
+    ``probs ⊙ v_s`` rounded to q's dtype, the context accumulated in fp32
+    and returned in q's dtype. Port of ``_attention_quant`` of
+    ``onebit_tpu/model/bitllama.py``."""
+    b, s, nh, hd = q.shape
+    nkv = k_q.shape[2]
+    qg = q.reshape(b, s, nkv, num_kv_groups, hd)
+    scores = torch.einsum("bsngh,btnh->bngst", qg.float(), k_q.float())
+    scores = scores * k_s.movedim(1, 2)[:, :, None, None, :]
+    scores = scores * (hd ** -0.5)
+    scores = scores.masked_fill(~mask[:, :, None], -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    pv = (probs * v_s.movedim(1, 2)[:, :, None, None, :]).to(q.dtype)
+    ctx = torch.einsum("bngst,btnh->bsngh", pv.float(), v_q.float())
+    return ctx.reshape(b, s, nh, hd).to(q.dtype)
+
+
+def _attend_torch(q, k, ks, v, vs, lengths, starts):
+    """q ``[B,nh,hd]``; k/v ``[B,T,nkv,hd]`` int8; ks/vs ``[B,T,nkv]``."""
+    b, nh, hd = q.shape
+    t, nkv = k.shape[1], k.shape[2]
+    cols = torch.arange(t, device=q.device)[None, :]
+    valid = cols < _rows(lengths, b, q.device)[:, None]
+    if starts is not None:
+        valid &= cols >= _rows(starts, b, q.device)[:, None]
+    return _attention_quant(q[:, None], k, ks, v, vs, valid[:, None, None, :],
+                            num_kv_groups=nh // nkv)[:, 0]
+
+
+def kv_attention_decode_kt_torch(q, k_qt, k_st, v_q, v_s, lengths, layer, *,
+                                 starts=None):
+    return _attend_torch(q, k_qt[layer].permute(0, 3, 1, 2),
+                         k_st[layer].transpose(1, 2), v_q[layer], v_s[layer],
+                         lengths, starts)
+
+
+def _write_scales(k_snew, v_snew, k_st, v_s, layer, rows, pos):
+    k_st[layer, rows, :, pos] = k_snew.to(k_st.dtype)
+    v_s[layer, rows, pos] = v_snew.to(v_s.dtype)
+
+
+def kv_attention_append_kt_torch(q, k_new, k_snew, v_new, v_snew, k_qt, k_st,
+                                 v_q, v_s, lengths, layer, pos, *,
+                                 starts=None):
+    b = q.shape[0]
+    rows = torch.arange(b, device=q.device)
+    pos = _rows(pos, b, q.device).long()
+    k_qt[layer, rows, :, :, pos] = k_new
+    v_q[layer, rows, pos] = v_new
+    _write_scales(k_snew, v_snew, k_st, v_s, layer, rows, pos)
+    return kv_attention_decode_kt_torch(q, k_qt, k_st, v_q, v_s, lengths,
+                                        layer, starts=starts)
+
+
+def kv_attention_decode_kt4_torch(q, k_qp, k_st, v_qp, v_s, lengths, layer, *,
+                                  starts=None):
+    k = unpack_int4_halfplane(k_qp[layer], axis=3)     # [B, nkv, hd, T]
+    v = unpack_int4_halfplane(v_qp[layer], axis=1)     # [B, T, nkv, hd]
+    return _attend_torch(q, k.permute(0, 3, 1, 2), k_st[layer].transpose(1, 2),
+                         v, v_s[layer], lengths, starts)
+
+
+def kv_attention_append_kt4_torch(q, k_new, k_snew, v_new, v_snew, k_qp,
+                                  k_st, v_qp, v_s, lengths, layer, pos, *,
+                                  starts=None):
+    b = q.shape[0]
+    t_half = k_st.shape[-1] // 2
+    rows = torch.arange(b, device=q.device)
+    pos = _rows(pos, b, q.device).long()
+    hi = pos >= t_half
+    c = torch.where(hi, pos - t_half, pos)
+    hi3 = hi[:, None, None]
+    k_qp[layer, rows, :, :, c] = merge_nibbles(k_qp[layer, rows, :, :, c],
+                                               k_new, hi3)
+    v_qp[layer, rows, c] = merge_nibbles(v_qp[layer, rows, c], v_new, hi3)
+    _write_scales(k_snew, v_snew, k_st, v_s, layer, rows, pos)
+    return kv_attention_decode_kt4_torch(q, k_qp, k_st, v_qp, v_s, lengths,
+                                         layer, starts=starts)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers: the plain version for CPU tensors, the kernel for CUDA tensors
+# ---------------------------------------------------------------------------
+
+def kv_attention_decode_kt(q, k_qt, k_st, v_q, v_s, lengths, layer: int, *,
+                           starts=None):
+    """B6: attention over layer ``layer`` of the int8 KT pools ``k_qt
+    [L,B,nkv,hd,T]``, ``k_st [L,B,nkv,T]``, ``v_q [L,B,T,nkv,hd]``,
+    ``v_s [L,B,T,nkv]`` (read only) -> ``ctx [B, nh, hd]`` in q's dtype."""
+    if q.device.type == "cpu":
+        return kv_attention_decode_kt_torch(q, k_qt, k_st, v_q, v_s, lengths,
+                                            layer, starts=starts)
+    return kc.launch(kc.DECODE_KT, q, k_qt, k_st, v_q, v_s, lengths, layer,
+                     starts=starts)
+
+
+def kv_attention_append_kt(q, k_new, k_snew, v_new, v_snew, k_qt, k_st, v_q,
+                           v_s, lengths, layer: int, pos, *, starts=None):
+    """B5: write this step's quantized K/V (``k_new/v_new [B,nkv,hd]`` int8,
+    scales ``k_snew/v_snew [B,nkv]`` f32) at each row's ``pos`` of layer
+    ``layer``, then attend as :func:`kv_attention_decode_kt`.
+
+    The pools are MUTATED IN PLACE (the JAX function returns new pools);
+    the return value is ``ctx [B, nh, hd]`` in q's dtype alone. Every row is
+    written, inactive ones (``lengths[b] == 0``) included, as in the
+    reference; a row that attends its new token needs
+    ``lengths[b] > pos[b]``."""
+    if q.device.type == "cpu":
+        return kv_attention_append_kt_torch(
+            q, k_new, k_snew, v_new, v_snew, k_qt, k_st, v_q, v_s, lengths,
+            layer, pos, starts=starts)
+    return kc.launch(kc.APPEND_KT, q, k_qt, k_st, v_q, v_s, lengths, layer,
+                     starts=starts, append=(k_new, k_snew, v_new, v_snew, pos))
+
+
+def kv_attention_decode_kt4(q, k_qp, k_st, v_qp, v_s, lengths, layer: int, *,
+                            starts=None):
+    """B8: attention over layer ``layer`` of the int4 pools ``k_qp
+    [L,B,nkv,hd,T/2]``, ``v_qp [L,B,T/2,nkv,hd]`` (half-plane packed) with
+    scales ``k_st [L,B,nkv,T]``, ``v_s [L,B,T,nkv]`` (absmax/7, read only)
+    -> ``ctx [B, nh, hd]`` in q's dtype."""
+    if q.device.type == "cpu":
+        return kv_attention_decode_kt4_torch(q, k_qp, k_st, v_qp, v_s,
+                                             lengths, layer, starts=starts)
+    return kc.launch(kc.DECODE_KT4, q, k_qp, k_st, v_qp, v_s, lengths, layer,
+                     starts=starts)
+
+
+def kv_attention_append_kt4(q, k_new, k_snew, v_new, v_snew, k_qp, k_st,
+                            v_qp, v_s, lengths, layer: int, pos, *,
+                            starts=None):
+    """B7: the int4 :func:`kv_attention_append_kt`. ``k_new/v_new`` hold
+    int4 values in [-7, 7] as int8; each is merged into byte column
+    ``pos % (T/2)``, low nibble below T/2 and high nibble from T/2 on, the
+    partner nibble kept. The pools are MUTATED IN PLACE; returns ``ctx
+    [B, nh, hd]`` in q's dtype alone."""
+    if q.device.type == "cpu":
+        return kv_attention_append_kt4_torch(
+            q, k_new, k_snew, v_new, v_snew, k_qp, k_st, v_qp, v_s, lengths,
+            layer, pos, starts=starts)
+    return kc.launch(kc.APPEND_KT4, q, k_qp, k_st, v_qp, v_s, lengths, layer,
+                     starts=starts, append=(k_new, k_snew, v_new, v_snew, pos))
+
+
+PLAIN = {kv_attention_append_kt: kv_attention_append_kt_torch,
+         kv_attention_decode_kt: kv_attention_decode_kt_torch,
+         kv_attention_append_kt4: kv_attention_append_kt4_torch,
+         kv_attention_decode_kt4: kv_attention_decode_kt4_torch}

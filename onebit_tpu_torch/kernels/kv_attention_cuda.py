@@ -1,0 +1,135 @@
+"""The quantized-KV decode attention kernels B5-B8, bound with ctypes.
+
+Sources ``onebit_tpu_torch/csrc/kv_attention_int8.cu`` (B5, B6) and
+``kv_attention_int4.cu`` (B7, B8), both instances of the kernel in
+``kv_attention_common.cuh``. :func:`launch` checks its tensors, launches
+one kernel on PyTorch's current stream and counts the launch in the
+kernel's ``KernelInfo``. The public wrappers and the plain PyTorch
+versions live in ``kernels/kv_attention.py``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Sequence
+
+import torch
+
+from onebit_tpu_torch.kernels import build
+from onebit_tpu_torch.kernels.bitlinear_cuda import (KernelInfo, _raise_on,
+                                                     _stream)
+
+_SRC = "onebit_tpu_torch/csrc/"
+_JAX = "onebit_tpu/kernels/kv_attention.py:"
+APPEND_KT = KernelInfo("kv_attention_append_kt",
+                       _SRC + "kv_attention_int8.cu", _JAX + "334",
+                       "kv_attention_int8.cu")
+DECODE_KT = KernelInfo("kv_attention_decode_kt",
+                       _SRC + "kv_attention_int8.cu", _JAX + "477",
+                       "kv_attention_int8.cu")
+APPEND_KT4 = KernelInfo("kv_attention_append_kt4",
+                        _SRC + "kv_attention_int4.cu", _JAX + "896",
+                        "kv_attention_int4.cu")
+DECODE_KT4 = KernelInfo("kv_attention_decode_kt4",
+                        _SRC + "kv_attention_int4.cu", _JAX + "820",
+                        "kv_attention_int4.cu")
+KERNELS = (APPEND_KT, DECODE_KT, APPEND_KT4, DECODE_KT4)
+
+HEAD_DIMS = (64, 128)
+GROUPS = (1, 2, 4, 8)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_SYMBOLS = {"kv_attention_int8.cu": "onebit_kv_attention_int8",
+            "kv_attention_int4.cu": "onebit_kv_attention_int4"}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+@functools.cache
+def _fn(library: str):
+    fn = getattr(build.load(library), _SYMBOLS[library])
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [p] * 13 + [i] * 7 + [f, p]
+    fn.restype = i
+    return fn
+
+
+def _check_tensors(q, named: Sequence, dtypes: dict) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"the CUDA kernels take CUDA tensors, got {q.device}")
+    if q.device.index != torch.cuda.current_device():
+        raise ValueError(f"q is on {q.device}, but the current CUDA device "
+                         f"is {torch.cuda.current_device()}")
+    for name, t in named:
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.dtype != dtypes[name]:
+            raise TypeError(f"{name} must be {dtypes[name]}, got {t.dtype}")
+        if t.data_ptr() % 4:
+            raise ValueError(f"{name} must be 4-byte aligned")
+
+
+def launch(info: KernelInfo, q, k_pool, k_scale, v_pool, v_scale, lengths,
+           layer: int, *, starts: Optional[torch.Tensor],
+           append=None) -> torch.Tensor:
+    """One launch of B5-B8 on the CUDA tensors given. ``append`` is None
+    (B6, B8) or ``(k_new, k_snew, v_new, v_snew, pos)``, written into the
+    pools in place before the attention. Returns ``ctx [B, nh, hd]`` in q's
+    dtype."""
+    int4 = info.library == "kv_attention_int4.cu"
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if q.dim() != 3 or k_pool.dim() != 5 or v_pool.dim() != 5:
+        raise ValueError("q must be [B, nh, hd] and the pools 5-d")
+    b, nh, hd = q.shape
+    n_layers, _, nkv = k_pool.shape[:3]
+    t = k_scale.shape[-1]
+    tb = t // 2 if int4 else t
+    if int4 and t % 2:
+        raise ValueError(f"int4 pools need an even T, got {t}")
+    shapes = {
+        "k_pool": (n_layers, b, nkv, hd, tb), "k_scale": (n_layers, b, nkv, t),
+        "v_pool": (n_layers, b, tb, nkv, hd), "v_scale": (n_layers, b, t, nkv),
+        "lengths": (b,), "starts": (b,), "pos": (b,), "k_new": (b, nkv, hd),
+        "v_new": (b, nkv, hd), "k_snew": (b, nkv), "v_snew": (b, nkv)}
+    dtypes = {"q": q.dtype, "k_pool": torch.int8, "v_pool": torch.int8,
+              "k_scale": torch.float32, "v_scale": torch.float32,
+              "lengths": torch.int32, "starts": torch.int32,
+              "pos": torch.int32, "k_new": torch.int8, "v_new": torch.int8,
+              "k_snew": torch.float32, "v_snew": torch.float32}
+    named = [("q", q), ("k_pool", k_pool), ("k_scale", k_scale),
+             ("v_pool", v_pool), ("v_scale", v_scale), ("lengths", lengths)]
+    if starts is not None:
+        named.append(("starts", starts))
+    if append is not None:
+        named += list(zip(("k_new", "k_snew", "v_new", "v_snew", "pos"),
+                          append))
+    _check_tensors(q, named, dtypes)
+    for name, tensor in named[1:]:
+        if tuple(tensor.shape) != shapes[name]:
+            raise ValueError(f"{name} {tuple(tensor.shape)} does not match "
+                             f"{shapes[name]} (q {tuple(q.shape)}, T={t})")
+    if hd not in HEAD_DIMS or nh % nkv or nh // nkv not in GROUPS:
+        raise ValueError(f"{info.name} takes head_dim in {HEAD_DIMS} and "
+                         f"nh/nkv in {GROUPS}, got hd={hd}, nh={nh}, "
+                         f"nkv={nkv}")
+    if not 0 <= layer < n_layers:
+        raise ValueError(f"layer {layer} outside [0, {n_layers})")
+    out = torch.empty_like(q)
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    # the layer's slices: the kernel sees one layer, with 64-bit offsets
+    pools = [x[layer].data_ptr() for x in (k_pool, k_scale, v_pool, v_scale)]
+    new = [ptr(x) for x in append[:4]] if append is not None else [None] * 4
+    err = _fn(info.library)(
+        q.data_ptr(), out.data_ptr(), *pools, lengths.data_ptr(),
+        ptr(starts), None if append is None else append[4].data_ptr(), *new,
+        b, nkv, nh // nkv, hd, t, _DTYPE_CODES[q.dtype],
+        int(append is not None), hd ** -0.5, _stream(q))
+    _raise_on(err, info)
+    info.launches += 1
+    return out

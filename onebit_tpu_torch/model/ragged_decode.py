@@ -1,10 +1,18 @@
-"""Ragged decode step and batched prefill over a dense KV cache.
+"""Ragged decode step and batched prefill over a dense or quantized KV
+cache.
 
-Port of the dense branch of ``onebit_tpu/model/ragged_decode.py``: each
-batch row carries its own cache position, so rows admitted at different
-times decode together. PyTorch runs eagerly, so the layer loop is a Python
-loop and the cache is updated **in place** (the JAX functions return a new
-cache; these return the same ``KVCache`` object, mutated).
+Port of ``onebit_tpu/model/ragged_decode.py`` for the dense ``KVCache`` and
+the quantized ``QuantKVCacheKT`` (int8) and ``QuantKVCacheKT4`` (int4)
+pools: each batch row carries its own cache position, so rows admitted at
+different times decode together. PyTorch runs eagerly, so the layer loop is
+a Python loop and the cache is updated **in place** (the JAX functions
+return a new cache; these return the same cache object, mutated).
+
+With a quantized cache every decode layer quantizes its new K/V and makes
+one call of the fused append+attend wrapper (``kernels/kv_attention.py``,
+B5 or B7), which writes the pools and attends; ``impl="torch"`` takes the
+wrappers' plain versions. The kernels take any T (int4: any even T), so
+the reference's short-cache fallback is not needed.
 """
 
 from __future__ import annotations
@@ -13,6 +21,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from onebit_tpu_torch.kernels.kv_attention import (PLAIN,
+                                                   kv_attention_append_kt,
+                                                   kv_attention_append_kt4)
 from onebit_tpu_torch.model import bitllama
 from onebit_tpu_torch.model.bitllama import (
     KVCache,
@@ -21,6 +32,9 @@ from onebit_tpu_torch.model.bitllama import (
     _project_qkv_flat,
 )
 from onebit_tpu_torch.model.config import BitLlamaConfig
+from onebit_tpu_torch.model.kv_cache import (QuantKVCacheKT, QuantKVCacheKT4,
+                                             merge_nibbles, quantize_kv,
+                                             quantize_kv4)
 from onebit_tpu_torch.model.rope import apply_rope, rope_cos_sin
 
 
@@ -71,39 +85,50 @@ def _lm_head(x, params, compute_dtype) -> torch.Tensor:
     return torch.matmul(x.float(), w.float().T)
 
 
-def ragged_decode_step(params, cache: KVCache, input_ids, row_pos, active,
-                       config: BitLlamaConfig, *, impl: str = "auto",
-                       compute_dtype=torch.bfloat16):
-    """One token per row at per-row positions.
+def _quant_family(cache):
+    """(quantize, fused append+attend) of a quantized cache, else None."""
+    if isinstance(cache, QuantKVCacheKT4):
+        return quantize_kv4, kv_attention_append_kt4
+    if isinstance(cache, QuantKVCacheKT):
+        return quantize_kv, kv_attention_append_kt
+    return None
 
-    ``input_ids [B, 1]`` tensor on the cache's device; ``row_pos [B]`` each
-    row's length (its cache write slot) and ``active [B]`` bool, as numpy
-    arrays (host values: the attention window is chosen from them without
-    a device read). Inactive rows are fully masked, but their cache row is
-    still written at ``row_pos``. Returns ``(logits [B, 1, V] fp32, cache)``.
-    """
-    b, s = input_ids.shape
-    if s != 1:
-        raise ValueError(f"ragged_decode_step takes one token per row, got {s}")
-    device = cache.k.device
+
+def _decode_attention(cache, pos, act, pos_np, act_np, cos, sin,
+                      config: BitLlamaConfig, impl: str):
+    """``attend_at(i)``: layer ``i``'s attention for one decode step, with
+    what every layer shares computed once."""
+    b = pos.shape[0]
+    family = _quant_family(cache)
+    if family is not None:
+        quantize, fused = family
+        if impl == "torch":
+            fused = PLAIN[fused]
+        # per-row lengths (ragged_decode.py:77) and write positions, on the
+        # device once per step for all layers
+        lengths = torch.where(act, pos + 1, 0).to(torch.int32)
+        pos32 = pos.to(torch.int32)
+
+        def attend_at(i):
+            def attend(q, k, v):
+                q, k = apply_rope(q, k, cos, sin)
+                nkq, nks = quantize(k[:, 0])
+                nvq, nvs = quantize(v[:, 0])
+                # the wrapper writes the pools at pos (inactive rows too)
+                # and attends over [0, lengths)
+                return fused(q[:, 0].contiguous(), nkq, nks, nvq, nvs,
+                             *cache, lengths, i, pos32)[:, None]
+            return attend
+        return attend_at
+
     max_len = cache.max_len
-    pos_np, act_np = np.asarray(row_pos), np.asarray(active, bool)
-    pos = torch.as_tensor(pos_np, dtype=torch.long).to(device)
-    act = torch.as_tensor(act_np).to(device)
-
-    x = params["embed_tokens"][input_ids].to(compute_dtype)
-    cos, sin = rope_cos_sin(pos[:, None], config.head_dim, config.rope_theta,
-                            config.rope_scaling,
-                            config.max_position_embeddings, seq_len=max_len,
-                            dtype=compute_dtype)
-    kj = torch.arange(max_len, device=device)
+    kj = torch.arange(max_len, device=pos.device)
     mask = ((kj[None, :] <= pos[:, None]) & act[:, None])[:, None, None, :]
     width = attention_width(pos_np, act_np, max_len)
-    rows = torch.arange(b, device=device)
-    layers = params["layers"]
+    rows = torch.arange(b, device=pos.device)
 
-    for i in range(config.num_hidden_layers):
-        def attend(q, k, v, i=i):
+    def attend_at(i):
+        def attend(q, k, v):
             q, k = apply_rope(q, k, cos, sin)
             cache.k[i, rows, pos] = k[:, 0].to(cache.k.dtype)
             cache.v[i, rows, pos] = v[:, 0].to(cache.v.dtype)
@@ -113,25 +138,95 @@ def ragged_decode_step(params, cache: KVCache, input_ids, row_pos, active,
                 q, cache.k[i, :, :width].to(q.dtype),
                 cache.v[i, :, :width].to(q.dtype), mask[..., :width],
                 num_kv_groups=config.num_kv_groups)
-        x = _layer_body(x, layers, i, config, impl, attend, (b, 1))
+        return attend
+    return attend_at
+
+
+def ragged_decode_step(params, cache, input_ids, row_pos, active,
+                       config: BitLlamaConfig, *, impl: str = "auto",
+                       compute_dtype=torch.bfloat16):
+    """One token per row at per-row positions.
+
+    ``cache`` is a ``KVCache``, ``QuantKVCacheKT`` or ``QuantKVCacheKT4``;
+    ``input_ids [B, 1]`` tensor on the cache's device; ``row_pos [B]`` each
+    row's length (its cache write slot) and ``active [B]`` bool, as numpy
+    arrays (host values: the attention window is chosen from them without
+    a device read). Inactive rows are fully masked, but their cache row is
+    still written at ``row_pos``. Returns ``(logits [B, 1, V] fp32, cache)``.
+    """
+    b, s = input_ids.shape
+    if s != 1:
+        raise ValueError(f"ragged_decode_step takes one token per row, got {s}")
+    device = cache[0].device
+    pos_np, act_np = np.asarray(row_pos), np.asarray(active, bool)
+    pos = torch.as_tensor(pos_np, dtype=torch.long).to(device)
+    act = torch.as_tensor(act_np).to(device)
+
+    x = params["embed_tokens"][input_ids].to(compute_dtype)
+    cos, sin = rope_cos_sin(pos[:, None], config.head_dim, config.rope_theta,
+                            config.rope_scaling,
+                            config.max_position_embeddings,
+                            seq_len=cache.max_len, dtype=compute_dtype)
+    attend_at = _decode_attention(cache, pos, act, pos_np, act_np, cos, sin,
+                                  config, impl)
+    layers = params["layers"]
+    for i in range(config.num_hidden_layers):
+        x = _layer_body(x, layers, i, config, impl, attend_at(i), (b, 1))
 
     x = bitllama.rms_norm(x, params["final_norm"], config.rms_norm_eps)
     return _lm_head(x, params, compute_dtype), cache
 
 
-def prefill_rows(params, cache: KVCache, ids, lengths, rows,
+def _prefill_write(cache, i: int, rows, k, v) -> None:
+    """Write the prompt K/V ``[R, S_pad, nkv, hd]`` of layer ``i`` into
+    rows ``rows`` of the cache, positions ``[0, S_pad)``: as they are into a
+    dense cache, quantized into a quantized one (ragged_decode.py:383-437).
+    One bulk write per layer, by plain indexing."""
+    s_pad = k.shape[1]
+    if isinstance(cache, KVCache):
+        cache.k[i, rows, :s_pad] = k.to(cache.k.dtype)
+        cache.v[i, rows, :s_pad] = v.to(cache.v.dtype)
+        return
+    quantize, _ = _quant_family(cache)
+    nkq, nks = quantize(k)
+    nvq, nvs = quantize(v)
+    k_pool, k_st, v_pool, v_s = cache
+    k_st[i, rows, :, :s_pad] = nks.transpose(1, 2)
+    v_s[i, rows, :s_pad] = nvs
+    nkq_t = nkq.permute(0, 2, 3, 1)                    # [R, nkv, hd, S_pad]
+    if isinstance(cache, QuantKVCacheKT):
+        k_pool[i, rows, :, :, :s_pad] = nkq_t
+        v_pool[i, rows, :s_pad] = nvq
+        return
+    # int4 half plane: position p < T/2 goes to byte p's low nibble, p >= T/2
+    # to byte p - T/2's high nibble; each merge keeps the partner nibble
+    # (stale bytes of a slot's previous occupant are masked by length)
+    t_half = cache.max_len // 2
+    for hi, p0 in ((False, 0), (True, t_half)):
+        n = min(s_pad - p0, t_half)        # this plane's prompt positions
+        if n <= 0:
+            continue
+        k_pool[i, rows, :, :, :n] = merge_nibbles(
+            k_pool[i, rows, :, :, :n], nkq_t[..., p0:p0 + n], hi)
+        v_pool[i, rows, :n] = merge_nibbles(
+            v_pool[i, rows, :n], nvq[:, p0:p0 + n], hi)
+
+
+def prefill_rows(params, cache, ids, lengths, rows,
                  config: BitLlamaConfig, *, impl: str = "auto",
                  compute_dtype=torch.bfloat16):
     """Prefill several cache slots at once (batched admission).
 
+    ``cache`` is a ``KVCache``, ``QuantKVCacheKT`` or ``QuantKVCacheKT4``;
     ``ids [R, S_pad]`` right-padded prompts, ``lengths [R]`` true lengths,
     ``rows [R]`` slot indices (tensors on the cache's device). Rows attend
-    only within themselves. Prompt K/V are written to the cache in place;
-    attention within the prefill uses the full-precision K/V. Returns
+    only within themselves. Prompt K/V are written to the cache in place
+    (quantized at insertion into a quantized cache); attention within the
+    prefill uses the full-precision K/V. Returns
     ``(last_logits [R, V] fp32, cache)``.
     """
     r, s_pad = ids.shape
-    device = cache.k.device
+    device = cache[0].device
     lengths = lengths.to(device=device, dtype=torch.long)
     rows = rows.to(device=device, dtype=torch.long)
     x = params["embed_tokens"][ids].to(compute_dtype)
@@ -148,8 +243,7 @@ def prefill_rows(params, cache: KVCache, ids, lengths, rows,
     for i in range(config.num_hidden_layers):
         def attend(q, k, v, i=i):
             q, k = apply_rope(q, k, cos, sin)
-            cache.k[i, rows, :s_pad] = k.to(cache.k.dtype)
-            cache.v[i, rows, :s_pad] = v.to(cache.v.dtype)
+            _prefill_write(cache, i, rows, k, v)
             return bitllama._attention(q, k, v, mask,
                                        num_kv_groups=config.num_kv_groups)
         x = _layer_body(x, layers, i, config, impl, attend, (r, s_pad))

@@ -9,14 +9,29 @@ Tolerances: fp32 outputs to 1e-3 (LayerNorm outputs of order 1; the kernel
 sums the K products in another order and uses the hardware rsqrt); bf16
 outputs to 0.0625 (two bf16 ulps below 8: a sum near a rounding boundary
 may round the other way).
+
+The KV-attention kernels (B5-B8) must leave the pools bit-exact with their
+plain versions. Their inputs make the context of order 1 on every row:
+scales of 0.5-1.5 units over the integer range give dequantized K/V with
+|v| < 1.8, and q of std 5 a softmax peaked on a few positions; each live
+row's largest |ctx| must be at least 8 times the tolerance, so an output of
+zeros fails. The context is held to 1e-4 in fp32 (another summation order)
+and to 1/32 in bf16 (kernel and plain version round each P * v_scale to
+bf16, 2**-9 relative, at different softmax maxima, and ctx to bf16, ulp
+2**-7 below 2: apart by at most 2**-8 * 1.8 + 2**-7 < 1/64, half the
+tolerance), on the rows with something to attend; an inactive row need
+only be finite.
 """
 
 import pytest
 import torch
 
 from onebit_tpu_torch.kernels import bitlinear_cuda as bc
+from onebit_tpu_torch.kernels import kv_attention as ka
+from onebit_tpu_torch.kernels import kv_attention_cuda as kc
 
 TOL = {torch.float32: 1e-3, torch.bfloat16: 0.0625}
+KV_TOL = {torch.float32: 1e-4, torch.bfloat16: 1 / 32}
 
 pytestmark = pytest.mark.cuda
 
@@ -146,4 +161,190 @@ def test_engine_kernel_path_matches_plain(dev):
     torch.cuda.synchronize()
     assert (out["auto"] - out["torch"]).abs().max().item() < 1e-3
     assert all(k.launches > 0 for k in bc.KERNELS)
+    assert all(len(v) == 4 for v in eng.run().values())
+
+
+# ---------------------------------------------------------------------------
+# B5-B8: the quantized-KV attention kernels
+# ---------------------------------------------------------------------------
+
+def _kv_case(dev, dtype, shape, int4, seed=0):
+    """q, this step's K/V and scales, and random pools of layout KT (int8)
+    or KT4 (int4: random bytes, so every nibble pair occurs)."""
+    n_layers, b, nkv, g, hd, t = shape
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    tb = t // 2 if int4 else t
+    lo = -128 if int4 else -127
+    levels = 7 if int4 else 127
+
+    def ints(*s, lo=lo, hi=128):
+        return torch.randint(lo, hi, s, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    def scales(*s):
+        return (torch.rand(s, generator=gen, device=dev) + 0.5) / levels
+
+    q = (5 * torch.randn(b, nkv * g, hd, generator=gen, device=dev)).to(dtype)
+    nlo, nhi = (-8, 8) if int4 else (-127, 128)
+    new = [ints(b, nkv, hd, lo=nlo, hi=nhi), scales(b, nkv),
+           ints(b, nkv, hd, lo=nlo, hi=nhi), scales(b, nkv)]
+    pools = [ints(n_layers, b, nkv, hd, tb), scales(n_layers, b, nkv, t),
+             ints(n_layers, b, tb, nkv, hd), scales(n_layers, b, t, nkv)]
+    return q, new, pools
+
+
+def _rows_of(t, b):
+    """Ragged lengths with an inactive row (row 1), write positions at
+    length - 1 (the inactive row's frozen at T/3), and starts: positions in
+    several tiles and, for int4, on both sides of T/2. The last row of 8
+    and of 16 is full."""
+    pattern = [t, 0, t // 2 + 1, t // 2, 129, 1, t - 117, t]
+    lengths = [pattern[i % 8] for i in range(b)]
+    pos = [n - 1 if n else t // 3 for n in lengths]
+    starts = [[0, 0, t // 2 - 3, 1, 100, 0, 5, 76][i % 8] for i in range(b)]
+    return lengths, pos, starts
+
+
+def _kv_check(dev, dtype, shape, int4, append, starts_on, layer):
+    q, new, pools = _kv_case(dev, dtype, shape, int4)
+    lengths, pos, starts = _rows_of(shape[5], shape[1])
+    as_dev = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa
+    lengths, pos = as_dev(lengths), as_dev(pos)
+    starts = as_dev(starts) if starts_on else None
+    fns = ((ka.kv_attention_append_kt4, ka.kv_attention_decode_kt4) if int4
+           else (ka.kv_attention_append_kt, ka.kv_attention_decode_kt))
+    kern = fns[0] if append else fns[1]
+    info = {ka.kv_attention_append_kt: kc.APPEND_KT,
+            ka.kv_attention_decode_kt: kc.DECODE_KT,
+            ka.kv_attention_append_kt4: kc.APPEND_KT4,
+            ka.kv_attention_decode_kt4: kc.DECODE_KT4}[kern]
+    args = (new if append else [])
+    tail = (lengths, layer) + ((pos,) if append else ())
+    want_pools = [p.clone() for p in pools]
+    want = ka.PLAIN[kern](q, *args, *want_pools, *tail, starts=starts)
+    before = info.launches
+    got = kern(q, *args, *pools, *tail, starts=starts)
+    torch.cuda.synchronize()
+    assert info.launches == before + 1
+    for name, a, b in zip(("k", "k_scale", "v", "v_scale"), pools,
+                          want_pools):
+        assert torch.equal(a, b), name
+    del pools, want_pools
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    live = lengths > (starts if starts is not None else 0)
+    err = (got[live].float() - want[live].float()).abs().max().item()
+    assert err <= KV_TOL[dtype], err
+    ctx_scale = want[live].float().abs().amax(dim=(1, 2)).min().item()
+    assert ctx_scale >= 8 * KV_TOL[torch.bfloat16], ctx_scale
+
+
+KV_SHAPES = {  # (L, B, nkv, g, hd, T)
+    "small_gqa": (2, 3, 2, 2, 64, 384),
+    "odd_t": (2, 3, 2, 4, 64, 390),
+    "llama2_7b": (2, 8, 32, 1, 128, 2048),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", sorted(KV_SHAPES))
+@pytest.mark.parametrize("int4", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("append", [True, False], ids=["append", "decode"])
+def test_kv_attention_matches_plain(dev, dtype, shape, int4, append):
+    _kv_check(dev, dtype, KV_SHAPES[shape], int4, append, starts_on=False,
+              layer=1)
+
+
+@pytest.mark.parametrize("int4", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("append", [True, False], ids=["append", "decode"])
+def test_kv_attention_starts(dev, int4, append):
+    _kv_check(dev, torch.bfloat16, KV_SHAPES["small_gqa"], int4, append,
+              starts_on=True, layer=0)
+
+
+def test_kv_attention_pools_past_2_31_elements(dev):
+    """int8 pools of 32 x 16 x 32 x 128 x 2048 = 2**32 elements (4.3 GB
+    each): the append at layer 31 lands where the plain version puts it,
+    row 15 included, and nothing else changes."""
+    _kv_check(dev, torch.bfloat16, (32, 16, 32, 1, 128, 2048), False, True,
+              starts_on=False, layer=31)
+
+
+def test_kv_wrappers_check_inputs(dev):
+    q, new, pools = _kv_case(dev, torch.float32, KV_SHAPES["small_gqa"],
+                             False)
+    lengths = torch.full((3,), 10, dtype=torch.int32, device=dev)
+    pos = torch.full((3,), 9, dtype=torch.int32, device=dev)
+    k, ks, v, vs = pools
+
+    def call(k=k, v=v, q=q, layer=0, lengths=lengths, pos=pos):
+        return ka.kv_attention_append_kt(q, *new, k, ks, v, vs, lengths,
+                                         layer, pos)
+
+    with pytest.raises(TypeError, match="k_pool must be"):
+        call(k=k.to(torch.int16))
+    with pytest.raises(TypeError, match="q must be"):
+        call(q=q.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        call(v=v.transpose(3, 4))
+    with pytest.raises(ValueError, match="does not match"):
+        call(k=k[..., :200].contiguous())
+    with pytest.raises(ValueError, match="layer"):
+        call(layer=2)
+    # positions and lengths reach the kernel as device int32, never copied
+    # per call
+    with pytest.raises(ValueError, match="lengths is on cpu"):
+        call(lengths=lengths.cpu())
+    with pytest.raises(TypeError, match="pos must be"):
+        call(pos=pos.long())
+    with pytest.raises(ValueError, match="head_dim"):
+        qq = torch.zeros(3, 4, 96, device=dev)
+        ka.kv_attention_decode_kt(
+            qq, torch.zeros(1, 3, 2, 96, 8, dtype=torch.int8, device=dev),
+            torch.zeros(1, 3, 2, 8, device=dev),
+            torch.zeros(1, 3, 8, 2, 96, dtype=torch.int8, device=dev),
+            torch.zeros(1, 3, 8, 2, device=dev), lengths, 0)
+    with pytest.raises(ValueError, match="even T"):
+        ka.kv_attention_decode_kt4(
+            q, torch.zeros(2, 3, 2, 64, 4, dtype=torch.int8, device=dev),
+            torch.zeros(2, 3, 2, 9, device=dev),
+            torch.zeros(2, 3, 4, 2, 64, dtype=torch.int8, device=dev),
+            torch.zeros(2, 3, 9, 2, device=dev), lengths, 0)
+
+
+@pytest.mark.parametrize("quantized_kv", [True, "int4"],
+                         ids=["int8", "int4"])
+def test_quant_engine_kernel_path_matches_plain(dev, quantized_kv):
+    """A small model served from quantized pools on the card: the first
+    decode step's logits through the kernels agree with impl="torch" in
+    fp32, the fused append+attend kernel runs once per layer, and the
+    requests finish."""
+    import numpy as np
+    from onebit_tpu_torch import (BitLlamaConfig, ContinuousBatchingEngine,
+                                  fuse_for_decode, host_random_packed_params)
+    from onebit_tpu_torch.model.ragged_decode import ragged_decode_step
+    config = BitLlamaConfig.named("tiny", max_position_embeddings=512)
+    params = fuse_for_decode(host_random_packed_params(
+        config, seed=1, dtype=torch.float32, device=dev), config)
+    eng = ContinuousBatchingEngine(params, config, max_batch=4, max_len=256,
+                                   quantized_kv=quantized_kv,
+                                   compute_dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(0)
+    for n in (150, 140, 7, 3):
+        eng.add_request(rng.integers(3, 500, n).tolist(), max_new_tokens=4)
+    eng._admit()
+    tokens = torch.from_numpy(eng.next_token[:, None].astype(np.int64)).to(dev)
+    fused = kc.APPEND_KT4 if quantized_kv == "int4" else kc.APPEND_KT
+    out = {}
+    for impl in ("auto", "torch"):
+        cache = type(eng.cache)(*(t.clone() for t in eng.cache))
+        before = fused.launches
+        out[impl], cache = ragged_decode_step(
+            params, cache, tokens, eng.row_pos, np.ones(4, bool), config,
+            impl=impl, compute_dtype=torch.float32)
+        runs = fused.launches - before
+        assert runs == (config.num_hidden_layers if impl == "auto" else 0)
+    torch.cuda.synchronize()
+    assert (out["auto"] - out["torch"]).abs().max().item() < 1e-3
     assert all(len(v) == 4 for v in eng.run().values())

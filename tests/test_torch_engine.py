@@ -86,8 +86,7 @@ def test_bucket_and_streaming_callbacks():
 
 
 @pytest.mark.parametrize("kwargs,slice_no", [
-    (dict(paged=True), 3), (dict(quantized_kv=True), 2),
-    (dict(quantized_kv="int4"), 2), (dict(draft_params={}), 3),
+    (dict(paged=True), 3), (dict(draft_params={}), 3),
     (dict(tp_mesh=object()), 6), (dict(prefill_chunk_size=64), 3),
     (dict(block_steps=4), 3), (dict(pipeline_blocks=True), 3),
     (dict(prefix_cache=True), 3)])
