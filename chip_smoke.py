@@ -10,13 +10,17 @@ toolkit and PyTorch. It imports nothing of JAX. Phases, one JSON line each:
 2. the build of every CUDA source (one ``nvcc`` each, all in parallel);
 3. each BitLinear kernel (K1-K3) at llama2-7b shapes against its plain
    PyTorch version, with random g and h (and h = 0 pads), timed with CUDA
-   events beside its bound, its plain version and one PyTorch matmul; then
+   events beside its bound, its plain version and one PyTorch matmul (K3
+   twice: bf16 at the prefill's M = 2048, and its fp32 instance on one eval
+   layer's seven projections at M = 8192); then
    each KV-attention kernel (B5-B8) on full-size llama2-7b int8 and int4
    pools at layer 31 with ragged rows: pools bit-exact with the plain
    version, timed beside its bound, its plain version and one
    ``scaled_dot_product_attention`` on K/V dequantized beforehand; then B10
    (paged attention) on a full-size llama2-7b page pool, bf16 and int8
-   pages, the same way;
+   pages, the same way; then B11 (causal flash attention) at the llama2-7b
+   eval shape [4, 2048, 32, 128] and a GQA case (nkv 8) in fp32 and bf16,
+   beside ``scaled_dot_product_attention(is_causal=True)``;
 4. the slice's paths end to end at full llama2-7b width and depth on random
    packed weights (``host_random_packed_params(seed=0)`` and
    ``fuse_for_decode``), each an 8-slot ``ContinuousBatchingEngine``
@@ -35,11 +39,22 @@ toolkit and PyTorch. It imports nothing of JAX. Phases, one JSON line each:
    launch count set to 0 before it: K1-K3 must launch in each, the fused
    append+attend kernel (B5, B7) or B10 exactly 32 times per decode step,
    every page must be back in the pool (the prefix run: all but those the
-   cache holds), and the prefix run must reuse 7 x 64 = 448 pages.
+   cache holds), and the prefix run must reuse 7 x 64 = 448 pages;
+5. evaluation at full llama2-7b width and depth on the same weights,
+   unfused (:func:`eval_checks`): perplexity of 8 windows of 2048 at batch
+   4 in fp32, direct and vocab-chunked, against ``impl="torch"`` per window
+   (B11 32 times per batch); the first batch's pre-logits against
+   ``impl="torch"``, and a planted fault (one head's B11 context zeroed in
+   layer 0) that must break their limit; the uniform model's ppl of 32000;
+   ``loglikelihood`` of 16 requests against ``impl="torch"``; ``forward`` in
+   bf16; and ``python -m onebit_tpu_torch eval`` on a 2-layer native
+   checkpoint of 7B width, its ppl equal to the in-process one.
 
 Then the wall time, the ``kernels`` line (each kernel's launches from the
 run of its own path; B6 and B8 are on none; B10's from the paged bf16 and
-int8 runs), the card's name and power
+int8 runs; K3's fp32 instance's and B11's from the fp32 perplexity run,
+B11 bf16's from the bf16 forward), the
+card's name and power
 limit as ``nvidia-smi`` prints them, and a last line ``{"ok": true,
 "device": ...}``. Any failure exits nonzero without that line. Needs one
 card; exits nonzero when no card is present or the package is not beside
@@ -60,8 +75,17 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12         # dense bf16 tensor-core peak
+FP32_FLOP_PER_S = 67e12          # fp32 on the CUDA cores, no tensor cores
 # bf16 LayerNorm outputs of order 1: two bf16 ulps at |v| < 8
 KERNEL_TOL_BF16 = 0.0625
+# fp32 (K3 in eval): kernel and plain version form the same fp32 y = x * g
+# and sum its K = 4096 or 11008 signed terms in another order. Each add
+# rounds by half an ulp of a partial sum of order sqrt(K) * |y|, so each
+# side's sum strays by a random walk of about sqrt(K) * 2**-24 * |z|, a
+# relative 4e-6 or less of the row's spread; the LayerNorm divides by that
+# spread, so outputs of order 1 differ by a few 1e-6, their largest over
+# 8192 x 11008 outputs under 3e-5. The tolerance is 1e-4.
+KERNEL_TOL_F32 = 1e-4
 # relative to the largest |logit|: 32 layers of bf16 activations on each
 # side, rounded at different places by kernel and plain version
 LOGITS_REL_TOL = 5e-2
@@ -99,30 +123,34 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 # phase 3: each kernel against its plain version at llama2-7b shapes
 # ---------------------------------------------------------------------------
 
-def _case(gen, m, k, n_true, ns, seg_pad, dev):
-    """Random bf16 x and g, fp32 h with zeros on the pads, random words."""
+def _case(gen, m, k, n_true, ns, seg_pad, dev, dtype=torch.bfloat16):
+    """Random x and g in ``dtype``, fp32 h with zeros on the pads, random
+    words."""
     from onebit_tpu_torch.core.packing import unpack_signs_kmajor
-    x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
-    g = (1 + 0.5 * torch.randn(ns, k, generator=gen, device=dev)
-         ).to(torch.bfloat16)
+    x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+    g = (1 + 0.5 * torch.randn(ns, k, generator=gen, device=dev)).to(dtype)
     h = torch.rand(ns, seg_pad, generator=gen, device=dev) + 0.5
     h[:, n_true:] = 0
     packed = torch.randint(-2 ** 31, 2 ** 31 - 1, (k // 32, ns * seg_pad),
                            generator=gen, device=dev, dtype=torch.int64
                            ).to(torch.int32)
-    sign = unpack_signs_kmajor(packed, dtype=torch.bfloat16)   # yardstick
+    sign = unpack_signs_kmajor(packed, dtype=dtype)            # yardstick
     return dict(x=x, g=g, h=h.reshape(-1).contiguous(), packed=packed,
                 sign=sign, m=m, k=k, n_true=n_true, ns=ns)
 
 
 def _bound(c) -> tuple:
     """Least time for one call: inputs read once, outputs written once, or
-    its products at the bf16 peak, whichever is larger."""
+    its products at the dtype's peak (bf16 tensor cores; fp32 CUDA cores),
+    whichever is larger."""
     m, k, ns, n_cat = c["m"], c["k"], c["ns"], c["packed"].shape[1]
-    bytes_ = (c["packed"].numel() * 4 + m * k * 2 + ns * k * 2 + n_cat * 4
-              + ns * m * c["n_true"] * 2)
+    elem = c["x"].element_size()
+    bytes_ = (c["packed"].numel() * 4 + m * k * elem + ns * k * elem
+              + n_cat * 4 + ns * m * c["n_true"] * elem)
     flops = 2 * m * k * ns * c["n_true"]
-    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    peak = (FP32_FLOP_PER_S if c["x"].dtype == torch.float32
+            else BF16_FLOP_PER_S)
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / peak
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops
             else "operations")
 
@@ -132,8 +160,11 @@ def kernel_checks(dev) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     d, inter = 4096, 11008
+    m_eval, f32 = 4 * 2048, torch.float32     # one eval batch, fp32
     # the calls one decode layer (M = 8) or one 8 x 256 prefill (M = 2048)
-    # makes to each kernel at llama2-7b; the last K2 case has h = 0 pads
+    # makes to each kernel at llama2-7b; the last K2 case has h = 0 pads;
+    # K3's fp32 instance: one eval layer's seven unfused projections
+    # (q, k, v, o; gate, up; down) on a 4 x 2048 batch
     cases = {
         "bitlinear_small_m": [_case(gen, 8, d, d, 1, d, dev),
                               _case(gen, 8, inter, d, 1, d, dev)],
@@ -144,6 +175,11 @@ def kernel_checks(dev) -> dict:
                               _case(gen, 2048, d, d, 1, d, dev),
                               _case(gen, 2048, d, inter, 2, inter, dev),
                               _case(gen, 2048, inter, d, 1, d, dev)],
+        "bitlinear_large_m_f32":
+            [_case(gen, m_eval, d, d, 1, d, dev, f32) for _ in range(4)]
+            + [_case(gen, m_eval, d, inter, 1, inter, dev, f32)
+               for _ in range(2)]
+            + [_case(gen, m_eval, inter, d, 1, d, dev, f32)],
     }
 
     def calls(name, c):
@@ -160,7 +196,10 @@ def kernel_checks(dev) -> dict:
     results = {}
     for info in bc.KERNELS:
         err = ms = plain_ms = lib_ms = bound_ms = 0.0
+        out_scale = float("inf")
         kinds = set()
+        dtype = cases[info.name][0]["x"].dtype
+        tol = KERNEL_TOL_F32 if dtype == torch.float32 else KERNEL_TOL_BF16
         for c in cases[info.name]:
             kern, plain = calls(info.name, c)
             got, want = kern().float(), plain().float()
@@ -169,6 +208,10 @@ def kernel_checks(dev) -> dict:
                 raise RuntimeError(f"{info.name}: non-finite output")
             e = (got - want).abs().max().item()
             err = max(err, e)
+            # the smallest row's largest |out|: LayerNorm rows of unit
+            # variance, so at least 1 unless the output is wrong
+            out_scale = min(out_scale, want.abs().amax(dim=-1).min().item())
+            del got, want
             iters = 3 if c["m"] > 128 else 20
             ms += cuda_ms(kern, iters)
             plain_ms += cuda_ms(plain, 2, warmup=1)
@@ -177,17 +220,21 @@ def kernel_checks(dev) -> dict:
             b, kind = _bound(c)
             bound_ms += b
             kinds.add(kind)
-        ok = err <= KERNEL_TOL_BF16
+        ok = err <= tol and out_scale >= 8 * tol
         results[info.name] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by="operations" if "operations" in kinds else "bytes",
             library_ms=lib_ms)
-        emit({"phase": "kernel", "name": info.name, "tol": KERNEL_TOL_BF16,
-              "ok": ok, "calls": len(cases[info.name]), "kernel_ms": ms,
-              **results[info.name]})
+        emit({"phase": "kernel", "name": info.name, "tol": tol, "ok": ok,
+              "dtype": str(dtype).replace("torch.", ""),
+              "m": [c["m"] for c in cases[info.name]],
+              "calls": len(cases[info.name]), "kernel_ms": ms,
+              "min_row_max_abs_out": out_scale, **results[info.name]})
         if not ok:
-            raise RuntimeError(f"{info.name}: max_abs_err {err} > "
-                               f"{KERNEL_TOL_BF16}")
+            raise RuntimeError(f"{info.name}: max_abs_err {err} > {tol} or "
+                               f"smallest row max |out| {out_scale}")
+        del cases[info.name]
+        torch.cuda.empty_cache()
     return results
 
 
@@ -473,6 +520,97 @@ def paged_kernel_checks(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3, continued: B11 at the llama2-7b eval shape
+# ---------------------------------------------------------------------------
+
+FLASH_SHAPE = (4, 2048, 32, 128)   # B, S, nh, hd: one llama2-7b eval batch
+FLASH_GQA_NKV = 8                  # the GQA case at 7B width: g = 4
+# q of std 5, k and v of N(0, 1): scores of std 5, a softmax peaked on a
+# few keys, a context of order 1 on every (row, head). fp32: the kernel
+# sums the dots and the PV product in another order than the plain
+# version and runs the softmax online, relative errors of a few 2**-24
+# over 2048 keys, far under 1e-4 at |v| < 6.5. bf16: both sides round
+# P to bf16 (2**-9 relative) at different scales (the kernel exp(s - m) at
+# the running max, the plain version the normalized probabilities), so
+# their fp32 contexts lie at most 2**-8 * max|v| < 0.026 apart for
+# |v| < 6.5 (N(0, 1) over 2**25 samples); each then rounds the context to
+# bf16, one ulp apart at most (2**-5 below 8): under 1/16. Each (row,
+# head)'s largest |ctx| must be at least 8 times its dtype's tolerance.
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 1 / 16}
+
+
+def _flash_bound(b, s, nh, nkv, hd, dtype) -> tuple:
+    """Least time for one call: q, k, v read once and the output written
+    once, or the products of the causal half, 4 * B * nh * hd * S(S+1)/2,
+    at the dtype's peak: the CUDA cores' fp32 rate for float32 (the kernel
+    must not use TF32), the bf16 tensor-core rate for bfloat16."""
+    elem = 4 if dtype == torch.float32 else 2
+    bytes_ = elem * b * s * hd * (2 * nh + 2 * nkv)
+    flops = 4 * b * nh * hd * s * (s + 1) / 2
+    peak = FP32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / peak
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops
+            else "operations")
+
+
+def flash_kernel_checks(dev) -> dict:
+    """B11 at [4, 2048, 32, 128] (and the GQA case, nkv = 8) in fp32 and
+    bf16 against its plain version, timed beside its bound, its plain
+    version and one ``scaled_dot_product_attention(is_causal=True)`` on
+    the same tensors in its own [B, H, S, D] layout (K/V repeated for GQA
+    beforehand). The ``kernels`` line carries the MHA case."""
+    import torch.nn.functional as F
+    from onebit_tpu_torch.kernels import attention as ta
+    from onebit_tpu_torch.kernels import attention_cuda as fc
+    b, s, nh, hd = FLASH_SHAPE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    results = {}
+    for dtype, info in ((torch.float32, fc.FLASH_F32),
+                        (torch.bfloat16, fc.FLASH_BF16)):
+        for nkv in (nh, FLASH_GQA_NKV):
+            g = nh // nkv
+            q = (5 * torch.randn(b, s, nh, hd, generator=gen, device=dev)
+                 ).to(dtype)
+            k, v = (torch.randn(b, s, nkv, hd, generator=gen, device=dev
+                                ).to(dtype) for _ in range(2))
+            want = ta.flash_causal_attention_torch(q, k, v, num_kv_groups=g)
+            got = ta.flash_causal_attention(q, k, v, num_kv_groups=g)
+            torch.cuda.synchronize()
+            finite = bool(torch.isfinite(got).all())
+            err = (got.float() - want.float()).abs().max().item()
+            ctx_scale = want.float().abs().amax(dim=(1, 3)).min().item()
+            del got, want
+            ms = cuda_ms(lambda: ta.flash_causal_attention(
+                q, k, v, num_kv_groups=g), 5)
+            plain_ms = cuda_ms(lambda: ta.flash_causal_attention_torch(
+                q, k, v, num_kv_groups=g), 2, warmup=1)
+            qt = q.transpose(1, 2).contiguous()
+            kt, vt = (x.repeat_interleave(g, dim=2).transpose(1, 2)
+                      .contiguous() for x in (k, v))
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), 5)
+            del q, k, v, qt, kt, vt
+            torch.cuda.empty_cache()
+            bound_ms, bound_by = _flash_bound(b, s, nh, nkv, hd, dtype)
+            line = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        library_ms=lib_ms)
+            if nkv == nh:
+                results[info.name] = line
+            tol = FLASH_TOL[dtype]
+            ok = finite and err <= tol and ctx_scale >= 8 * tol
+            emit({"phase": "kernel", "name": info.name, "tol": tol, "ok": ok,
+                  "shape": [b, s, nh, hd], "nkv": nkv, "out_finite": finite,
+                  "min_row_head_max_abs_ctx": ctx_scale, **line})
+            if not ok:
+                raise RuntimeError(f"{info.name} (nkv {nkv}): finite "
+                                   f"{finite}, max_abs_err {err}, smallest "
+                                   f"row-head max |ctx| {ctx_scale}")
+    return results
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the slice's paths end to end at llama2-7b width
 # ---------------------------------------------------------------------------
 
@@ -503,10 +641,21 @@ def prefix_prompts(seed: int = 2):
 
 
 def all_kernels():
+    from onebit_tpu_torch.kernels import attention_cuda as fc
     from onebit_tpu_torch.kernels import bitlinear_cuda as bc
     from onebit_tpu_torch.kernels import kv_attention_cuda as kc
     from onebit_tpu_torch.kernels import paged_attention_cuda as pc
-    return bc.KERNELS + kc.KERNELS + pc.KERNELS
+    return bc.KERNELS + kc.KERNELS + pc.KERNELS + fc.KERNELS
+
+
+def reset_counts() -> None:
+    for k in all_kernels():
+        k.launches = 0
+
+
+def read_counts() -> dict:
+    torch.cuda.synchronize()
+    return {k.name: k.launches for k in all_kernels()}
 
 
 def _engine(params, config, dev, opts):
@@ -560,8 +709,7 @@ def served_run(params, config, dev, prompts, new_tokens, opts,
     pool_bytes = sum(x.numel() * x.element_size() for x in eng.cache)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for k in all_kernels():
-        k.launches = 0
+    reset_counts()
     t_start = time.perf_counter()
     uids = [eng.add_request(p, max_new_tokens=new_tokens) for p in prompts]
     step_s, decode_steps = [], 0
@@ -625,9 +773,10 @@ def served_run(params, config, dev, prompts, new_tokens, opts,
 def end_to_end(dev) -> dict:
     """The dense path at max_len 256, then the int8 and the int4
     quantized-KV paths and the paged paths (bf16 pages, int8 pages, bf16
-    pages with prefix caching) at max_len 2048, all at full llama2-7b width
-    and depth on the same random weights. Returns each kernel's launches
-    from the run of its own path."""
+    pages with prefix caching) at max_len 2048, then evaluation
+    (:func:`eval_checks`), all at full llama2-7b width and depth on the
+    same random weights. Returns each kernel's launches from the run of its
+    own path."""
     from onebit_tpu_torch import (BitLlamaConfig, fuse_for_decode,
                                   host_random_packed_params)
     from onebit_tpu_torch.kernels import kv_attention_cuda as kc
@@ -635,8 +784,8 @@ def end_to_end(dev) -> dict:
 
     config = BitLlamaConfig.named("llama2-7b")
     t0 = time.perf_counter()
-    params = fuse_for_decode(host_random_packed_params(config, seed=0,
-                                                       device=dev), config)
+    unfused = host_random_packed_params(config, seed=0, device=dev)
+    params = fuse_for_decode(unfused, config)
     torch.cuda.synchronize()
     emit({"phase": "weights", "config": "llama2-7b", "layers":
           config.num_hidden_layers, "seconds": time.perf_counter() - t0,
@@ -662,8 +811,327 @@ def end_to_end(dev) -> dict:
         run = served_run(params, config, dev, prompts, 32, opts, per_step)
         launches.update({k.name: run[k.name] for k in path_kernels})
         torch.cuda.empty_cache()
+    # the serving runs' memory goes before evaluation, which reads the
+    # projections unfused, as a checkpoint loads them
+    del params
+    torch.cuda.empty_cache()
+    launches.update(eval_checks(unfused, config, dev))
     # B6 and B8, the read-only variants, are on no path of the port
     return {k.name: launches.get(k.name, 0) for k in all_kernels()}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: evaluation at full llama2-7b width and depth
+# ---------------------------------------------------------------------------
+
+EVAL_SEQLEN, EVAL_BATCH, EVAL_WINDOWS = 2048, 4, 8
+# fp32 everywhere: the kernel path and impl="torch" differ only in the
+# summation order of K3's and B11's sums, a few 2**-24 relative per call
+# (KERNEL_TOL_F32, FLASH_TOL). Pre-logits: held relative to their largest
+# |value|; 32 layers of such errors, even grown tenfold, stay under 1e-5,
+# and the limit is 1e-4. It has teeth: a bf16 forward lands about 2e-2
+# away, and the planted fault below (B11's context of one head of one
+# layer zeroed) must land beyond it.
+EVAL_PRELOGITS_REL_TOL = 1e-4
+# A window's nll sums 2047 positions' CE (about 2048 x 10.4); each moves by
+# at most twice its largest logit difference, and the signed differences
+# mostly cancel in the sum. The limit is 1e-6 relative. The chunked CE sums
+# the same logits in another order: the same limit.
+EVAL_NLL_REL_TOL = 1e-6
+EVAL_CHUNK_REL_TOL = 1e-6
+# a request's log-likelihood (up to 20 tokens) by the same reasoning; the
+# greedy flags must agree unless a continuation position's top-2 log-prob
+# gap lies under EVAL_GAP_TOL, far above the two paths' logit differences
+EVAL_LL_TOL = 1e-4
+EVAL_GAP_TOL = 1e-3
+
+
+def _eval_requests(params, config, dev):
+    """16 (context, continuation) requests: contexts of 100-1500 tokens,
+    continuations of 1-20; the four shortest contexts continue with their
+    greedy token on the kernel path (one batched, right-padded forward),
+    so that both values of ``is_greedy`` occur."""
+    from onebit_tpu_torch.model.bitllama import forward
+    rng = np.random.default_rng(5)
+    ctx_lens = np.linspace(100, 1500, 16).astype(int)
+    reqs = [(rng.integers(3, config.vocab_size, n).tolist(),
+             rng.integers(3, config.vocab_size,
+                          int(rng.integers(1, 21))).tolist())
+            for n in ctx_lens]
+    short = ctx_lens[:4]
+    ids = torch.zeros(4, int(short.max()), dtype=torch.long, device=dev)
+    mask = torch.zeros_like(ids)
+    for r in range(4):
+        ids[r, :short[r]] = torch.tensor(reqs[r][0])
+        mask[r, :short[r]] = 1
+    logits = forward(params, ids, config, attention_mask=mask,
+                     compute_dtype=torch.float32)
+    for r in range(4):
+        reqs[r] = (reqs[r][0], [int(logits[r, short[r] - 1].argmax())])
+    return reqs
+
+
+def _top2_gap(params, config, dev, req) -> float:
+    """The smallest top-2 log-prob gap over a request's continuation
+    positions on the plain path: where the two paths' greedy flags may
+    differ."""
+    from onebit_tpu_torch.model.bitllama import forward
+    ctx, cont = req
+    toks = torch.tensor(ctx + cont, device=dev)[None]
+    logits = forward(params, toks[:, :-1], config, impl="torch",
+                     compute_dtype=torch.float32)[0, -len(cont):]
+    top2 = torch.log_softmax(logits, -1).topk(2, dim=-1).values
+    return (top2[:, 0] - top2[:, 1]).min().item()
+
+
+def _zero_head_fault(bl, n_layers: int):
+    """Install a planted fault in ``forward``'s B11: the context of head 0
+    of the first of each forward's ``n_layers`` layers zeroed. Returns the
+    function that removes it."""
+    real = bl.flash_causal_attention
+    calls = []
+
+    def faulty(q, k, v, *, num_kv_groups):
+        ctx = real(q, k, v, num_kv_groups=num_kv_groups)
+        if len(calls) % n_layers == 0:
+            ctx[:, :, 0] = 0
+        calls.append(1)
+        return ctx
+
+    bl.flash_causal_attention = faulty
+
+    def remove():
+        bl.flash_causal_attention = real
+    return remove
+
+
+def prelogits_checks(params, config, dev, tokens, nll_ref) -> dict:
+    """The first eval batch's fp32 pre-logits on the kernel path against
+    ``impl="torch"`` (relative to their largest |value|), the spread of its
+    logits, and the same comparison with the planted fault of
+    :func:`_zero_head_fault`, which must break the limit; its window nlls'
+    distance from ``nll_ref`` (the batch's ``impl="torch"`` nlls) is
+    reported beside EVAL_NLL_REL_TOL."""
+    from onebit_tpu_torch.eval import ppl as ppl_mod
+    from onebit_tpu_torch.model import bitllama as bl
+    ids = torch.from_numpy(tokens[:EVAL_BATCH * EVAL_SEQLEN].reshape(
+        EVAL_BATCH, EVAL_SEQLEN)).to(dev)
+    f32 = dict(compute_dtype=torch.float32, return_prelogits=True)
+    ref = bl.forward(params, ids, config, impl="torch", **f32)
+    scale = ref.abs().max().item()
+    got = bl.forward(params, ids, config, **f32)
+    rel = (got - ref).abs().max().item() / scale
+    logits = bl._lm_head(got, params, torch.float32)
+    spread = {"max_abs_logit": logits.abs().max().item(),
+              "logit_std_mean": logits.std(dim=-1).mean().item(),
+              "top1_prob_mean": torch.softmax(logits, -1).amax(-1).mean()
+              .item()}
+    del got, logits
+    remove = _zero_head_fault(bl, config.num_hidden_layers)
+    try:
+        faulty = bl.forward(params, ids, config, **f32)
+        nll_fault = ppl_mod.window_nlls(params, config, tokens,
+                                        seqlen=EVAL_SEQLEN,
+                                        batch_size=EVAL_BATCH,
+                                        limit=EVAL_BATCH)
+    finally:
+        remove()
+    rel_fault = (faulty - ref).abs().max().item() / scale
+    del faulty, ref
+    nll_rel_fault = float((np.abs(nll_fault - nll_ref) / nll_ref).max())
+    line = {"phase": "eval_prelogits", "shape": [EVAL_BATCH, EVAL_SEQLEN],
+            "max_abs_prelogit": scale, "rel_err_vs_torch": rel,
+            "rel_tol": EVAL_PRELOGITS_REL_TOL, **spread,
+            "fault": "B11 context of head 0 of layer 0 zeroed",
+            "fault_prelogits_rel_err": rel_fault,
+            "fault_window_nll_max_rel_err": nll_rel_fault,
+            "nll_rel_tol": EVAL_NLL_REL_TOL}
+    emit(line)
+    if not (rel <= EVAL_PRELOGITS_REL_TOL
+            and rel_fault > EVAL_PRELOGITS_REL_TOL):
+        raise RuntimeError(f"pre-logits disagree, or the planted fault "
+                           f"passes: {line}")
+    return line
+
+
+def eval_checks(params, config, dev) -> dict:
+    """Evaluation on the unfused llama2-7b params, each run counted with
+    every launch count set to 0 just before it:
+
+    (a) ``window_nlls`` (what ``perplexity`` sums) of 8 windows of 2048 at
+        batch 4 in fp32 on the kernel path, direct and vocab-chunked CE,
+        against ``impl="torch"`` per window; K3 (fp32) launches, B11
+        exactly 32 times per batch; then the first batch's pre-logits
+        against ``impl="torch"``, with and without a planted fault
+        (:func:`prelogits_checks`);
+    (b) with ``lm_head`` zeroed ppl is 32000 (``limit=1``);
+    (c) ``loglikelihood`` of 16 requests at batch 8 (masked, so B11 never
+        launches) against ``impl="torch"``, greedy flags equal;
+    (d) ``forward`` in bf16, its default dtype, on one eval batch against
+        ``impl="torch"``: B11's bf16 instance, 32 launches;
+    (e) ``python -m onebit_tpu_torch eval`` on a 2-layer native checkpoint
+        of 7B width written by ``save_native``: its ppl equals the
+        in-process ``perplexity`` of the loaded params.
+
+    Returns the launches of K3's fp32 instance and B11's instances from
+    runs (a) and (d)."""
+    from onebit_tpu_torch import (loglikelihood, load_native, perplexity,
+                                  save_native)
+    from onebit_tpu_torch.eval import ppl as ppl_mod
+    from onebit_tpu_torch.kernels import attention_cuda as fc
+    from onebit_tpu_torch.kernels import bitlinear_cuda as bc
+    from onebit_tpu_torch.model.bitllama import forward
+    n_layers, nb = config.num_hidden_layers, EVAL_WINDOWS // EVAL_BATCH
+    tokens = np.random.default_rng(4).integers(
+        3, config.vocab_size, EVAL_WINDOWS * EVAL_SEQLEN)
+    kw = dict(seqlen=EVAL_SEQLEN, batch_size=EVAL_BATCH)
+
+    # (a) perplexity, kernel path against impl="torch"
+    nlls, walls, counts = {}, {}, {}
+    for key, impl, chunk in (("kernel", "auto", None),
+                             ("kernel_chunked", "auto", 4096),
+                             ("torch", "torch", None)):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        nlls[key] = ppl_mod.window_nlls(params, config, tokens, impl=impl,
+                                        vocab_chunk=chunk, **kw)
+        walls[key] = time.perf_counter() - t0
+        counts[key] = read_counts()
+    rel = np.abs(nlls["kernel"] - nlls["torch"]) / np.abs(nlls["torch"])
+    rel_chunk = (np.abs(nlls["kernel_chunked"] - nlls["kernel"])
+                 / np.abs(nlls["kernel"]))
+    launches = counts["kernel"]
+    line = {"phase": "eval_ppl", "windows": EVAL_WINDOWS, **kw,
+            "dtype": "float32", "batches": nb,
+            "ppl": ppl_mod.ppl_from_nlls(nlls["kernel"], EVAL_SEQLEN),
+            "ppl_chunked": ppl_mod.ppl_from_nlls(nlls["kernel_chunked"],
+                                                 EVAL_SEQLEN),
+            "ppl_torch": ppl_mod.ppl_from_nlls(nlls["torch"], EVAL_SEQLEN),
+            "window_nll": nlls["kernel"].tolist(),
+            "max_rel_err_vs_torch": float(rel.max()),
+            "rel_tol": EVAL_NLL_REL_TOL,
+            "max_rel_err_chunked": float(rel_chunk.max()),
+            "s_per_batch": walls["kernel"] / nb,
+            "s_per_batch_chunked": walls["kernel_chunked"] / nb,
+            "s_per_batch_torch": walls["torch"] / nb,
+            "eval_tok_per_s": EVAL_WINDOWS * EVAL_SEQLEN / walls["kernel"],
+            "launches": {k: v for k, v in launches.items() if v},
+            "launches_chunked": {k: v for k, v in
+                                 counts["kernel_chunked"].items() if v},
+            "launches_torch": {k: v for k, v in counts["torch"].items()
+                               if v}}
+    emit(line)
+    if not (np.isfinite(nlls["kernel"]).all()
+            and rel.max() <= EVAL_NLL_REL_TOL
+            and rel_chunk.max() <= EVAL_CHUNK_REL_TOL):
+        raise RuntimeError(f"perplexity disagrees: {line}")
+    for key in ("kernel", "kernel_chunked"):
+        if counts[key][fc.FLASH_F32.name] != n_layers * nb or \
+                counts[key][bc.LARGE_M_F32.name] == 0:
+            raise RuntimeError(f"eval ({key}) launched {counts[key]}, not "
+                               f"B11 {n_layers} times per batch and K3")
+    if any(counts["torch"].values()):
+        raise RuntimeError(f"impl='torch' launched {counts['torch']}")
+    prelogits_checks(params, config, dev, tokens,
+                     nll_ref=nlls["torch"][:EVAL_BATCH])
+
+    # (b) the uniform model
+    uniform = dict(params, lm_head=torch.zeros_like(params["lm_head"]))
+    ppl_u = perplexity(uniform, config, tokens, seqlen=EVAL_SEQLEN,
+                       batch_size=1, limit=1)
+    del uniform
+    emit({"phase": "eval_uniform", "ppl": ppl_u,
+          "vocab_size": config.vocab_size, "rel_tol": 1e-4})
+    if abs(ppl_u / config.vocab_size - 1) > 1e-4:
+        raise RuntimeError(f"uniform-model ppl {ppl_u}, not "
+                           f"{config.vocab_size}")
+
+    # (c) loglikelihood: masked batches, B11 never launches
+    reqs = _eval_requests(params, config, dev)
+    out = {}
+    for impl in ("auto", "torch"):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out[impl] = loglikelihood(params, config, reqs, batch_size=8,
+                                  impl=impl)
+        out[impl + "_s"] = time.perf_counter() - t0
+        out[impl + "_launches"] = read_counts()
+    lls = np.array([[a[0], b[0]] for a, b in zip(out["auto"],
+                                                 out["torch"])])
+    ll_err = np.abs(lls[:, 0] - lls[:, 1])
+    ll_ok = bool((ll_err <= EVAL_LL_TOL * (1 + np.abs(lls[:, 1]))).all())
+    flips = [i for i, (a, b) in enumerate(zip(out["auto"], out["torch"]))
+             if a[1] != b[1]]
+    gaps = {i: _top2_gap(params, config, dev, reqs[i]) for i in flips}
+    k_launch = out["auto_launches"]
+    emit({"phase": "eval_loglikelihood", "requests": len(reqs),
+          "batch_size": 8, "context_lengths": [len(c) for c, _ in reqs],
+          "continuation_lengths": [len(c) for _, c in reqs],
+          "ll": lls[:, 0].tolist(), "max_abs_err_vs_torch":
+          float(ll_err.max()), "tol": EVAL_LL_TOL,
+          "is_greedy": [a[1] for a in out["auto"]],
+          "greedy_flips": {str(i): g for i, g in gaps.items()},
+          "seconds": out["auto_s"], "seconds_torch": out["torch_s"],
+          "launches": {k: v for k, v in k_launch.items() if v}})
+    if not ll_ok or any(g > EVAL_GAP_TOL for g in gaps.values()) or \
+            not any(a[1] for a in out["auto"]):
+        raise RuntimeError("loglikelihood disagrees with impl='torch'")
+    if any(k_launch[k.name] for k in fc.KERNELS) or \
+            k_launch[bc.LARGE_M_F32.name] == 0:
+        raise RuntimeError(f"loglikelihood launched {k_launch}")
+
+    # (d) forward in bf16 on one eval batch: B11's bf16 instance
+    ids = torch.from_numpy(tokens[:EVAL_BATCH * EVAL_SEQLEN].reshape(
+        EVAL_BATCH, EVAL_SEQLEN)).to(dev)
+    bf16 = {}
+    for impl in ("auto", "torch"):
+        torch.cuda.synchronize()
+        reset_counts()
+        bf16[impl] = forward(params, ids, config, impl=impl)
+        bf16[impl + "_launches"] = read_counts()
+    ref = bf16["torch"].abs().max().item()
+    err = (bf16["auto"] - bf16["torch"]).abs().max().item()
+    agree = (bf16["auto"].argmax(-1) == bf16["torch"].argmax(-1)).float()
+    f_launch = bf16["auto_launches"]
+    emit({"phase": "eval_forward_bf16", "shape": [EVAL_BATCH, EVAL_SEQLEN],
+          "max_abs_err": err, "max_abs_logit": ref, "rel_err": err / ref,
+          "rel_tol": LOGITS_REL_TOL, "argmax_agree": agree.mean().item(),
+          "launches": {k: v for k, v in f_launch.items() if v}})
+    del bf16
+    if not err / ref <= LOGITS_REL_TOL or \
+            f_launch[fc.FLASH_BF16.name] != n_layers:
+        raise RuntimeError("bf16 forward disagrees or B11 (bf16) did not "
+                           f"launch {n_layers} times: {f_launch}")
+    launches[fc.FLASH_BF16.name] = f_launch[fc.FLASH_BF16.name]
+
+    # (e) the command line on a 2-layer native checkpoint of 7B width
+    from onebit_tpu_torch import BitLlamaConfig, host_random_packed_params
+    small = BitLlamaConfig.named("llama2-7b", num_hidden_layers=2)
+    ckpt = os.path.join(ROOT, "build", "smoke_ckpt")
+    save_native(ckpt, small, host_random_packed_params(small, seed=1,
+                                                       device=dev))
+    np.save(os.path.join(ckpt, "tokens.npy"), tokens)
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "onebit_tpu_torch", "eval", "--ckpt", ckpt,
+         "--tokens", os.path.join(ckpt, "tokens.npy"), "--seqlen",
+         str(EVAL_SEQLEN), "--limit", "2"], cwd=ROOT, capture_output=True,
+        text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise RuntimeError(f"the eval command failed:\n{run.stderr[-3000:]}")
+    cli_ppl = json.loads(run.stdout.strip().splitlines()[-1])["ppl"]
+    loaded = load_native(ckpt, device=dev)
+    want = perplexity(loaded["params"], loaded["config"], tokens,
+                      seqlen=EVAL_SEQLEN, limit=2)
+    emit({"phase": "eval_cli", "ckpt_layers": 2, "cli_ppl": cli_ppl,
+          "in_process_ppl": want, "rel_tol": 1e-5, "cli_seconds": cli_s})
+    if abs(cli_ppl / want - 1) > 1e-5:
+        raise RuntimeError(f"the eval command's ppl {cli_ppl} is not the "
+                           f"in-process {want}")
+    return {k.name: launches[k.name] for k in (bc.LARGE_M_F32, *fc.KERNELS)}
 
 
 def main() -> int:
@@ -698,6 +1166,7 @@ def main() -> int:
     results = kernel_checks(dev)
     results.update(kv_kernel_checks(dev))
     results.update(paged_kernel_checks(dev))
+    results.update(flash_kernel_checks(dev))
     launches = end_to_end(dev)
     emit({"phase": "done", "wall_s": time.perf_counter() - t_wall})
     emit({"kernels": [

@@ -4,9 +4,10 @@
 ``jax.tree.map(np.asarray, params)`` (numpy leaves) and returns the port's
 params on ``device``. It is duck-typed: a projection is any object with
 ``packed``, ``weight_scale``, ``input_factor`` and ``bias`` attributes, so
-this module imports nothing of the JAX package. Packed words arrive in the
-TPU byte-plane layout and are converted to the port's K-major layout once,
-here, one layer at a time on the target device.
+this module imports nothing of the JAX package. A plain projection (the FP
+teacher's ``LinearWeights``) is any object with ``weight`` and ``bias``.
+Packed words arrive in the TPU byte-plane layout and are converted to the
+port's K-major layout once, here, one layer at a time on the target device.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from onebit_tpu_torch.core.packing import device_to_kmajor
 from onebit_tpu_torch.kernels.bitlinear import BitLinearWeights
+from onebit_tpu_torch.kernels.linear import LinearWeights
 from onebit_tpu_torch.model.bitllama import PROJ_NAMES, _proj_dims
 from onebit_tpu_torch.model.config import BitLlamaConfig
 from onebit_tpu_torch.utils.device import resolve_device
@@ -28,7 +30,8 @@ def to_tensor(a, device, dtype=None) -> torch.Tensor:
     a = np.ascontiguousarray(np.asarray(a))
     if not a.flags.writeable:             # arrays viewed from jax
         a = a.copy()
-    if a.dtype.name == "bfloat16":        # ml_dtypes' bfloat16, as jax gives
+    # ml_dtypes' bfloat16, as jax gives it, or its bits as numpy saves them
+    if a.dtype.name == "bfloat16" or a.dtype.str == "|V2":
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a)
@@ -43,13 +46,27 @@ def _convert_words(packed: np.ndarray, device) -> torch.Tensor:
     return words
 
 
+def _linear(w, name: str, config: BitLlamaConfig, device, dtype
+            ) -> LinearWeights:
+    out, inp = _proj_dims(config)[name]
+    L = config.num_hidden_layers
+    weight = to_tensor(w.weight, device, dtype)
+    if tuple(weight.shape) != (L, out, inp):
+        raise ValueError(f"{name}: weight {tuple(weight.shape)}, want "
+                         f"{(L, out, inp)}")
+    bias = getattr(w, "bias", None)
+    return LinearWeights(weight=weight, bias=None if bias is None else
+                         to_tensor(bias, device, torch.float32))
+
+
 def params_from_jax(tree: Dict[str, Any], config: BitLlamaConfig,
                     device=None, dtype=None) -> Dict[str, Any]:
     """The port's params from the JAX package's packed params.
 
     Float leaves keep their dtype unless ``dtype`` is given; weight scales
-    and biases are stored in fp32, as the kernels read them. Only unfused
-    packed projections convert: apply the port's ``fuse_for_decode`` after.
+    and biases are stored in fp32, as the kernels read them. Unfused packed
+    projections and plain ``LinearWeights`` convert (apply the port's
+    ``fuse_for_decode`` after).
     """
     device = resolve_device(device)
     src = tree["layers"]
@@ -63,9 +80,13 @@ def params_from_jax(tree: Dict[str, Any], config: BitLlamaConfig,
     L = config.num_hidden_layers
     for name in PROJ_NAMES:
         w = src[name]
+        if hasattr(w, "weight"):
+            layers[name] = _linear(w, name, config, device, dtype)
+            continue
         packed = getattr(w, "packed", None)
         if packed is None:
-            raise ValueError(f"{name}: only packed projections convert")
+            raise ValueError(f"{name}: only packed or plain projections "
+                             "convert")
         packed = np.asarray(packed)
         out, inp = _proj_dims(config)[name]
         if packed.shape != (L, inp // 32, out) or packed.dtype != np.int32:

@@ -15,8 +15,9 @@ Three layouts appear here:
 * **TPU device layout** ``[..., in//32, out]`` int32, the JAX package's
   byte-plane layout: dense in-index ``k = p*4*nw + 4*i + c`` (``nw = in//32``)
   lives in word row ``i`` at bit ``8*c + p``. It exists to invert a TPU
-  bitcast order; :func:`unpack_signs_device` reads it and
-  :func:`device_to_kmajor` converts it;
+  bitcast order; :func:`unpack_signs_device` reads it,
+  :func:`device_to_kmajor` converts it and :func:`kmajor_to_device` writes
+  it back (native checkpoints keep it on disk);
 * **the port's layout** ``[..., in//32, out]`` int32, *K-major canonical*:
   word ``(i, n)`` holds in-indices ``32*i .. 32*i+31`` of output column ``n``,
   LSB-first. It is the canonical words transposed, so a reference int8
@@ -110,7 +111,7 @@ def int8_bytes_to_words_np(packed_int8: np.ndarray) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# TPU device layout (read only)
+# TPU device layout
 # ---------------------------------------------------------------------------
 
 def _device_bits(words: torch.Tensor) -> torch.Tensor:
@@ -160,4 +161,22 @@ def device_to_kmajor(words: torch.Tensor) -> torch.Tensor:
                       device=words.device)
     for j in range(WORD_BITS):
         acc |= bits[..., j, :].to(torch.int64) << j
+    return _wrap_int32(acc)
+
+
+def kmajor_to_device(words: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`device_to_kmajor`: the port's layout
+    ``[..., nw, out]`` -> TPU-layout words, on the tensor's own device.
+    Dense in-index ``k = p*4*nw + 4*i + c`` goes to word row ``i`` at bit
+    ``8*c + p``. A pure bit permutation: exact."""
+    words = torch.as_tensor(words)
+    if words.dtype != torch.int32:
+        raise TypeError(f"packed words must be int32, got {words.dtype}")
+    *lead, nw, n_out = words.shape
+    bits = (words[..., :, None, :] >> _bit_shifts(words.device)[:, None]) & 1
+    bits = bits.reshape(*lead, 8, nw, 4, n_out)       # k = p*4nw + 4i + c
+    acc = torch.zeros(words.shape, dtype=torch.int64, device=words.device)
+    for p in range(8):
+        for c in range(4):
+            acc |= bits[..., p, :, c, :].to(torch.int64) << (8 * c + p)
     return _wrap_int32(acc)

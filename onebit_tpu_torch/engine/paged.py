@@ -39,8 +39,8 @@ from onebit_tpu_torch.kernels.paged_attention import (_MAX_INT8,
                                                       _gather_seq_kv,
                                                       paged_attention_flat)
 from onebit_tpu_torch.model import bitllama
+from onebit_tpu_torch.model.bitllama import _decoder_layer, _lm_head
 from onebit_tpu_torch.model.config import BitLlamaConfig
-from onebit_tpu_torch.model.ragged_decode import _layer_body, _lm_head
 from onebit_tpu_torch.model.rope import apply_rope, rope_cos_sin
 from onebit_tpu_torch.utils.device import resolve_device
 
@@ -213,7 +213,7 @@ def _window_core(params, cache, tokens, lengths, page_indices,
     the cache's device. Returns the final-normed hidden ``[B, W, d]``.
 
     W = 1 is the decode step (B10 on the card); W > 1 a chunk append."""
-    b, w = tokens.shape
+    w = tokens.shape[1]
     ps, mp = cache.page_size, page_indices.shape[1]
     positions = lengths[:, None] + torch.arange(w, device=tokens.device)
     pages = torch.take_along_dim(
@@ -244,7 +244,7 @@ def _window_core(params, cache, tokens, lengths, page_indices,
                     quant=quant).to(compute_dtype)[:, None]
             return _paged_attend_window(q, cache, quant, mask, page_indices,
                                         i, compute_dtype)
-        x = _layer_body(x, layers, i, config, impl, attend, (b, w))
+        x = _decoder_layer(x, layers, i, config, impl, attend)
     return bitllama.rms_norm(x, params["final_norm"], config.rms_norm_eps)
 
 
@@ -272,7 +272,7 @@ def _prefill_rows_core(params, cache, ids, lengths, page_indices,
             _write_pages(cache, i, pages, slots, k, v)
             return bitllama._attention(q, k, v, mask,
                                        num_kv_groups=config.num_kv_groups)
-        x = _layer_body(x, layers, i, config, impl, attend, (r, s_pad))
+        x = _decoder_layer(x, layers, i, config, impl, attend)
     return bitllama.rms_norm(x, params["final_norm"], config.rms_norm_eps)
 
 

@@ -1,0 +1,66 @@
+"""Full-sequence attention: the masked softmax attention of the model, and
+the wrapper of kernel B11 (causal attention with no padding mask) with its
+plain PyTorch version beside it.
+
+Port of ``onebit_tpu/kernels/attention.py`` ``flash_causal_attention``, which
+runs the upstream Pallas TPU flash-attention kernel with ``causal=True``:
+q ``[B, S, nh, hd]``, k/v ``[B, S, nkv, hd]`` (GQA: kv head ``h // g``),
+all in one dtype, float32 or bfloat16; ``sm_scale = hd**-0.5``; the output
+``[B, S, nh, hd]`` in q's dtype. Its plain version is :func:`_attention`
+with the causal mask: one function, written once.
+
+Given CPU tensors the wrapper returns its plain version; given CUDA tensors
+it launches its kernel (``kernels/attention_cuda.py``) or raises. Unlike the
+TPU kernel, whose 128-blocks need ``S % 128 == 0``, the CUDA kernel takes
+any S.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from onebit_tpu_torch.kernels import attention_cuda as fc
+
+
+def _causal_mask(s: int, t: int, offset: int, device=None) -> torch.Tensor:
+    """[1,1,S,T] bool: query i attends to keys <= offset + i."""
+    qi = torch.arange(s, device=device)[:, None]
+    kj = torch.arange(t, device=device)[None, :]
+    return (kj <= qi + offset)[None, None]
+
+
+def _attention(q, k, v, mask, *, num_kv_groups: int) -> torch.Tensor:
+    """GQA attention in plain torch ops: q ``[B,S,nh,hd]``, k/v
+    ``[B,T,nkv,hd]``, mask ``[B,1,S,T]`` bool. Scores and softmax in fp32
+    with ``-1e30`` on masked keys; probabilities rounded to v's dtype, the
+    context accumulated in fp32 and returned in v's dtype."""
+    b, s, nh, hd = q.shape
+    nkv = k.shape[2]
+    qg = q.reshape(b, s, nkv, num_kv_groups, hd)
+    scores = torch.einsum("bsngh,btnh->bngst", qg.float(), k.float())
+    scores = scores * (hd ** -0.5)
+    scores = scores.masked_fill(~mask[:, :, None], -1e30)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    ctx = torch.einsum("bngst,btnh->bsngh", probs.float(), v.float())
+    return ctx.to(v.dtype).reshape(b, s, nh, hd)
+
+
+def flash_causal_attention_torch(q, k, v, *, num_kv_groups: int
+                                 ) -> torch.Tensor:
+    s = q.shape[1]
+    return _attention(q, k, v, _causal_mask(s, s, 0, q.device),
+                      num_kv_groups=num_kv_groups)
+
+
+def flash_causal_attention(q, k, v, *, num_kv_groups: int) -> torch.Tensor:
+    """B11: causal attention of q ``[B, S, nh, hd]`` over k/v
+    ``[B, S, nkv, hd]`` (one dtype, float32 or bfloat16; on the card each
+    row's ``[n, hd]`` contiguous, any batch and sequence strides) ->
+    ``[B, S, nh, hd]`` in q's dtype."""
+    if q.device.type == "cpu":
+        return flash_causal_attention_torch(q, k, v,
+                                            num_kv_groups=num_kv_groups)
+    return fc.launch(q, k, v, num_kv_groups)
+
+
+PLAIN = {flash_causal_attention: flash_causal_attention_torch}

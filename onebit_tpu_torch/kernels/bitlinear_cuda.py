@@ -8,7 +8,9 @@ Port of ``onebit_tpu/kernels/bitlinear_pallas.py``. Three kernels, sources in
   and q/k/v when they are not fused);
 * K2 :func:`fused_small_m`, for ``ns`` projections sharing x at M <= 128
   (q/k/v and gate/up after ``fuse_for_decode``);
-* K3 :func:`large_m`, for M > 128 rows (prefill), single or fused.
+* K3 :func:`large_m`, for M > 128 rows (prefill, and every projection of
+  an fp32 eval window), single or fused; its launches are counted per dtype
+  instance (bf16 ``bitlinear_large_m``, fp32 ``bitlinear_large_m_f32``).
 
 Every kernel computes ``LayerNorm(((x ⊙ g_j) · S_jᵀ) ⊙ h_j) (+ bias)`` per
 segment ``j``, with the signs in the port's K-major layout
@@ -59,7 +61,10 @@ FUSED_SMALL_M = KernelInfo(
 LARGE_M = KernelInfo(
     "bitlinear_large_m", "onebit_tpu_torch/csrc/bitlinear_large_m.cu",
     "onebit_tpu/kernels/bitlinear_pallas.py:608", "bitlinear_large_m.cu")
-KERNELS = (SMALL_M, FUSED_SMALL_M, LARGE_M)
+LARGE_M_F32 = KernelInfo(
+    "bitlinear_large_m_f32", "onebit_tpu_torch/csrc/bitlinear_large_m.cu",
+    "onebit_tpu/kernels/bitlinear_pallas.py:608", "bitlinear_large_m.cu")
+KERNELS = (SMALL_M, FUSED_SMALL_M, LARGE_M, LARGE_M_F32)
 
 
 def reset_launch_counts() -> None:
@@ -276,6 +281,7 @@ def large_m(x2, packed, g, h, *, n_true: int, bias=None, raw: bool = False,
         x2.data_ptr(), g.data_ptr(), packed.data_ptr(), h.data_ptr(),
         _ptr(bias), z.data_ptr(), out.data_ptr(), m, k, n, ns, n // ns,
         n_true, _DTYPE_CODES[x2.dtype], int(raw), eps, _stream(x2))
-    _raise_on(err, LARGE_M)
-    LARGE_M.launches += 1
+    info = LARGE_M_F32 if x2.dtype == torch.float32 else LARGE_M
+    _raise_on(err, info)
+    info.launches += 1
     return out

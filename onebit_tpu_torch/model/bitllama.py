@@ -1,12 +1,17 @@
-"""BitLlama pieces the serving path needs: KV cache, fused decode params,
-RMSNorm, attention and the per-layer projection helpers.
+"""BitLlama: the KV cache, fused decode params, RMSNorm, the per-layer
+projection helpers, one decoder layer and the full-sequence ``forward``.
 
-Port of the subset of ``onebit_tpu/model/bitllama.py`` that the dense
-ragged decode step and batched prefill run. Params are plain dicts of
-tensors with layers stacked on a leading axis, as in the JAX package:
-``{"embed_tokens", "lm_head", "final_norm", "layers": {...}}`` where each
-projection is a ``BitLinearWeights`` (or a ``FusedBitLinearWeights`` after
-:func:`fuse_for_decode`) whose leaves carry a leading ``[L]`` axis.
+Port of ``onebit_tpu/model/bitllama.py`` for serving and evaluation. Params
+are plain dicts of tensors with layers stacked on a leading axis, as in the
+JAX package: ``{"embed_tokens", "lm_head", "final_norm", "layers": {...}}``
+where each projection is a ``BitLinearWeights`` (or a
+``FusedBitLinearWeights`` after :func:`fuse_for_decode`, or a
+``LinearWeights`` for the FP teacher) whose leaves carry a leading ``[L]``
+axis. PyTorch runs eagerly: the layer loop is a Python loop.
+
+``forward`` runs each causal, unpadded layer's attention in kernel B11
+(``kernels/attention.py``) on the card; with a padding mask, on the CPU or
+with ``use_flash=False`` it takes the masked attention ``_attention``.
 """
 
 from __future__ import annotations
@@ -16,13 +21,18 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from onebit_tpu_torch.kernels.attention import (PLAIN, _attention,
+                                                _causal_mask,
+                                                flash_causal_attention)
 from onebit_tpu_torch.kernels.bitlinear import (
     BitLinearWeights,
     FusedBitLinearWeights,
     bitlinear_apply_stacked,
     fused_bitlinear_apply_stacked,
 )
+from onebit_tpu_torch.kernels.linear import LinearWeights, linear_apply
 from onebit_tpu_torch.model.config import BitLlamaConfig
+from onebit_tpu_torch.model.rope import apply_rope, rope_cos_sin
 from onebit_tpu_torch.utils.device import resolve_device
 
 PROJ_NAMES = ("q_proj", "k_proj", "v_proj", "o_proj",
@@ -109,33 +119,16 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float):
     return (x32 * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
 
 
-def _causal_mask(s: int, t: int, offset: int, device=None) -> torch.Tensor:
-    """[1,1,S,T] bool: query i attends to keys <= offset + i."""
-    qi = torch.arange(s, device=device)[:, None]
-    kj = torch.arange(t, device=device)[None, :]
-    return (kj <= qi + offset)[None, None]
-
-
-def _attention(q, k, v, mask, *, num_kv_groups: int) -> torch.Tensor:
-    """GQA attention in plain torch ops: q ``[B,S,nh,hd]``, k/v
-    ``[B,T,nkv,hd]``, mask ``[B,1,S,T]`` bool. Scores and softmax in fp32
-    with ``-1e30`` on masked keys; probabilities rounded to v's dtype, the
-    context accumulated in fp32 and returned in v's dtype."""
-    b, s, nh, hd = q.shape
-    nkv = k.shape[2]
-    qg = q.reshape(b, s, nkv, num_kv_groups, hd)
-    scores = torch.einsum("bsngh,btnh->bngst", qg.float(), k.float())
-    scores = scores * (hd ** -0.5)
-    scores = scores.masked_fill(~mask[:, :, None], -1e30)
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    ctx = torch.einsum("bngst,btnh->bsngh", probs.float(), v.float())
-    return ctx.to(v.dtype).reshape(b, s, nh, hd)
-
-
 # ---- per-layer projections over stacked params ----------------------------
 
 def _project_flat(x, layers, name: str, i: int, impl: str):
-    return bitlinear_apply_stacked(x, layers[name], i, impl=impl)
+    """Layer ``i`` of projection ``name``: BitLinear (quantized) or plain
+    Linear (teacher), by the weight type (bitllama.py:41-45)."""
+    w = layers[name]
+    if isinstance(w, LinearWeights):
+        return linear_apply(x, LinearWeights(*(None if a is None else a[i]
+                                               for a in w)))
+    return bitlinear_apply_stacked(x, w, i, impl=impl)
 
 
 def _project_qkv_flat(hx, layers, i: int, impl: str, n_out: int):
@@ -152,3 +145,98 @@ def _project_gateup_flat(hx, layers, i: int, impl: str, n_out: int):
                                              n_out, impl=impl)
     return tuple(_project_flat(hx, layers, n, i, impl)
                  for n in ("gate_proj", "up_proj"))
+
+
+# ---- one decoder layer and the full-sequence forward -----------------------
+
+def _decoder_layer(x, layers, i: int, config: BitLlamaConfig, impl: str,
+                   attend):
+    """Layer ``i`` on ``x [B, S, d]`` around ``attend(q, k, v) -> ctx``,
+    which takes the projections before RoPE (``[B, S, n, hd]``) and returns
+    ``[B, S, nh, hd]``: the caller owns RoPE, the cache and the mask."""
+    b, s = x.shape[:2]
+    nh, nkv, hd = (config.num_attention_heads, config.num_key_value_heads,
+                   config.head_dim)
+    residual = x
+    hx = rms_norm(x, layers["input_layernorm"][i], config.rms_norm_eps)
+    q, k, v = _project_qkv_flat(hx, layers, i, impl, nkv * hd)
+    ctx = attend(q.reshape(b, s, nh, hd), k.reshape(b, s, nkv, hd),
+                 v.reshape(b, s, nkv, hd))
+    x = residual + _project_flat(ctx.reshape(b, s, nh * hd), layers,
+                                 "o_proj", i, impl)
+    residual = x
+    hx = rms_norm(x, layers["post_attention_layernorm"][i],
+                  config.rms_norm_eps)
+    gate, up = _project_gateup_flat(hx, layers, i, impl,
+                                    config.intermediate_size)
+    return residual + _project_flat(F.silu(gate) * up, layers, "down_proj",
+                                    i, impl)
+
+
+def _lm_head(x, params, compute_dtype) -> torch.Tensor:
+    """fp32-accumulated logits of the lm_head cast to ``compute_dtype``."""
+    w = params["lm_head"].to(compute_dtype)
+    return torch.matmul(x.float(), w.float().T)
+
+
+KD_SLICE = 5   # hidden states, attention maps and remat come with training
+
+
+def forward(params, input_ids, config: BitLlamaConfig, *,
+            attention_mask=None, impl: str = "auto",
+            compute_dtype=torch.bfloat16, use_flash="auto",
+            return_prelogits: bool = False,
+            output_hidden_states: bool = False,
+            output_attentions: bool = False, remat: bool = False):
+    """Full-sequence forward (bitllama.py:415-494) -> logits ``[B, S, V]``
+    fp32, or with ``return_prelogits`` the final-norm hidden states
+    ``[B, S, d]`` in ``compute_dtype``.
+
+    ``input_ids [B, S]`` on the params' device. ``attention_mask``: optional
+    ``[B, S]`` 1/0 padding mask; padded keys are masked and positions follow
+    ``max(cumsum(mask) - 1, 0)`` (left padding). ``impl``: ``"auto"`` (the
+    kernels on the card, their plain versions on the CPU) or ``"torch"``
+    (the plain versions of K3 and B11 on any device). ``use_flash``:
+    ``"auto"`` runs B11 when the tensors are on the card and there is no
+    mask; ``True`` takes B11's wrapper when there is no mask (its plain
+    version on the CPU); ``False`` the masked attention."""
+    if output_hidden_states or output_attentions or remat:
+        raise NotImplementedError(
+            "output_hidden_states, output_attentions and remat come with KD "
+            f"training, slice {KD_SLICE} of the PyTorch port (ROADMAP.md)")
+    b, s = input_ids.shape
+    device = input_ids.device
+    x = params["embed_tokens"][input_ids].to(compute_dtype)
+    if attention_mask is not None:
+        attention_mask = torch.as_tensor(attention_mask, device=device)
+        positions = (torch.cumsum(attention_mask, dim=1) - 1).clamp(min=0)
+    else:
+        positions = torch.arange(s, device=device)[None, :]
+    cos, sin = rope_cos_sin(positions, config.head_dim, config.rope_theta,
+                            config.rope_scaling,
+                            config.max_position_embeddings, seq_len=s,
+                            dtype=compute_dtype)
+    if use_flash == "auto":
+        flash = attention_mask is None and device.type == "cuda"
+    else:
+        flash = bool(use_flash) and attention_mask is None
+    flash_fn = (PLAIN[flash_causal_attention] if impl == "torch"
+                else flash_causal_attention)
+    if not flash:
+        mask = _causal_mask(s, s, 0, device)
+        if attention_mask is not None:
+            mask = mask & (attention_mask[:, None, None, :] > 0)
+
+    def attend(q, k, v):
+        q, k = apply_rope(q, k, cos, sin)
+        if flash:
+            return flash_fn(q, k, v, num_kv_groups=config.num_kv_groups)
+        return _attention(q, k, v, mask, num_kv_groups=config.num_kv_groups)
+
+    layers = params["layers"]
+    for i in range(config.num_hidden_layers):
+        x = _decoder_layer(x, layers, i, config, impl, attend)
+    h = rms_norm(x, params["final_norm"], config.rms_norm_eps)
+    if return_prelogits:
+        return h
+    return _lm_head(h, params, compute_dtype)

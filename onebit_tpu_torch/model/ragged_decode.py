@@ -19,18 +19,12 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from onebit_tpu_torch.kernels.kv_attention import (PLAIN,
                                                    kv_attention_append_kt,
                                                    kv_attention_append_kt4)
 from onebit_tpu_torch.model import bitllama
-from onebit_tpu_torch.model.bitllama import (
-    KVCache,
-    _project_flat,
-    _project_gateup_flat,
-    _project_qkv_flat,
-)
+from onebit_tpu_torch.model.bitllama import KVCache, _decoder_layer, _lm_head
 from onebit_tpu_torch.model.config import BitLlamaConfig
 from onebit_tpu_torch.model.kv_cache import (QuantKVCacheKT, QuantKVCacheKT4,
                                              merge_nibbles, quantize_kv,
@@ -55,34 +49,6 @@ def attention_width(row_pos: np.ndarray, active: np.ndarray,
     chosen on the host (ragged_decode.py:79-92)."""
     need = int(np.max(np.where(active, row_pos, 0))) + 1
     return next((w for w in attention_widths(max_len) if w >= need), max_len)
-
-
-def _layer_body(x, layers, i, config, impl, attend, rows_shape):
-    """One decoder layer around ``attend(q, k, v) -> ctx``."""
-    b, s = rows_shape
-    nh, nkv, hd = (config.num_attention_heads, config.num_key_value_heads,
-                   config.head_dim)
-    residual = x
-    hx = bitllama.rms_norm(x, layers["input_layernorm"][i],
-                           config.rms_norm_eps)
-    q, k, v = _project_qkv_flat(hx, layers, i, impl, nkv * hd)
-    ctx = attend(q.reshape(b, s, nh, hd), k.reshape(b, s, nkv, hd),
-                 v.reshape(b, s, nkv, hd))
-    x = residual + _project_flat(ctx.reshape(b, s, nh * hd), layers,
-                                 "o_proj", i, impl)
-    residual = x
-    hx = bitllama.rms_norm(x, layers["post_attention_layernorm"][i],
-                           config.rms_norm_eps)
-    gate, up = _project_gateup_flat(hx, layers, i, impl,
-                                    config.intermediate_size)
-    return residual + _project_flat(F.silu(gate) * up, layers, "down_proj",
-                                    i, impl)
-
-
-def _lm_head(x, params, compute_dtype) -> torch.Tensor:
-    """fp32-accumulated logits (ragged_decode.py:265-267)."""
-    w = params["lm_head"].to(compute_dtype)
-    return torch.matmul(x.float(), w.float().T)
 
 
 def _quant_family(cache):
@@ -154,7 +120,7 @@ def ragged_decode_step(params, cache, input_ids, row_pos, active,
     a device read). Inactive rows are fully masked, but their cache row is
     still written at ``row_pos``. Returns ``(logits [B, 1, V] fp32, cache)``.
     """
-    b, s = input_ids.shape
+    s = input_ids.shape[1]
     if s != 1:
         raise ValueError(f"ragged_decode_step takes one token per row, got {s}")
     device = cache[0].device
@@ -171,7 +137,7 @@ def ragged_decode_step(params, cache, input_ids, row_pos, active,
                                   config, impl)
     layers = params["layers"]
     for i in range(config.num_hidden_layers):
-        x = _layer_body(x, layers, i, config, impl, attend_at(i), (b, 1))
+        x = _decoder_layer(x, layers, i, config, impl, attend_at(i))
 
     x = bitllama.rms_norm(x, params["final_norm"], config.rms_norm_eps)
     return _lm_head(x, params, compute_dtype), cache
@@ -246,7 +212,7 @@ def prefill_rows(params, cache, ids, lengths, rows,
             _prefill_write(cache, i, rows, k, v)
             return bitllama._attention(q, k, v, mask,
                                        num_kv_groups=config.num_kv_groups)
-        x = _layer_body(x, layers, i, config, impl, attend, (r, s_pad))
+        x = _decoder_layer(x, layers, i, config, impl, attend)
 
     x = bitllama.rms_norm(x, params["final_norm"], config.rms_norm_eps)
     last = x[torch.arange(r, device=device), (lengths - 1).clamp(min=0)]

@@ -108,9 +108,10 @@ def test_fused_small_m_matches_plain(dev, dtype, m, k, n_true, ns, seg_pad):
     (1024, 4096, 4096, 1, 4096), (256, 11008, 512, 2, 512)])
 def test_large_m_matches_plain(dev, dtype, m, k, n_true, ns, seg_pad):
     x, g, h, packed, bias = _case(dev, dtype, m, k, n_true, ns, seg_pad)
-    before = bc.LARGE_M.launches
+    info = bc.LARGE_M_F32 if dtype == torch.float32 else bc.LARGE_M
+    before = info.launches
     got = bc.large_m(x, packed, g, h, n_true=n_true)
-    assert bc.LARGE_M.launches == before + 1
+    assert info.launches == before + 1
     _close(got, bc.large_m_torch(x, packed, g, h, n_true=n_true), dtype)
     if ns == 1:
         _close(bc.large_m(x, packed, g, h, n_true=n_true, bias=bias),
@@ -160,7 +161,8 @@ def test_engine_kernel_path_matches_plain(dev):
             impl=impl, compute_dtype=torch.float32)
     torch.cuda.synchronize()
     assert (out["auto"] - out["torch"]).abs().max().item() < 1e-3
-    assert all(k.launches > 0 for k in bc.KERNELS)
+    # fp32 throughout: K3's bf16 instance has nothing to do
+    assert all(k.launches > 0 for k in bc.KERNELS if k is not bc.LARGE_M)
     assert all(len(v) == 4 for v in eng.run().values())
 
 
@@ -512,3 +514,121 @@ def test_paged_engine_kernel_path_matches_plain(dev, quantized_kv):
     assert all(len(v) == 4 for v in eng.run().values())
     m = eng.metrics()
     assert m["free_pages"] == m["total_pages"]
+
+
+# ---------------------------------------------------------------------------
+# B11: causal flash attention
+# ---------------------------------------------------------------------------
+# q of std 5, k and v of N(0, 1): a peaked softmax and a context of order 1.
+# fp32 to 1e-4 (the dots and the PV sum in another order, the softmax online).
+# bf16: both sides round P to bf16 (2**-9 relative) at different scales
+# (the kernel exp(s - m) at the running max, the plain version the normalized
+# probabilities), at most 2**-8 * max|v| apart in fp32 (< 0.02 for |v| < 5),
+# then each rounds the context to bf16, one ulp apart at most (2**-5 below
+# 8): under 1/16. Each (row, head)'s largest |ctx| must be at least 8 times
+# the tolerance.
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 1 / 16}
+
+
+def _flash_case(dev, dtype, b, s, nkv, g, hd, fused, seed=0):
+    """q, k, v on the card. ``fused``: views of one ``[B*S, (nh + 2 nkv) *
+    hd]`` projection output, as a fused q/k/v projection gives them (the
+    sequence stride is the fused width); else three contiguous outputs."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    nh = nkv * g
+    widths = (nh * hd, nkv * hd, nkv * hd)
+    scale = torch.tensor([5.0] * widths[0] + [1.0] * 2 * widths[1],
+                         device=dev)
+    x = torch.randn(b * s, sum(widths), generator=gen, device=dev) * scale
+    x = x.to(dtype)
+    parts = torch.split(x, widths, dim=1)
+    if not fused:
+        parts = [p.contiguous() for p in parts]
+    return [p.view(b, s, n, hd) for p, n in zip(parts, (nh, nkv, nkv))]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("s", [1, 17, 128, 300, 2048])
+def test_flash_attention_matches_plain(dev, dtype, b, g, hd, s):
+    """B = 3 reads strided views of a fused projection output, B = 1
+    contiguous tensors."""
+    from onebit_tpu_torch.kernels import attention as ta
+    from onebit_tpu_torch.kernels import attention_cuda as fc
+    q, k, v = _flash_case(dev, dtype, b, s, 2, g, hd, fused=b > 1)
+    assert (b == 1) == q.is_contiguous()
+    info = fc.FLASH_F32 if dtype == torch.float32 else fc.FLASH_BF16
+    want = ta.flash_causal_attention_torch(q, k, v, num_kv_groups=g)
+    before = info.launches
+    got = ta.flash_causal_attention(q, k, v, num_kv_groups=g)
+    torch.cuda.synchronize()
+    assert info.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert got.is_contiguous() and torch.isfinite(got).all()
+    tol = FLASH_TOL[dtype]
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol, err
+    ctx_scale = want.float().abs().amax(dim=(1, 3)).min().item()
+    assert ctx_scale >= 8 * tol, ctx_scale
+
+
+def test_flash_wrapper_checks_inputs(dev):
+    from onebit_tpu_torch.kernels import attention as ta
+    q, k, v = _flash_case(dev, torch.float32, 2, 40, 2, 2, 64, fused=False)
+
+    def call(q=q, k=k, v=v, g=2):
+        return ta.flash_causal_attention(q, k, v, num_kv_groups=g)
+
+    call()
+    with pytest.raises(TypeError, match="k must be"):
+        call(k=k.to(torch.bfloat16))
+    with pytest.raises(TypeError, match="q must be"):
+        call(q=q.half(), k=k.half(), v=v.half())
+    with pytest.raises(ValueError, match="groups"):
+        call(g=4)
+    with pytest.raises(ValueError, match="contiguous"):
+        call(v=v.transpose(2, 3).contiguous().transpose(2, 3))
+    with pytest.raises(ValueError, match="do not match"):
+        call(k=k[:, :39])
+    with pytest.raises(ValueError, match="head_dim"):
+        x = torch.zeros(2, 8, 4, 96, device=dev)
+        call(q=x, k=x[:, :, :2], v=x[:, :, :2])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_forward_flash_path_matches_plain(dev, dtype):
+    """``forward`` on the card at the tiny config (GQA, hd 64), S = 300:
+    B11 launches once per layer with no mask and not at all with one; the
+    logits agree with impl="torch" (fp32 to 1e-3 as the engine's, bf16 to
+    5e-2 of the largest logit as chip_smoke's)."""
+    import numpy as np
+    from onebit_tpu_torch import BitLlamaConfig, host_random_packed_params
+    from onebit_tpu_torch.kernels import attention_cuda as fc
+    from onebit_tpu_torch.model.bitllama import forward
+    config = BitLlamaConfig.named("tiny", max_position_embeddings=512)
+    params = host_random_packed_params(config, seed=1, dtype=dtype,
+                                       device=dev)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, config.vocab_size, (2, 300))).to(dev)
+    info = fc.FLASH_F32 if dtype == torch.float32 else fc.FLASH_BF16
+    out = {}
+    for impl in ("auto", "torch"):
+        before = info.launches
+        out[impl] = forward(params, ids, config, impl=impl,
+                            compute_dtype=dtype)
+        assert info.launches - before == (config.num_hidden_layers
+                                          if impl == "auto" else 0)
+    before = info.launches
+    masked = forward(params, ids, config, compute_dtype=dtype,
+                     attention_mask=torch.ones_like(ids))
+    assert info.launches == before
+    torch.cuda.synchronize()
+    err = (out["auto"] - out["torch"]).abs().max().item()
+    if dtype == torch.float32:
+        assert err < 1e-3, err
+        assert (masked - out["torch"]).abs().max().item() < 1e-3
+    else:
+        assert err <= 5e-2 * out["torch"].abs().max().item(), err
