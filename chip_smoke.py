@@ -20,7 +20,10 @@ toolkit and PyTorch. It imports nothing of JAX. Phases, one JSON line each:
    (paged attention) on a full-size llama2-7b page pool, bf16 and int8
    pages, the same way; then B11 (causal flash attention) at the llama2-7b
    eval shape [4, 2048, 32, 128] and a GQA case (nkv 8) in fp32 and bf16,
-   beside ``scaled_dot_product_attention(is_causal=True)``;
+   beside ``scaled_dot_product_attention(is_causal=True)``; then its
+   backward kernels B11-dkv and B11-dq at the same shapes, the gradients
+   through B11's autograd rule against autograd through the plain version,
+   beside the backward of ``scaled_dot_product_attention``;
 4. the slice's paths end to end at full llama2-7b width and depth on random
    packed weights (``host_random_packed_params(seed=0)`` and
    ``fuse_for_decode``), each an 8-slot ``ContinuousBatchingEngine``
@@ -48,12 +51,25 @@ toolkit and PyTorch. It imports nothing of JAX. Phases, one JSON line each:
    layer 0) that must break their limit; the uniform model's ppl of 32000;
    ``loglikelihood`` of 16 requests against ``impl="torch"``; ``forward`` in
    bf16; and ``python -m onebit_tpu_torch eval`` on a 2-layer native
-   checkpoint of 7B width, its ppl equal to the in-process one.
+   checkpoint of 7B width, its ppl equal to the in-process one;
+6. KD training at llama2-7b width, depth cut to 4 layers
+   (:func:`train_checks`): a random plain teacher and its SVID start
+   student; the first KD step's loss and gradients on the kernel path
+   against ``impl="torch"`` in fp32 and bf16, and a planted fault (one
+   head's dq zeroed in layer 0) that must break the fp32 limit; three KD
+   steps at the reference recipe (batch 4 x 2048, bf16): finite losses, B11
+   2 x 4 x 3 and B11-dkv, B11-dq 4 x 3 launches, ms per step, training
+   tokens/s, peak memory, device busy share; the trained student packed
+   and one fp32 perplexity batch through K3 and B11; then
+   ``build-start-ckpt``, ``train --tokens`` and ``convert`` on a 2-layer
+   checkpoint of 7B width under ``build/``.
 
 Then the wall time, the ``kernels`` line (each kernel's launches from the
 run of its own path; B6 and B8 are on none; B10's from the paged bf16 and
 int8 runs; K3's fp32 instance's and B11's from the fp32 perplexity run,
-B11 bf16's from the bf16 forward), the
+B11 bf16's from the bf16 forward, B11-dkv's and B11-dq's fp32 instances'
+from the fp32 gradient check of phase 6 and their bf16 instances' from
+its three KD steps), the
 card's name and power
 limit as ``nvidia-smi`` prints them, and a last line ``{"ok": true,
 "device": ...}``. Any failure exits nonzero without that line. Needs one
@@ -64,6 +80,7 @@ this script.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -611,6 +628,152 @@ def flash_kernel_checks(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3, continued: B11's backward (B11-dkv, B11-dq) at the training shape
+# ---------------------------------------------------------------------------
+
+# Each gradient is held, per (row, head), relative to that slice's largest
+# |value|, so that a kernel leaving any head's gradient zero fails (relative
+# error 1). The inputs of B11's check: q of std 5, k, v and do of N(0, 1),
+# gradients of order 1-20. fp32: the kernels sum in another order and
+# recompute P = exp(s - lse) from the forward's log-sum-exp, whose exponent
+# (scores up to about 25, summed over 128 products) carries an error of a
+# few 1e-6, so P, dS and every gradient a relative few 1e-6: 1e-4. bf16:
+# each side rounds its gradients to bf16, at most one ulp apart (2**-7 of
+# the slice's top binade), after rounding operands at different places
+# (the kernels round P to bf16 for dV and keep dS in fp32; the plain
+# version rounds P and dP), relative 2**-9 per term of sums whose terms
+# peak near the result: 2**-6 (the CPU test holds the plain gradient to the
+# Pallas kernels' to the same bound, measured 7.7e-3).
+FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -6}
+
+
+def _flash_bwd_bound(b, s, nh, nkv, hd, dtype, kernel: str) -> tuple:
+    """Least time for one call of a backward kernel: q, do, k, v, and the
+    fp32 lse and di read once, its outputs (dk and dv, or dq) written once;
+    or its products of the causal half, 2 * B * nh * hd * S(S+1)/2 flops
+    each, at the dtype's peak: B11-dkv forms S, dP, dV and dK (4), B11-dq
+    S, dP and dQ (3); the whole backward's five cost 2.5 times B11's two."""
+    elem = 4 if dtype == torch.float32 else 2
+    bytes_ = elem * b * s * hd * (2 * nh + 2 * nkv) + 2 * 4 * b * nh * s
+    bytes_ += elem * b * s * hd * (2 * nkv if kernel == "dkv" else nh)
+    products = 4 if kernel == "dkv" else 3
+    flops = products * 2 * b * nh * hd * s * (s + 1) / 2
+    peak = FP32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / peak
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops
+            else "operations")
+
+
+def _backward_ms(fwd, do, iters: int) -> float:
+    """The time of ``fwd()``'s backward on ``do``: forward plus backward,
+    less the forward alone (each with autograd recording)."""
+    def both():
+        fwd().backward(do)
+
+    return cuda_ms(both, iters, warmup=1) - cuda_ms(fwd, iters, warmup=1)
+
+
+def flash_bwd_kernel_checks(dev) -> dict:
+    """B11-dkv and B11-dq at [4, 2048, 32, 128] (and nkv = 8) in fp32 and
+    bf16: the gradients of q, k and v through B11's autograd rule against
+    autograd through the plain version, per (row, head) within
+    FLASH_BWD_TOL. Each kernel timed alone on the forward's residuals,
+    beside its bound, the plain version's backward and that of one
+    ``scaled_dot_product_attention(is_causal=True)`` on [B, H, S, D]
+    copies (K/V repeated for GQA beforehand), each the whole backward (all
+    three gradients). The ``kernels`` line carries the MHA case."""
+    import torch.nn.functional as F
+    from onebit_tpu_torch.kernels import attention as ta
+    from onebit_tpu_torch.kernels import attention_cuda as fc
+    b, s, nh, hd = FLASH_SHAPE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    results = {}
+    for dtype, dkv_info, dq_info in (
+            (torch.float32, fc.FLASH_DKV_F32, fc.FLASH_DQ_F32),
+            (torch.bfloat16, fc.FLASH_DKV_BF16, fc.FLASH_DQ_BF16)):
+        for nkv in (nh, FLASH_GQA_NKV):
+            g = nh // nkv
+            q = (5 * torch.randn(b, s, nh, hd, generator=gen, device=dev)
+                 ).to(dtype)
+            k, v = (torch.randn(b, s, nkv, hd, generator=gen, device=dev
+                                ).to(dtype) for _ in range(2))
+            do = torch.randn(b, s, nh, hd, generator=gen, device=dev
+                             ).to(dtype)
+            xs = [x.requires_grad_(True) for x in (q, k, v)]
+
+            def grads(fn):
+                for x in xs:
+                    x.grad = None
+                fn(*xs, num_kv_groups=g).backward(do)
+                return [x.grad for x in xs]
+
+            want = grads(ta.flash_causal_attention_torch)
+            got = grads(ta.flash_causal_attention)
+            torch.cuda.synchronize()
+            finite = all(bool(torch.isfinite(x).all()) for x in got)
+            slice_max = [w.float().abs().amax(dim=(1, 3)) for w in want]
+            diff = [(a.float() - w.float()).abs().amax(dim=(1, 3))
+                    for a, w in zip(got, want)]
+            rel = [(d / m).max().item() for d, m in zip(diff, slice_max)]
+            abs_err = dict(zip("qkv", (d.max().item() for d in diff)))
+            floor = min(m.min().item() for m in slice_max)
+            del got, want, slice_max, diff
+            for x in xs:
+                x.grad = None
+            with torch.no_grad():
+                out, lse = fc.launch(q, k, v, g, with_lse=True)
+
+                def di_op():
+                    return (out.float() * do.float()).sum(-1).transpose(
+                        1, 2).contiguous()
+                di = di_op()
+                ms_dkv = cuda_ms(lambda: fc.launch_bwd_dkv(
+                    q, k, v, do, lse, di, g), 3)
+                ms_dq = cuda_ms(lambda: fc.launch_bwd_dq(
+                    q, k, v, do, lse, di, g), 3)
+                ms_di = cuda_ms(di_op, 3)
+            del out, lse, di
+            plain_ms = _backward_ms(lambda: ta.flash_causal_attention_torch(
+                *xs, num_kv_groups=g), do, 2)
+            qt = q.detach().transpose(1, 2).contiguous().requires_grad_(True)
+            kt, vt = (x.detach().repeat_interleave(g, dim=2).transpose(1, 2)
+                      .contiguous().requires_grad_(True) for x in (k, v))
+            dot = do.transpose(1, 2).contiguous()
+            lib_ms = _backward_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), dot, 3)
+            del q, k, v, do, xs, qt, kt, vt, dot
+            torch.cuda.empty_cache()
+            tol = FLASH_BWD_TOL[dtype]
+            ok = finite and max(rel) <= tol
+            for info, kernel, ms, err in (
+                    (dkv_info, "dkv", ms_dkv, max(abs_err["k"],
+                                                  abs_err["v"])),
+                    (dq_info, "dq", ms_dq, abs_err["q"])):
+                bound_ms, bound_by = _flash_bwd_bound(b, s, nh, nkv, hd,
+                                                      dtype, kernel)
+                line = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=lib_ms)
+                if nkv == nh:
+                    results[info.name] = line
+                emit({"phase": "kernel", "name": info.name, "tol": tol,
+                      "ok": ok, "shape": [b, s, nh, hd], "nkv": nkv,
+                      "grads_finite": finite,
+                      "max_rel_err_per_row_head": dict(zip("qkv", rel)),
+                      "min_row_head_max_abs_grad": floor,
+                      "backward_ms": ms_dkv + ms_dq + ms_di, "di_ms": ms_di,
+                      "backward_bound_ms": _flash_bound(
+                          b, s, nh, nkv, hd, dtype)[0] * 2.5,
+                      "note": "plain_ms and library_ms: the whole "
+                              "backward (dq, dk and dv)", **line})
+            if not ok:
+                raise RuntimeError(f"B11 backward ({dtype}, nkv {nkv}): "
+                                   f"finite {finite}, relative errors {rel}")
+    return results
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the slice's paths end to end at llama2-7b width
 # ---------------------------------------------------------------------------
 
@@ -816,6 +979,9 @@ def end_to_end(dev) -> dict:
     del params
     torch.cuda.empty_cache()
     launches.update(eval_checks(unfused, config, dev))
+    del unfused
+    torch.cuda.empty_cache()
+    launches.update(train_checks(dev))
     # B6 and B8, the read-only variants, are on no path of the port
     return {k.name: launches.get(k.name, 0) for k in all_kernels()}
 
@@ -1134,6 +1300,378 @@ def eval_checks(params, config, dev) -> dict:
     return {k.name: launches[k.name] for k in (bc.LARGE_M_F32, *fc.KERNELS)}
 
 
+# ---------------------------------------------------------------------------
+# phase 6: KD training at full llama2-7b width, depth cut to 4 layers
+# ---------------------------------------------------------------------------
+
+# Depth only is cut: at 7B width a layer holds its fp32 latent weights,
+# their gradients and two Adam moments (3.2 GB), its share of the fp32
+# teacher (0.8 GB) and some 9 GB of activations at 4 x 2048 tokens (the
+# latent projections keep fp32 copies for their products), so 4 layers fit
+# one 80 GB card beside the embeddings and the [4, 2048, 32000] logits of
+# the KL; the 32 of llama2-7b need a sharded model (slice 6).
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQLEN, TRAIN_STEPS = 4, 4, 2048, 3
+# The first KD step's loss and each trainable leaf's gradient on the kernel
+# path against impl="torch", relative to the leaf's largest |gradient|.
+# fp32: the two paths differ only in B11's and its backward's summation
+# order and in P recomputed from the log-sum-exp, a few 1e-6 relative
+# (FLASH_BWD_TOL) carried through 4 layers into sums over 8192 tokens:
+# 1e-4, the eval pre-logits' limit. bf16: both paths round activations to
+# bf16 at different places, each a relative 2**-8, through 4 layers: 5e-2,
+# the logits' limit (LOGITS_REL_TOL). The planted fault (layer 0's dq of
+# head 0 zeroed) removes one of 32 heads' share of layer 0's q_proj
+# gradient and must break the fp32 limit.
+TRAIN_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: LOGITS_REL_TOL}
+
+
+def _zero_dq_head_fault(fc, n_layers: int):
+    """Install a planted fault in B11-dq: head 0 of its output zeroed in
+    layer 0 of each backward pass (the backward walks the layers last to
+    first, so layer 0 is the last of each ``n_layers`` calls). Returns the
+    function that removes it."""
+    real = fc.launch_bwd_dq
+    calls = []
+
+    def faulty(*args, **kw):
+        dq = real(*args, **kw)
+        if len(calls) % n_layers == n_layers - 1:
+            dq[:, :, 0] = 0
+        calls.append(1)
+        return dq
+
+    fc.launch_bwd_dq = faulty
+
+    def remove():
+        fc.launch_bwd_dq = real
+    return remove
+
+
+def _kd_grads(config, kd_cfg, params, teacher, batch, dtype, impl):
+    """One remat micro-step of the KD loss (no update), every count set to
+    0 just before it: ``(loss, [grad per trainable leaf], counts)``."""
+    from onebit_tpu_torch.train import trainer as tt
+    loss_fn, teacher_fwd = tt._build_loss(config, kd_cfg,
+                                          tt.TrainConfig(remat=True), dtype,
+                                          impl)
+    leaves = tt.trainable_leaves(params)
+    for p in leaves:
+        p.grad = None
+    torch.cuda.synchronize()
+    reset_counts()
+    loss, _ = loss_fn(params, teacher_fwd(teacher, batch), batch)
+    loss.backward()
+    counts = read_counts()
+    grads = [p.grad for p in leaves]
+    for p in leaves:
+        p.grad = None
+    return loss.item(), grads, counts
+
+
+def _grad_rel(grads, ref) -> float:
+    """The largest over leaves of max |g - g_ref| / max |g_ref|."""
+    return max(((g - r).abs().max() / r.abs().max()).item()
+               for g, r in zip(grads, ref))
+
+
+def _device_ms(prof) -> tuple:
+    """The profiled window's device time (ms, summed over kernels) and its
+    ten largest kernels by device time."""
+    from torch.autograd import DeviceType
+    kernels = {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        for name in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(evt, name):
+                kernels[evt.key[:80]] = float(getattr(evt, name)) / 1e3
+                break
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    return sum(kernels.values()), [{"name": k, "ms": v} for k, v in top]
+
+
+def train_checks(dev) -> dict:
+    """KD training at llama2-7b width, 4 layers (TRAIN_LAYERS):
+
+    (a) a random plain teacher (``init_params`` mode "linear", fp32,
+        ``torch.Generator`` seed 0) and its SVID start student
+        (``build_start_params``);
+    (b) the first KD step's loss and gradients at batch 4 x 2048 with
+        remat, kernel path against impl="torch", in fp32 and in bf16
+        (TRAIN_GRAD_TOL); B11 launches 3 times a layer (student, its
+        recomputation, teacher), B11-dkv and B11-dq once;
+    (c) the fp32 step again with a planted fault in B11-dq
+        (:func:`_zero_dq_head_fault`), which must break the limit;
+    (d) three KD steps (``make_train_step``) at the reference recipe
+        (kd_alpha 1, kd_beta 1, kd_loss_scale 0.01, kd_gamma 0; bf16
+        compute; AdamW (0.9, 0.98), wd 0.01, cosine with warmup 1), no
+        remat, every count set to 0 before them: finite losses, B11 (bf16)
+        exactly 2 x 4 x 3 launches, B11-dkv and B11-dq 4 x 3; ms per step,
+        training tokens/s, peak memory, the device busy share (the third
+        step profiled);
+    (e) ``pack_model_params`` of the trained student, then one fp32
+        perplexity batch on the kernel path (K3, B11) against impl="torch".
+
+    Returns the backward kernels' launches: fp32 from (b), bf16 from (d)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from onebit_tpu_torch import BitLlamaConfig
+    from onebit_tpu_torch.core.build_start import build_start_params
+    from onebit_tpu_torch.eval import ppl as ppl_mod
+    from onebit_tpu_torch.kernels import attention_cuda as fc
+    from onebit_tpu_torch.kernels import bitlinear_cuda as bc
+    from onebit_tpu_torch.model.bitllama import init_params, pack_model_params
+    from onebit_tpu_torch.train.data import batch_iterator
+    from onebit_tpu_torch.train.losses import KDConfig
+    from onebit_tpu_torch.train.trainer import (TrainConfig,
+                                                init_train_state,
+                                                make_train_step)
+    L = TRAIN_LAYERS
+    config = BitLlamaConfig.named("llama2-7b", num_hidden_layers=L)
+    emit({"phase": "train_config", "config": "llama2-7b", "layers": L,
+          "full_depth": 32, "batch": [TRAIN_BATCH, TRAIN_SEQLEN],
+          "reduced": "depth 32 -> 4: at 7B width a layer's fp32 latent "
+                     "weights, gradients, Adam moments, teacher share and "
+                     "activations take about 13 GB; 32 layers need a "
+                     "sharded model (slice 6)"})
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    teacher = init_params(config, gen, mode="linear", device=dev)
+    student = build_start_params(teacher)
+    torch.cuda.synchronize()
+    emit({"phase": "train_start", "seconds": time.perf_counter() - t0,
+          "teacher": "linear fp32, torch.Generator seed 0",
+          "student_h_finite": all(
+              bool(torch.isfinite(student["layers"][n].weight_scale).all())
+              for n in ("q_proj", "down_proj"))})
+    kd_cfg = KDConfig(kd_alpha=1.0, kd_beta=1.0, kd_gamma=0.0,
+                      kd_loss_scale=0.01)
+    rng = np.random.default_rng(7)
+    blocks = rng.integers(3, config.vocab_size,
+                          (TRAIN_STEPS * TRAIN_BATCH, TRAIN_SEQLEN)
+                          ).astype(np.int32)
+    first = {k: torch.from_numpy(blocks[:TRAIN_BATCH]).long().to(dev)
+             for k in ("input_ids", "labels")}
+    launches = {}
+
+    # (b), (c): the first step's gradients, kernel path against impl="torch"
+    for dtype, fwd, dkv, dq in (
+            (torch.float32, fc.FLASH_F32, fc.FLASH_DKV_F32, fc.FLASH_DQ_F32),
+            (torch.bfloat16, fc.FLASH_BF16, fc.FLASH_DKV_BF16,
+             fc.FLASH_DQ_BF16)):
+        loss_k, g_k, counts = _kd_grads(config, kd_cfg, student, teacher,
+                                        first, dtype, "auto")
+        loss_t, g_t, counts_t = _kd_grads(config, kd_cfg, student, teacher,
+                                          first, dtype, "torch")
+        rel = _grad_rel(g_k, g_t)
+        loss_rel = abs(loss_k - loss_t) / abs(loss_t)
+        del g_k
+        tol = TRAIN_GRAD_TOL[dtype]
+        line = {"phase": "train_grads", "dtype": str(dtype)[6:],
+                "remat": True, "loss": loss_k, "loss_torch": loss_t,
+                "loss_rel_err": loss_rel, "grad_max_rel_err": rel,
+                "rel_tol": tol,
+                "launches": {k: v for k, v in counts.items() if v},
+                "launches_torch": {k: v for k, v in counts_t.items() if v}}
+        want = {fwd.name: 3 * L, dkv.name: L, dq.name: L}
+        counted = {k: v for k, v in counts.items() if v and "flash" in k}
+        ok = (math.isfinite(loss_k) and rel <= tol and loss_rel <= tol
+              and counted == want and not any(counts_t.values()))
+        if dtype == torch.float32:
+            launches.update({dkv.name: counts[dkv.name],
+                             dq.name: counts[dq.name]})
+            remove = _zero_dq_head_fault(fc, L)
+            try:
+                _, g_f, _ = _kd_grads(config, kd_cfg, student, teacher,
+                                      first, dtype, "auto")
+            finally:
+                remove()
+            line["fault"] = "B11-dq of head 0 of layer 0 zeroed"
+            line["fault_grad_max_rel_err"] = _grad_rel(g_f, g_t)
+            ok = ok and line["fault_grad_max_rel_err"] > tol
+            del g_f
+        del g_t
+        torch.cuda.empty_cache()
+        emit(line)
+        if not ok:
+            raise RuntimeError(f"train gradients disagree, launches are not "
+                               f"{want}, or the planted fault passes: {line}")
+
+    # (d) three KD steps at the reference recipe
+    train_cfg = TrainConfig(warmup_steps=1, total_steps=TRAIN_STEPS)
+    state = init_train_state(student, train_cfg)
+    step = make_train_step(config, kd_cfg, train_cfg,
+                           compute_dtype=torch.bfloat16)
+    batches = batch_iterator(blocks, TRAIN_BATCH, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    step_s, metrics = [], []
+    for i in range(TRAIN_STEPS):
+        batch = next(batches)
+        t = time.perf_counter()
+        if i == TRAIN_STEPS - 1:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                state, m = step(state, teacher, batch)
+                torch.cuda.synchronize()
+        else:
+            state, m = step(state, teacher, batch)
+            torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        metrics.append({k: v.item() for k, v in m.items()})
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    device_ms, top = _device_ms(prof)
+    steady_s = step_s[1]
+    want = {fc.FLASH_BF16.name: 2 * L * TRAIN_STEPS,
+            fc.FLASH_DKV_BF16.name: L * TRAIN_STEPS,
+            fc.FLASH_DQ_BF16.name: L * TRAIN_STEPS}
+    counted = {k: v for k, v in counts.items() if v and "flash" in k}
+    finite = all(math.isfinite(v) for m in metrics for v in m.values())
+    line = {"phase": "train", "steps": TRAIN_STEPS, "layers": L,
+            "batch": [TRAIN_BATCH, TRAIN_SEQLEN], "dtype": "bfloat16",
+            "recipe": "kd_alpha 1, kd_beta 1, kd_loss_scale 0.01, kd_gamma "
+                      "0; AdamW (0.9, 0.98), wd 0.01, lr 4e-4, cosine, "
+                      "warmup 1, clip 1.0",
+            "metrics": metrics, "step_s": step_s,
+            "ms_per_step": steady_s * 1e3,
+            "train_tok_per_s": TRAIN_BATCH * TRAIN_SEQLEN / steady_s,
+            "peak_mem_gb": peak_gb,
+            "profiled_step_device_ms": device_ms,
+            "device_busy_share": device_ms / (steady_s * 1e3),
+            "profiled_step_top_kernels": top,
+            "launches": {k: v for k, v in counts.items() if v}}
+    emit(line)
+    if not finite or counted != want:
+        raise RuntimeError(f"KD steps: non-finite metrics or launches not "
+                           f"{want}: {line}")
+    launches.update({k: counts[k] for k in (fc.FLASH_DKV_BF16.name,
+                                            fc.FLASH_DQ_BF16.name)})
+    del teacher
+    torch.cuda.empty_cache()
+
+    # (e) pack the trained student, one fp32 perplexity batch
+    packed = pack_model_params(state.params)
+    del state, student
+    torch.cuda.empty_cache()
+    tokens = blocks[:TRAIN_BATCH].reshape(-1)
+    nlls, counts = {}, {}
+    for impl in ("auto", "torch"):
+        torch.cuda.synchronize()
+        reset_counts()
+        nlls[impl] = ppl_mod.window_nlls(packed, config, tokens,
+                                         seqlen=TRAIN_SEQLEN,
+                                         batch_size=TRAIN_BATCH, impl=impl)
+        counts[impl] = read_counts()
+    rel = float((np.abs(nlls["auto"] - nlls["torch"])
+                 / np.abs(nlls["torch"])).max())
+    k = counts["auto"]
+    line = {"phase": "train_packed_ppl", "window_nll": nlls["auto"].tolist(),
+            "ppl": ppl_mod.ppl_from_nlls(nlls["auto"], TRAIN_SEQLEN),
+            "max_rel_err_vs_torch": rel, "rel_tol": EVAL_NLL_REL_TOL,
+            "launches": {n: v for n, v in k.items() if v}}
+    emit(line)
+    if not (np.isfinite(nlls["auto"]).all() and rel <= EVAL_NLL_REL_TOL
+            and k[fc.FLASH_F32.name] == L and k[bc.LARGE_M_F32.name] > 0
+            and not any(counts["torch"].values())):
+        raise RuntimeError(f"the packed student's perplexity: {line}")
+    del packed
+    torch.cuda.empty_cache()
+    train_cli_check(dev)
+    return launches
+
+
+def train_cli_check(dev) -> None:
+    """The command line on a 2-layer checkpoint of 7B width under
+    ``build/smoke_train``: ``build-start-ckpt`` from a bf16 plain teacher,
+    ``train --tokens`` (2 steps at 4 x 2048, warmup 1), ``convert``. The
+    logged final loss must equal two in-process steps of ``run_kd``'s
+    train step on the same checkpoints and batches, and the packed
+    checkpoint's signs those of the trained latent weights. The directory
+    (some 10 GB) is removed after."""
+    import shutil
+
+    from onebit_tpu_torch import BitLlamaConfig, load_native, save_native
+    from onebit_tpu_torch.model.bitllama import init_params, pack_model_params
+    from onebit_tpu_torch.train.data import batch_iterator
+    from onebit_tpu_torch.train.losses import KDConfig
+    from onebit_tpu_torch.train.run_kd import KDRunConfig
+    from onebit_tpu_torch.train.trainer import (TrainConfig, clone_params,
+                                                init_train_state,
+                                                make_train_step)
+    small = BitLlamaConfig.named("llama2-7b", num_hidden_layers=2)
+    root = os.path.join(ROOT, "build", "smoke_train")
+    shutil.rmtree(root, ignore_errors=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    save_native(os.path.join(root, "teacher"), small,
+                init_params(small, gen, mode="linear", dtype=torch.bfloat16,
+                            device=dev))
+    blocks = np.random.default_rng(8).integers(
+        3, small.vocab_size, (2 * TRAIN_BATCH, TRAIN_SEQLEN)).astype(np.int32)
+    np.save(os.path.join(root, "blocks.npy"), blocks)
+    seconds = {}
+
+    def cli(*args):
+        t = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "onebit_tpu_torch",
+                              *args], cwd=ROOT, capture_output=True,
+                             text=True, timeout=600)
+        seconds[args[0]] = time.perf_counter() - t
+        if run.returncode != 0:
+            raise RuntimeError(f"{args[0]} failed:\n{run.stderr[-3000:]}")
+
+    try:
+        cli("build-start-ckpt", os.path.join(root, "teacher"),
+            os.path.join(root, "start"))
+        cli("train", "--student", os.path.join(root, "start"), "--teacher",
+            os.path.join(root, "teacher"), "--tokens",
+            os.path.join(root, "blocks.npy"), "--batch-size",
+            str(TRAIN_BATCH), "--max-steps", "2", "--warmup-steps", "1",
+            "--save-total-limit", "1", "--output-dir",
+            os.path.join(root, "out"))
+        cli("convert", os.path.join(root, "out", "final"),
+            os.path.join(root, "packed"))
+        with open(os.path.join(root, "out", "trainer_log.jsonl")) as f:
+            log = [json.loads(line) for line in f]
+        start = load_native(os.path.join(root, "start"), device=dev)
+        teacher = load_native(os.path.join(root, "teacher"), device=dev)
+        # what run_kd does for these flags: 2 steps of warmup 1 (the CLI's
+        # --warmup-steps 1 < total 2 is kept), seed 42's batches
+        run_cfg = KDRunConfig()
+        train_cfg = TrainConfig(warmup_steps=1, total_steps=2)
+        kd_cfg = KDConfig(kd_alpha=1.0, kd_beta=1.0, kd_gamma=0.0,
+                          kd_loss_scale=0.01)
+        state = init_train_state(clone_params(start["params"]), train_cfg)
+        del start
+        step = make_train_step(small, kd_cfg, train_cfg,
+                               compute_dtype=run_cfg.compute_dtype)
+        it = batch_iterator(blocks, TRAIN_BATCH, seed=run_cfg.seed)
+        for _ in range(2):
+            state, m = step(state, teacher["params"], next(it))
+        loss = m["loss"].item()
+        del teacher
+        final = load_native(os.path.join(root, "out", "final"), device=dev)
+        packed = load_native(os.path.join(root, "packed"), device=dev)
+        want = pack_model_params(final["params"])
+        same_signs = all(torch.equal(packed["params"]["layers"][n].packed,
+                                     want["layers"][n].packed)
+                         for n in ("q_proj", "k_proj", "v_proj", "o_proj",
+                                   "gate_proj", "up_proj", "down_proj"))
+        line = {"phase": "train_cli", "ckpt_layers": 2,
+                "cli_final_loss": log[-1]["loss"], "in_process_loss": loss,
+                "rel_tol": 1e-5, "log_steps": [e["current_steps"]
+                                              for e in log],
+                "checkpoints": sorted(os.listdir(os.path.join(root, "out"))),
+                "packed_signs_equal": same_signs, "seconds": seconds}
+        emit(line)
+        if not (abs(log[-1]["loss"] / loss - 1) <= 1e-5 and same_signs):
+            raise RuntimeError(f"the train command line: {line}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is present", file=sys.stderr)
@@ -1167,6 +1705,7 @@ def main() -> int:
     results.update(kv_kernel_checks(dev))
     results.update(paged_kernel_checks(dev))
     results.update(flash_kernel_checks(dev))
+    results.update(flash_bwd_kernel_checks(dev))
     launches = end_to_end(dev)
     emit({"phase": "done", "wall_s": time.perf_counter() - t_wall})
     emit({"kernels": [

@@ -30,10 +30,19 @@ reference protocol), ``loglikelihood`` and ``loglikelihood_rolling``;
 ``load_native`` / ``save_native`` read and write the JAX package's native
 checkpoints, and ``python -m onebit_tpu_torch eval --ckpt DIR --tokens
 FILE.npy`` prints the perplexity of a token stream.
+
+Training distills a BitLlama student from a plain (FP) teacher, as the
+reference does: ``build_start_params`` makes the SVID start checkpoint,
+``make_train_step`` / ``run_kd`` run KD steps on the student's latent
+weights (each unpadded layer's attention in B11 and its backward kernels
+B11-dkv and B11-dq on the card), and ``pack_model_params`` packs the result
+for serving; ``python -m onebit_tpu_torch build-start-ckpt | train |
+convert`` does the same on native checkpoints.
 """
 
 from onebit_tpu_torch.ckpt.native import load_native, save_native
-from onebit_tpu_torch.convert import params_from_jax
+from onebit_tpu_torch.convert import params_from_jax, params_to_numpy
+from onebit_tpu_torch.core.build_start import build_start_params
 from onebit_tpu_torch.engine.batching import ContinuousBatchingEngine
 from onebit_tpu_torch.engine.paged import (PagedKVCache, QuantPagedKVCache,
                                            init_paged_kv_cache)
@@ -42,21 +51,29 @@ from onebit_tpu_torch.eval.loglikelihood import loglikelihood
 from onebit_tpu_torch.eval.ppl import perplexity
 from onebit_tpu_torch.eval.rolling import loglikelihood_rolling
 from onebit_tpu_torch.kernels.linear import LinearWeights
-from onebit_tpu_torch.model.bitllama import forward, fuse_for_decode
+from onebit_tpu_torch.model.bitllama import (forward, fuse_for_decode,
+                                             init_params, pack_model_params)
 from onebit_tpu_torch.model.config import BitLlamaConfig
 from onebit_tpu_torch.model.kv_cache import (QuantKVCache, QuantKVCacheKT,
                                              QuantKVCacheKT4,
                                              init_quant_kv_cache,
                                              init_quant_kv_cache_kt,
                                              init_quant_kv_cache_kt4)
+from onebit_tpu_torch.train.losses import KDConfig
+from onebit_tpu_torch.train.run_kd import KDRunConfig, run_kd
+from onebit_tpu_torch.train.trainer import (TrainConfig, init_train_state,
+                                            make_train_step)
 from onebit_tpu_torch.utils.randinit import host_random_packed_params
 
 __all__ = [
-    "BitLlamaConfig", "ContinuousBatchingEngine", "LinearWeights",
-    "PagedKVCache", "QuantKVCache", "QuantKVCacheKT", "QuantKVCacheKT4",
-    "QuantPagedKVCache", "SamplingConfig", "forward", "fuse_for_decode",
-    "host_random_packed_params", "init_paged_kv_cache", "init_quant_kv_cache",
-    "init_quant_kv_cache_kt", "init_quant_kv_cache_kt4", "load_native",
-    "loglikelihood", "loglikelihood_rolling", "params_from_jax", "perplexity",
-    "save_native",
+    "BitLlamaConfig", "ContinuousBatchingEngine", "KDConfig", "KDRunConfig",
+    "LinearWeights", "PagedKVCache", "QuantKVCache", "QuantKVCacheKT",
+    "QuantKVCacheKT4", "QuantPagedKVCache", "SamplingConfig", "TrainConfig",
+    "build_start_params", "forward", "fuse_for_decode",
+    "host_random_packed_params", "init_paged_kv_cache", "init_params",
+    "init_quant_kv_cache", "init_quant_kv_cache_kt",
+    "init_quant_kv_cache_kt4", "init_train_state", "load_native",
+    "loglikelihood", "loglikelihood_rolling", "make_train_step",
+    "pack_model_params", "params_from_jax", "params_to_numpy", "perplexity",
+    "run_kd", "save_native",
 ]

@@ -1,14 +1,23 @@
 """Command line of the PyTorch port.
 
+    python -m onebit_tpu_torch build-start-ckpt TEACHER_DIR OUT_DIR \\
+        [--method power|nmf] [--num-iters 50] [--device cuda|cpu]
+    python -m onebit_tpu_torch train --student DIR --teacher DIR \\
+        --tokens BLOCKS.npy [--output-dir out] [--batch-size 4] \\
+        [--max-steps N] [KD and optimizer flags] [--device cuda|cpu]
+    python -m onebit_tpu_torch convert TRAIN_CKPT OUT_DIR [--device ...]
     python -m onebit_tpu_torch eval --ckpt DIR --tokens FILE.npy \\
         [--seqlen 2048] [--batch-size 4] [--limit N] [--vocab-chunk N] \\
         [--expect FILE.json] [--device cuda|cpu]
 
-Port of the ``--tokens`` path of ``onebit_tpu/cli.py`` ``cmd_eval``: the
-windowed perplexity of a pre-tokenized stream (``.npy``) under a native
-checkpoint (``config.json`` + ``params.npz``), printed as one JSON line,
-then checked against pinned numbers with ``--expect``. The other sources
-of the JAX command exit nonzero, naming what they wait for.
+Port of ``onebit_tpu/cli.py``'s pipeline on native checkpoints
+(``config.json`` + ``params.npz``): the SVID start checkpoint from a plain
+teacher, KD training on pre-tokenized blocks (``[N, S]`` ``.npy``), packing
+for inference, and the windowed perplexity of a pre-tokenized stream,
+printed as one JSON line and checked against pinned numbers with
+``--expect``. What is not ported yet (text datasets and tokenizers,
+sharded and reference checkpoints, ``--dry-compile``) exits nonzero,
+naming what it waits for.
 """
 
 from __future__ import annotations
@@ -17,6 +26,8 @@ import argparse
 import json
 import os
 import sys
+
+from onebit_tpu_torch.train.data import TEXT_DATASETS_WAIT_FOR
 
 # flag -> what it waits for (ROADMAP.md)
 WAITING = {
@@ -30,6 +41,24 @@ WAITING = {
                  "repository does not hold",
     "check_engines": "engine/generate.py, among slice 3's leftovers",
     "decontaminate": "--tasks and tools/decontam/",
+}
+
+
+_TEXT = TEXT_DATASETS_WAIT_FOR
+_PARALLEL = "slice 6 of the PyTorch port (parallelism)"
+# train flag -> what it waits for
+WAITING_TRAIN = {
+    "data": _TEXT, "dataset": _TEXT, "tokenizer": _TEXT,
+    "config": "a port of the JAX command's yaml/json argument files",
+    "sharded_ckpt": "orbax sharded train states, " + _PARALLEL,
+    "dry_compile": "parallel/memplan.py, " + _PARALLEL,
+    "model": "--dry-compile", "mesh": "--dry-compile", "hbm_gb":
+    "--dry-compile",
+}
+WAITING_CONVERT = {
+    "reference": "export_reference_int8 and safetensors, which the "
+                 "repository does not hold",
+    "sharded": "sharded checkpoints, " + _PARALLEL,
 }
 
 
@@ -69,10 +98,84 @@ def _check_expect(results, path: str) -> None:
         raise SystemExit("expectation failures:\n" + "\n".join(failures))
 
 
+def _load_native(path: str, device):
+    """A native checkpoint, or exit naming what other kinds wait for."""
+    from onebit_tpu_torch.ckpt.native import load_native
+    if not os.path.exists(os.path.join(path, "params.npz")):
+        raise SystemExit(f"{path} is not a native checkpoint (config.json + "
+                         "params.npz); sharded and reference HF checkpoints "
+                         "are not ported yet")
+    return load_native(path, device=device)
+
+
+def cmd_build_start(args) -> None:
+    from onebit_tpu_torch.ckpt.native import save_native
+    from onebit_tpu_torch.core.build_start import build_start_params
+
+    loaded = _load_native(args.teacher, args.device)
+    start = build_start_params(loaded["params"], method=args.method,
+                               num_iters=args.num_iters)
+    save_native(args.out, loaded["config"], start)
+    print(f"start checkpoint written to {args.out}")
+
+
+def cmd_convert(args) -> None:
+    from onebit_tpu_torch.ckpt.native import save_native
+    from onebit_tpu_torch.model.bitllama import pack_model_params
+
+    if args.format != "native":
+        raise SystemExit(f"--format {args.format} is not ported yet: it "
+                         f"waits for {WAITING_CONVERT[args.format]}")
+    loaded = _load_native(args.ckpt, args.device)
+    save_native(args.out, loaded["config"],
+                pack_model_params(loaded["params"]))
+    print(f"packed inference checkpoint (native) -> {args.out}")
+
+
+def cmd_train(args) -> None:
+    import numpy as np
+
+    from onebit_tpu_torch.train.losses import KDConfig
+    from onebit_tpu_torch.train.run_kd import KDRunConfig, run_kd
+    from onebit_tpu_torch.train.trainer import TrainConfig
+    from onebit_tpu_torch.train.validate import validate_kd
+
+    for flag, why in WAITING_TRAIN.items():
+        if getattr(args, flag):
+            raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet: "
+                             f"it waits for {why}")
+    if not (args.student and args.teacher and args.tokens):
+        raise SystemExit("train needs --student DIR, --teacher DIR and "
+                         "--tokens BLOCKS.npy (pre-tokenized [N, S] blocks)")
+    student = _load_native(args.student, args.device)
+    teacher = _load_native(args.teacher, args.device)
+    config = student["config"]
+    blocks = np.load(args.tokens)
+    print(f"dataset: {blocks.shape[0]} blocks x {blocks.shape[1]}")
+    kd_cfg = KDConfig(kd_alpha=args.kd_alpha, kd_beta=args.kd_beta,
+                      kd_gamma=args.kd_gamma,
+                      kd_loss_scale=args.kd_loss_scale)
+    train_cfg = TrainConfig(learning_rate=args.learning_rate,
+                            warmup_steps=args.warmup_steps,
+                            weight_decay=args.weight_decay,
+                            remat=args.remat)
+    run_cfg = KDRunConfig(output_dir=args.output_dir,
+                          batch_size=args.batch_size,
+                          num_epochs=args.num_epochs,
+                          max_steps=args.max_steps,
+                          save_steps=args.save_steps,
+                          save_total_limit=args.save_total_limit,
+                          resume_from=args.resume_from)
+    # student-vs-teacher cross-checks need both configs; run_kd validates
+    # the rest (reference get_train_args, core.py:81-215)
+    validate_kd(kd_cfg, config, teacher["config"])
+    run_kd(config, student["params"], teacher["params"], blocks,
+           kd_cfg=kd_cfg, train_cfg=train_cfg, run_cfg=run_cfg)
+
+
 def cmd_eval(args) -> None:
     import numpy as np
 
-    from onebit_tpu_torch.ckpt.native import load_native
     from onebit_tpu_torch.eval.ppl import perplexity
 
     for flag, why in WAITING.items():
@@ -82,11 +185,7 @@ def cmd_eval(args) -> None:
     if not args.tokens:
         raise SystemExit("eval needs --tokens FILE.npy (a pre-tokenized "
                          "stream)")
-    if not os.path.exists(os.path.join(args.ckpt, "params.npz")):
-        raise SystemExit(f"{args.ckpt} is not a native checkpoint (config.json"
-                         " + params.npz); sharded and reference HF "
-                         "checkpoints are not ported yet")
-    loaded = load_native(args.ckpt, device=args.device)
+    loaded = _load_native(args.ckpt, args.device)
     results = {"ppl": perplexity(
         loaded["params"], loaded["config"], np.load(args.tokens),
         seqlen=args.seqlen, batch_size=args.batch_size, limit=args.limit,
@@ -96,9 +195,65 @@ def cmd_eval(args) -> None:
         _check_expect(results, args.expect)
 
 
+def _device_flag(parser) -> None:
+    parser.add_argument("--device", default="cuda",
+                        help="where to run: cuda (default) or cpu")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="onebit_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    b = sub.add_parser("build-start-ckpt", help="SVID init from a teacher")
+    b.add_argument("teacher", help="native checkpoint of the plain teacher")
+    b.add_argument("out")
+    b.add_argument("--method", default="power", choices=["power", "nmf"])
+    b.add_argument("--num-iters", type=int, default=50)
+    _device_flag(b)
+    b.set_defaults(fn=cmd_build_start)
+
+    c = sub.add_parser("convert", help="pack a train checkpoint for "
+                       "inference")
+    c.add_argument("ckpt")
+    c.add_argument("out")
+    c.add_argument("--format", default="native",
+                   choices=["native", "reference", "sharded"])
+    _device_flag(c)
+    c.set_defaults(fn=cmd_convert)
+
+    t = sub.add_parser("train", help="KD training")
+    t.add_argument("--student", help="native start checkpoint (latent)")
+    t.add_argument("--teacher", help="native teacher checkpoint")
+    t.add_argument("--tokens", help="pre-tokenized blocks .npy [N, S]")
+    t.add_argument("--output-dir", default="out")
+    t.add_argument("--batch-size", type=int, default=4)
+    t.add_argument("--num-epochs", type=int, default=50)
+    t.add_argument("--max-steps", type=int)
+    t.add_argument("--save-steps", type=int, default=5000)
+    t.add_argument("--save-total-limit", type=int, default=None,
+                   help="keep only the newest N checkpoints (HF Trainer "
+                   "save_total_limit)")
+    t.add_argument("--resume-from", help="a checkpoint-N directory")
+    t.add_argument("--learning-rate", type=float, default=4e-4)
+    t.add_argument("--warmup-steps", type=int, default=500)
+    t.add_argument("--weight-decay", type=float, default=0.01)
+    t.add_argument("--kd-alpha", type=float, default=1.0)
+    t.add_argument("--kd-beta", type=float, default=1.0)
+    t.add_argument("--kd-gamma", type=float, default=0.0)
+    t.add_argument("--kd-loss-scale", type=float, default=0.01)
+    t.add_argument("--remat", action="store_true",
+                   help="recompute decoder layers in the backward pass "
+                   "(gradient checkpointing, reference core.py:254-263)")
+    _device_flag(t)
+    for flag in ("data", "dataset", "tokenizer", "config", "model",
+                 "mesh", "hbm_gb"):
+        t.add_argument(f"--{flag.replace('_', '-')}", help="not ported yet")
+    t.add_argument("--cutoff-len", type=int, default=2048,
+                   help="block length of text datasets (not ported yet)")
+    for flag in ("sharded_ckpt", "dry_compile"):
+        t.add_argument(f"--{flag.replace('_', '-')}", action="store_true",
+                       help="not ported yet")
+    t.set_defaults(fn=cmd_train)
     e = sub.add_parser("eval", help="perplexity of a token stream")
     e.add_argument("--ckpt", required=True, help="native checkpoint dir")
     e.add_argument("--tokens", help="pre-tokenized stream .npy for ppl")
@@ -110,8 +265,7 @@ def build_parser() -> argparse.ArgumentParser:
                    "size (online logsumexp)")
     e.add_argument("--expect", help="pinned expected-numbers JSON; exits "
                    "nonzero when any metric misses its tolerance")
-    e.add_argument("--device", default="cuda",
-                   help="where to run: cuda (default) or cpu")
+    _device_flag(e)
     for flag in ("corpus", "wikitext", "tasks", "tokenizer",
                  "decontaminate"):
         e.add_argument(f"--{flag}", help="not ported yet")

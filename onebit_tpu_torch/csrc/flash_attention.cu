@@ -16,7 +16,10 @@
 //   unrounded P, cast to T. Every query sees key 0, so no row is ever fully
 //   masked. Keys above the diagonal contribute exact zeros in the masked
 //   softmax of the plain version, so skipping them computes the same
-//   function.
+//   function. When asked (lse != nullptr), the row's log-sum-exp of the
+//   scaled scores, m + log l in fp32, goes to lse [B, nh, S]: the residual
+//   the backward kernels (flash_attention_bwd.cu) recompute P from, as the
+//   upstream kernel's l and m are.
 //
 // Bound on an H100: operations. The causal half costs 4 * B * nh * HD *
 // S(S+1)/2 flops, which at llama2-7b's eval shape (4 x 2048 x 32 x 128) is
@@ -43,96 +46,11 @@
 //   * every global offset is 64-bit.
 // Not done yet: mma.sync / wgmma on bf16 tiles, cp.async or TMA pipelining,
 // warp specialisation.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_attention_common.cuh"
 
 namespace onebit_flash {
-
-constexpr int kThreads = 256;
-constexpr int kTile = 64;  // queries per CTA, keys per tile
-constexpr int kPad = 4;    // floats of padding per Q/K/P row in shared memory
-
-// v rounded to T's precision, as a float.
-template <typename T>
-__device__ __forceinline__ float round_to(float v);
-template <>
-__device__ __forceinline__ float round_to<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// 16 bytes of T, stored to shared memory as floats.
-template <typename T>
-struct Convert;
-
-template <>
-struct Convert<float> {
-  __device__ __forceinline__ static void store(float* dst, const uint4& r) {
-    *reinterpret_cast<float4*>(dst) =
-        make_float4(__uint_as_float(r.x), __uint_as_float(r.y),
-                    __uint_as_float(r.z), __uint_as_float(r.w));
-  }
-  __device__ __forceinline__ static void store4(float* dst, const float4& v) {
-    *reinterpret_cast<float4*>(dst) = v;
-  }
-};
-
-template <>
-struct Convert<__nv_bfloat16> {
-  // element 2w is the low half of word w (little-endian)
-  __device__ __forceinline__ static void store(float* dst, const uint4& r) {
-    reinterpret_cast<float4*>(dst)[0] = make_float4(
-        __uint_as_float(r.x << 16), __uint_as_float(r.x & 0xffff0000u),
-        __uint_as_float(r.y << 16), __uint_as_float(r.y & 0xffff0000u));
-    reinterpret_cast<float4*>(dst)[1] = make_float4(
-        __uint_as_float(r.z << 16), __uint_as_float(r.z & 0xffff0000u),
-        __uint_as_float(r.w << 16), __uint_as_float(r.w & 0xffff0000u));
-  }
-  // 4 floats rounded to bf16, stored as 8 bytes
-  __device__ __forceinline__ static void store4(__nv_bfloat16* dst,
-                                                const float4& v) {
-    *reinterpret_cast<uint2*>(dst) = make_uint2(pair(v.x, v.y),
-                                                pair(v.z, v.w));
-  }
-  __device__ __forceinline__ static uint32_t pair(float lo, float hi) {
-    return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
-           ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
-  }
-};
-
-// Rows [r0, r0 + kTile) of one head, row r at base + r * row_stride, into
-// shared rows of ld floats; rows at or past S are zeros.
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* sm, int ld, const T* base,
-                                          long long row_stride, int r0,
-                                          int S) {
-  constexpr int VEC = 16 / sizeof(T);            // elements per 16 bytes
-  constexpr int VPR = HD / VEC;                  // 16-byte loads per row
-  constexpr int PER = kTile * VPR / kThreads;    // loads per thread
-  static_assert(kTile * VPR % kThreads == 0, "tile loads");
-  uint4 r[PER];
-#pragma unroll
-  for (int n = 0; n < PER; ++n) {
-    const int idx = threadIdx.x + n * kThreads;
-    const int row = r0 + idx / VPR;
-    r[n] = make_uint4(0, 0, 0, 0);
-    if (row < S)
-      r[n] = __ldg(reinterpret_cast<const uint4*>(
-          base + (long long)row * row_stride + (idx % VPR) * VEC));
-  }
-#pragma unroll
-  for (int n = 0; n < PER; ++n) {
-    const int idx = threadIdx.x + n * kThreads;
-    Convert<T>::store(sm + (idx / VPR) * ld + (idx % VPR) * VEC, r[n]);
-  }
-}
-
-__device__ __forceinline__ float comp(const float4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
-}
 
 template <int HD>
 constexpr size_t smem_bytes() {
@@ -143,9 +61,10 @@ constexpr size_t smem_bytes() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_causal(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int S, int nh,
-             int G, long long q_sb, long long q_ss, long long k_sb,
-             long long k_ss, long long v_sb, long long v_ss, float scale) {
+             const T* __restrict__ v, T* __restrict__ out,
+             float* __restrict__ lse, int S, int nh, int G, long long q_sb,
+             long long q_ss, long long k_sb, long long k_ss, long long v_sb,
+             long long v_ss, float scale) {
   constexpr int LDK = HD + kPad;     // Q, K rows
   constexpr int LDP = kTile + kPad;  // P rows
   constexpr int NC = HD / 64;        // float4 column groups of out per thread
@@ -185,30 +104,8 @@ flash_causal(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 
     // ---- 1. scores of the thread's 4 x 4 cells
-    float s[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[a][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      float4 qa[4], kc[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-        qa[a] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * a) * LDK + d);
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        kc[c] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * c) * LDK + d);
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          s[a][c] = fmaf(qa[a].x, kc[c].x, s[a][c]);
-          s[a][c] = fmaf(qa[a].y, kc[c].y, s[a][c]);
-          s[a][c] = fmaf(qa[a].z, kc[c].z, s[a][c]);
-          s[a][c] = fmaf(qa[a].w, kc[c].w, s[a][c]);
-        }
-    }
+    float s[4][4] = {};
+    dot_4x4<HD>(s, Qs, Ks, LDK, ty, tx);
     // only the diagonal tile holds keys above the diagonal; a query row
     // past S (the last tile's padding) sees zero keys and is never stored
     const bool diag = kt == qt;
@@ -249,29 +146,7 @@ flash_causal(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 
     // ---- 3. acc += P . V
-#pragma unroll 2
-    for (int j = 0; j < kTile; j += 4) {
-      float4 pa[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-        pa[a] = *reinterpret_cast<const float4*>(Ps + (ty + 16 * a) * LDP + j);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-        for (int n = 0; n < NC; ++n) {
-          const float4 vv = *reinterpret_cast<const float4*>(
-              Vs + (j + jj) * HD + n * 64 + tx * 4);
-#pragma unroll
-          for (int a = 0; a < 4; ++a) {
-            const float p = comp(pa[a], jj);
-            acc[a][n][0] = fmaf(p, vv.x, acc[a][n][0]);
-            acc[a][n][1] = fmaf(p, vv.y, acc[a][n][1]);
-            acc[a][n][2] = fmaf(p, vv.z, acc[a][n][2]);
-            acc[a][n][3] = fmaf(p, vv.w, acc[a][n][3]);
-          }
-        }
-      }
-    }
+    matmul_rows<HD>(acc, Ps, LDP, Vs, HD, ty, tx);
     __syncthreads();   // before the next tile's loads overwrite P and V
   }
 
@@ -288,11 +163,20 @@ flash_causal(const T* __restrict__ q, const T* __restrict__ k,
                                      acc[a][n][2] / l[a],
                                      acc[a][n][3] / l[a]));
   }
+  // ---- the rows' log-sum-exp, for the backward (every lane of a row holds
+  // the same m and l)
+  if (lse != nullptr && tx == 0) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int i = q0 + ty + 16 * a;
+      if (i < S) lse[((size_t)b * nh + h) * S + i] = m[a] + logf(l[a]);
+    }
+  }
 }
 
 template <typename T, int HD>
-int run(const void* q, const void* k, const void* v, void* out, int B, int S,
-        int nh, int G, const long long* strides, float scale,
+int run(const void* q, const void* k, const void* v, void* out, float* lse,
+        int B, int S, int nh, int G, const long long* strides, float scale,
         cudaStream_t st) {
   constexpr size_t smem = smem_bytes<HD>();
   cudaError_t e = cudaFuncSetAttribute(
@@ -302,19 +186,20 @@ int run(const void* q, const void* k, const void* v, void* out, int B, int S,
   const dim3 grid((S + kTile - 1) / kTile, nh, B);
   flash_causal<T, HD><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, nh, G, strides[0],
-      strides[1], strides[2], strides[3], strides[4], strides[5], scale);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, S, nh, G,
+      strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
+      scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int by_head_dim(int hd, const void* q, const void* k, const void* v,
-                void* out, int B, int S, int nh, int G,
+                void* out, float* lse, int B, int S, int nh, int G,
                 const long long* strides, float scale, cudaStream_t st) {
   if (hd == 64)
-    return run<T, 64>(q, k, v, out, B, S, nh, G, strides, scale, st);
+    return run<T, 64>(q, k, v, out, lse, B, S, nh, G, strides, scale, st);
   if (hd == 128)
-    return run<T, 128>(q, k, v, out, B, S, nh, G, strides, scale, st);
+    return run<T, 128>(q, k, v, out, lse, B, S, nh, G, strides, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -323,21 +208,23 @@ int by_head_dim(int hd, const void* q, const void* k, const void* v,
 // q [B, S, nh, hd], k/v [B, S, nkv, hd] in one dtype (0 = float32,
 // 1 = bfloat16), each row's [n, hd] contiguous, at batch and sequence
 // strides (in elements) q_sb, q_ss, k_sb, k_ss, v_sb, v_ss; out [B, S, nh,
-// hd] contiguous in the same dtype; nh a multiple of nkv; hd 64 or 128.
+// hd] contiguous in the same dtype; lse [B, nh, S] fp32 contiguous, or null
+// when not wanted; nh a multiple of nkv; hd 64 or 128.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int onebit_flash_causal_attention(
-    const void* q, const void* k, const void* v, void* out, int B, int S,
-    int nh, int nkv, int hd, long long q_sb, long long q_ss, long long k_sb,
-    long long k_ss, long long v_sb, long long v_ss, int dtype, float scale,
-    void* stream) {
+    const void* q, const void* k, const void* v, void* out, void* lse, int B,
+    int S, int nh, int nkv, int hd, long long q_sb, long long q_ss,
+    long long k_sb, long long k_ss, long long v_sb, long long v_ss, int dtype,
+    float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B < 1 || S < 1 || nkv < 1 || nh % nkv)
     return (int)cudaErrorInvalidValue;
   const long long strides[6] = {q_sb, q_ss, k_sb, k_ss, v_sb, v_ss};
   const int G = nh / nkv;
+  float* l = static_cast<float*>(lse);
   if (dtype == 1)
-    return onebit_flash::by_head_dim<__nv_bfloat16>(hd, q, k, v, out, B, S,
-                                                    nh, G, strides, scale, st);
-  return onebit_flash::by_head_dim<float>(hd, q, k, v, out, B, S, nh, G,
+    return onebit_flash::by_head_dim<__nv_bfloat16>(
+        hd, q, k, v, out, l, B, S, nh, G, strides, scale, st);
+  return onebit_flash::by_head_dim<float>(hd, q, k, v, out, l, B, S, nh, G,
                                           strides, scale, st);
 }

@@ -1,18 +1,23 @@
 """Full-sequence attention: the masked softmax attention of the model, and
 the wrapper of kernel B11 (causal attention with no padding mask) with its
-plain PyTorch version beside it.
+plain PyTorch version beside it, differentiable through B11's backward
+kernels B11-dkv and B11-dq.
 
 Port of ``onebit_tpu/kernels/attention.py`` ``flash_causal_attention``, which
 runs the upstream Pallas TPU flash-attention kernel with ``causal=True``:
 q ``[B, S, nh, hd]``, k/v ``[B, S, nkv, hd]`` (GQA: kv head ``h // g``),
 all in one dtype, float32 or bfloat16; ``sm_scale = hd**-0.5``; the output
 ``[B, S, nh, hd]`` in q's dtype. Its plain version is :func:`_attention`
-with the causal mask: one function, written once.
+with the causal mask: one function, written once. The upstream kernel's
+``custom_vjp`` saves the rows' softmax statistics, computes ``di = Σ o·do``
+with a plain op and runs two Pallas kernels for dK/dV and dQ; here
+:class:`_FlashCausal` does the same with the forward's log-sum-exp and the
+CUDA kernels of ``kernels/attention_cuda.py``.
 
-Given CPU tensors the wrapper returns its plain version; given CUDA tensors
-it launches its kernel (``kernels/attention_cuda.py``) or raises. Unlike the
-TPU kernel, whose 128-blocks need ``S % 128 == 0``, the CUDA kernel takes
-any S.
+Given CPU tensors the wrapper returns its plain version, whose gradient is
+autograd through it; given CUDA tensors it launches its kernels or raises.
+Unlike the TPU kernel, whose 128-blocks need ``S % 128 == 0``, the CUDA
+kernels take any S.
 """
 
 from __future__ import annotations
@@ -29,20 +34,26 @@ def _causal_mask(s: int, t: int, offset: int, device=None) -> torch.Tensor:
     return (kj <= qi + offset)[None, None]
 
 
-def _attention(q, k, v, mask, *, num_kv_groups: int) -> torch.Tensor:
+def _attention(q, k, v, mask, *, num_kv_groups: int,
+               return_probs: bool = False):
     """GQA attention in plain torch ops: q ``[B,S,nh,hd]``, k/v
     ``[B,T,nkv,hd]``, mask ``[B,1,S,T]`` bool. Scores and softmax in fp32
     with ``-1e30`` on masked keys; probabilities rounded to v's dtype, the
-    context accumulated in fp32 and returned in v's dtype."""
+    context accumulated in fp32 and returned in v's dtype. With
+    ``return_probs`` also the probabilities ``[B, nh, S, T]`` in v's dtype
+    (the reference's ``output_attentions`` layout)."""
     b, s, nh, hd = q.shape
-    nkv = k.shape[2]
+    t, nkv = k.shape[1], k.shape[2]
     qg = q.reshape(b, s, nkv, num_kv_groups, hd)
     scores = torch.einsum("bsngh,btnh->bngst", qg.float(), k.float())
     scores = scores * (hd ** -0.5)
     scores = scores.masked_fill(~mask[:, :, None], -1e30)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     ctx = torch.einsum("bngst,btnh->bsngh", probs.float(), v.float())
-    return ctx.to(v.dtype).reshape(b, s, nh, hd)
+    ctx = ctx.to(v.dtype).reshape(b, s, nh, hd)
+    if return_probs:
+        return ctx, probs.reshape(b, nh, s, t)
+    return ctx
 
 
 def flash_causal_attention_torch(q, k, v, *, num_kv_groups: int
@@ -52,14 +63,40 @@ def flash_causal_attention_torch(q, k, v, *, num_kv_groups: int
                       num_kv_groups=num_kv_groups)
 
 
+class _FlashCausal(torch.autograd.Function):
+    """B11 with its backward: the forward saves q, k, v, o and the rows'
+    log-sum-exp; the backward forms ``di = Σ o·do`` in fp32 (a plain op, as
+    the upstream ``_flash_attention_bwd`` does) and launches B11-dkv and
+    B11-dq."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_kv_groups):
+        out, lse = fc.launch(q, k, v, num_kv_groups, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.num_kv_groups = num_kv_groups
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        g = ctx.num_kv_groups
+        di = (out.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+        dk, dv = fc.launch_bwd_dkv(q, k, v, do, lse, di, g)
+        dq = fc.launch_bwd_dq(q, k, v, do, lse, di, g)
+        return dq, dk, dv, None
+
+
 def flash_causal_attention(q, k, v, *, num_kv_groups: int) -> torch.Tensor:
     """B11: causal attention of q ``[B, S, nh, hd]`` over k/v
     ``[B, S, nkv, hd]`` (one dtype, float32 or bfloat16; on the card each
     row's ``[n, hd]`` contiguous, any batch and sequence strides) ->
-    ``[B, S, nh, hd]`` in q's dtype."""
+    ``[B, S, nh, hd]`` in q's dtype. Under autograd on the card, its
+    gradient runs B11-dkv and B11-dq."""
     if q.device.type == "cpu":
         return flash_causal_attention_torch(q, k, v,
                                             num_kv_groups=num_kv_groups)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashCausal.apply(q, k, v, num_kv_groups)
     return fc.launch(q, k, v, num_kv_groups)
 
 

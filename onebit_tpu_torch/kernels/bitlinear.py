@@ -1,8 +1,14 @@
 """BitLinear dispatch: which kernel, or its plain version, serves a call.
 
-Port of ``onebit_tpu/kernels/bitlinear.py`` for the ``packed`` and
-``dense_sign`` modes. ``packed`` holds int32 sign words in the port's
-K-major layout ``[in//32, out]`` (``core/packing.py``).
+Port of ``onebit_tpu/kernels/bitlinear.py``, its three weight modes:
+
+* ``latent``: the full-precision latent weight ``[out, in]`` of training
+  (QAT), its sign taken through the straight-through estimator
+  (``core/bitlinear.py``). No kernel: a plain fp32-accumulated matmul, as
+  the JAX package leaves it to XLA (``kernels/bitlinear.py:185-192``);
+* ``dense_sign``: a materialized ±1 matrix;
+* ``packed``: int32 sign words in the port's K-major layout ``[in//32,
+  out]`` (``core/packing.py``), served by the kernels.
 
 ``impl``:
 
@@ -24,20 +30,26 @@ from typing import List, NamedTuple, Optional
 
 import torch
 
-from onebit_tpu_torch.core.bitlinear import LN_EPS, bitlinear_fwd
+from onebit_tpu_torch.core.bitlinear import (LN_EPS, bitlinear_fwd,
+                                             bitlinear_raw, sign_ste)
 from onebit_tpu_torch.kernels import bitlinear_cuda as bc
 
 
 class BitLinearWeights(NamedTuple):
-    """One BitLinear projection; exactly one of ``dense_sign``/``packed``."""
-    weight_scale: torch.Tensor                  # h [out], fp32
+    """One BitLinear projection; exactly one of ``latent``/``dense_sign``/
+    ``packed``. The fields follow the JAX class's order, which is the order
+    of a native checkpoint's arrays."""
+    weight_scale: torch.Tensor                  # h [out]
     input_factor: torch.Tensor                  # g [in]
+    latent: Optional[torch.Tensor] = None       # [out, in] fp
     dense_sign: Optional[torch.Tensor] = None   # [out, in] ±1
     packed: Optional[torch.Tensor] = None       # [in//32, out] int32
-    bias: Optional[torch.Tensor] = None         # [out], fp32
+    bias: Optional[torch.Tensor] = None         # [out]
 
     @property
     def mode(self) -> str:
+        if self.latent is not None:
+            return "latent"
         if self.packed is not None:
             return "packed"
         if self.dense_sign is not None:
@@ -80,9 +92,11 @@ def _opt_f32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 
 def bitlinear_apply(x: torch.Tensor, w: BitLinearWeights, *,
                     impl: str = "auto", eps: float = LN_EPS) -> torch.Tensor:
-    """``x [..., in]`` -> ``[..., out]`` in x.dtype."""
-    if w.mode == "dense_sign":
-        return bitlinear_fwd(x, w.dense_sign, w.input_factor, w.weight_scale,
+    """``x [..., in]`` -> ``[..., out]`` in x.dtype. The latent and
+    dense-sign modes take the plain math whatever ``impl`` says."""
+    if w.mode != "packed":
+        sign_w = sign_ste(w.latent) if w.mode == "latent" else w.dense_sign
+        return bitlinear_fwd(x, sign_w, w.input_factor, w.weight_scale,
                              bias=w.bias, eps=eps)
     small, _, large = _ops(impl)
     x2 = _rows(x)
@@ -127,12 +141,14 @@ def fused_bitlinear_apply_stacked(x, w: FusedBitLinearWeights, layer: int,
 
 def bitlinear_apply_stacked_raw(x, w: BitLinearWeights, layer: int, *,
                                 impl: str = "auto") -> torch.Tensor:
-    """Layer ``layer`` of a stacked packed BitLinear without the LayerNorm:
-    fp32 ``((x⊙g)·Sᵀ)⊙h`` (the tensor-parallel shard body of a later
-    slice)."""
+    """Layer ``layer`` of a stacked BitLinear without the LayerNorm: fp32
+    ``((x⊙g)·Sᵀ)⊙h`` (the tensor-parallel shard body of a later slice).
+    Latent and dense-sign weights take the plain math."""
     wl = _pick_layer(w, layer)
     if wl.mode != "packed":
-        raise ValueError("the raw projection needs packed weights")
+        sign_w = sign_ste(wl.latent) if wl.mode == "latent" \
+            else wl.dense_sign
+        return bitlinear_raw(x, sign_w, wl.input_factor, wl.weight_scale)
     small, _, large = _ops(impl)
     x2 = _rows(x)
     n = wl.packed.shape[-1]

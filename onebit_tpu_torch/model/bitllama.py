@@ -1,26 +1,32 @@
 """BitLlama: the KV cache, fused decode params, RMSNorm, the per-layer
 projection helpers, one decoder layer and the full-sequence ``forward``.
 
-Port of ``onebit_tpu/model/bitllama.py`` for serving and evaluation. Params
-are plain dicts of tensors with layers stacked on a leading axis, as in the
-JAX package: ``{"embed_tokens", "lm_head", "final_norm", "layers": {...}}``
-where each projection is a ``BitLinearWeights`` (or a
+Port of ``onebit_tpu/model/bitllama.py`` for serving, evaluation and
+training. Params are plain dicts of tensors with layers stacked on a
+leading axis, as in the JAX package: ``{"embed_tokens", "lm_head",
+"final_norm", "layers": {...}}`` where each projection is a
+``BitLinearWeights`` (or a
 ``FusedBitLinearWeights`` after :func:`fuse_for_decode`, or a
 ``LinearWeights`` for the FP teacher) whose leaves carry a leading ``[L]``
 axis. PyTorch runs eagerly: the layer loop is a Python loop.
 
 ``forward`` runs each causal, unpadded layer's attention in kernel B11
-(``kernels/attention.py``) on the card; with a padding mask, on the CPU or
-with ``use_flash=False`` it takes the masked attention ``_attention``.
+(``kernels/attention.py``) on the card, differentiably (its backward in
+B11-dkv and B11-dq); with a padding mask, on the CPU, with
+``use_flash=False`` or when attention maps are asked for it takes the
+masked attention ``_attention``. ``init_params`` and ``pack_model_params``
+make and pack the latent params of training.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from onebit_tpu_torch.core.packing import pack_signs_kmajor
 from onebit_tpu_torch.kernels.attention import (PLAIN, _attention,
                                                 _causal_mask,
                                                 flash_causal_attention)
@@ -71,6 +77,78 @@ def _proj_dims(config: BitLlamaConfig) -> Dict[str, Tuple[int, int]]:
         "o_proj": (d, d),
         "gate_proj": (i, d), "up_proj": (i, d), "down_proj": (d, i),
     }
+
+
+def init_params(config: BitLlamaConfig,
+                generator: Optional[torch.Generator] = None, *,
+                mode: str = "latent", dtype=torch.float32,
+                device=None) -> Dict[str, Any]:
+    """Random params, layers stacked on axis 0 (bitllama.py:80-117), drawn
+    from ``generator`` (seed 0 on ``device`` when None; its stream is not
+    JAX's, so tests carry JAX's params across with ``params_from_jax``).
+
+    ``mode``: ``"latent"`` (QAT latent weights of std
+    ``initializer_range``, h = g = 1), ``"packed"`` (random sign words in
+    the port's layout) or ``"linear"`` (the plain FP teacher)."""
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device)
+        generator.manual_seed(0)
+    L, d, v = config.num_hidden_layers, config.hidden_size, config.vocab_size
+    std = config.initializer_range
+
+    def normal(*shape):
+        return torch.randn(shape, generator=generator, device=device,
+                           dtype=dtype) * std
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    params: Dict[str, Any] = {
+        "embed_tokens": normal(v, d), "lm_head": normal(v, d),
+        "final_norm": ones(d),
+        "layers": {"input_layernorm": ones(L, d),
+                   "post_attention_layernorm": ones(L, d)},
+    }
+    for name, (out, inp) in _proj_dims(config).items():
+        h, g = ones(L, out), ones(L, inp)
+        if mode == "latent":
+            w = BitLinearWeights(weight_scale=h, input_factor=g,
+                                 latent=normal(L, out, inp))
+        elif mode == "packed":
+            words = torch.randint(-2 ** 31, 2 ** 31 - 1, (L, inp // 32, out),
+                                  generator=generator, device=device,
+                                  dtype=torch.int64).to(torch.int32)
+            w = BitLinearWeights(weight_scale=h, input_factor=g,
+                                 packed=words)
+        elif mode == "linear":
+            w = LinearWeights(weight=normal(L, out, inp))
+        else:
+            raise ValueError(f"unknown init mode {mode!r}")
+        params["layers"][name] = w
+    return params
+
+
+def pack_model_params(params: Dict[str, Any]) -> Dict[str, Any]:
+    """Latent or dense-sign projections -> packed sign words in the port's
+    layout (bitllama.py:185-202), one layer at a time; h, g and the bias
+    pass through (detached from any autograd graph). The port's
+    counterpart of
+    scripts/convert_llama_to_infer_ckpt.py."""
+    out = dict(params)
+    layers = dict(params["layers"])
+    for name in PROJ_NAMES:
+        w = layers[name]
+        if w.mode == "packed":
+            continue
+        dense = w.latent if w.latent is not None else w.dense_sign
+        packed = torch.stack([pack_signs_kmajor(d.detach()) for d in dense])
+        layers[name] = BitLinearWeights(
+            weight_scale=w.weight_scale.detach(),
+            input_factor=w.input_factor.detach(), packed=packed,
+            bias=None if w.bias is None else w.bias.detach())
+    out["layers"] = layers
+    return out
 
 
 def fuse_for_decode(params: Dict[str, Any],
@@ -179,9 +257,6 @@ def _lm_head(x, params, compute_dtype) -> torch.Tensor:
     return torch.matmul(x.float(), w.float().T)
 
 
-KD_SLICE = 5   # hidden states, attention maps and remat come with training
-
-
 def forward(params, input_ids, config: BitLlamaConfig, *,
             attention_mask=None, impl: str = "auto",
             compute_dtype=torch.bfloat16, use_flash="auto",
@@ -199,11 +274,17 @@ def forward(params, input_ids, config: BitLlamaConfig, *,
     (the plain versions of K3 and B11 on any device). ``use_flash``:
     ``"auto"`` runs B11 when the tensors are on the card and there is no
     mask; ``True`` takes B11's wrapper when there is no mask (its plain
-    version on the CPU); ``False`` the masked attention."""
-    if output_hidden_states or output_attentions or remat:
-        raise NotImplementedError(
-            "output_hidden_states, output_attentions and remat come with KD "
-            f"training, slice {KD_SLICE} of the PyTorch port (ROADMAP.md)")
+    version on the CPU); ``False`` the masked attention. B11 is
+    differentiable: under autograd its backward runs the kernels B11-dkv
+    and B11-dq on the card.
+
+    The training extras, as in JAX: ``output_hidden_states`` adds a stacked
+    ``[L+1, B, S, d]`` (the embeddings, then each layer's output);
+    ``output_attentions`` adds ``[L, B, nh, S, S]`` probabilities in
+    ``compute_dtype`` and takes the masked attention in every layer (never
+    B11); the return is then ``(logits, *extras)``. ``remat`` recomputes
+    each layer in the backward pass (``torch.utils.checkpoint``,
+    non-reentrant), which runs B11's forward a second time."""
     b, s = input_ids.shape
     device = input_ids.device
     x = params["embed_tokens"][input_ids].to(compute_dtype)
@@ -220,23 +301,50 @@ def forward(params, input_ids, config: BitLlamaConfig, *,
         flash = attention_mask is None and device.type == "cuda"
     else:
         flash = bool(use_flash) and attention_mask is None
+    flash = flash and not output_attentions
     flash_fn = (PLAIN[flash_causal_attention] if impl == "torch"
                 else flash_causal_attention)
     if not flash:
         mask = _causal_mask(s, s, 0, device)
         if attention_mask is not None:
             mask = mask & (attention_mask[:, None, None, :] > 0)
-
-    def attend(q, k, v):
-        q, k = apply_rope(q, k, cos, sin)
-        if flash:
-            return flash_fn(q, k, v, num_kv_groups=config.num_kv_groups)
-        return _attention(q, k, v, mask, num_kv_groups=config.num_kv_groups)
-
+    g = config.num_kv_groups
     layers = params["layers"]
-    for i in range(config.num_hidden_layers):
+
+    def layer(x, i):
+        probs = []
+
+        def attend(q, k, v):
+            q, k = apply_rope(q, k, cos, sin)
+            if flash:
+                return flash_fn(q, k, v, num_kv_groups=g)
+            if output_attentions:
+                ctx, p = _attention(q, k, v, mask, num_kv_groups=g,
+                                    return_probs=True)
+                probs.append(p)
+                return ctx
+            return _attention(q, k, v, mask, num_kv_groups=g)
+
         x = _decoder_layer(x, layers, i, config, impl, attend)
+        return (x, probs[0]) if output_attentions else x
+
+    hidden, attn = [x], []
+    for i in range(config.num_hidden_layers):
+        out = (checkpoint(layer, x, i, use_reentrant=False) if remat
+               else layer(x, i))
+        if output_attentions:
+            out, p = out
+            attn.append(p)
+        x = out
+        if output_hidden_states:
+            hidden.append(x)
     h = rms_norm(x, params["final_norm"], config.rms_norm_eps)
     if return_prelogits:
         return h
-    return _lm_head(h, params, compute_dtype)
+    logits = _lm_head(h, params, compute_dtype)
+    extras = []
+    if output_hidden_states:
+        extras.append(torch.stack(hidden))
+    if output_attentions:
+        extras.append(torch.stack(attn))
+    return (logits, *extras) if extras else logits

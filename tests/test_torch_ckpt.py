@@ -97,8 +97,8 @@ def test_save_native_writes_the_jax_arrays(jax_ckpt, tmp_path):
 def test_native_roundtrip_bf16_and_teacher(tmp_path):
     """bf16 leaves are written as the raw 2-byte records of the JAX writer
     and read back as bf16 with the same bits, both ways; a plain
-    LinearWeights (teacher) checkpoint round-trips; a latent (training)
-    checkpoint waits for slice 5."""
+    LinearWeights (teacher) checkpoint round-trips; so does a latent
+    (training) checkpoint, byte for byte."""
     from onebit_tpu_torch import host_random_packed_params
     c = BitLlamaConfig.named("tiny")
     tp = host_random_packed_params(c, seed=2, device="cpu")
@@ -153,8 +153,14 @@ def test_native_roundtrip_bf16_and_teacher(tmp_path):
     with np.load(tmp_path / "linear" / "params.npz") as a, \
             np.load(tmp_path / "linear2" / "params.npz") as b:
         assert all(a[k].tobytes() == b[k].tobytes() for k in a.files)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        load_native(str(tmp_path / "latent"), device="cpu")
+    latent = load_native(str(tmp_path / "latent"), device="cpu")["params"]
+    assert latent["layers"]["q_proj"].mode == "latent"
+    save_native(str(tmp_path / "latent2"), c, latent)
+    with np.load(tmp_path / "latent" / "params.npz") as a, \
+            np.load(tmp_path / "latent2" / "params.npz") as b:
+        assert a.files == b.files
+        assert all(a[k].dtype == b[k].dtype and a[k].tobytes() ==
+                   b[k].tobytes() for k in a.files)
 
 
 def test_kmajor_to_device_inverts_device_to_kmajor():

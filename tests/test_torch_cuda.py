@@ -632,3 +632,151 @@ def test_forward_flash_path_matches_plain(dev, dtype):
         assert (masked - out["torch"]).abs().max().item() < 1e-3
     else:
         assert err <= 5e-2 * out["torch"].abs().max().item(), err
+
+
+# ---------------------------------------------------------------------------
+# B11-dkv and B11-dq: the backward of causal flash attention
+# ---------------------------------------------------------------------------
+# Each gradient is held per (row, head) relative to that slice's largest
+# |value| (at least 1), so a kernel leaving a head's gradient zero fails:
+# fp32 to 1e-4 (sums in another order, P recomputed from the forward's
+# log-sum-exp, a few 1e-6 relative), bf16 to 2**-6 (each side rounds its
+# gradients to bf16, one ulp apart at most, after rounding operands at
+# different places; chip_smoke.py FLASH_BWD_TOL gives the reasoning).
+FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -6}
+
+
+def _flash_do(dev, dtype, b, s, nh, hd, readable, seed=1):
+    """The output gradient: a strided view the kernels read in place
+    (``readable``), or a transposed tensor's view, which the wrapper copies
+    first."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    if readable:
+        x = torch.randn(b * s, nh * hd + 64, generator=gen, device=dev)
+        return x.to(dtype)[:, :nh * hd].view(b, s, nh, hd)
+    x = torch.randn(b, nh, s, hd, generator=gen, device=dev).to(dtype)
+    return x.transpose(1, 2)
+
+
+def _grads(fn, q, k, v, do, g):
+    xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    fn(*xs, num_kv_groups=g).backward(do)
+    return [x.grad for x in xs]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("s", [1, 17, 128, 300, 2048])
+def test_flash_bwd_matches_plain(dev, dtype, b, g, hd, s):
+    """dq, dk and dv through B11's autograd rule (B11, B11-dkv, B11-dq)
+    against autograd through the plain version. B = 3 reads strided views
+    of a fused projection output and a strided ``do`` in place; B = 1
+    contiguous q, k, v and a transposed ``do``."""
+    from onebit_tpu_torch.kernels import attention as ta
+    from onebit_tpu_torch.kernels import attention_cuda as fc
+    q, k, v = _flash_case(dev, dtype, b, s, 2, g, hd, fused=b > 1)
+    do = _flash_do(dev, dtype, b, s, 2 * g, hd, readable=b > 1)
+    infos = [i for i in fc.KERNELS if i.name.endswith(
+        "_f32" if dtype == torch.float32 else "_bf16")]
+    before = [i.launches for i in infos]
+    want = _grads(ta.flash_causal_attention_torch, q, k, v, do, g)
+    got = _grads(ta.flash_causal_attention, q, k, v, do, g)
+    torch.cuda.synchronize()
+    assert [i.launches - n for i, n in zip(infos, before)] == [1, 1, 1]
+    tol = FLASH_BWD_TOL[dtype]
+    for name, a, w in zip("qkv", got, want):
+        assert a.dtype == dtype and a.shape == w.shape, name
+        assert torch.isfinite(a).all(), name
+        top = w.float().abs().amax(dim=(1, 3)).clamp(min=1.0)
+        err = (a.float() - w.float()).abs().amax(dim=(1, 3))
+        assert (err <= tol * top).all(), (name, (err / top).max().item())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s", [1, 100, 2048])
+def test_flash_lse_matches_logsumexp(dev, dtype, s):
+    """The forward's optional log-sum-exp against ``torch.logsumexp`` of
+    the plain scaled causal scores (fp32, of order 10: to 1e-4); the
+    output is the same with and without it."""
+    from onebit_tpu_torch.kernels import attention as ta
+    from onebit_tpu_torch.kernels import attention_cuda as fc
+    q, k, v = _flash_case(dev, dtype, 2, s, 2, 4, 128, fused=True)
+    out, lse = fc.launch(q, k, v, 4, with_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (2, 8, s)
+    assert torch.equal(out, fc.launch(q, k, v, 4))
+    qg = q.float().reshape(2, s, 2, 4, 128)
+    scores = torch.einsum("bsngh,btnh->bngst", qg, k.float()) * 128 ** -0.5
+    scores = scores.masked_fill(~ta._causal_mask(s, s, 0, dev)[:, :, None],
+                                float("-inf"))
+    want = torch.logsumexp(scores, -1).reshape(2, 8, s)
+    torch.cuda.synchronize()
+    assert (lse - want).abs().max().item() <= 1e-4
+
+
+def test_flash_bwd_checks_inputs(dev):
+    from onebit_tpu_torch.kernels import attention_cuda as fc
+    q, k, v = _flash_case(dev, torch.float32, 2, 40, 2, 2, 64, fused=False)
+    do = torch.randn_like(q)
+    lse = di = torch.zeros(2, 4, 40, device=dev)
+    for launch in (fc.launch_bwd_dkv, fc.launch_bwd_dq):
+        launch(q, k, v, do, lse, di, 2)
+        with pytest.raises(TypeError, match="do must be"):
+            launch(q, k, v, do.to(torch.bfloat16), lse, di, 2)
+        with pytest.raises(ValueError, match="do .* does not match"):
+            launch(q, k, v, do[:, :, :2], lse, di, 2)
+        with pytest.raises(ValueError, match="lse must be"):
+            launch(q, k, v, do, lse[:, :, :39], di, 2)
+        with pytest.raises(ValueError, match="di must be"):
+            launch(q, k, v, do, lse, di.double(), 2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("remat", [False, True])
+def test_train_step_kernel_path_matches_plain(dev, dtype, remat):
+    """One KD train step of a latent student (tiny config: GQA, hd 64) at
+    S = 300 on the card, its kernel path against impl="torch": the
+    metrics and the updated trainable leaves (relative in norm) to 1e-4 in
+    fp32 and 5e-2 in bf16 (activations rounded at different places, as
+    chip_smoke.py's logits); B11 launches 2 (3 with remat) times a layer,
+    B11-dkv and B11-dq once."""
+    from onebit_tpu_torch import BitLlamaConfig
+    from onebit_tpu_torch.kernels import attention_cuda as fc
+    from onebit_tpu_torch.model.bitllama import init_params
+    from onebit_tpu_torch.train import trainer as tt
+    from onebit_tpu_torch.train.losses import KDConfig
+    config = BitLlamaConfig.named("tiny", max_position_embeddings=512)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    teacher = init_params(config, gen, mode="linear", device=dev)
+    student = init_params(config, gen, device=dev)
+    ids = torch.randint(0, config.vocab_size, (2, 300), generator=gen,
+                        device=dev)
+    batch = {"input_ids": ids, "labels": ids}
+    cfg = tt.TrainConfig(learning_rate=1e-3, warmup_steps=0, total_steps=4,
+                         remat=remat)
+    kd = KDConfig(kd_beta=1.0, kd_loss_scale=0.01)
+    suffix = "_f32" if dtype == torch.float32 else "_bf16"
+    infos = [i for i in fc.KERNELS if i.name.endswith(suffix)]
+    out = {}
+    for impl in ("auto", "torch"):
+        state = tt.init_train_state(tt.clone_params(student), cfg)
+        step = tt.make_train_step(config, kd, cfg, compute_dtype=dtype,
+                                  impl=impl)
+        before = [i.launches for i in infos]
+        state, metrics = step(state, teacher, batch)
+        torch.cuda.synchronize()
+        L = config.num_hidden_layers
+        assert [i.launches - n for i, n in zip(infos, before)] == (
+            [(3 if remat else 2) * L, L, L] if impl == "auto" else [0, 0, 0])
+        out[impl] = (state, metrics)
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    (sk, mk), (st, mt) = out["auto"], out["torch"]
+    for key, val in mt.items():
+        assert abs(mk[key].item() - val.item()) <= tol * abs(val.item()), key
+    for a, w in zip(tt.trainable_leaves(sk.params),
+                    tt.trainable_leaves(st.params)):
+        assert torch.isfinite(a).all()
+        assert (a - w).norm().item() <= tol * w.norm().item()

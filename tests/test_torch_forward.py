@@ -137,7 +137,19 @@ def test_forward_impl_torch_and_no_launch_on_cpu(packed):
 @pytest.mark.parametrize("option", ["output_hidden_states",
                                     "output_attentions", "remat"])
 def test_forward_unported_options_raise(packed, option):
-    _, _, c, tp = packed
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tb.forward(tp, torch.zeros(1, 4, dtype=torch.long), c,
-                   **{option: True})
+    """The training options, which raised until training was ported, now
+    run and give the JAX forward's outputs (hidden states ``[L+1, B, S,
+    d]``, attention maps ``[L, B, nh, S, S]``, remat the same logits)."""
+    jc, jp, c, tp = packed
+    ids = _ids(c, 2, 24, seed=8)
+    if option == "remat":
+        got, want = _both(jp, tp, jc, c, ids, remat=True)
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+        return
+    jout = jb.forward(jp, jnp.asarray(ids), jc, compute_dtype=jnp.float32,
+                      **{option: True})
+    got = tb.forward(tp, torch.from_numpy(ids.astype(np.int64)), c,
+                     compute_dtype=torch.float32, **{option: True})
+    assert len(got) == 2 and got[1].shape == jout[1].shape
+    for a, w in zip(got, jout):
+        np.testing.assert_allclose(a.numpy(), _np(w), **TOL)

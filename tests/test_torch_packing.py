@@ -124,8 +124,14 @@ def test_converter_rejects_fused_and_unpacked():
     jc = JaxConfig.named("tiny")
     latent = init_params(jc, jax.random.PRNGKey(0))
     config = BitLlamaConfig.named("tiny")
+    # latent (training) projections convert; dense-sign ones do not
+    params_from_jax(jax.tree.map(np.asarray, latent), config, device="cpu")
+    dense = dict(latent, layers={
+        k: (v._replace(latent=None, dense_sign=np.sign(np.asarray(v.latent)))
+            if hasattr(v, "latent") else v)
+        for k, v in latent["layers"].items()})
     with pytest.raises(ValueError, match="only packed"):
-        params_from_jax(jax.tree.map(np.asarray, latent), config,
+        params_from_jax(jax.tree.map(np.asarray, dense), config,
                         device="cpu")
     fused = fuse_for_decode(pack_model_params(latent), jc)
     with pytest.raises(ValueError, match="fuse_for_decode"):
