@@ -23,7 +23,11 @@ toolkit and PyTorch. It imports nothing of JAX. Phases, one JSON line each:
    beside ``scaled_dot_product_attention(is_causal=True)``; then its
    backward kernels B11-dkv and B11-dq at the same shapes, the gradients
    through B11's autograd rule against autograd through the plain version,
-   beside the backward of ``scaled_dot_product_attention``;
+   beside the backward of ``scaled_dot_product_attention``; then B9 (decode
+   attention over the flat pools) at layer 31 of full llama2-7b pools
+   [32, 8, 2048, 32, 128], int8 with scales, bf16 (and a GQA case, nkv 8)
+   and fp32, rows of 1-2048 positions with starts and one empty row, beside
+   ``scaled_dot_product_attention`` with a boolean mask;
 4. the slice's paths end to end at full llama2-7b width and depth on random
    packed weights (``host_random_packed_params(seed=0)`` and
    ``fuse_for_decode``), each an 8-slot ``ContinuousBatchingEngine``
@@ -39,10 +43,19 @@ toolkit and PyTorch. It imports nothing of JAX. Phases, one JSON line each:
      1024-token prefix and distinct suffixes of 100-450 tokens.
    Each but the prefix run first holds the first decode step's logits on
    the kernel path against ``impl="torch"``. Then a served run with every
-   launch count set to 0 before it: K1-K3 must launch in each, the fused
-   append+attend kernel (B5, B7) or B10 exactly 32 times per decode step,
+   launch count set to 0 before it: K1-K3 must launch in each, B9 (dense),
+   the fused append+attend kernel (B5, B7) or B10 exactly 32 times per
+   decode step,
    every page must be back in the pool (the prefix run: all but those the
-   cache holds), and the prefix run must reuse 7 x 64 = 448 pages;
+   cache holds), and the prefix run must reuse 7 x 64 = 448 pages. Then
+   batch generation (:func:`generate_checks`): ``generate`` of the dense
+   run's 8 prompts, left-padded, 32 greedy tokens in bf16 (B9 exactly
+   32 x 31 times; its first decode step's logits against ``impl="torch"``,
+   and a planted fault, one kv head of B9 zeroed in layer 0, that must break
+   their limit) and 8 in fp32 (B9's fp32 instance 32 x 7 times); and
+   ``decode_step_flat`` on a flat int8 ``QuantKVCache``: a multi-token
+   prefill, then 8 one-token steps against ``impl="torch"`` (B9's int8
+   instance exactly 256 times);
 5. evaluation at full llama2-7b width and depth on the same weights,
    unfused (:func:`eval_checks`): perplexity of 8 windows of 2048 at batch
    4 in fp32, direct and vocab-chunked, against ``impl="torch"`` per window
@@ -51,7 +64,10 @@ toolkit and PyTorch. It imports nothing of JAX. Phases, one JSON line each:
    layer 0) that must break their limit; the uniform model's ppl of 32000;
    ``loglikelihood`` of 16 requests against ``impl="torch"``; ``forward`` in
    bf16; and ``python -m onebit_tpu_torch eval`` on a 2-layer native
-   checkpoint of 7B width, its ppl equal to the in-process one;
+   checkpoint of 7B width, its ppl equal to the in-process one; then on that
+   checkpoint ``convert --format reference``, ``generate`` from the
+   reference directory (the tokens of the in-process ``generate``) and
+   ``eval --check-engines dense,kvq,int4,paged`` (``engine_check.ok`` 1);
 6. KD training at llama2-7b width, depth cut to 4 layers
    (:func:`train_checks`): a random plain teacher and its SVID start
    student; the first KD step's loss and gradients on the kernel path
@@ -65,7 +81,8 @@ toolkit and PyTorch. It imports nothing of JAX. Phases, one JSON line each:
    checkpoint of 7B width under ``build/``.
 
 Then the wall time, the ``kernels`` line (each kernel's launches from the
-run of its own path; B6 and B8 are on none; B10's from the paged bf16 and
+run of its own path; B6 and B8 are on none; B9's from the bf16 and fp32
+``generate`` runs and the flat int8 run; B10's from the paged bf16 and
 int8 runs; K3's fp32 instance's and B11's from the fp32 perplexity run,
 B11 bf16's from the bf16 forward, B11-dkv's and B11-dq's fp32 instances'
 from the fp32 gradient check of phase 6 and their bf16 instances' from
@@ -537,6 +554,157 @@ def paged_kernel_checks(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3, continued: B9 on full-size llama2-7b flat pools
+# ---------------------------------------------------------------------------
+
+# L, B, T, nkv, hd: the dense cache of 7B generation at batch 8 and T 2048,
+# 2**31 elements per leaf, so layer 31's offsets pass 2**32 bytes
+FLAT_SHAPE = (32, 8, 2048, 32, 128)
+# rows of 1-2048 positions, some starting past 0 (left-padded prompts), one
+# empty; each attends [start, length)
+FLAT_LENGTHS = [2048, 1931, 1500, 1025, 777, 129, 1, 0]
+FLAT_STARTS = [0, 300, 0, 1000, 5, 64, 0, 0]
+# q on a grid of 1/16 (std 5, within +-15.9), float pools on a grid of 1/16
+# in +-1.5, int8 pools of integers with scales of 0.5-1.5 units over the
+# range (as B5's): every q . k dot is then exact in fp32 in any order, and a
+# peaked softmax gives a context of order 1 on every live row. fp32: kernel
+# and plain version differ only in the softmax's exponentials and the order
+# of the PV sum, a few 2**-24 relative of |v| <= 1.5: under 1e-6, and the
+# tolerance is 1e-5. bf16 q: both sides round P (times the V scale of int8
+# pools) to bf16 (2**-9 relative) at different softmax scales, at most
+# 2**-8 * 1.5 apart (int8: 127 units of scale 1.5/127), then the context to
+# bf16 (ulp 2**-7 below 2): under 1/64, and the tolerance is 1/32, as
+# B5-B8's. Each live row's largest |ctx| must be at least 8 times its
+# dtype's tolerance (8 times 1/32 in both, so that zeros fail), and the
+# empty row must be zeros.
+FLAT_TOL = {torch.float32: 1e-5, torch.bfloat16: KV_TOL_BF16}
+
+
+def _flat_bound(nkv, g, hd, pool_elem, quant, q_elem, fp32) -> tuple:
+    """Least time for one call: each row's K and V (and int8 scales) of its
+    positions in [start, length) read once, q, lengths and starts read,
+    ctx written; or its products (4 per K/V element per query head) at the
+    peak of their type (fp32 CUDA cores for fp32, bf16 tensor cores)."""
+    b = len(FLAT_LENGTHS)
+    bytes_ = 2 * b * nkv * g * hd * q_elem + 2 * 4 * b
+    flops = 0
+    for n, st in zip(FLAT_LENGTHS, FLAT_STARTS):
+        cols = max(0, n - st)
+        bytes_ += nkv * cols * (2 * hd * pool_elem + (2 * 4 if quant else 0))
+        flops += 4 * nkv * g * hd * cols
+    peak = FP32_FLOP_PER_S if fp32 else BF16_FLOP_PER_S
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / peak
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops
+            else "operations")
+
+
+def flat_kernel_checks(dev) -> dict:
+    """B9 at layer 31 of full llama2-7b flat pools: int8 with scales and
+    bf16 q, bf16 (also at nkv 8, GQA g 4), fp32. The pools untouched, ctx
+    within FLAT_TOL of the plain version on the live rows, zeros on the
+    empty one; timed cycling over the 32 layers, beside its bound, its plain
+    version and one ``scaled_dot_product_attention`` with a boolean mask on
+    the layer's K/V (int8: dequantized to bf16; GQA: repeated) made
+    beforehand. The ``kernels`` line carries the MHA cases."""
+    import itertools
+    import torch.nn.functional as F
+    from onebit_tpu_torch.kernels import kv_attention as ka
+    from onebit_tpu_torch.kernels import kv_attention_cuda as kc
+    n_layers, b, t, nh, hd = FLAT_SHAPE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    lengths = torch.tensor(FLAT_LENGTHS, dtype=torch.int32, device=dev)
+    starts = torch.tensor(FLAT_STARTS, dtype=torch.int32, device=dev)
+    live = lengths > starts
+    cols = torch.arange(t, device=dev)[None, :]
+    mask = ((cols >= starts[:, None]) & (cols < lengths[:, None])
+            )[:, None, None, :]
+
+    def grid_pool(shape, dtype):
+        """Uniform on the 1/16 grid in [-1.5, 1.5], made in place."""
+        x = torch.rand(shape, generator=gen, device=dev)
+        return x.mul_(48).round_().sub_(24).div_(16).to(dtype)
+
+    results = {}
+    for info, q_dtype, nkv in ((kc.DECODE_INT8, torch.bfloat16, nh),
+                               (kc.DECODE_BF16, torch.bfloat16, nh),
+                               (kc.DECODE_BF16, torch.bfloat16, FLASH_GQA_NKV),
+                               (kc.DECODE_F32, torch.float32, nh)):
+        g = nh // nkv
+        quant = info is kc.DECODE_INT8
+        q = (torch.randn(b, nh, hd, generator=gen, device=dev) * 80).round_(
+            ).div_(16).clamp_(-15.9375, 15.9375).to(q_dtype)
+        shape = (n_layers, b, t, nkv, hd)
+        if quant:
+            pools = [torch.randint(-127, 128, shape, generator=gen,
+                                   device=dev, dtype=torch.int8),
+                     (torch.rand(shape[:-1], generator=gen, device=dev)
+                      + 0.5) / 127]
+            pools += [torch.randint(-127, 128, shape, generator=gen,
+                                    device=dev, dtype=torch.int8),
+                      (torch.rand(shape[:-1], generator=gen, device=dev)
+                       + 0.5) / 127]
+        else:
+            pools = [grid_pool(shape, q_dtype), None,
+                     grid_pool(shape, q_dtype), None]
+        before = [x.clone() for x in pools if x is not None]
+        want = ka.kv_attention_decode_torch(q, *pools, lengths, KV_LAYER,
+                                            starts=starts)
+        got = ka.kv_attention_decode(q, *pools, lengths, KV_LAYER,
+                                     starts=starts)
+        torch.cuda.synchronize()
+        untouched = all(torch.equal(x, y) for x, y in
+                        zip([x for x in pools if x is not None], before))
+        del before
+        finite = bool(torch.isfinite(got).all())
+        zero_row = bool((got[~live] == 0).all())
+        err = (got[live].float() - want[live].float()).abs().max().item()
+        ctx_scale = want[live].float().abs().amax(dim=(1, 2)).min().item()
+        layer_of = itertools.cycle(range(n_layers))
+        ms = cuda_ms(lambda: ka.kv_attention_decode(
+            q, *pools, lengths, next(layer_of), starts=starts), 32)
+        plain_ms = cuda_ms(lambda: ka.kv_attention_decode_torch(
+            q, *pools, lengths, KV_LAYER, starts=starts), 3, warmup=1)
+        # the yardstick's input: layer 31's K/V as [B, nh, T, hd]
+        lib_dtype = torch.bfloat16 if quant else q_dtype
+        if quant:
+            kv = [(pools[i][KV_LAYER].float() * pools[i + 1][KV_LAYER][
+                ..., None]).to(lib_dtype) for i in (0, 2)]
+        else:
+            kv = [pools[i][KV_LAYER] for i in (0, 2)]
+        k_lib, v_lib = (x.repeat_interleave(g, dim=2).transpose(1, 2)
+                        .contiguous() for x in kv)
+        del kv
+        q_lib = q.to(lib_dtype)[:, :, None, :]
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q_lib, k_lib, v_lib, attn_mask=mask), 32)
+        del pools, k_lib, v_lib
+        torch.cuda.empty_cache()
+        bound_ms, bound_by = _flat_bound(
+            nkv, g, hd, 1 if quant else q.element_size(), quant,
+            q.element_size(), q_dtype == torch.float32)
+        line = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+        if nkv == nh:
+            results[info.name] = line
+        tol = FLAT_TOL[q_dtype]
+        ok = (untouched and finite and zero_row and err <= tol
+              and ctx_scale >= 8 * KV_TOL_BF16)
+        emit({"phase": "kernel", "name": info.name, "tol": tol, "ok": ok,
+              "pools_untouched": untouched, "ctx_finite": finite,
+              "empty_row_zero": zero_row, "min_row_max_abs_ctx": ctx_scale,
+              "layer": KV_LAYER, "pool_shape": [n_layers, b, t, nkv, hd],
+              "nkv": nkv, "q_dtype": str(q_dtype)[6:],
+              "lengths": FLAT_LENGTHS, "starts": FLAT_STARTS, **line})
+        if not ok:
+            raise RuntimeError(f"{info.name} (nkv {nkv}): pools untouched "
+                               f"{untouched}, finite {finite}, empty row "
+                               f"zero {zero_row}, max_abs_err {err}, "
+                               f"smallest row max |ctx| {ctx_scale}")
+    return results
+
+
+# ---------------------------------------------------------------------------
 # phase 3, continued: B11 at the llama2-7b eval shape
 # ---------------------------------------------------------------------------
 
@@ -933,13 +1101,278 @@ def served_run(params, config, dev, prompts, new_tokens, opts,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 4, continued: batch generation at llama2-7b width and depth
+# ---------------------------------------------------------------------------
+
+GEN_NEW = 32          # new tokens of the bf16 run: 31 decode steps
+GEN_NEW_F32 = 8       # and of the fp32 run
+FLAT_STEPS = 8        # one-token steps on the flat int8 cache
+
+
+def _zero_kv_head_fault(kc):
+    """Install a planted fault in B9's launch wrapper: the context of kv
+    head 0 (query heads 0 .. g-1) zeroed in layer 0. Returns the function
+    that removes it."""
+    real = kc.launch_flat
+
+    def faulty(q, k_pool, k_scale, v_pool, v_scale, lengths, layer, *,
+               starts):
+        out = real(q, k_pool, k_scale, v_pool, v_scale, lengths, layer,
+                   starts=starts)
+        if layer == 0:
+            out[:, :q.shape[1] // k_pool.shape[3]] = 0
+        return out
+
+    kc.launch_flat = faulty
+
+    def remove():
+        kc.launch_flat = real
+    return remove
+
+
+def _rel(a, ref) -> float:
+    return ((a - ref).abs().max() / ref.abs().max()).item()
+
+
+def _generate_first_step(params, config, dev, prompts) -> dict:
+    """``generate``'s prefill of the left-padded prompts, then its first
+    decode step on copies of the cache: impl="auto" against impl="torch",
+    and again with :func:`_zero_kv_head_fault`, which must break the
+    limit."""
+    from onebit_tpu_torch.engine import generate as gm
+    from onebit_tpu_torch.kernels import kv_attention_cuda as kc
+    from onebit_tpu_torch.model.bitllama import (KVCache, decode_step,
+                                                 init_kv_cache)
+    ids, attn = (torch.from_numpy(a).to(dev) for a in gm.left_pad(prompts))
+    b, maxp = ids.shape
+    plens = attn.sum(1)
+    cache = init_kv_cache(config, b, 1 << (maxp + GEN_NEW - 1).bit_length(),
+                          device=dev)
+    last = gm._prefill(params, cache, ids, attn, config).argmax(-1)[:, None]
+    kw = dict(positions=plens[:, None],
+              key_start=(maxp - plens).to(torch.int32))
+    out = {}
+    for key, impl in (("auto", "auto"), ("torch", "torch"),
+                      ("fault", "auto")):
+        step_cache = KVCache(cache.k.clone(), cache.v.clone())
+        remove = _zero_kv_head_fault(kc) if key == "fault" else None
+        try:
+            out[key], _ = decode_step(params, step_cache, last, maxp,
+                                      config, impl=impl, **kw)
+        finally:
+            if remove:
+                remove()
+        del step_cache
+    torch.cuda.synchronize()
+    line = {"phase": "generate_logits_check", "dtype": "bfloat16",
+            "rel_err": _rel(out["auto"], out["torch"]),
+            "rel_tol": LOGITS_REL_TOL,
+            "argmax_agree": (out["auto"].argmax(-1) == out["torch"].argmax(-1)
+                             ).float().mean().item(),
+            "finite": bool(torch.isfinite(out["auto"]).all()),
+            "fault": "B9 context of kv head 0 of layer 0 zeroed",
+            "fault_rel_err": _rel(out["fault"], out["torch"])}
+    emit(line)
+    if not (line["finite"] and line["rel_err"] <= LOGITS_REL_TOL
+            and line["fault_rel_err"] > LOGITS_REL_TOL):
+        raise RuntimeError(f"generate's first decode step disagrees, or the "
+                           f"planted fault passes: {line}")
+    return line
+
+
+def _flat_int8_run(params, config, dev, prompts) -> dict:
+    """``decode_step_flat`` on a flat int8 ``QuantKVCache``: the left-padded
+    prompts in one multi-token step, then FLAT_STEPS one-token steps, each
+    count set to 0 just before the kernel path's run; impl="torch" then
+    takes the same tokens, and every step's logits are held to it."""
+    from onebit_tpu_torch import decode_step_flat, init_quant_kv_cache
+    from onebit_tpu_torch.engine import generate as gm
+    from onebit_tpu_torch.kernels import kv_attention_cuda as kc
+    ids, attn = (torch.from_numpy(a).to(dev) for a in gm.left_pad(prompts))
+    b, maxp = ids.shape
+    plens = attn.sum(1)
+    key_start = (maxp - plens).to(torch.int32)
+    tokens, logits, counts = [], {}, None
+    for impl in ("auto", "torch"):
+        cache = init_quant_kv_cache(config, b, 256, device=dev)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out, cache = decode_step_flat(
+            params, cache, ids, 0, config, impl=impl,
+            positions=(torch.cumsum(attn, 1) - 1).clamp(min=0),
+            key_start=key_start)
+        steps = []
+        for i in range(FLAT_STEPS):
+            if impl == "auto":
+                tokens.append(out[:, -1].argmax(-1)[:, None])
+            out, cache = decode_step_flat(
+                params, cache, tokens[i], maxp + i, config, impl=impl,
+                positions=(plens + i)[:, None], key_start=key_start)
+            steps.append(out[:, -1])
+        torch.cuda.synchronize()
+        logits[impl] = torch.stack(steps)
+        if impl == "auto":
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+        del cache
+    rel = max(_rel(a, r) for a, r in zip(logits["auto"], logits["torch"]))
+    want = config.num_hidden_layers * FLAT_STEPS
+    line = {"phase": "decode_step_flat_int8", "batch": b, "max_len": 256,
+            "prefill_tokens": maxp, "steps": FLAT_STEPS,
+            "max_rel_err_vs_torch": rel, "rel_tol": LOGITS_REL_TOL,
+            "seconds": wall,
+            "launches": {k: v for k, v in counts.items() if v}}
+    emit(line)
+    if rel > LOGITS_REL_TOL or counts[kc.DECODE_INT8.name] != want:
+        raise RuntimeError(f"decode_step_flat (int8): logits disagree or B9 "
+                           f"(int8) did not launch {want} times: {line}")
+    return counts
+
+
+def generate_checks(params, config, dev) -> dict:
+    """Batch generation at llama2-7b width and depth on the fused params,
+    the dense run's 8 prompts left-padded (5-200 tokens):
+
+    (a) the first decode step against impl="torch", with a planted fault
+        (:func:`_generate_first_step`);
+    (b) ``generate`` of GEN_NEW greedy tokens in bf16 and GEN_NEW_F32 in
+        fp32, each counted from 0: B9 (bf16, fp32) exactly 32 per decode
+        step, K1, K2 and K3 launched; wall time; then the bf16 decode loop
+        alone, timed for ms per step;
+    (c) ``decode_step_flat`` on the flat int8 cache (:func:`_flat_int8_run`):
+        B9's int8 instance exactly 32 x FLAT_STEPS times.
+
+    Returns B9's launches from (b) and (c)."""
+    from onebit_tpu_torch import generate
+    from onebit_tpu_torch.engine import generate as gm
+    from onebit_tpu_torch.engine.sampler import SamplingConfig
+    from onebit_tpu_torch.kernels import bitlinear_cuda as bc
+    from onebit_tpu_torch.kernels import kv_attention_cuda as kc
+    from onebit_tpu_torch.model.bitllama import init_kv_cache
+    prompts = smoke_prompts()
+    n_layers = config.num_hidden_layers
+    _generate_first_step(params, config, dev, prompts)
+    launches = {}
+    for dtype, new, info, k3 in (
+            (torch.bfloat16, GEN_NEW, kc.DECODE_BF16, bc.LARGE_M),
+            (torch.float32, GEN_NEW_F32, kc.DECODE_F32, bc.LARGE_M_F32)):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = generate(params, config, prompts, max_new_tokens=new,
+                       compute_dtype=dtype)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        want = n_layers * (new - 1)
+        line = {"phase": "generate", "dtype": str(dtype)[6:],
+                "prompt_lengths": [len(p) for p in prompts],
+                "new_tokens": new, "decode_steps": new - 1,
+                "generated": [len(r) for r in out], "wall_s": wall,
+                "tok_per_s_end_to_end": sum(len(r) for r in out) / wall,
+                "launches": {k: v for k, v in counts.items() if v}}
+        ok = (counts[info.name] == want
+              and all(counts[k.name] for k in (bc.SMALL_M, bc.FUSED_SMALL_M,
+                                               k3))
+              and all(r and all(0 <= t < config.vocab_size for t in r)
+                      for r in out))
+        if dtype == torch.bfloat16:
+            # the decode loop alone: ms per step, tokens per second
+            ids, attn = (torch.from_numpy(a).to(dev)
+                         for a in gm.left_pad(prompts))
+            b, maxp = ids.shape
+            cache = init_kv_cache(config, b, 1 << (maxp + new - 1
+                                                   ).bit_length(),
+                                  device=dev)
+            last = gm._prefill(params, cache, ids, attn, config).argmax(
+                -1)[:, None]
+            gen = torch.Generator(device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gm._decode_loop(params, cache, last, maxp, attn.sum(1), gen,
+                            config, sampling=SamplingConfig(greedy=True),
+                            num_steps=new - 1)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) / (new - 1) * 1e3
+            line.update(decode_ms_per_step=step_ms,
+                        decode_tok_per_s=b / step_ms * 1e3)
+            del cache
+        emit(line)
+        if not ok:
+            raise RuntimeError(f"generate ({dtype}): {info.name} did not "
+                               f"launch {want} times, a BitLinear kernel "
+                               f"never launched, or bad tokens: {line}")
+        launches[info.name] = counts[info.name]
+        torch.cuda.empty_cache()
+    counts = _flat_int8_run(params, config, dev, prompts)
+    launches[kc.DECODE_INT8.name] = counts[kc.DECODE_INT8.name]
+    return launches
+
+
+def generate_cli_checks(dev) -> None:
+    """The command lines on the 2-layer native checkpoint of 7B width that
+    :func:`eval_checks` wrote under ``build/smoke_ckpt``: ``convert
+    --format reference``; ``generate`` from the reference directory, whose
+    tokens must equal the in-process ``generate`` of the checkpoint it
+    loads; ``eval --check-engines dense,kvq,int4,paged`` with a pinned
+    ``engine_check.ok`` of 1. The reference directory is removed after."""
+    import shutil
+
+    from onebit_tpu_torch import generate, load_reference_checkpoint
+    from onebit_tpu_torch.engine.sampler import SamplingConfig
+    ckpt = os.path.join(ROOT, "build", "smoke_ckpt")
+    ref = os.path.join(ROOT, "build", "smoke_ref")
+    seconds = {}
+
+    def cli(*args):
+        t = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "onebit_tpu_torch",
+                              *args], cwd=ROOT, capture_output=True,
+                             text=True, timeout=600)
+        seconds[args[0]] = time.perf_counter() - t
+        if run.returncode != 0:
+            raise RuntimeError(f"{args[0]} failed:\n{run.stdout[-2000:]}\n"
+                               f"{run.stderr[-3000:]}")
+        return run.stdout.strip().splitlines()
+
+    try:
+        cli("convert", ckpt, ref, "--format", "reference")
+        tokens = cli("generate", "--ckpt", ref, "--prompt", "1,2,3",
+                     "--greedy", "--device", "cuda")[-1]
+        loaded = load_reference_checkpoint(ref, device=dev)
+        want = generate(loaded["params"], loaded["config"], [[1, 2, 3]],
+                        sampling=SamplingConfig(greedy=True))[0]
+        del loaded
+        spec = os.path.join(ref, "expect.json")
+        with open(spec, "w") as f:
+            json.dump({"engine_check.ok": {"value": 1.0, "atol": 0.0}}, f)
+        out = cli("eval", "--ckpt", ref, "--check-engines",
+                  "dense,kvq,int4,paged", "--expect", spec)
+        result = json.loads([ln for ln in out if ln.startswith("{")][-1])
+        line = {"phase": "generate_cli", "ckpt_layers": 2,
+                "cli_tokens": tokens,
+                "in_process_tokens": ",".join(map(str, want)),
+                "engine_check": result["engine_check"],
+                "engine_lines": [ln for ln in out if "engine check" in ln],
+                "seconds": seconds}
+        emit(line)
+        if tokens != line["in_process_tokens"] or \
+                result["engine_check"]["ok"] != 1.0:
+            raise RuntimeError(f"the generate and eval command lines: {line}")
+    finally:
+        shutil.rmtree(ref, ignore_errors=True)
+
+
 def end_to_end(dev) -> dict:
     """The dense path at max_len 256, then the int8 and the int4
     quantized-KV paths and the paged paths (bf16 pages, int8 pages, bf16
-    pages with prefix caching) at max_len 2048, then evaluation
-    (:func:`eval_checks`), all at full llama2-7b width and depth on the
-    same random weights. Returns each kernel's launches from the run of its
-    own path."""
+    pages with prefix caching) at max_len 2048, batch generation
+    (:func:`generate_checks`), then evaluation (:func:`eval_checks`), all
+    at full llama2-7b width and depth on the same random weights; the
+    generate and eval command lines (:func:`generate_cli_checks`); and KD
+    training (:func:`train_checks`). Returns each kernel's launches from the
+    run of its own path."""
     from onebit_tpu_torch import (BitLlamaConfig, fuse_for_decode,
                                   host_random_packed_params)
     from onebit_tpu_torch.kernels import kv_attention_cuda as kc
@@ -958,8 +1391,8 @@ def end_to_end(dev) -> dict:
     # (prompts, engine options, per-step kernel, kernels of this path,
     # first-step check)
     for prompts, opts, per_step, path_kernels, check in (
-            (smoke_prompts(), dict(max_len=256), None, all_kernels()[:3],
-             True),
+            (smoke_prompts(), dict(max_len=256), kc.DECODE_BF16,
+             all_kernels()[:3], True),
             (deep_prompts(), dict(max_len=2048, quantized_kv=True),
              kc.APPEND_KT, [kc.APPEND_KT], True),
             (deep_prompts(), dict(max_len=2048, quantized_kv="int4"),
@@ -974,6 +1407,7 @@ def end_to_end(dev) -> dict:
         run = served_run(params, config, dev, prompts, 32, opts, per_step)
         launches.update({k.name: run[k.name] for k in path_kernels})
         torch.cuda.empty_cache()
+    launches.update(generate_checks(params, config, dev))
     # the serving runs' memory goes before evaluation, which reads the
     # projections unfused, as a checkpoint loads them
     del params
@@ -981,6 +1415,7 @@ def end_to_end(dev) -> dict:
     launches.update(eval_checks(unfused, config, dev))
     del unfused
     torch.cuda.empty_cache()
+    generate_cli_checks(dev)
     launches.update(train_checks(dev))
     # B6 and B8, the read-only variants, are on no path of the port
     return {k.name: launches.get(k.name, 0) for k in all_kernels()}
@@ -1309,7 +1744,7 @@ def eval_checks(params, config, dev) -> dict:
 # teacher (0.8 GB) and some 9 GB of activations at 4 x 2048 tokens (the
 # latent projections keep fp32 copies for their products), so 4 layers fit
 # one 80 GB card beside the embeddings and the [4, 2048, 32000] logits of
-# the KL; the 32 of llama2-7b need a sharded model (slice 6).
+# the KL; the 32 of llama2-7b need a sharded model (slice 7).
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQLEN, TRAIN_STEPS = 4, 4, 2048, 3
 # The first KD step's loss and each trainable leaf's gradient on the kernel
 # path against impl="torch", relative to the leaf's largest |gradient|.
@@ -1432,7 +1867,7 @@ def train_checks(dev) -> dict:
           "reduced": "depth 32 -> 4: at 7B width a layer's fp32 latent "
                      "weights, gradients, Adam moments, teacher share and "
                      "activations take about 13 GB; 32 layers need a "
-                     "sharded model (slice 6)"})
+                     "sharded model (slice 7)"})
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -1706,6 +2141,7 @@ def main() -> int:
     results.update(paged_kernel_checks(dev))
     results.update(flash_kernel_checks(dev))
     results.update(flash_bwd_kernel_checks(dev))
+    results.update(flat_kernel_checks(dev))
     launches = end_to_end(dev)
     emit({"phase": "done", "wall_s": time.perf_counter() - t_wall})
     emit({"kernels": [

@@ -31,6 +31,14 @@ reference protocol), ``loglikelihood`` and ``loglikelihood_rolling``;
 checkpoints, and ``python -m onebit_tpu_torch eval --ckpt DIR --tokens
 FILE.npy`` prints the perplexity of a token stream.
 
+Batch generation (``generate``) prefills left-padded prompts and decodes
+every row at a shared cache index (``decode_step``, ``decode_step_flat``;
+on the card each step's attention over the dense cache runs kernel B9);
+``python -m onebit_tpu_torch generate --ckpt DIR --prompt 1,2,3`` prints
+the new token ids. ``load_reference_checkpoint`` reads the reference's
+Hugging Face checkpoints (latent, int8-packed, plain LLaMA) and
+``export_reference_int8`` writes its int8 format.
+
 Training distills a BitLlama student from a plain (FP) teacher, as the
 reference does: ``build_start_params`` makes the SVID start checkpoint,
 ``make_train_step`` / ``run_kd`` run KD steps on the student's latent
@@ -40,10 +48,13 @@ for serving; ``python -m onebit_tpu_torch build-start-ckpt | train |
 convert`` does the same on native checkpoints.
 """
 
-from onebit_tpu_torch.ckpt.native import load_native, save_native
+from onebit_tpu_torch.ckpt.hf_reader import load_reference_checkpoint
+from onebit_tpu_torch.ckpt.native import (export_reference_int8, load_native,
+                                          save_native)
 from onebit_tpu_torch.convert import params_from_jax, params_to_numpy
 from onebit_tpu_torch.core.build_start import build_start_params
 from onebit_tpu_torch.engine.batching import ContinuousBatchingEngine
+from onebit_tpu_torch.engine.generate import generate
 from onebit_tpu_torch.engine.paged import (PagedKVCache, QuantPagedKVCache,
                                            init_paged_kv_cache)
 from onebit_tpu_torch.engine.sampler import SamplingConfig
@@ -51,7 +62,8 @@ from onebit_tpu_torch.eval.loglikelihood import loglikelihood
 from onebit_tpu_torch.eval.ppl import perplexity
 from onebit_tpu_torch.eval.rolling import loglikelihood_rolling
 from onebit_tpu_torch.kernels.linear import LinearWeights
-from onebit_tpu_torch.model.bitllama import (forward, fuse_for_decode,
+from onebit_tpu_torch.model.bitllama import (decode_step, decode_step_flat,
+                                             forward, fuse_for_decode,
                                              init_params, pack_model_params)
 from onebit_tpu_torch.model.config import BitLlamaConfig
 from onebit_tpu_torch.model.kv_cache import (QuantKVCache, QuantKVCacheKT,
@@ -69,11 +81,13 @@ __all__ = [
     "BitLlamaConfig", "ContinuousBatchingEngine", "KDConfig", "KDRunConfig",
     "LinearWeights", "PagedKVCache", "QuantKVCache", "QuantKVCacheKT",
     "QuantKVCacheKT4", "QuantPagedKVCache", "SamplingConfig", "TrainConfig",
-    "build_start_params", "forward", "fuse_for_decode",
+    "build_start_params", "decode_step", "decode_step_flat",
+    "export_reference_int8", "forward", "fuse_for_decode", "generate",
     "host_random_packed_params", "init_paged_kv_cache", "init_params",
     "init_quant_kv_cache", "init_quant_kv_cache_kt",
     "init_quant_kv_cache_kt4", "init_train_state", "load_native",
-    "loglikelihood", "loglikelihood_rolling", "make_train_step",
+    "load_reference_checkpoint", "loglikelihood", "loglikelihood_rolling",
+    "make_train_step",
     "pack_model_params", "params_from_jax", "params_to_numpy", "perplexity",
     "run_kd", "save_native",
 ]

@@ -5,19 +5,27 @@
     python -m onebit_tpu_torch train --student DIR --teacher DIR \\
         --tokens BLOCKS.npy [--output-dir out] [--batch-size 4] \\
         [--max-steps N] [KD and optimizer flags] [--device cuda|cpu]
-    python -m onebit_tpu_torch convert TRAIN_CKPT OUT_DIR [--device ...]
-    python -m onebit_tpu_torch eval --ckpt DIR --tokens FILE.npy \\
+    python -m onebit_tpu_torch convert TRAIN_CKPT OUT_DIR \\
+        [--format native|reference] [--device ...]
+    python -m onebit_tpu_torch eval --ckpt DIR [--tokens FILE.npy] \\
         [--seqlen 2048] [--batch-size 4] [--limit N] [--vocab-chunk N] \\
-        [--expect FILE.json] [--device cuda|cpu]
+        [--check-engines dense,kvq,int4,paged] [--expect FILE.json] \\
+        [--device cuda|cpu]
+    python -m onebit_tpu_torch generate --ckpt DIR --prompt 1,2,3 \\
+        [--max-new-tokens 64] [--greedy] [--temperature 0.95] \\
+        [--top-k 50] [--top-p 0.7] [--device cuda|cpu]
 
-Port of ``onebit_tpu/cli.py``'s pipeline on native checkpoints
-(``config.json`` + ``params.npz``): the SVID start checkpoint from a plain
-teacher, KD training on pre-tokenized blocks (``[N, S]`` ``.npy``), packing
-for inference, and the windowed perplexity of a pre-tokenized stream,
-printed as one JSON line and checked against pinned numbers with
-``--expect``. What is not ported yet (text datasets and tokenizers,
-sharded and reference checkpoints, ``--dry-compile``) exits nonzero,
-naming what it waits for.
+Port of ``onebit_tpu/cli.py``'s pipeline. A checkpoint is a native
+directory (``config.json`` + ``params.npz``) or a reference Hugging Face
+directory (``ckpt/hf_reader.py``). The commands: the SVID start checkpoint
+from a plain teacher, KD training on pre-tokenized blocks (``[N, S]``
+``.npy``), packing for inference (native, or the reference's int8 format),
+the windowed perplexity of a pre-tokenized stream and the serving engines'
+greedy cross-check against ``generate``, printed as one JSON line and
+checked against pinned numbers with ``--expect``, and generation from a
+prompt of comma-separated token ids. What is not ported yet (text datasets
+and tokenizers, sharded checkpoints, beam search, the pipelined engine,
+``--dry-compile``) exits nonzero, naming what it waits for.
 """
 
 from __future__ import annotations
@@ -39,13 +47,22 @@ WAITING = {
              "which the repository does not hold",
     "tokenizer": "a Hugging Face tokenizer (transformers), which the "
                  "repository does not hold",
-    "check_engines": "engine/generate.py, among slice 3's leftovers",
     "decontaminate": "--tasks and tools/decontam/",
 }
+# the engine configurations of --check-engines (onebit_tpu/cli.py:214-220)
+ENGINE_CHECKS = {
+    "dense": {},
+    "kvq": dict(quantized_kv=True),
+    "int4": dict(quantized_kv="int4"),
+    "paged": dict(paged=True, quantized_kv=True, page_size=16),
+}
+PIPELINED_WAITS_FOR = ("the engine's block_steps and pipeline_blocks "
+                       "(ROADMAP.md §1 item 5)")
+BEAM_WAITS_FOR = "engine/beam.py (ROADMAP.md §1 item 4)"
 
 
 _TEXT = TEXT_DATASETS_WAIT_FOR
-_PARALLEL = "slice 6 of the PyTorch port (parallelism)"
+_PARALLEL = "slice 7 of the PyTorch port (parallelism)"
 # train flag -> what it waits for
 WAITING_TRAIN = {
     "data": _TEXT, "dataset": _TEXT, "tokenizer": _TEXT,
@@ -55,28 +72,23 @@ WAITING_TRAIN = {
     "model": "--dry-compile", "mesh": "--dry-compile", "hbm_gb":
     "--dry-compile",
 }
-WAITING_CONVERT = {
-    "reference": "export_reference_int8 and safetensors, which the "
-                 "repository does not hold",
-    "sharded": "sharded checkpoints, " + _PARALLEL,
-}
+WAITING_CONVERT = {"sharded": "sharded checkpoints, " + _PARALLEL}
 
 
-def _check_expect(results, path: str) -> None:
+def _check_expect(results, path: str, check_engines: bool) -> None:
     """Pinned numbers ``{"metric": {"value": v, "atol": a}, ...}``; keys
     starting with ``_`` are comments. Exits nonzero on any miss. A pinned
-    ``engine_check.*`` fails: the engine gate is not ported, and a gate
-    that cannot run must not pass."""
+    ``engine_check.*`` is SKIPPED without ``--check-engines`` (the gate is
+    opt-in) and checked with it (onebit_tpu/cli.py:359-392)."""
     with open(path) as f:
         expected = json.load(f)
     failures = []
     for metric, spec in expected.items():
         if metric.startswith("_"):
             continue
-        if metric.split(".")[0] == "engine_check":
-            failures.append(f"{metric}: NOT RUN (--check-engines waits for "
-                            f"{WAITING['check_engines']})")
-            print(failures[-1])
+        if metric.split(".")[0] == "engine_check" and not check_engines:
+            print(f"{metric}: SKIPPED (pass --check-engines to assert the "
+                  "serving-engine gate)")
             continue
         got = results
         for part in metric.split("."):
@@ -98,21 +110,27 @@ def _check_expect(results, path: str) -> None:
         raise SystemExit("expectation failures:\n" + "\n".join(failures))
 
 
-def _load_native(path: str, device):
-    """A native checkpoint, or exit naming what other kinds wait for."""
-    from onebit_tpu_torch.ckpt.native import load_native
-    if not os.path.exists(os.path.join(path, "params.npz")):
-        raise SystemExit(f"{path} is not a native checkpoint (config.json + "
-                         "params.npz); sharded and reference HF checkpoints "
-                         "are not ported yet")
-    return load_native(path, device=device)
+def _load_any_ckpt(path: str, device):
+    """A native checkpoint (``params.npz``) or a reference Hugging Face
+    directory (onebit_tpu/cli.py:25-35); a sharded one exits nonzero."""
+    meta = os.path.join(path, "metadata.json")
+    if os.path.exists(meta):
+        with open(meta) as f:
+            if json.load(f).get("format") == "onebit-sharded":
+                raise SystemExit(f"{path} is a sharded checkpoint, which is "
+                                 f"not ported yet: it waits for {_PARALLEL}")
+    if os.path.exists(os.path.join(path, "params.npz")):
+        from onebit_tpu_torch.ckpt.native import load_native
+        return load_native(path, device=device)
+    from onebit_tpu_torch.ckpt.hf_reader import load_reference_checkpoint
+    return load_reference_checkpoint(path, device=device)
 
 
 def cmd_build_start(args) -> None:
     from onebit_tpu_torch.ckpt.native import save_native
     from onebit_tpu_torch.core.build_start import build_start_params
 
-    loaded = _load_native(args.teacher, args.device)
+    loaded = _load_any_ckpt(args.teacher, args.device)
     start = build_start_params(loaded["params"], method=args.method,
                                num_iters=args.num_iters)
     save_native(args.out, loaded["config"], start)
@@ -120,16 +138,17 @@ def cmd_build_start(args) -> None:
 
 
 def cmd_convert(args) -> None:
-    from onebit_tpu_torch.ckpt.native import save_native
+    from onebit_tpu_torch.ckpt.native import (export_reference_int8,
+                                              save_native)
     from onebit_tpu_torch.model.bitllama import pack_model_params
 
-    if args.format != "native":
+    if args.format in WAITING_CONVERT:
         raise SystemExit(f"--format {args.format} is not ported yet: it "
                          f"waits for {WAITING_CONVERT[args.format]}")
-    loaded = _load_native(args.ckpt, args.device)
-    save_native(args.out, loaded["config"],
-                pack_model_params(loaded["params"]))
-    print(f"packed inference checkpoint (native) -> {args.out}")
+    loaded = _load_any_ckpt(args.ckpt, args.device)
+    write = save_native if args.format == "native" else export_reference_int8
+    write(args.out, loaded["config"], pack_model_params(loaded["params"]))
+    print(f"packed inference checkpoint ({args.format}) -> {args.out}")
 
 
 def cmd_train(args) -> None:
@@ -147,8 +166,8 @@ def cmd_train(args) -> None:
     if not (args.student and args.teacher and args.tokens):
         raise SystemExit("train needs --student DIR, --teacher DIR and "
                          "--tokens BLOCKS.npy (pre-tokenized [N, S] blocks)")
-    student = _load_native(args.student, args.device)
-    teacher = _load_native(args.teacher, args.device)
+    student = _load_any_ckpt(args.student, args.device)
+    teacher = _load_any_ckpt(args.teacher, args.device)
     config = student["config"]
     blocks = np.load(args.tokens)
     print(f"dataset: {blocks.shape[0]} blocks x {blocks.shape[1]}")
@@ -173,6 +192,64 @@ def cmd_train(args) -> None:
            kd_cfg=kd_cfg, train_cfg=train_cfg, run_cfg=run_cfg)
 
 
+def _engine_consistency_check(loaded, configs, device, *, max_len: int = 256,
+                              n_new: int = 6) -> dict:
+    """Greedy cross-check of the serving engines against ``generate``
+    (onebit_tpu/cli.py:189-240): the bf16 dense engine must give
+    ``generate``'s tokens exactly; the quantized ones (int8 KT, int4 KT,
+    paged int8) its FIRST token exactly (every engine's prefill attends in
+    full precision) and only in-vocab tokens. Returns ``{"ok": 1/0,
+    "<config>": 1/0, ...}`` so that ``--expect`` can pin
+    ``engine_check.ok``."""
+    import numpy as np
+
+    from onebit_tpu_torch.engine.batching import ContinuousBatchingEngine
+    from onebit_tpu_torch.engine.generate import generate
+    from onebit_tpu_torch.engine.sampler import SamplingConfig
+
+    params, config = loaded["params"], loaded["config"]
+    rng = np.random.default_rng(0)
+    hi = min(config.vocab_size, 1000)
+    prompts = [rng.integers(1, hi, n).tolist() for n in (4, 7, 3)]
+    greedy = SamplingConfig(greedy=True)
+    want = generate(params, config, prompts, max_new_tokens=n_new,
+                    sampling=greedy)
+    out = {}
+    for name in configs:
+        eng = ContinuousBatchingEngine(
+            params, config, max_batch=2, max_len=max_len, sampling=greedy,
+            device=device, **ENGINE_CHECKS[name])
+        uids = [eng.add_request(p, max_new_tokens=n_new) for p in prompts]
+        got = eng.run()
+        got = [got[u] for u in uids]
+        if name == "dense":
+            good = got == want
+        else:
+            good = all(g and g[0] == w[0]
+                       and all(0 <= t < config.vocab_size for t in g)
+                       for g, w in zip(got, want))
+        out[name] = float(good)
+        print(f"engine check [{name}]: {'OK' if good else 'MISMATCH'}")
+    out["ok"] = min(out.values()) if out else 0.0
+    return out
+
+
+def _engine_configs(spec: str):
+    """The configurations of ``--check-engines`` (``all`` or a comma list);
+    exits nonzero before anything runs when one is not ported."""
+    names = (["dense", "pipelined", "kvq", "int4", "paged"] if spec == "all"
+             else [c.strip() for c in spec.split(",") if c.strip()])
+    if "pipelined" in names:
+        raise SystemExit("--check-engines pipelined (in 'all') is not ported "
+                         f"yet: it waits for {PIPELINED_WAITS_FOR}; name the "
+                         "others, as in --check-engines dense,kvq,int4,paged")
+    unknown = [n for n in names if n not in ENGINE_CHECKS]
+    if unknown:
+        raise SystemExit(f"--check-engines: unknown configurations {unknown} "
+                         f"(known: {sorted(ENGINE_CHECKS)})")
+    return names
+
+
 def cmd_eval(args) -> None:
     import numpy as np
 
@@ -182,17 +259,44 @@ def cmd_eval(args) -> None:
         if getattr(args, flag):
             raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet: "
                              f"it waits for {why}")
-    if not args.tokens:
+    configs = _engine_configs(args.check_engines) if args.check_engines \
+        else None
+    if not (args.tokens or configs):
         raise SystemExit("eval needs --tokens FILE.npy (a pre-tokenized "
-                         "stream)")
-    loaded = _load_native(args.ckpt, args.device)
-    results = {"ppl": perplexity(
-        loaded["params"], loaded["config"], np.load(args.tokens),
-        seqlen=args.seqlen, batch_size=args.batch_size, limit=args.limit,
-        progress=True, vocab_chunk=args.vocab_chunk)}
+                         "stream) or --check-engines")
+    loaded = _load_any_ckpt(args.ckpt, args.device)
+    results = {}
+    if configs:
+        results["engine_check"] = _engine_consistency_check(
+            loaded, configs, args.device)
+    if args.tokens:
+        results["ppl"] = perplexity(
+            loaded["params"], loaded["config"], np.load(args.tokens),
+            seqlen=args.seqlen, batch_size=args.batch_size, limit=args.limit,
+            progress=True, vocab_chunk=args.vocab_chunk)
     print(json.dumps(results, default=float), flush=True)
     if args.expect:
-        _check_expect(results, args.expect)
+        _check_expect(results, args.expect, bool(configs))
+
+
+def cmd_generate(args) -> None:
+    from onebit_tpu_torch.engine.generate import generate
+    from onebit_tpu_torch.engine.sampler import SamplingConfig
+
+    if args.tokenizer:
+        raise SystemExit("--tokenizer is not ported yet: it waits for "
+                         f"{WAITING['tokenizer']}")
+    if args.num_beams > 1:
+        raise SystemExit("--num-beams > 1 is not ported yet: it waits for "
+                         f"{BEAM_WAITS_FOR}")
+    prompt = [int(t) for t in args.prompt.split(",")]
+    loaded = _load_any_ckpt(args.ckpt, args.device)
+    sampling = SamplingConfig(greedy=args.greedy,
+                              temperature=args.temperature,
+                              top_k=args.top_k, top_p=args.top_p)
+    out = generate(loaded["params"], loaded["config"], [prompt],
+                   max_new_tokens=args.max_new_tokens, sampling=sampling)[0]
+    print(",".join(map(str, out)))
 
 
 def _device_flag(parser) -> None:
@@ -255,7 +359,8 @@ def build_parser() -> argparse.ArgumentParser:
                        help="not ported yet")
     t.set_defaults(fn=cmd_train)
     e = sub.add_parser("eval", help="perplexity of a token stream")
-    e.add_argument("--ckpt", required=True, help="native checkpoint dir")
+    e.add_argument("--ckpt", required=True, help="native or reference "
+                   "checkpoint dir")
     e.add_argument("--tokens", help="pre-tokenized stream .npy for ppl")
     e.add_argument("--seqlen", type=int, default=2048)
     e.add_argument("--batch-size", type=int, default=4)
@@ -270,8 +375,27 @@ def build_parser() -> argparse.ArgumentParser:
                  "decontaminate"):
         e.add_argument(f"--{flag}", help="not ported yet")
     e.add_argument("--check-engines", nargs="?", const="all", default=None,
-                   help="not ported yet")
+                   help="greedy cross-check of the serving engines against "
+                   "generate: a comma list of dense, kvq, int4, paged "
+                   "('all' adds pipelined, not ported yet); adds "
+                   "engine_check.* to the results")
     e.set_defaults(fn=cmd_eval)
+
+    g = sub.add_parser("generate", help="generation from token ids")
+    g.add_argument("--ckpt", required=True, help="native or reference "
+                   "checkpoint dir")
+    g.add_argument("--prompt", required=True,
+                   help="comma-separated token ids")
+    g.add_argument("--tokenizer", help="not ported yet")
+    g.add_argument("--max-new-tokens", type=int, default=64)
+    g.add_argument("--greedy", action="store_true")
+    g.add_argument("--num-beams", type=int, default=1,
+                   help="beam search above 1 (not ported yet)")
+    g.add_argument("--temperature", type=float, default=0.95)
+    g.add_argument("--top-k", type=int, default=50)
+    g.add_argument("--top-p", type=float, default=0.7)
+    _device_flag(g)
+    g.set_defaults(fn=cmd_generate)
     return p
 
 

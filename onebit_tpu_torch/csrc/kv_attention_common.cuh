@@ -1,5 +1,7 @@
 // Fused decode attention over the quantized KT pools, with an optional
-// append of this step's K/V: the body of kernels B5-B8 of the port.
+// append of this step's K/V: the body of kernels B5-B8 of the port; and the
+// dtype helpers, warp reductions and row loads (Row8) that B9
+// (kv_attention_decode.cu) and B10 (paged_attention.cu) share with it.
 //
 // Replaces, in onebit_tpu/kernels/kv_attention.py,
 //   _kernel_append_kt  / _kernel_kt   (int8 pools, kv_attention_int8.cu)
@@ -86,6 +88,12 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
+// v rounded to T's precision, as a float.
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  return to_f32(from_f32<T>(v));
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
@@ -98,6 +106,57 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
+
+// 8 consecutive elements of one row-major K/V row (the flat pools of B9, the
+// pages of B10), loaded raw in one (bf16, int8) or two (f32) vector loads
+// through the read-only path, read back as floats. The address must be
+// 16-byte (bf16, f32) or 8-byte (int8) aligned.
+template <typename P>
+struct Row8;
+
+template <>
+struct Row8<__nv_bfloat16> {
+  uint4 r;
+  __device__ __forceinline__ void zero() { r = make_uint4(0, 0, 0, 0); }
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    r = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ float get(int e) const {
+    const uint32_t w = e < 2 ? r.x : e < 4 ? r.y : e < 6 ? r.z : r.w;
+    return __uint_as_float((e & 1) ? (w & 0xffff0000u) : (w << 16));
+  }
+};
+
+template <>
+struct Row8<float> {
+  float4 a, b;
+  __device__ __forceinline__ void zero() {
+    a = make_float4(0.f, 0.f, 0.f, 0.f);
+    b = a;
+  }
+  __device__ __forceinline__ void load(const float* p) {
+    a = __ldg(reinterpret_cast<const float4*>(p));
+    b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  }
+  __device__ __forceinline__ float get(int e) const {
+    const float4& h = e < 4 ? a : b;
+    const int i = e & 3;
+    return i == 0 ? h.x : i == 1 ? h.y : i == 2 ? h.z : h.w;
+  }
+};
+
+template <>
+struct Row8<int8_t> {
+  uint2 r;
+  __device__ __forceinline__ void zero() { r = make_uint2(0, 0); }
+  __device__ __forceinline__ void load(const int8_t* p) {
+    r = __ldg(reinterpret_cast<const uint2*>(p));
+  }
+  __device__ __forceinline__ float get(int e) const {
+    const uint32_t w = e < 4 ? r.x : r.y;
+    return (float)(int8_t)(uint8_t)(w >> (8 * (e & 3)));
+  }
+};
 
 // Byte i of w as a sign-extended int.
 __device__ __forceinline__ int byte_of(uint32_t w, int i) {

@@ -47,97 +47,23 @@
 //
 // A row with length 0 gets out = 0 (finite; the Pallas kernel gives a
 // uniform average there; the engine never reads one).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
 #include <type_traits>
 
+#include "kv_attention_common.cuh"
+
 namespace onebit_paged {
+
+using onebit_kv::Row8;
+using onebit_kv::round_to;
+using onebit_kv::to_f32;
+using onebit_kv::warp_max;
+using onebit_kv::warp_sum;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 64;  // positions per tile
 constexpr int kEpl = 8;    // elements of a K/V row per lane
 constexpr int kBatch = 4;  // row loads a thread keeps in flight
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// v rounded to T's precision, as a float.
-template <typename T>
-__device__ __forceinline__ float round_to(float v);
-template <>
-__device__ __forceinline__ float round_to<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// 8 consecutive elements of one K/V row, loaded raw in one (bf16, int8) or
-// two (f32) vector loads, read back as floats.
-template <typename P>
-struct Row8;
-
-template <>
-struct Row8<__nv_bfloat16> {
-  uint4 r;
-  __device__ __forceinline__ void zero() { r = make_uint4(0, 0, 0, 0); }
-  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
-    r = __ldg(reinterpret_cast<const uint4*>(p));
-  }
-  __device__ __forceinline__ float get(int e) const {
-    const uint32_t w = e < 2 ? r.x : e < 4 ? r.y : e < 6 ? r.z : r.w;
-    return __uint_as_float((e & 1) ? (w & 0xffff0000u) : (w << 16));
-  }
-};
-
-template <>
-struct Row8<float> {
-  float4 a, b;
-  __device__ __forceinline__ void zero() {
-    a = make_float4(0.f, 0.f, 0.f, 0.f);
-    b = a;
-  }
-  __device__ __forceinline__ void load(const float* p) {
-    a = __ldg(reinterpret_cast<const float4*>(p));
-    b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  }
-  __device__ __forceinline__ float get(int e) const {
-    const float4& h = e < 4 ? a : b;
-    const int i = e & 3;
-    return i == 0 ? h.x : i == 1 ? h.y : i == 2 ? h.z : h.w;
-  }
-};
-
-template <>
-struct Row8<int8_t> {
-  uint2 r;
-  __device__ __forceinline__ void zero() { r = make_uint2(0, 0); }
-  __device__ __forceinline__ void load(const int8_t* p) {
-    r = __ldg(reinterpret_cast<const uint2*>(p));
-  }
-  __device__ __forceinline__ float get(int e) const {
-    const uint32_t w = e < 4 ? r.x : r.y;
-    return (float)(int8_t)(uint8_t)(w >> (8 * (e & 3)));
-  }
-};
 
 template <typename T, typename P, int HD, int G>
 __global__ void __launch_bounds__(kThreads)

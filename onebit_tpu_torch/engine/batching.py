@@ -39,7 +39,8 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from onebit_tpu_torch.engine.paged import (FP8_PAGES_SLICE, PageAllocator,
+from onebit_tpu_torch.engine.paged import (ENGINE_OPTIONS_WAIT,
+                                           PageAllocator,
                                            init_paged_kv_cache,
                                            paged_chunked_prefill_row,
                                            paged_decode_step,
@@ -106,21 +107,21 @@ def _check_quantized_kv(paged, quantized_kv, draft_params,
 
 def _reject_unported(paged, quantized_kv, block_steps, prefill_chunk_size,
                      draft_params, tp_mesh, pipeline_blocks):
+    parallel = "slice 7 of the PyTorch port (parallelism, ROADMAP.md)"
     later = [
         (paged and quantized_kv == "fp8", "quantized_kv='fp8' (fp8 pages)",
-         FP8_PAGES_SLICE),
-        (draft_params is not None, "draft_params", 3),
-        (tp_mesh is not None, "tp_mesh", 6),
+         ENGINE_OPTIONS_WAIT),
+        (draft_params is not None, "draft_params", ENGINE_OPTIONS_WAIT),
+        (tp_mesh is not None, "tp_mesh", parallel),
         (prefill_chunk_size and not paged,
-         "prefill_chunk_size without paged=True", 3),
-        (block_steps > 1, "block_steps > 1", 3),
-        (pipeline_blocks, "pipeline_blocks", 3),
+         "prefill_chunk_size without paged=True", ENGINE_OPTIONS_WAIT),
+        (block_steps > 1, "block_steps > 1", ENGINE_OPTIONS_WAIT),
+        (pipeline_blocks, "pipeline_blocks", ENGINE_OPTIONS_WAIT),
     ]
-    for given, name, slice_no in later:
+    for given, name, waits_for in later:
         if given:
             raise NotImplementedError(
-                f"{name} is not ported yet: it comes with slice {slice_no} "
-                "of the PyTorch port (ROADMAP.md)")
+                f"{name} is not ported yet: it waits for {waits_for}")
 
 
 class ContinuousBatchingEngine:

@@ -44,7 +44,7 @@ from onebit_tpu_torch.model.config import BitLlamaConfig
 from onebit_tpu_torch.model.rope import apply_rope, rope_cos_sin
 from onebit_tpu_torch.utils.device import resolve_device
 
-FP8_PAGES_SLICE = 3   # fp8 pages come later in this slice
+ENGINE_OPTIONS_WAIT = "the engine options of ROADMAP.md §1 item 5"
 
 
 class PagedKVCache(NamedTuple):
@@ -85,8 +85,8 @@ def init_paged_kv_cache(config: BitLlamaConfig, num_pages: int,
     pages + raw absmax scales). fp8 pages are not ported yet."""
     if quantized == "fp8":
         raise NotImplementedError(
-            "fp8 pages are not ported yet: they come with slice "
-            f"{FP8_PAGES_SLICE} of the PyTorch port (ROADMAP.md)")
+            f"fp8 pages are not ported yet: they wait for "
+            f"{ENGINE_OPTIONS_WAIT}")
     device = resolve_device(device)
     shape = (config.num_hidden_layers, num_pages,
              config.num_key_value_heads, page_size, config.head_dim)

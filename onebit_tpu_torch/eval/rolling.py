@@ -1,24 +1,24 @@
-"""Rolling-window loglikelihood, the rest of the BaseLM request API that this
-slice ports.
+"""Rolling-window loglikelihood and greedy generation until a stop string,
+the rest of the BaseLM request API.
 
 Port of ``onebit_tpu/eval/rolling.py``: ``loglikelihood_rolling`` scores a
 whole document with every token predicted exactly once, in non-overlapping
 max-context windows, except the last window, which is given a full-sized
 context and scored only on its unseen tail (reference base.py:49-79).
 ``rolling_windows`` is the JAX package's own (framework-free) function,
-copied. ``greedy_until`` needs the generation loop of a later slice.
+copied. ``greedy_until`` runs batches of prompts through ``generate``.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
+from onebit_tpu_torch.engine.generate import generate
+from onebit_tpu_torch.engine.sampler import SamplingConfig
 from onebit_tpu_torch.eval.loglikelihood import loglikelihood
 from onebit_tpu_torch.model.config import BitLlamaConfig
-
-GENERATE_SLICE = 3   # engine/generate.py, among slice 3's leftovers
 
 
 def rolling_windows(tokens: Sequence[int], max_len: int,
@@ -74,9 +74,24 @@ def loglikelihood_rolling(params, config: BitLlamaConfig,
     return [sum(results[i][0] for i in range(s, e)) for s, e in spans]
 
 
-def greedy_until(*args, **kwargs):
-    """Greedy generation until a stop string: needs ``engine/generate.py``,
-    which is not ported yet."""
-    raise NotImplementedError(
-        "greedy_until needs engine/generate.py, which comes with slice "
-        f"{GENERATE_SLICE}'s leftovers of the PyTorch port (ROADMAP.md)")
+def greedy_until(params, config: BitLlamaConfig,
+                 requests: Sequence[Tuple[Sequence[int], Sequence[str]]],
+                 detokenize: Callable, *, max_new_tokens: int = 256,
+                 batch_size: int = 8) -> List[str]:
+    """Generate greedily until any stop string appears (the reference's
+    ``greedy_until`` request type). ``requests``: (prompt tokens, stops);
+    each text is cut before the first occurrence of each stop in turn."""
+    outs: List[str] = []
+    for start in range(0, len(requests), batch_size):
+        chunk = requests[start:start + batch_size]
+        gen = generate(params, config, [list(p) for p, _ in chunk],
+                       max_new_tokens=max_new_tokens,
+                       sampling=SamplingConfig(greedy=True))
+        for (_, stops), toks in zip(chunk, gen):
+            text = detokenize(toks)
+            for stop in stops:
+                idx = text.find(stop)
+                if idx >= 0:
+                    text = text[:idx]
+            outs.append(text)
+    return outs

@@ -23,8 +23,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("bitlinear_small_m.cu", "bitlinear_large_m.cu",
            "kv_attention_int8.cu", "kv_attention_int4.cu",
-           "paged_attention.cu", "flash_attention.cu",
-           "flash_attention_bwd.cu")
+           "kv_attention_decode.cu", "paged_attention.cu",
+           "flash_attention.cu", "flash_attention_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-lineinfo", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")

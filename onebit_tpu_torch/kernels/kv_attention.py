@@ -1,15 +1,17 @@
-"""Fused decode attention over the quantized KT pools: the wrappers of
-kernels B5-B8, each with its plain PyTorch version beside it.
+"""Decode attention over the KV pools: the wrappers of kernels B5-B9, each
+with its plain PyTorch version beside it.
 
-Port of ``onebit_tpu/kernels/kv_attention.py`` for the transposed-K pools
-of ``model/kv_cache.py``:
+Port of ``onebit_tpu/kernels/kv_attention.py``:
 
 * B5 :func:`kv_attention_append_kt` and B6 :func:`kv_attention_decode_kt`
-  over the int8 pools (``QuantKVCacheKT``);
+  over the int8 transposed-K pools (``QuantKVCacheKT``);
 * B7 :func:`kv_attention_append_kt4` and B8 :func:`kv_attention_decode_kt4`
   over the nibble-packed int4 pools (``QuantKVCacheKT4``), with the scales
   in their natural layout ``k_st [L,B,nkv,T]``, ``v_s [L,B,T,nkv]`` (the
-  JAX ``_planar`` form exists only for XLA buffer forwarding).
+  JAX ``_planar`` form exists only for XLA buffer forwarding);
+* B9 :func:`kv_attention_decode` over the flat pools ``[L,B,T,nkv,hd]``:
+  int8 with scales ``[L,B,T,nkv]`` (``QuantKVCache``), or bf16/f32 with no
+  scales (the dense ``KVCache``), read only.
 
 Each attends layer ``layer`` of the pools for query ``q [B, nh, hd]`` over
 positions ``[starts[b], lengths[b])`` of each row: scores
@@ -33,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from onebit_tpu_torch.kernels import kv_attention_cuda as kc
+from onebit_tpu_torch.kernels.attention import _attention
 from onebit_tpu_torch.model.kv_cache import (merge_nibbles,
                                              unpack_int4_halfplane)
 
@@ -136,6 +139,24 @@ def kv_attention_append_kt4_torch(q, k_new, k_snew, v_new, v_snew, k_qp,
                                          layer, starts=starts)
 
 
+def kv_attention_decode_torch(q, k_q, k_s, v_q, v_s, lengths, layer, *,
+                              starts=None):
+    b, nh, _ = q.shape
+    t, nkv = k_q.shape[2], k_q.shape[3]
+    cols = torch.arange(t, device=q.device)[None, :]
+    valid = cols < _rows(lengths, b, q.device)[:, None]
+    if starts is not None:
+        valid &= cols >= _rows(starts, b, q.device)[:, None]
+    mask = valid[:, None, None, :]
+    if k_s is not None:
+        return _attention_quant(q[:, None], k_q[layer], k_s[layer],
+                                v_q[layer], v_s[layer], mask,
+                                num_kv_groups=nh // nkv)[:, 0]
+    return _attention(q[:, None], k_q[layer].to(q.dtype),
+                      v_q[layer].to(q.dtype), mask,
+                      num_kv_groups=nh // nkv)[:, 0]
+
+
 # ---------------------------------------------------------------------------
 # Wrappers: the plain version for CPU tensors, the kernel for CUDA tensors
 # ---------------------------------------------------------------------------
@@ -200,7 +221,28 @@ def kv_attention_append_kt4(q, k_new, k_snew, v_new, v_snew, k_qp, k_st,
                      starts=starts, append=(k_new, k_snew, v_new, v_snew, pos))
 
 
-PLAIN = {kv_attention_append_kt: kv_attention_append_kt_torch,
+def kv_attention_decode(q, k_q, k_s, v_q, v_s, lengths, layer: int, *,
+                        starts=None):
+    """B9: attention over layer ``layer`` of the flat pools ``k_q/v_q
+    [L,B,T,nkv,hd]``, int8 with pre-divided scales ``k_s/v_s [L,B,T,nkv]``
+    f32, or bf16/f32 with ``k_s = v_s = None`` (on the card: of q's dtype),
+    read only -> ``ctx [B, nh, hd]`` in q's dtype. Row ``b`` attends
+    positions ``[starts[b], lengths[b])``. The plain version: the
+    scale-folded ``_attention_quant`` on int8 pools, ``_attention`` over the
+    pool cast to q's dtype otherwise."""
+    if k_q.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+        raise NotImplementedError("fp8 KV pools are not ported yet: they "
+                                  "come with the engine options of "
+                                  "ROADMAP.md §1 item 5")
+    if q.device.type == "cpu":
+        return kv_attention_decode_torch(q, k_q, k_s, v_q, v_s, lengths,
+                                         layer, starts=starts)
+    return kc.launch_flat(q, k_q, k_s, v_q, v_s, lengths, layer,
+                          starts=starts)
+
+
+PLAIN = {kv_attention_decode: kv_attention_decode_torch,
+         kv_attention_append_kt: kv_attention_append_kt_torch,
          kv_attention_decode_kt: kv_attention_decode_kt_torch,
          kv_attention_append_kt4: kv_attention_append_kt4_torch,
          kv_attention_decode_kt4: kv_attention_decode_kt4_torch}

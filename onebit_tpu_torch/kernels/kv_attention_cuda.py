@@ -1,10 +1,12 @@
-"""The quantized-KV decode attention kernels B5-B8, bound with ctypes.
+"""The decode attention kernels over the KV pools, B5-B9, bound with ctypes.
 
 Sources ``onebit_tpu_torch/csrc/kv_attention_int8.cu`` (B5, B6) and
 ``kv_attention_int4.cu`` (B7, B8), both instances of the kernel in
-``kv_attention_common.cuh``. :func:`launch` checks its tensors, launches
-one kernel on PyTorch's current stream and counts the launch in the
-kernel's ``KernelInfo``. The public wrappers and the plain PyTorch
+``kv_attention_common.cuh``, and ``kv_attention_decode.cu`` (B9, over the
+flat pools, with three instances counted apart: int8 pools with scales,
+bf16 pools, f32 pools). :func:`launch` and :func:`launch_flat` check their
+tensors, launch one kernel on PyTorch's current stream and count the launch
+in the kernel's ``KernelInfo``. The public wrappers and the plain PyTorch
 versions live in ``kernels/kv_attention.py``.
 """
 
@@ -34,13 +36,24 @@ APPEND_KT4 = KernelInfo("kv_attention_append_kt4",
 DECODE_KT4 = KernelInfo("kv_attention_decode_kt4",
                         _SRC + "kv_attention_int4.cu", _JAX + "820",
                         "kv_attention_int4.cu")
-KERNELS = (APPEND_KT, DECODE_KT, APPEND_KT4, DECODE_KT4)
+_FLAT = "kv_attention_decode.cu"
+DECODE_INT8 = KernelInfo("kv_attention_decode_int8", _SRC + _FLAT,
+                         _JAX + "1069", _FLAT)
+DECODE_BF16 = KernelInfo("kv_attention_decode_bf16", _SRC + _FLAT,
+                         _JAX + "1069", _FLAT)
+DECODE_F32 = KernelInfo("kv_attention_decode_f32", _SRC + _FLAT,
+                        _JAX + "1069", _FLAT)
+FLAT_KERNELS = {torch.int8: DECODE_INT8, torch.bfloat16: DECODE_BF16,
+                torch.float32: DECODE_F32}            # by pool dtype
+KERNELS = (APPEND_KT, DECODE_KT, APPEND_KT4, DECODE_KT4, DECODE_INT8,
+           DECODE_BF16, DECODE_F32)
 
 HEAD_DIMS = (64, 128)
 GROUPS = (1, 2, 4, 8)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SYMBOLS = {"kv_attention_int8.cu": "onebit_kv_attention_int8",
-            "kv_attention_int4.cu": "onebit_kv_attention_int4"}
+            "kv_attention_int4.cu": "onebit_kv_attention_int4",
+            _FLAT: "onebit_kv_attention_decode"}
 
 
 def reset_launch_counts() -> None:
@@ -52,12 +65,26 @@ def reset_launch_counts() -> None:
 def _fn(library: str):
     fn = getattr(build.load(library), _SYMBOLS[library])
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p] * 13 + [i] * 7 + [f, p]
+    n_ptr, n_int = (8, 7) if library == _FLAT else (13, 7)
+    fn.argtypes = [p] * n_ptr + [i] * n_int + [f, p]
     fn.restype = i
     return fn
 
 
-def _check_tensors(q, named: Sequence, dtypes: dict) -> None:
+def _check_geometry(info: KernelInfo, hd: int, nh: int, nkv: int,
+                    layer: int, n_layers: int) -> None:
+    if hd not in HEAD_DIMS or nh % nkv or nh // nkv not in GROUPS:
+        raise ValueError(f"{info.name} takes head_dim in {HEAD_DIMS} and "
+                         f"nh/nkv in {GROUPS}, got hd={hd}, nh={nh}, "
+                         f"nkv={nkv}")
+    if not 0 <= layer < n_layers:
+        raise ValueError(f"layer {layer} outside [0, {n_layers})")
+
+
+def _check_tensors(q, named: Sequence, dtypes: dict, shapes: dict,
+                   where: str) -> None:
+    """Device, layout, dtype and alignment of every named tensor, and the
+    shape of every one after ``q``; ``where`` ends a shape error."""
     if q.device.type != "cuda":
         raise ValueError(f"the CUDA kernels take CUDA tensors, got {q.device}")
     if q.device.index != torch.cuda.current_device():
@@ -72,6 +99,10 @@ def _check_tensors(q, named: Sequence, dtypes: dict) -> None:
             raise TypeError(f"{name} must be {dtypes[name]}, got {t.dtype}")
         if t.data_ptr() % 4:
             raise ValueError(f"{name} must be 4-byte aligned")
+    for name, t in named[1:]:
+        if tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{name} {tuple(t.shape)} does not match "
+                             f"{shapes[name]} ({where})")
 
 
 def launch(info: KernelInfo, q, k_pool, k_scale, v_pool, v_scale, lengths,
@@ -109,17 +140,8 @@ def launch(info: KernelInfo, q, k_pool, k_scale, v_pool, v_scale, lengths,
     if append is not None:
         named += list(zip(("k_new", "k_snew", "v_new", "v_snew", "pos"),
                           append))
-    _check_tensors(q, named, dtypes)
-    for name, tensor in named[1:]:
-        if tuple(tensor.shape) != shapes[name]:
-            raise ValueError(f"{name} {tuple(tensor.shape)} does not match "
-                             f"{shapes[name]} (q {tuple(q.shape)}, T={t})")
-    if hd not in HEAD_DIMS or nh % nkv or nh // nkv not in GROUPS:
-        raise ValueError(f"{info.name} takes head_dim in {HEAD_DIMS} and "
-                         f"nh/nkv in {GROUPS}, got hd={hd}, nh={nh}, "
-                         f"nkv={nkv}")
-    if not 0 <= layer < n_layers:
-        raise ValueError(f"layer {layer} outside [0, {n_layers})")
+    _check_tensors(q, named, dtypes, shapes, f"q {tuple(q.shape)}, T={t}")
+    _check_geometry(info, hd, nh, nkv, layer, n_layers)
     out = torch.empty_like(q)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     # the layer's slices: the kernel sees one layer, with 64-bit offsets
@@ -130,6 +152,57 @@ def launch(info: KernelInfo, q, k_pool, k_scale, v_pool, v_scale, lengths,
         ptr(starts), None if append is None else append[4].data_ptr(), *new,
         b, nkv, nh // nkv, hd, t, _DTYPE_CODES[q.dtype],
         int(append is not None), hd ** -0.5, _stream(q))
+    _raise_on(err, info)
+    info.launches += 1
+    return out
+
+
+def launch_flat(q, k_pool, k_scale, v_pool, v_scale, lengths, layer: int, *,
+                starts: Optional[torch.Tensor]) -> torch.Tensor:
+    """One launch of B9 on the CUDA tensors given: pools ``[L, B, T, nkv,
+    hd]``, int8 with scales ``[L, B, T, nkv]`` f32, or of q's dtype with
+    ``k_scale = v_scale = None``. Returns ``ctx [B, nh, hd]`` in q's
+    dtype."""
+    quant = k_scale is not None
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if q.dim() != 3 or k_pool.dim() != 5 or v_pool.dim() != 5:
+        raise ValueError("q must be [B, nh, hd] and the pools 5-d")
+    if quant != (v_scale is not None):
+        raise ValueError("give both scales (int8 pools) or neither")
+    b, nh, hd = q.shape
+    n_layers, _, t, nkv = k_pool.shape[:4]
+    pool_dtype = torch.int8 if quant else q.dtype
+    shapes = {"k_pool": (n_layers, b, t, nkv, hd),
+              "v_pool": (n_layers, b, t, nkv, hd),
+              "k_scale": (n_layers, b, t, nkv),
+              "v_scale": (n_layers, b, t, nkv), "lengths": (b,),
+              "starts": (b,)}
+    dtypes = {"q": q.dtype, "k_pool": pool_dtype, "v_pool": pool_dtype,
+              "k_scale": torch.float32, "v_scale": torch.float32,
+              "lengths": torch.int32, "starts": torch.int32}
+    names = (("k_pool", "k_scale", "v_pool", "v_scale") if quant
+             else ("k_pool", "v_pool"))
+    pools = ((k_pool, k_scale, v_pool, v_scale) if quant
+             else (k_pool, v_pool))
+    named = [("q", q), *zip(names, pools), ("lengths", lengths)]
+    if starts is not None:
+        named.append(("starts", starts))
+    _check_tensors(q, named, dtypes, shapes, f"q {tuple(q.shape)}, T={t}")
+    info = FLAT_KERNELS[pool_dtype]
+    _check_geometry(info, hd, nh, nkv, layer, n_layers)
+    # the layer's slices: the kernel sees one layer, with 64-bit offsets
+    ptrs = [x[layer].data_ptr() for x in pools]
+    if any(p % 16 for p in ptrs):
+        raise ValueError("the pools' layer slices must be 16-byte aligned")
+    k_ptr, ks_ptr, v_ptr, vs_ptr = ptrs if quant else (ptrs[0], None,
+                                                       ptrs[1], None)
+    out = torch.empty_like(q)
+    err = _fn(_FLAT)(
+        q.data_ptr(), out.data_ptr(), k_ptr, ks_ptr, v_ptr, vs_ptr,
+        lengths.data_ptr(), None if starts is None else starts.data_ptr(),
+        b, nkv, nh // nkv, hd, t, _DTYPE_CODES[q.dtype], int(quant),
+        hd ** -0.5, _stream(q))
     _raise_on(err, info)
     info.launches += 1
     return out

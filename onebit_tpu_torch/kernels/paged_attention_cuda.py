@@ -18,7 +18,8 @@ import torch
 from onebit_tpu_torch.kernels import build
 from onebit_tpu_torch.kernels.bitlinear_cuda import (KernelInfo, _raise_on,
                                                      _stream)
-from onebit_tpu_torch.kernels.kv_attention_cuda import _check_tensors
+from onebit_tpu_torch.kernels.kv_attention_cuda import (_check_geometry,
+                                                        _check_tensors)
 
 _SOURCE = "paged_attention.cu"
 _JAX = "onebit_tpu/kernels/paged_attention.py:140"
@@ -28,8 +29,6 @@ PAGED_INT8 = KernelInfo("paged_attention_flat_int8",
                         "onebit_tpu_torch/csrc/" + _SOURCE, _JAX, _SOURCE)
 KERNELS = (PAGED, PAGED_INT8)
 
-HEAD_DIMS = (64, 128)
-GROUPS = (1, 2, 4, 8)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -78,17 +77,8 @@ def launch(q, pool, lengths, page_indices, layer: int, quant: bool
              else ("k_pages", "v_pages"))
     named = [("q", q), *zip(names, pool), ("lengths", lengths),
              ("page_indices", page_indices)]
-    _check_tensors(q, named, dtypes)
-    for name, tensor in named[1:]:
-        if tuple(tensor.shape) != shapes[name]:
-            raise ValueError(f"{name} {tuple(tensor.shape)} does not match "
-                             f"{shapes[name]} (q {tuple(q.shape)})")
-    if hd not in HEAD_DIMS or nh % nkv or nh // nkv not in GROUPS:
-        raise ValueError(f"{info.name} takes head_dim in {HEAD_DIMS} and "
-                         f"nh/nkv in {GROUPS}, got hd={hd}, nh={nh}, "
-                         f"nkv={nkv}")
-    if not 0 <= layer < n_layers:
-        raise ValueError(f"layer {layer} outside [0, {n_layers})")
+    _check_tensors(q, named, dtypes, shapes, f"q {tuple(q.shape)}")
+    _check_geometry(info, hd, nh, nkv, layer, n_layers)
     if any(t.data_ptr() % 16 for t in pool):
         raise ValueError("the pages must be 16-byte aligned")
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)

@@ -16,6 +16,12 @@ B11-dkv and B11-dq); with a padding mask, on the CPU, with
 ``use_flash=False`` or when attention maps are asked for it takes the
 masked attention ``_attention``. ``init_params`` and ``pack_model_params``
 make and pack the latent params of training.
+
+``decode_step_flat`` (and ``decode_step``, the same function over the
+dense and flat int8 caches) appends ``s`` tokens to every row at one shared
+cache index, the step of batch generation (``engine/generate.py``): a
+one-token step attends the dense or flat int8 cache in kernel B9 and the
+transposed-K int8/int4 caches in B5/B7 (``kernels/kv_attention.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from onebit_tpu_torch.core.packing import pack_signs_kmajor
 from onebit_tpu_torch.kernels.attention import (PLAIN, _attention,
                                                 _causal_mask,
                                                 flash_causal_attention)
+from onebit_tpu_torch.kernels import kv_attention as ka
 from onebit_tpu_torch.kernels.bitlinear import (
     BitLinearWeights,
     FusedBitLinearWeights,
@@ -38,6 +45,11 @@ from onebit_tpu_torch.kernels.bitlinear import (
 )
 from onebit_tpu_torch.kernels.linear import LinearWeights, linear_apply
 from onebit_tpu_torch.model.config import BitLlamaConfig
+from onebit_tpu_torch.model.kv_cache import (QuantKVCache, QuantKVCacheKT,
+                                             QuantKVCacheKT4,
+                                             pack_int4_halfplane,
+                                             quantize_kv, quantize_kv4,
+                                             unpack_int4_halfplane)
 from onebit_tpu_torch.model.rope import apply_rope, rope_cos_sin
 from onebit_tpu_torch.utils.device import resolve_device
 
@@ -348,3 +360,154 @@ def forward(params, input_ids, config: BitLlamaConfig, *,
     if output_attentions:
         extras.append(torch.stack(attn))
     return (logits, *extras) if extras else logits
+
+
+# ---- incremental decode over a shared cache index (batch generation) ------
+
+def _flat_attention(cache, cache_index: int, s: int, key_start, cos, sin,
+                    config: BitLlamaConfig, impl: str):
+    """``attend_at(i)``: layer ``i``'s attention for one step of
+    :func:`decode_step_flat`, which writes the ``s`` new positions of every
+    row at ``[cache_index, cache_index + s)`` of the cache in place, with
+    what every layer shares made once."""
+    b = cache[0].shape[1]
+    device = cache[0].device
+    ci, g = cache_index, config.num_kv_groups
+    if s == 1:
+        # one token: the kernels take [starts, lengths) as device int32
+        lengths = torch.full((b,), ci + 1, dtype=torch.int32, device=device)
+        pos = torch.full((b,), ci, dtype=torch.int32, device=device)
+        starts = (None if key_start is None else
+                  key_start.to(device=device, dtype=torch.int32))
+    else:
+        mask = _causal_mask(s, cache.max_len, ci, device)
+        if key_start is not None:
+            kj = torch.arange(cache.max_len, device=device)
+            mask = mask & (kj[None, :] >= key_start.to(device)[:, None]
+                           )[:, None, None, :]
+
+    def kernel(fn):
+        return ka.PLAIN[fn] if impl == "torch" else fn
+
+    if isinstance(cache, (QuantKVCacheKT, QuantKVCacheKT4)):
+        kt4 = isinstance(cache, QuantKVCacheKT4)
+        quantize = quantize_kv4 if kt4 else quantize_kv
+        fused = kernel(ka.kv_attention_append_kt4 if kt4
+                       else ka.kv_attention_append_kt)
+
+        def attend_at(i):
+            def attend(q, k, v):
+                q, k = apply_rope(q, k, cos, sin)
+                nkq, nks = quantize(k)
+                nvq, nvs = quantize(v)
+                if s == 1:
+                    # B5/B7 write the pools at pos and attend
+                    return fused(q[:, 0].contiguous(), nkq[:, 0], nks[:, 0],
+                                 nvq[:, 0], nvs[:, 0], *cache, lengths, i,
+                                 pos, starts=starts)[:, None]
+                # several tokens: write the layer, then the plain attention
+                # (bitllama.py:652-677, 709-726)
+                cache.k_st[i, :, :, ci:ci + s] = nks.transpose(1, 2)
+                cache.v_s[i, :, ci:ci + s] = nvs
+                new_k = nkq.permute(0, 2, 3, 1)          # [B, nkv, hd, s]
+                if kt4:
+                    k_i = unpack_int4_halfplane(cache.k_qp[i], axis=3)
+                    k_i[..., ci:ci + s] = new_k
+                    cache.k_qp[i] = pack_int4_halfplane(k_i, axis=3)
+                    v_i = unpack_int4_halfplane(cache.v_qp[i], axis=1)
+                    v_i[:, ci:ci + s] = nvq
+                    cache.v_qp[i] = pack_int4_halfplane(v_i, axis=1)
+                else:
+                    cache.k_qt[i, ..., ci:ci + s] = new_k
+                    cache.v_q[i, :, ci:ci + s] = nvq
+                    k_i, v_i = cache.k_qt[i], cache.v_q[i]
+                return ka._attention_quant(
+                    q, k_i.permute(0, 3, 1, 2), cache.k_st[i].transpose(1, 2),
+                    v_i, cache.v_s[i], mask, num_kv_groups=g)
+            return attend
+        return attend_at
+
+    quant = isinstance(cache, QuantKVCache)
+    decode = kernel(ka.kv_attention_decode)
+
+    def attend_at(i):
+        def attend(q, k, v):
+            q, k = apply_rope(q, k, cos, sin)
+            if quant:
+                nkq, nks = quantize_kv(k)
+                nvq, nvs = quantize_kv(v)
+                for pool, new in zip(cache, (nkq, nks, nvq, nvs)):
+                    pool[i, :, ci:ci + s] = new
+                scales = (cache.k_s, cache.v_s)
+            else:
+                cache.k[i, :, ci:ci + s] = k.to(cache.k.dtype)
+                cache.v[i, :, ci:ci + s] = v.to(cache.v.dtype)
+                scales = (None, None)
+            pools = (cache[0], scales[0], cache[2 if quant else 1], scales[1])
+            if s == 1:
+                # B9 over [key_start, cache_index + 1): the JAX window
+                # ladder only bounds what is read, and lengths does that
+                return decode(q[:, 0].contiguous(), *pools, lengths, i,
+                              starts=starts)[:, None]
+            if quant:
+                return ka._attention_quant(q, *(x[i] for x in pools), mask,
+                                           num_kv_groups=g)
+            return _attention(q, cache.k[i].to(q.dtype),
+                              cache.v[i].to(q.dtype), mask, num_kv_groups=g)
+        return attend
+    return attend_at
+
+
+def decode_step_flat(params, cache, input_ids, cache_index: int,
+                     config: BitLlamaConfig, *, impl: str = "auto",
+                     compute_dtype=torch.bfloat16, positions=None,
+                     key_start=None):
+    """Append ``input_ids [B, s]`` to every row at the host int
+    ``cache_index`` and return ``(logits [B, s, V] fp32, cache)``
+    (bitllama.py:552-808). The cache, a ``KVCache``, ``QuantKVCache``,
+    ``QuantKVCacheKT`` or ``QuantKVCacheKT4``, is updated IN PLACE and
+    returned (the JAX function returns a new one).
+
+    ``positions [B, s]`` optionally overrides the RoPE positions (left-padded
+    rows, whose true positions differ from the shared slot); ``key_start
+    [B]`` masks the cache slots below it per row (left-pad slots written by
+    the prefill). Tensors on the cache's device.
+
+    A one-token step attends the dense and flat int8 caches in B9
+    (``kv_attention_decode``) and the transposed-K caches in B5/B7, which
+    write their pools themselves; several tokens take the plain masked
+    attention. ``impl="torch"`` takes the kernels' plain versions, as do
+    CPU tensors."""
+    b, s = input_ids.shape
+    device = cache[0].device
+    x = params["embed_tokens"][input_ids].to(compute_dtype)
+    if positions is None:
+        positions = cache_index + torch.arange(s, device=device)[None, :]
+    cos, sin = rope_cos_sin(positions, config.head_dim, config.rope_theta,
+                            config.rope_scaling,
+                            config.max_position_embeddings,
+                            seq_len=cache.max_len, dtype=compute_dtype)
+    attend_at = _flat_attention(cache, int(cache_index), s, key_start, cos,
+                                sin, config, impl)
+    layers = params["layers"]
+    for i in range(config.num_hidden_layers):
+        x = _decoder_layer(x, layers, i, config, impl, attend_at(i))
+    x = rms_norm(x, params["final_norm"], config.rms_norm_eps)
+    return _lm_head(x, params, compute_dtype), cache
+
+
+def decode_step(params, cache, input_ids, cache_index: int,
+                config: BitLlamaConfig, *, impl: str = "auto",
+                compute_dtype=torch.bfloat16, positions=None,
+                key_start=None):
+    """The incremental forward over a ``KVCache`` or the flat int8
+    ``QuantKVCache`` (bitllama.py:497-549): :func:`decode_step_flat`'s
+    semantics, which the JAX package gives two programs (a layer scan and a
+    flat loop) and eager PyTorch one body."""
+    if isinstance(cache, (QuantKVCacheKT, QuantKVCacheKT4)):
+        raise TypeError("QuantKVCacheKT(4) is a decode_step_flat cache (the "
+                        "fused-kernel transposed-K layout); decode_step takes "
+                        "KVCache and QuantKVCache")
+    return decode_step_flat(params, cache, input_ids, cache_index, config,
+                            impl=impl, compute_dtype=compute_dtype,
+                            positions=positions, key_start=key_start)

@@ -12,7 +12,10 @@ With a quantized cache every decode layer quantizes its new K/V and makes
 one call of the fused append+attend wrapper (``kernels/kv_attention.py``,
 B5 or B7), which writes the pools and attends; ``impl="torch"`` takes the
 wrappers' plain versions. The kernels take any T (int4: any even T), so
-the reference's short-cache fallback is not needed.
+the reference's short-cache fallback is not needed. With the dense cache on
+the card each decode layer writes its row positions, then attends the whole
+pool in kernel B9 over each row's length; on the CPU and with
+``impl="torch"`` it attends the length-aware window of the reference.
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ import torch
 
 from onebit_tpu_torch.kernels.kv_attention import (PLAIN,
                                                    kv_attention_append_kt,
-                                                   kv_attention_append_kt4)
+                                                   kv_attention_append_kt4,
+                                                   kv_attention_decode)
 from onebit_tpu_torch.model import bitllama
 from onebit_tpu_torch.model.bitllama import KVCache, _decoder_layer, _lm_head
 from onebit_tpu_torch.model.config import BitLlamaConfig
@@ -87,17 +91,35 @@ def _decode_attention(cache, pos, act, pos_np, act_np, cos, sin,
             return attend
         return attend_at
 
+    rows = torch.arange(b, device=pos.device)
+
+    def write(i, k, v):
+        cache.k[i, rows, pos] = k[:, 0].to(cache.k.dtype)
+        cache.v[i, rows, pos] = v[:, 0].to(cache.v.dtype)
+
+    if cache.k.device.type == "cuda" and impl != "torch":
+        # B9 over the whole pool: each row's positions [0, length) only
+        lengths = torch.where(act, pos + 1, 0).to(torch.int32)
+
+        def attend_at(i):
+            def attend(q, k, v):
+                q, k = apply_rope(q, k, cos, sin)
+                write(i, k, v)
+                return kv_attention_decode(q[:, 0].contiguous(), cache.k,
+                                           None, cache.v, None, lengths,
+                                           i)[:, None]
+            return attend
+        return attend_at
+
     max_len = cache.max_len
     kj = torch.arange(max_len, device=pos.device)
     mask = ((kj[None, :] <= pos[:, None]) & act[:, None])[:, None, None, :]
     width = attention_width(pos_np, act_np, max_len)
-    rows = torch.arange(b, device=pos.device)
 
     def attend_at(i):
         def attend(q, k, v):
             q, k = apply_rope(q, k, cos, sin)
-            cache.k[i, rows, pos] = k[:, 0].to(cache.k.dtype)
-            cache.v[i, rows, pos] = v[:, 0].to(cache.v.dtype)
+            write(i, k, v)
             # positions past a row's length are masked exactly; the window
             # only bounds how much of the cache is read
             return bitllama._attention(
@@ -217,3 +239,17 @@ def prefill_rows(params, cache, ids, lengths, rows,
     x = bitllama.rms_norm(x, params["final_norm"], config.rms_norm_eps)
     last = x[torch.arange(r, device=device), (lengths - 1).clamp(min=0)]
     return _lm_head(last, params, compute_dtype), cache
+
+
+def prefill_row(params, cache, ids, length, row, config: BitLlamaConfig, *,
+                impl: str = "auto", compute_dtype=torch.bfloat16):
+    """Prefill ONE slot ``row`` of the cache with the right-padded prompt
+    ``ids [S_pad]`` of true length ``length`` (ragged_decode.py:273):
+    :func:`prefill_rows` with one row. Returns ``(last_logits [V] fp32,
+    cache)``, the cache written in place."""
+    device = cache[0].device
+    as_row = lambda x: torch.as_tensor(x, device=device).reshape(1)  # noqa
+    logits, cache = prefill_rows(params, cache, ids.reshape(1, -1),
+                                 as_row(length), as_row(row), config,
+                                 impl=impl, compute_dtype=compute_dtype)
+    return logits[0], cache

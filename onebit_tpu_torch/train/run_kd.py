@@ -8,7 +8,7 @@ loss plots. The resume state is the port's own file, ``train_state.pt``
 (the params under their native-checkpoint keys, the Adam moments, the
 step): optax's state pytree has no torch counterpart, so the JAX package's
 ``train_state.npz`` does not load here, nor the port's there. Meshes of
-more than one device and orbax sharded states wait for slice 6.
+more than one device and orbax sharded states wait for slice 7.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ from onebit_tpu_torch.utils.logging import TrainerLog, get_logger, plot_loss
 logger = get_logger(__name__)
 
 STATE_FILE = "train_state.pt"
-PARALLEL_SLICE = 6   # data/model parallel training and sharded states
+PARALLEL_SLICE = 7   # data/model parallel training and sharded states
 
 
 def save_train_state(path: str, state: TrainState) -> None:
@@ -75,7 +75,7 @@ class KDRunConfig:
     max_steps: Optional[int] = None
     log_steps: int = 10
     save_steps: int = 5000          # reference llama_7b.sh:46
-    mesh_shape: Optional[tuple] = None   # one device; more wait for slice 6
+    mesh_shape: Optional[tuple] = None   # one device; more wait for slice 7
     compute_dtype: Any = torch.bfloat16
     resume_from: Optional[str] = None
     plot: bool = True
@@ -86,7 +86,7 @@ class KDRunConfig:
     val_split: float = 0.0
     eval_steps: Optional[int] = None   # default: evaluate at save points
     eval_batches: int = 16             # eval subset size cap (batches)
-    sharded_ckpt: bool = False         # orbax sharded states: slice 6
+    sharded_ckpt: bool = False         # orbax sharded states: slice 7
     # keep only the newest N checkpoint-* dirs (HF Trainer save_total_limit,
     # training_args save_total_limit semantics); None = keep all
     save_total_limit: Optional[int] = None

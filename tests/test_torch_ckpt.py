@@ -211,14 +211,19 @@ def test_cli_unported_flags_exit_nonzero(jax_ckpt, flag):
     assert "not ported yet" in out.stderr
 
 
-def test_cli_fails_a_pinned_engine_check(jax_ckpt, tmp_path):
-    """The engine gate is not ported: a pinned engine_check.* fails rather
-    than passing unchecked."""
+def test_cli_fails_a_pinned_engine_check(jax_ckpt, tmp_path, capsys):
+    """The engine gate is opt-in, as in the JAX command line: without
+    --check-engines a pinned engine_check.* is SKIPPED and the plain ppl
+    run passes, as the JAX command's does; with it the gate is checked
+    (tests/test_torch_hf_ckpt.py)."""
     d, _, _ = jax_ckpt
     spec = tmp_path / "expect.json"
     spec.write_text(json.dumps({"engine_check.ok": {"value": 1.0,
                                                     "atol": 0.0}}))
-    out = _port_cli("eval", "--ckpt", str(d / "native"), "--tokens",
-                    str(d / "tokens.npy"), "--seqlen", "32", "--device",
-                    "cpu", "--expect", str(spec))
-    assert out.returncode != 0 and "NOT RUN" in out.stdout
+    args = ["eval", "--ckpt", str(d / "native"), "--tokens",
+            str(d / "tokens.npy"), "--seqlen", "32", "--expect", str(spec)]
+    jmain(args)
+    assert "engine_check.ok: SKIPPED" in capsys.readouterr().out
+    out = _port_cli(*args, "--device", "cpu")
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "engine_check.ok: SKIPPED" in out.stdout

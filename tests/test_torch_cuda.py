@@ -353,6 +353,173 @@ def test_quant_engine_kernel_path_matches_plain(dev, quantized_kv):
 
 
 # ---------------------------------------------------------------------------
+# B9: decode attention over the flat pools
+# ---------------------------------------------------------------------------
+# q and float pools on a grid of 1/16 (q of std 5 within +-15.9, K/V
+# uniform in +-1.5), int8 pools of integers with scales of 0.5-1.5 units
+# over the range: every q . k dot is exact in fp32 in any order, so fp32
+# results differ only in the softmax's and the PV sum's last bits, far
+# under 1e-5. bf16: both sides round P (times the V scale) to bf16 at
+# different softmax scales, at most 2**-8 * 1.5 apart, then the context to
+# bf16 (ulp 2**-7 below 2): under 1/64, and the tolerance is 1/32. q of
+# std 5 gives a peaked softmax and a context of order 1; each live row's
+# largest |ctx| must be at least 8 times the bf16 tolerance.
+FLAT_TOL = {torch.float32: 1e-5, torch.bfloat16: 1 / 32}
+
+
+def _on_grid(x):
+    return torch.round(x * 16) / 16
+
+
+def _flat_case(dev, q_dtype, pool, shape, seed=0):
+    """q, the pools (with scales for int8) and ragged rows of 8 kinds:
+    full, empty, one position, starts inside the row and at its end."""
+    n_layers, b, t, nkv, g, hd = shape
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    q = _on_grid(5 * torch.randn(b, nkv * g, hd, generator=gen, device=dev)
+                 ).clamp(-15.9375, 15.9375).to(q_dtype)
+    pshape = (n_layers, b, t, nkv, hd)
+    if pool == "int8":
+        def ints():
+            return torch.randint(-127, 128, pshape, generator=gen,
+                                 device=dev, dtype=torch.int8)
+
+        def scales():
+            return (torch.rand(pshape[:-1], generator=gen, device=dev)
+                    + 0.5) / 127
+        pools = [ints(), scales(), ints(), scales()]
+    else:
+        dt = torch.bfloat16 if pool == "bf16" else torch.float32
+        pools = [_on_grid(3 * torch.rand(pshape, generator=gen, device=dev)
+                          - 1.5).to(dt) for _ in range(2)]
+        pools = [pools[0], None, pools[1], None]
+    pattern = [(t, 0), (0, 0), (t // 2 + 1, 0), (1, 0), (t, t // 3),
+               (t - 3, min(100, t - 3)), (min(64, t), 0), (t, t)]
+    rows = [pattern[i % 8] for i in range(b)]
+    as_dev = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa
+    return q, pools, as_dev([r[0] for r in rows]), as_dev([r[1] for r in rows])
+
+
+def _flat_check(dev, q_dtype, pool, shape, layer, starts_on=True):
+    q, pools, lengths, starts = _flat_case(dev, q_dtype, pool, shape)
+    starts = starts if starts_on else None
+    info = kc.FLAT_KERNELS[torch.int8 if pool == "int8" else q.dtype]
+    want = ka.kv_attention_decode_torch(q, *pools, lengths, layer,
+                                        starts=starts)
+    before = [x.clone() for x in pools if x is not None]
+    launches = info.launches
+    got = ka.kv_attention_decode(q, *pools, lengths, layer, starts=starts)
+    torch.cuda.synchronize()
+    assert info.launches == launches + 1
+    assert all(torch.equal(a, b) for a, b in
+               zip([x for x in pools if x is not None], before))
+    del before, pools
+    assert got.dtype == q_dtype and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    live = lengths > (0 if starts is None else starts)
+    assert (got[~live] == 0).all()          # nothing to attend: zeros
+    err = (got[live].float() - want[live].float()).abs().max().item()
+    assert err <= FLAT_TOL[q_dtype], err
+    ctx_scale = want[live].float().abs().amax(dim=(1, 2)).min().item()
+    assert ctx_scale >= 8 * FLAT_TOL[torch.bfloat16], ctx_scale
+
+
+FLAT_KINDS = {"int8_f32": (torch.float32, "int8"),
+              "int8_bf16": (torch.bfloat16, "int8"),
+              "bf16": (torch.bfloat16, "bf16"),
+              "f32": (torch.float32, "f32")}
+
+
+@pytest.mark.parametrize("kind", sorted(FLAT_KINDS))
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("t", [1, 77, 300, 2048, 4096])
+def test_kv_decode_matches_plain(dev, kind, g, hd, t):
+    """B9 at layer 1 of 2, 8 rows of 8 kinds, with starts."""
+    q_dtype, pool = FLAT_KINDS[kind]
+    _flat_check(dev, q_dtype, pool, (2, 8, t, 2, g, hd), 1)
+
+
+@pytest.mark.parametrize("kind", sorted(FLAT_KINDS))
+def test_kv_decode_without_starts(dev, kind):
+    q_dtype, pool = FLAT_KINDS[kind]
+    _flat_check(dev, q_dtype, pool, (2, 8, 390, 2, 2, 128), 0,
+                starts_on=False)
+
+
+def test_kv_decode_pool_past_2_31_elements(dev):
+    """bf16 pools of 32 x 9 x 2048 x 32 x 128 = 2,415,919,104 elements
+    (4.8 GB each): layer 31's rows lie past 2**31 elements, and past 2**32
+    bytes, and read what the plain version reads."""
+    _flat_check(dev, torch.bfloat16, "bf16", (32, 9, 2048, 32, 1, 128), 31)
+
+
+def test_kv_decode_wrapper_checks_inputs(dev):
+    q, pools, lengths, starts = _flat_case(dev, torch.float32, "f32",
+                                           (2, 3, 64, 2, 2, 64))
+    k, _, v, _ = pools
+
+    def call(q=q, k=k, v=v, ks=None, vs=None, lengths=lengths, layer=0):
+        return ka.kv_attention_decode(q, k, ks, v, vs, lengths, layer,
+                                      starts=starts)
+
+    call()
+    with pytest.raises(TypeError, match="k_pool must be"):
+        call(k=k.to(torch.bfloat16), v=v.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="both scales"):
+        call(ks=torch.ones(2, 3, 64, 2, device=dev))
+    with pytest.raises(ValueError, match="lengths is on cpu"):
+        call(lengths=lengths.cpu())
+    with pytest.raises(TypeError, match="lengths must be"):
+        call(lengths=lengths.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        call(v=v.transpose(3, 4).contiguous().transpose(3, 4))
+    with pytest.raises(ValueError, match="does not match"):
+        call(k=k[:, :, :32].contiguous())
+    with pytest.raises(ValueError, match="layer"):
+        call(layer=2)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        call(k=k.to(torch.float8_e4m3fn), v=v.to(torch.float8_e4m3fn))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_generate_kernel_path_matches_plain(dev, dtype):
+    """A small model generating on the card: B9 launches once per layer
+    of every decode step and the greedy tokens through the kernels equal
+    impl="torch"'s in fp32 (in bf16 the two paths round at different
+    places, and a near tie may go either way); the dense engine's decode
+    launches B9 too."""
+    import numpy as np
+    from onebit_tpu_torch import (BitLlamaConfig, ContinuousBatchingEngine,
+                                  generate, host_random_packed_params)
+    config = BitLlamaConfig.named("tiny", max_position_embeddings=512)
+    params = host_random_packed_params(config, seed=1, dtype=dtype,
+                                       device=dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(3, 500, n).tolist() for n in (150, 7, 40)]
+    info = kc.FLAT_KERNELS[dtype]
+    out = {}
+    for impl in ("auto", "torch"):
+        before = info.launches
+        out[impl] = generate(params, config, prompts, max_new_tokens=6,
+                             impl=impl, compute_dtype=dtype, eos_id=-1)
+        runs = info.launches - before
+        assert runs == (5 * config.num_hidden_layers if impl == "auto"
+                        else 0)
+    if dtype == torch.float32:
+        assert out["auto"] == out["torch"]
+    assert all(len(row) == 6 for row in out["auto"])
+    eng = ContinuousBatchingEngine(params, config, max_batch=4, max_len=256,
+                                   compute_dtype=dtype, device=dev)
+    for p in prompts:
+        eng.add_request(p, max_new_tokens=4)
+    before = info.launches
+    assert all(len(v) == 4 for v in eng.run().values())
+    assert info.launches - before == 3 * config.num_hidden_layers
+
+
+# ---------------------------------------------------------------------------
 # B10: paged decode attention
 # ---------------------------------------------------------------------------
 # Inputs with a context of order 1, as for B5-B8: float pages of N(0, 1);

@@ -85,14 +85,15 @@ def test_bucket_and_streaming_callbacks():
     assert m["ttft_p50_s"] >= 0 and m["tpot_p50_s"] >= 0
 
 
-@pytest.mark.parametrize("kwargs,slice_no", [
-    (dict(paged=True, quantized_kv="fp8"), 3), (dict(draft_params={}), 3),
-    (dict(tp_mesh=object()), 6), (dict(prefill_chunk_size=64), 3),
-    (dict(block_steps=4), 3), (dict(pipeline_blocks=True), 3),
-    (dict(paged=True, prefix_cache=True, draft_params={}), 3)])
-def test_unported_options_raise(kwargs, slice_no):
+@pytest.mark.parametrize("kwargs,waits_for", [
+    (dict(paged=True, quantized_kv="fp8"), "item 5"),
+    (dict(draft_params={}), "item 5"), (dict(tp_mesh=object()), "slice 7"),
+    (dict(prefill_chunk_size=64), "item 5"), (dict(block_steps=4), "item 5"),
+    (dict(pipeline_blocks=True), "item 5"),
+    (dict(paged=True, prefix_cache=True, draft_params={}), "item 5")])
+def test_unported_options_raise(kwargs, waits_for):
     c = BitLlamaConfig.named("tiny")
-    with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
+    with pytest.raises(NotImplementedError, match=waits_for):
         ContinuousBatchingEngine({}, c, device="cpu", **kwargs)
 
 

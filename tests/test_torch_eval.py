@@ -17,6 +17,7 @@ import torch
 
 from onebit_tpu.eval.loglikelihood import loglikelihood as jll
 from onebit_tpu.eval.ppl import perplexity as jppl
+from onebit_tpu.eval.rolling import greedy_until as jgreedy_until
 from onebit_tpu.eval.rolling import loglikelihood_rolling as jroll
 from onebit_tpu.eval.rolling import rolling_windows as jwindows
 from onebit_tpu.eval.tasks.wikitext import evaluate_wikitext as jwiki
@@ -148,8 +149,12 @@ def test_rolling_matches_jax(tiny):
     want = jroll(jp, jc, docs, max_length=64, batch_size=4)
     got = loglikelihood_rolling(tp, c, docs, max_length=64, batch_size=4)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="engine/generate.py"):
-        greedy_until(tp, c, [([1, 2], ["\n"])], lambda t: "")
+    requests = [([1, 2], ["\n"]), (docs[1][:9], ["c"])]
+
+    def detok(toks):
+        return "".join(chr(ord("a") + t % 26) for t in toks)
+    want = jgreedy_until(jp, jc, requests, detok, max_new_tokens=5)
+    assert greedy_until(tp, c, requests, detok, max_new_tokens=5) == want
 
 
 def test_wikitext_matches_jax(tiny):
