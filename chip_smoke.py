@@ -12,7 +12,10 @@ toolkit and PyTorch. It imports nothing of JAX. Phases, one JSON line each:
    PyTorch version, with random g and h (and h = 0 pads), timed with CUDA
    events beside its bound, its plain version and one PyTorch matmul (K3
    twice: bf16 at the prefill's M = 2048, and its fp32 instance on one eval
-   layer's seven projections at M = 8192); then
+   layer's seven projections at M = 8192), and B4, the raw projection of a
+   tensor-parallel shard (K1 and K3 with ``raw=True``, counted as their own
+   instances), at the four shard shapes of llama2-7b over two ranks (M = 8,
+   fp32 z; and M = 2048 on the q and down shards, bf16 z); then
    each KV-attention kernel (B5-B8) on full-size llama2-7b int8 and int4
    pools at layer 31 with ragged rows: pools bit-exact with the plain
    version, timed beside its bound, its plain version and one
@@ -55,7 +58,17 @@ toolkit and PyTorch. It imports nothing of JAX. Phases, one JSON line each:
    their limit) and 8 in fp32 (B9's fp32 instance 32 x 7 times); and
    ``decode_step_flat`` on a flat int8 ``QuantKVCache``: a multi-token
    prefill, then 8 one-token steps against ``impl="torch"`` (B9's int8
-   instance exactly 256 times);
+   instance exactly 256 times); then
+   tensor-parallel serving (:func:`tp_checks`): two ranks sharing the card
+   over ``gloo`` (NCCL refuses two ranks on one device), each an 8-slot
+   engine with ``tp_group`` on the unfused weights at full width and
+   depth; the first decode step's logits against the single-device
+   engine's and ``impl="torch"``, with a planted fault (rank 1's share of
+   layer 0's o_proj all-reduce dropped) that must break their limit; then
+   served runs (dense at ``max_len=256``, int8 KV pools, paged int8 pages
+   with the prefix cache) in which both ranks emit the same tokens, B4
+   launches exactly 7 x 32 times per forward pass, B9, B5 or B10 exactly 32
+   times per decode step and K1-K3 never;
 5. evaluation at full llama2-7b width and depth on the same weights,
    unfused (:func:`eval_checks`): perplexity of 8 windows of 2048 at batch
    4 in fp32, direct and vocab-chunked, against ``impl="torch"`` per window
@@ -81,7 +94,8 @@ toolkit and PyTorch. It imports nothing of JAX. Phases, one JSON line each:
    checkpoint of 7B width under ``build/``.
 
 Then the wall time, the ``kernels`` line (each kernel's launches from the
-run of its own path; B6 and B8 are on none; B9's from the bf16 and fp32
+run of its own path; B6 and B8 are on none; B4's from rank 0 of the dense
+tensor-parallel run; B9's from the bf16 and fp32
 ``generate`` runs and the flat int8 run; B10's from the paged bf16 and
 int8 runs; K3's fp32 instance's and B11's from the fp32 perplexity run,
 B11 bf16's from the bf16 forward, B11-dkv's and B11-dq's fp32 instances'
@@ -120,6 +134,12 @@ KERNEL_TOL_BF16 = 0.0625
 # spread, so outputs of order 1 differ by a few 1e-6, their largest over
 # 8192 x 11008 outputs under 3e-5. The tolerance is 1e-4.
 KERNEL_TOL_F32 = 1e-4
+# B4 at M <= 128 (fp32 z, no LayerNorm): both sides sum the same bf16-rounded
+# y = x * g (|y| < 16) over K <= 5504 signed terms in fp32, in another
+# order. Partial sums stay under 512, so each add rounds by at most 1.5e-5,
+# and a random walk over 5504 adds strays about 1e-3; times h < 1.5. The
+# tolerance is 1e-2; each row's largest |z| is about 250 (3.5 sqrt(K)).
+RAW_TOL_F32 = 1e-2
 # relative to the largest |logit|: 32 layers of bf16 activations on each
 # side, rounded at different places by kernel and plain version
 LOGITS_REL_TOL = 5e-2
@@ -173,14 +193,15 @@ def _case(gen, m, k, n_true, ns, seg_pad, dev, dtype=torch.bfloat16):
                 sign=sign, m=m, k=k, n_true=n_true, ns=ns)
 
 
-def _bound(c) -> tuple:
-    """Least time for one call: inputs read once, outputs written once, or
-    its products at the dtype's peak (bf16 tensor cores; fp32 CUDA cores),
-    whichever is larger."""
+def _bound(c, out_elem=None) -> tuple:
+    """Least time for one call: inputs read once, outputs written once
+    (``out_elem`` bytes each, x's by default), or its products at the
+    dtype's peak (bf16 tensor cores; fp32 CUDA cores), whichever is
+    larger."""
     m, k, ns, n_cat = c["m"], c["k"], c["ns"], c["packed"].shape[1]
     elem = c["x"].element_size()
     bytes_ = (c["packed"].numel() * 4 + m * k * elem + ns * k * elem
-              + n_cat * 4 + ns * m * c["n_true"] * elem)
+              + n_cat * 4 + ns * m * c["n_true"] * (out_elem or elem))
     flops = 2 * m * k * ns * c["n_true"]
     peak = (FP32_FLOP_PER_S if c["x"].dtype == torch.float32
             else BF16_FLOP_PER_S)
@@ -199,7 +220,20 @@ def kernel_checks(dev) -> dict:
     # makes to each kernel at llama2-7b; the last K2 case has h = 0 pads;
     # K3's fp32 instance: one eval layer's seven unfused projections
     # (q, k, v, o; gate, up; down) on a 4 x 2048 batch
+    # B4 (K1/K3 raw) at the shards of tensor-parallel llama2-7b over two
+    # ranks: q/k/v and gate/up column-parallel (K x N/2), o and down
+    # row-parallel (K/2 x N; down's 5504 ends in a partial 1024-k chunk),
+    # at decode's M = 8; the large-M instance at an admission's M = 2048 on
+    # the q and down shards
     cases = {
+        "bitlinear_raw_small_m": [_case(gen, 8, d, d // 2, 1, d // 2, dev),
+                                  _case(gen, 8, d, inter // 2, 1, inter // 2,
+                                        dev),
+                                  _case(gen, 8, d // 2, d, 1, d, dev),
+                                  _case(gen, 8, inter // 2, d, 1, d, dev)],
+        "bitlinear_raw_large_m": [_case(gen, 2048, d, d // 2, 1, d // 2,
+                                        dev),
+                                  _case(gen, 2048, inter // 2, d, 1, d, dev)],
         "bitlinear_small_m": [_case(gen, 8, d, d, 1, d, dev),
                               _case(gen, 8, inter, d, 1, d, dev)],
         "bitlinear_fused_small_m": [_case(gen, 8, d, d, 3, d, dev),
@@ -218,6 +252,13 @@ def kernel_checks(dev) -> dict:
 
     def calls(name, c):
         x, p, g, h, nt = c["x"], c["packed"], c["g"], c["h"], c["n_true"]
+        if name == "bitlinear_raw_small_m":
+            return (lambda: bc.small_m(x, p, g[0], h, raw=True),
+                    lambda: bc.small_m_torch(x, p, g[0], h, raw=True))
+        if name == "bitlinear_raw_large_m":
+            return (lambda: bc.large_m(x, p, g, h, n_true=nt, raw=True),
+                    lambda: bc.large_m_torch(x, p, g, h, n_true=nt,
+                                             raw=True))
         if name == "bitlinear_small_m":
             return (lambda: bc.small_m(x, p, g[0], h),
                     lambda: bc.small_m_torch(x, p, g[0], h))
@@ -227,46 +268,72 @@ def kernel_checks(dev) -> dict:
         return (lambda: bc.large_m(x, p, g, h, n_true=nt),
                 lambda: bc.large_m_torch(x, p, g, h, n_true=nt))
 
+    def row_tol(name, want):
+        """Each row's tolerance: B4's large-M z is stored in bf16, and a z
+        near a rounding boundary rounds the other way on the other side:
+        one bf16 ulp of the row's largest |z|."""
+        if name == "bitlinear_raw_large_m":
+            top = want.float().abs().amax(-1, keepdim=True)
+            return torch.exp2(torch.floor(torch.log2(top)) - 7)
+        if name == "bitlinear_raw_small_m":
+            return torch.full_like(want[:, :1], RAW_TOL_F32)
+        f32 = want.dtype == torch.float32
+        return torch.full_like(want[..., :1], KERNEL_TOL_F32 if f32
+                               else KERNEL_TOL_BF16)
+
     results = {}
     for info in bc.KERNELS:
         err = ms = plain_ms = lib_ms = bound_ms = 0.0
-        out_scale = float("inf")
+        out_scale, ok = float("inf"), True
         kinds = set()
         dtype = cases[info.name][0]["x"].dtype
-        tol = KERNEL_TOL_F32 if dtype == torch.float32 else KERNEL_TOL_BF16
         for c in cases[info.name]:
             kern, plain = calls(info.name, c)
-            got, want = kern().float(), plain().float()
+            got, want = kern(), plain()
             torch.cuda.synchronize()
             if not torch.isfinite(got).all():
                 raise RuntimeError(f"{info.name}: non-finite output")
-            e = (got - want).abs().max().item()
-            err = max(err, e)
+            tol = row_tol(info.name, want)
+            got, want = got.float(), want.float()
+            diff = (got - want).abs()
+            err = max(err, diff.max().item())
             # the smallest row's largest |out|: LayerNorm rows of unit
-            # variance, so at least 1 unless the output is wrong
-            out_scale = min(out_scale, want.abs().amax(dim=-1).min().item())
-            del got, want
+            # variance, so at least 1 unless the output is wrong; B4's raw z
+            # rows reach about 3.5 sqrt(K)
+            top = want.abs().amax(dim=-1, keepdim=True)
+            out_scale = min(out_scale, top.min().item())
+            ok = ok and bool((diff <= tol).all()) and \
+                bool((top >= 8 * tol).all())
+            # B4 at M <= 128 writes fp32 z
+            out_elem = 4 if info.name == "bitlinear_raw_small_m" else None
+            del got, want, diff
             iters = 3 if c["m"] > 128 else 20
             ms += cuda_ms(kern, iters)
             plain_ms += cuda_ms(plain, 2, warmup=1)
             y, s = c["x"] * c["g"][0], c["sign"]
             lib_ms += cuda_ms(lambda: torch.matmul(y, s.T), iters)
-            b, kind = _bound(c)
+            b, kind = _bound(c, out_elem)
             bound_ms += b
             kinds.add(kind)
-        ok = err <= tol and out_scale >= 8 * tol
         results[info.name] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by="operations" if "operations" in kinds else "bytes",
             library_ms=lib_ms)
+        tol = {"bitlinear_raw_large_m": "one bf16 ulp of each row's largest "
+                                        "|z|",
+               "bitlinear_raw_small_m": RAW_TOL_F32}.get(
+            info.name, KERNEL_TOL_F32 if dtype == torch.float32
+            else KERNEL_TOL_BF16)
         emit({"phase": "kernel", "name": info.name, "tol": tol, "ok": ok,
               "dtype": str(dtype).replace("torch.", ""),
               "m": [c["m"] for c in cases[info.name]],
+              "k_n": [[c["k"], c["n_true"]] for c in cases[info.name]],
               "calls": len(cases[info.name]), "kernel_ms": ms,
               "min_row_max_abs_out": out_scale, **results[info.name]})
         if not ok:
-            raise RuntimeError(f"{info.name}: max_abs_err {err} > {tol} or "
-                               f"smallest row max |out| {out_scale}")
+            raise RuntimeError(f"{info.name}: max_abs_err {err} over its "
+                               f"tolerance {tol}, or smallest row max |out| "
+                               f"{out_scale} under 8 times it")
         del cases[info.name]
         torch.cuda.empty_cache()
     return results
@@ -1310,6 +1377,235 @@ def generate_checks(params, config, dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 4, continued: tensor-parallel serving, two ranks on one card
+# ---------------------------------------------------------------------------
+
+TP_MP = 2
+# the two ranks share cuda:0, which NCCL refuses ("Duplicate GPU detected"):
+# their collectives go over gloo, through the host
+TP_BACKEND = "gloo"
+TP_TIMEOUT = 600          # seconds for the whole phase, every rank
+TP_NEW = 32
+# (run, engine options, prompts, the attention kernel of every decode
+# layer), each at full width and depth
+TP_RUNS = (
+    ("dense", dict(max_len=256), "smoke", "kv_attention_decode_bf16"),
+    ("int8_kt", dict(max_len=2048, quantized_kv=True), "deep",
+     "kv_attention_append_kt"),
+    ("paged_int8_prefix", dict(max_len=2048, paged=True, page_size=16,
+                               quantized_kv=True, prefix_cache=True),
+     "prefix", "paged_attention_flat_int8"))
+TP_PROMPTS = {"smoke": smoke_prompts, "deep": deep_prompts,
+              "prefix": prefix_prompts}
+# what the TP path must never launch: K1-K3 (B4 serves every projection)
+TP_ZERO = ("bitlinear_small_m", "bitlinear_fused_small_m",
+           "bitlinear_large_m", "bitlinear_large_m_f32")
+
+
+def _drop_rank1_o_proj(td):
+    """Install a planted fault in the tensor-parallel layers: rank 1's
+    share of layer 0's o_proj all-reduce dropped (its partial product made
+    of zeros). Returns the function that removes it."""
+    real = td._row_parallel_flat
+
+    def faulty(x_loc, layers, name, i, impl, group, **kw):
+        if name == "o_proj" and i == 0 and group.rank == 1:
+            x_loc = torch.zeros_like(x_loc)
+        return real(x_loc, layers, name, i, impl, group, **kw)
+
+    td._row_parallel_flat = faulty
+
+    def remove():
+        td._row_parallel_flat = real
+    return remove
+
+
+def _tp_first_step(group, params, config, next_token):
+    """Rank side: the TP engine admits the dense prompts, then its first
+    decode step runs on copies of the cache with the single-device
+    engine's first tokens ``next_token``: impl="auto", impl="torch", and
+    auto with :func:`_drop_rank1_o_proj`. Rank 0 returns the logits."""
+    from onebit_tpu_torch.engine.tp_backend import TPServing
+    from onebit_tpu_torch.model import tp_decode as td
+    eng = _engine(params, config, None, dict(max_len=256, tp_group=group))
+    for p in smoke_prompts():
+        eng.add_request(p, max_new_tokens=TP_NEW)
+    eng._admit()
+    tokens = torch.from_numpy(next_token[:, None].astype(np.int64)).to(
+        group.device)
+    plain = TPServing(group, config, impl="torch")
+    out = {}
+    for key, serving in (("auto", eng._tp), ("torch", plain),
+                         ("fault", eng._tp)):
+        cache = type(eng.cache)(*(x.clone() for x in eng.cache))
+        remove = _drop_rank1_o_proj(td) if key == "fault" else None
+        try:
+            logits, _ = serving.step(eng.params, cache, tokens, eng.row_pos,
+                                     np.ones(8, bool))
+        finally:
+            if remove:
+                remove()
+        if group.rank == 0:
+            out[key] = logits[:, 0].cpu().numpy()
+        del cache
+    return out
+
+
+def _tp_served_run(group, params, config, prompts, opts) -> dict:
+    """Rank side: one served run of the TP engine, every launch count set
+    to 0 just before it and read just after; forward passes counted (each
+    decode step, and each admission's prefill or chunk-append call)."""
+    eng = _engine(params, config, None, dict(opts, tp_group=group))
+    calls = {"n": 0}
+    for prog in ("prefill_rows", "paged_prefill_rows", "paged_chunk_append"):
+        real = getattr(eng._tp, prog)
+
+        def counted(*args, _real=real):
+            calls["n"] += 1
+            return _real(*args)
+        setattr(eng._tp, prog, counted)
+    torch.cuda.synchronize()
+    reset_counts()
+    t_start = time.perf_counter()
+    uids = [eng.add_request(p, max_new_tokens=TP_NEW) for p in prompts]
+    step_s, decode_steps = [], 0
+    while eng.has_work():
+        t = time.perf_counter()
+        eng._admit()
+        decode_steps += any(s is not None for s in eng.slots)
+        eng._decode()
+        step_s.append(time.perf_counter() - t)
+    wall = time.perf_counter() - t_start
+    m = eng.metrics()
+    return {"tokens": [eng.finished[u].generated for u in uids],
+            "launches": read_counts(), "decode_steps": decode_steps,
+            "forwards": decode_steps + calls["n"],
+            "decode_ms_per_step_median":
+                float(np.median(step_s[1:TP_NEW])) * 1e3,
+            "wall_s": wall, "pool_bytes": sum(
+                x.numel() * x.element_size() for x in eng.cache),
+            **{k: m[k] for k in ("free_pages", "total_pages",
+                                 "prefix_cache_entries",
+                                 "prefix_pages_reused") if k in m}}
+
+
+def _tp_rank(group, next_token):
+    """One rank of the TP phase: random llama2-7b weights from seed 0
+    (unfused), the first-step checks, then the runs of TP_RUNS."""
+    from onebit_tpu_torch import BitLlamaConfig, host_random_packed_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    config = BitLlamaConfig.named("llama2-7b")
+    params = host_random_packed_params(config, seed=0, device=group.device)
+    out = {"weights_s": time.perf_counter() - t0,
+           "first_step": _tp_first_step(group, params, config, next_token)}
+    torch.cuda.empty_cache()
+    for name, opts, prompts, _ in TP_RUNS:
+        out[name] = _tp_served_run(group, params, config,
+                                   TP_PROMPTS[prompts](), opts)
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_checks(unfused, config, dev) -> dict:
+    """Tensor-parallel serving at llama2-7b width: two ranks (``spawn_tp``,
+    ``gloo``) sharing the card, each an 8-slot ``ContinuousBatchingEngine``
+    with ``tp_group`` on unfused ``host_random_packed_params(seed=0)``.
+
+    (a) The first decode step after the dense prompts' admission, fed the
+        single-device engine's first tokens: rank 0's logits within
+        LOGITS_REL_TOL of the single-device engine's (computed here, on the
+        same weights) and of the TP run with impl="torch"; a planted fault
+        (rank 1's share of layer 0's o_proj all-reduce dropped) must break
+        that limit.
+    (b) The runs of TP_RUNS, 8 greedy requests of 32 new tokens each, every
+        count set to 0 before each: both ranks emit the same tokens and
+        launch the same kernels; B4 (both instances) exactly 7 x L per
+        forward pass, the run's attention kernel exactly L per decode step,
+        K1-K3 never; pages all returned, and the prefix run reuses 448.
+
+    Returns rank 0's B4 launches from the dense run, the main path."""
+    from onebit_tpu_torch.kernels import bitlinear_cuda as bc
+    from onebit_tpu_torch.model.ragged_decode import ragged_decode_step
+    from onebit_tpu_torch.parallel.mesh import spawn_tp
+    t_phase = time.perf_counter()
+    eng = _engine(unfused, config, dev, dict(max_len=256))
+    for p in smoke_prompts():
+        eng.add_request(p, max_new_tokens=TP_NEW)
+    eng._admit()
+    next_token = eng.next_token.copy()
+    tokens = torch.from_numpy(next_token[:, None].astype(np.int64)).to(dev)
+    single, _ = ragged_decode_step(unfused, eng.cache, tokens, eng.row_pos,
+                                   np.ones(8, bool), config)
+    single = single[:, 0].cpu().numpy()
+    del eng
+    torch.cuda.empty_cache()
+
+    ranks = spawn_tp(_tp_rank, TP_MP, backend=TP_BACKEND, device="cuda",
+                     timeout=TP_TIMEOUT, args=(next_token,))
+    first = ranks[0]["first_step"]
+
+    def rel(a, ref):
+        return float(np.abs(a - ref).max() / np.abs(ref).max())
+
+    line = {"phase": "tp_logits_check", "mp": TP_MP, "backend": TP_BACKEND,
+            "rel_err_vs_single_device": rel(first["auto"], single),
+            "rel_err_vs_torch": rel(first["auto"], first["torch"]),
+            "rel_tol": LOGITS_REL_TOL,
+            "argmax_agree_single_device": float(np.mean(
+                first["auto"].argmax(-1) == single.argmax(-1))),
+            "argmax_agree_torch": float(np.mean(
+                first["auto"].argmax(-1) == first["torch"].argmax(-1))),
+            "finite": bool(np.isfinite(first["auto"]).all()),
+            "fault": "rank 1's share of layer 0's o_proj all-reduce dropped",
+            "fault_rel_err": rel(first["fault"], single),
+            "weights_s": ranks[0]["weights_s"]}
+    emit(line)
+    if not (line["finite"]
+            and line["rel_err_vs_single_device"] <= LOGITS_REL_TOL
+            and line["rel_err_vs_torch"] <= LOGITS_REL_TOL
+            and line["fault_rel_err"] > LOGITS_REL_TOL):
+        raise RuntimeError(f"TP first-step logits disagree, or the planted "
+                           f"fault passes: {line}")
+    raw = (bc.RAW_SMALL_M.name, bc.RAW_LARGE_M.name)
+    layers = config.num_hidden_layers
+    for name, opts, _, per_step in TP_RUNS:
+        r0, r1 = ranks[0][name], ranks[1][name]
+        counts = r0["launches"]
+        b4 = sum(counts[k] for k in raw)
+        line = {"phase": "tp_serve", "run": name, **opts, "mp": TP_MP,
+                "backend": TP_BACKEND, "layers": layers,
+                "requests": len(r0["tokens"]), "new_tokens": TP_NEW,
+                "ranks_tokens_equal": r0["tokens"] == r1["tokens"],
+                "ranks_launches_equal": counts == r1["launches"],
+                "launches_rank0": {k: v for k, v in counts.items() if v},
+                "b4_launches": b4, "b4_want": 7 * layers * r0["forwards"],
+                **{k: v for k, v in r0.items()
+                   if k not in ("tokens", "launches")}}
+        emit(line)
+        ok = (line["ranks_tokens_equal"] and line["ranks_launches_equal"]
+              and b4 == line["b4_want"] and r0["decode_steps"] > 0
+              and counts[per_step] == layers * r0["decode_steps"]
+              and not any(counts[k] for k in TP_ZERO)
+              and all(len(t) == TP_NEW and all(0 <= x < config.vocab_size
+                                               for x in t)
+                      for t in r0["tokens"]))
+        if "free_pages" in r0:
+            ok = ok and r0["free_pages"] == r0["total_pages"] - r0.get(
+                "prefix_cache_entries", 0)
+        if opts.get("prefix_cache"):
+            ok = ok and r0["prefix_pages_reused"] == 7 * 64
+        if not ok:
+            raise RuntimeError(f"TP run {name}: ranks disagree, a launch "
+                               f"count is off, or bad tokens: {line}")
+    emit({"phase": "tp", "wall_s": time.perf_counter() - t_phase,
+          "launches_reported": "rank 0 of the dense TP run"})
+    dense = ranks[0]["dense"]["launches"]
+    return {k: dense[k] for k in raw}
+
+
 def generate_cli_checks(dev) -> None:
     """The command lines on the 2-layer native checkpoint of 7B width that
     :func:`eval_checks` wrote under ``build/smoke_ckpt``: ``convert
@@ -1408,10 +1704,12 @@ def end_to_end(dev) -> dict:
         launches.update({k.name: run[k.name] for k in path_kernels})
         torch.cuda.empty_cache()
     launches.update(generate_checks(params, config, dev))
-    # the serving runs' memory goes before evaluation, which reads the
-    # projections unfused, as a checkpoint loads them
+    # the serving runs' memory goes before tensor-parallel serving and
+    # evaluation, which read the projections unfused, as a checkpoint loads
+    # them
     del params
     torch.cuda.empty_cache()
+    launches.update(tp_checks(unfused, config, dev))
     launches.update(eval_checks(unfused, config, dev))
     del unfused
     torch.cuda.empty_cache()
@@ -1744,7 +2042,7 @@ def eval_checks(params, config, dev) -> dict:
 # teacher (0.8 GB) and some 9 GB of activations at 4 x 2048 tokens (the
 # latent projections keep fp32 copies for their products), so 4 layers fit
 # one 80 GB card beside the embeddings and the [4, 2048, 32000] logits of
-# the KL; the 32 of llama2-7b need a sharded model (slice 7).
+# the KL; the 32 of llama2-7b need a sharded model (ROADMAP.md §1 item 8).
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQLEN, TRAIN_STEPS = 4, 4, 2048, 3
 # The first KD step's loss and each trainable leaf's gradient on the kernel
 # path against impl="torch", relative to the leaf's largest |gradient|.
@@ -1867,7 +2165,7 @@ def train_checks(dev) -> dict:
           "reduced": "depth 32 -> 4: at 7B width a layer's fp32 latent "
                      "weights, gradients, Adam moments, teacher share and "
                      "activations take about 13 GB; 32 layers need a "
-                     "sharded model (slice 7)"})
+                     "sharded model (ROADMAP.md §1 item 8)"})
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -2147,7 +2445,10 @@ def main() -> int:
     emit({"kernels": [
         {"name": k.name, "route": k.route, "source": k.source,
          "replaces": k.replaces, "launches": launches[k.name],
-         **results[k.name]} for k in all_kernels()]})
+         **results[k.name],
+         **({"launches_of": "rank 0 of the dense tensor-parallel run"}
+            if k.name.startswith("bitlinear_raw") else {})}
+        for k in all_kernels()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -35,6 +35,7 @@ import json
 import os
 import sys
 
+from onebit_tpu_torch.parallel.mesh import PARALLEL_WAIT
 from onebit_tpu_torch.train.data import TEXT_DATASETS_WAIT_FOR
 
 # flag -> what it waits for (ROADMAP.md)
@@ -62,7 +63,7 @@ BEAM_WAITS_FOR = "engine/beam.py (ROADMAP.md §1 item 4)"
 
 
 _TEXT = TEXT_DATASETS_WAIT_FOR
-_PARALLEL = "slice 7 of the PyTorch port (parallelism)"
+_PARALLEL = PARALLEL_WAIT
 # train flag -> what it waits for
 WAITING_TRAIN = {
     "data": _TEXT, "dataset": _TEXT, "tokenizer": _TEXT,

@@ -6,7 +6,9 @@
 // input), followed here by the same per-segment row LayerNorm the JAX
 // callers apply (layernorm_segments, bitlinear_common.cuh). Fused weights
 // (q/k/v, gate/up) go through one launch: a block's 64 columns never
-// straddle a segment, so it picks its g row by segment.
+// straddle a segment, so it picks its g row by segment. With raw = 1 it is
+// B4 at M > 128 (bitlinear_packed_raw_stacked / bitlinear_packed_raw): z
+// in x's dtype is the result, the projection of a tensor-parallel shard.
 //
 // Bound on an H100: operations. 2*M*K*N flops; prefill of 8 x 256 rows at
 // llama2-7b is about 26.5 TFLOP, about 27 ms at the 989 TFLOP/s bf16

@@ -7,6 +7,10 @@
 //       ns projections sharing x (q/k/v, gate/up) concatenated along N, each
 //       segment padded to seg_pad with h = 0, LayerNorm per segment over the
 //       true width n_true.
+//   B4  bitlinear_packed_raw_stacked / bitlinear_packed_raw at M <= 128
+//       (_call_small_m(_stacked) with fuse_ln=False): K1 with raw = 1, the
+//       projection of a tensor-parallel shard, whose LayerNorm runs after
+//       the cross-shard all-reduce (model/tp_decode.py).
 // Both compute LayerNorm(((x ⊙ g_seg) · Sᵀ) ⊙ h) (+ bias) for M <= 128 rows.
 //
 // Bound on an H100: the packed sign words, read once (K*N/8 bytes); x, g, h
@@ -27,8 +31,8 @@
 //      fp32 scratch.
 //   2. layernorm_segments (bitlinear_common.cuh): one block per row and
 //      segment, two-pass fp32 statistics over n_true, + bias, cast.
-// With raw = 1 the second launch is skipped and the fp32 scratch is the
-// result (the tensor-parallel raw projection of a later slice).
+// With raw = 1 (B4) the second launch is skipped and the fp32 scratch is
+// the result.
 #include "bitlinear_common.cuh"
 
 namespace onebit {

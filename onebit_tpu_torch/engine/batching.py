@@ -21,7 +21,15 @@ Port of the dense and dense-quantized paths of
 * every ``step()`` runs one ``ragged_decode_step`` (``paged_decode_step``)
   for all slots, each row at its own cache position;
 * a finished row (EOS or ``max_new_tokens``) frees its slot and its pages
-  at once.
+  at once;
+* with ``tp_group`` (a :class:`~onebit_tpu_torch.parallel.mesh.TPGroup`,
+  the counterpart of the JAX engine's ``tp_mesh``) the engine serves one
+  rank of a tensor-parallel group: it keeps the rank's shards of the
+  (unfused) params and a head-sharded cache of any of the kinds above, and
+  dispatches the programs of ``engine/tp_backend.py``. Every rank runs the
+  same engine on the same requests; nothing the scheduler decides depends
+  on the rank or the clock, and every rank seeds the same sampling
+  generator, so all ranks emit the same tokens.
 
 Options of the JAX engine that this port does not have yet raise
 ``NotImplementedError`` naming the slice that brings them (ROADMAP.md).
@@ -46,12 +54,14 @@ from onebit_tpu_torch.engine.paged import (ENGINE_OPTIONS_WAIT,
                                            paged_decode_step,
                                            paged_prefill_rows)
 from onebit_tpu_torch.engine.sampler import SamplingConfig, sample_token
+from onebit_tpu_torch.engine.tp_backend import TPServing
 from onebit_tpu_torch.model.bitllama import init_kv_cache
 from onebit_tpu_torch.model.config import BitLlamaConfig
 from onebit_tpu_torch.model.kv_cache import (init_quant_kv_cache_kt,
                                              init_quant_kv_cache_kt4)
 from onebit_tpu_torch.model.ragged_decode import (prefill_rows,
                                                   ragged_decode_step)
+from onebit_tpu_torch.model.tp_decode import shard_tp_params
 from onebit_tpu_torch.utils.device import resolve_device
 from onebit_tpu_torch.utils.profiling import ThroughputMeter
 
@@ -106,22 +116,20 @@ def _check_quantized_kv(paged, quantized_kv, draft_params,
 
 
 def _reject_unported(paged, quantized_kv, block_steps, prefill_chunk_size,
-                     draft_params, tp_mesh, pipeline_blocks):
-    parallel = "slice 7 of the PyTorch port (parallelism, ROADMAP.md)"
+                     draft_params, pipeline_blocks):
     later = [
-        (paged and quantized_kv == "fp8", "quantized_kv='fp8' (fp8 pages)",
-         ENGINE_OPTIONS_WAIT),
-        (draft_params is not None, "draft_params", ENGINE_OPTIONS_WAIT),
-        (tp_mesh is not None, "tp_mesh", parallel),
+        (paged and quantized_kv == "fp8", "quantized_kv='fp8' (fp8 pages)"),
+        (draft_params is not None, "draft_params"),
         (prefill_chunk_size and not paged,
-         "prefill_chunk_size without paged=True", ENGINE_OPTIONS_WAIT),
-        (block_steps > 1, "block_steps > 1", ENGINE_OPTIONS_WAIT),
-        (pipeline_blocks, "pipeline_blocks", ENGINE_OPTIONS_WAIT),
+         "prefill_chunk_size without paged=True"),
+        (block_steps > 1, "block_steps > 1"),
+        (pipeline_blocks, "pipeline_blocks"),
     ]
-    for given, name, waits_for in later:
+    for given, name in later:
         if given:
             raise NotImplementedError(
-                f"{name} is not ported yet: it waits for {waits_for}")
+                f"{name} is not ported yet: it waits for "
+                f"{ENGINE_OPTIONS_WAIT}")
 
 
 class ContinuousBatchingEngine:
@@ -133,14 +141,31 @@ class ContinuousBatchingEngine:
                  quantized_kv=False, block_steps: int = 1,
                  prefill_chunk_size: Optional[int] = None,
                  prefix_cache: bool = False, draft_params=None,
-                 tp_mesh=None, pipeline_blocks: bool = False):
+                 tp_group=None, pipeline_blocks: bool = False):
         _check_quantized_kv(paged, quantized_kv, draft_params,
                             prefill_chunk_size)
         _reject_unported(paged, quantized_kv, block_steps, prefill_chunk_size,
-                         draft_params, tp_mesh, pipeline_blocks)
-        self.device = resolve_device(device)
+                         draft_params, pipeline_blocks)
+        self._tp = None
+        if tp_group is not None:
+            # the rank's shards on its own device (batching.py:164-180)
+            want = torch.device(device if device is not None
+                                else tp_group.device)
+            if want.type != tp_group.device.type or \
+                    want.index not in (None, tp_group.device.index):
+                raise ValueError(f"device {device} is not the tp_group's "
+                                 f"device {tp_group.device}")
+            self._tp = TPServing(tp_group, config, impl=impl,
+                                 compute_dtype=compute_dtype)
+            self.device = tp_group.device
+            params = shard_tp_params(params, tp_group)
+        else:
+            self.device = resolve_device(device)
         self.params = params
         self.config = config
+        # a tensor-parallel rank's cache holds its nkv / mp heads
+        cache_at = dict(device=self.device, num_kv_heads=(
+            None if self._tp is None else self._tp.num_kv_heads))
         self.max_batch = max_batch
         self.max_len = max_len
         self.sampling = sampling or SamplingConfig(greedy=True)
@@ -158,7 +183,7 @@ class ContinuousBatchingEngine:
             self.cache = init_paged_kv_cache(config, num_pages, page_size,
                                              dtype=compute_dtype,
                                              quantized=quantized_kv,
-                                             device=self.device)
+                                             **cache_at)
             self.allocator = PageAllocator(num_pages)
             self.total_pages = num_pages - 1   # page 0 is the reserved null
             self.page_tables = np.zeros((max_batch, self.max_pages_per_seq),
@@ -172,15 +197,14 @@ class ContinuousBatchingEngine:
         elif quantized_kv == "int4":
             # nibble-packed pools: a quarter of the bf16 cache's bytes
             self.cache = init_quant_kv_cache_kt4(config, max_batch, max_len,
-                                                 device=self.device)
+                                                 **cache_at)
         elif quantized_kv:
             # int8 transposed-K pools, half the bf16 cache's bytes
             self.cache = init_quant_kv_cache_kt(config, max_batch, max_len,
-                                                device=self.device)
+                                                **cache_at)
         else:
             self.cache = init_kv_cache(config, max_batch, max_len,
-                                       dtype=compute_dtype,
-                                       device=self.device)
+                                       dtype=compute_dtype, **cache_at)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self._uid = itertools.count()
@@ -286,7 +310,9 @@ class ContinuousBatchingEngine:
                 self.params, self.cache, req.prompt, table, self.config,
                 chunk_size=min(self.prefill_chunk_size or 64, self.max_len),
                 impl=self.impl, compute_dtype=self.compute_dtype,
-                start=hits * self.page_size)
+                start=hits * self.page_size,
+                step_fn=(None if self._tp is None
+                         else self._tp.paged_chunk_append))
             if self.prefix_cache:
                 self._register_prefix(req.prompt, table)
             self.slots[slot] = req
@@ -328,14 +354,23 @@ class ContinuousBatchingEngine:
                              torch.from_numpy(lens).to(dev))
             kw = dict(impl=self.impl, compute_dtype=self.compute_dtype)
             if self.paged:
-                tables = self.page_tables[rows]
-                logits, self.cache = paged_prefill_rows(
-                    self.params, self.cache, ids_t, lens_t,
-                    torch.from_numpy(tables).to(dev), self.config, **kw)
+                tables = torch.from_numpy(self.page_tables[rows]).to(dev)
+                if self._tp is not None:
+                    logits, self.cache = self._tp.paged_prefill_rows(
+                        self.params, self.cache, ids_t, lens_t, tables)
+                else:
+                    logits, self.cache = paged_prefill_rows(
+                        self.params, self.cache, ids_t, lens_t, tables,
+                        self.config, **kw)
             else:
-                logits, self.cache = prefill_rows(
-                    self.params, self.cache, ids_t, lens_t,
-                    torch.from_numpy(rows).to(dev), self.config, **kw)
+                rows_t = torch.from_numpy(rows).to(dev)
+                if self._tp is not None:
+                    logits, self.cache = self._tp.prefill_rows(
+                        self.params, self.cache, ids_t, lens_t, rows_t)
+                else:
+                    logits, self.cache = prefill_rows(
+                        self.params, self.cache, ids_t, lens_t, rows_t,
+                        self.config, **kw)
             for j, (slot, req, plen, _, table) in enumerate(group):
                 if self.prefix_cache:
                     self._register_prefix(req.prompt, table)
@@ -413,21 +448,31 @@ class ContinuousBatchingEngine:
         active = np.asarray([s is not None for s in self.slots])
         if not active.any():
             return
-        tokens = torch.from_numpy(self.next_token[:, None].astype(np.int64))
-        if self.paged:
-            # every row decodes; a free slot's all-zero table points it at
-            # the null page 0, which no live row reads
-            logits, self.cache = paged_decode_step(
-                self.params, self.cache, tokens.to(self.device),
-                self.row_pos, self.page_tables, self.config, impl=self.impl,
-                compute_dtype=self.compute_dtype)
+        tokens = torch.from_numpy(self.next_token[:, None].astype(np.int64)
+                                  ).to(self.device)
+        # paged: every row decodes; a free slot's all-zero table points it
+        # at the null page 0, which no live row reads
+        state = self.page_tables if self.paged else active
+        if self._tp is not None and self.sampling.greedy:
+            # the greedy tokens, without gathering the logits
+            step = (self._tp.paged_greedy_step if self.paged
+                    else self._tp.greedy_step)
+            toks, self.cache = step(self.params, self.cache, tokens,
+                                    self.row_pos, state)
+            toks = toks.cpu().numpy()
         else:
-            logits, self.cache = ragged_decode_step(
-                self.params, self.cache, tokens.to(self.device),
-                self.row_pos, active, self.config, impl=self.impl,
-                compute_dtype=self.compute_dtype)
-        toks = sample_token(logits[:, 0], self.generator,
-                            self.sampling).cpu().numpy()
+            if self._tp is not None:
+                step = self._tp.paged_step if self.paged else self._tp.step
+                logits, self.cache = step(self.params, self.cache, tokens,
+                                          self.row_pos, state)
+            else:
+                step = paged_decode_step if self.paged else ragged_decode_step
+                logits, self.cache = step(
+                    self.params, self.cache, tokens, self.row_pos, state,
+                    self.config, impl=self.impl,
+                    compute_dtype=self.compute_dtype)
+            toks = sample_token(logits[:, 0], self.generator,
+                                self.sampling).cpu().numpy()
         for slot in range(self.max_batch):
             if self.slots[slot] is None:
                 continue

@@ -22,8 +22,8 @@ import torch
 from onebit_tpu_torch.engine.sampler import SamplingConfig, sample_token
 from onebit_tpu_torch.model.bitllama import (_attention, _causal_mask,
                                              _decoder_layer, _lm_head,
-                                             decode_step, init_kv_cache,
-                                             rms_norm)
+                                             decode_step, default_proj,
+                                             init_kv_cache)
 from onebit_tpu_torch.model.config import BitLlamaConfig
 from onebit_tpu_torch.model.rope import apply_rope, rope_cos_sin
 
@@ -39,7 +39,8 @@ def _prefill(params, cache, ids, attn_mask, config: BitLlamaConfig, *,
     b, s = ids.shape
     max_len = cache.max_len
     device = ids.device
-    x = params["embed_tokens"][ids].to(compute_dtype)
+    proj = default_proj(params, config, impl, compute_dtype)
+    x = proj.embed(ids)
     positions = (torch.cumsum(attn_mask, dim=1) - 1).clamp(min=0)
     cos, sin = rope_cos_sin(positions, config.head_dim, config.rope_theta,
                             config.rope_scaling,
@@ -48,7 +49,6 @@ def _prefill(params, cache, ids, attn_mask, config: BitLlamaConfig, *,
     key_pad = torch.zeros(b, max_len, dtype=torch.bool, device=device)
     key_pad[:, :s] = attn_mask > 0
     mask = _causal_mask(s, max_len, 0, device) & key_pad[:, None, None, :]
-    layers = params["layers"]
     for i in range(config.num_hidden_layers):
         def attend(q, k, v, i=i):
             q, k = apply_rope(q, k, cos, sin)
@@ -57,9 +57,8 @@ def _prefill(params, cache, ids, attn_mask, config: BitLlamaConfig, *,
             return _attention(q, cache.k[i].to(q.dtype),
                               cache.v[i].to(q.dtype), mask,
                               num_kv_groups=config.num_kv_groups)
-        x = _decoder_layer(x, layers, i, config, impl, attend)
-    x = rms_norm(x[:, -1], params["final_norm"], config.rms_norm_eps)
-    return _lm_head(x, params, compute_dtype)
+        x = _decoder_layer(x, proj, i, attend)
+    return _lm_head(proj.final(x[:, -1]), params, compute_dtype)
 
 
 def _decode_loop(params, cache, last_token, start_index: int, prompt_len,

@@ -1,7 +1,10 @@
 """Paged KV cache: page pools, a refcounting page allocator, and the paged
 decode step, batched prefill and chunk append.
 
-Port of ``onebit_tpu/engine/paged.py`` for one device. K/V live in
+Port of ``onebit_tpu/engine/paged.py``. The cores (``_window_core``,
+``_prefill_rows_core``) take a projection strategy (``model/bitllama.py``
+``Proj``): one device's, or a tensor-parallel rank's over the pool's
+``nkv / mp`` heads (``engine/tp_backend.py``). K/V live in
 fixed-size pages ``[L, num_pages, n_kv, page_size, head_dim]``; each sequence
 owns a list of logical pages (``page_indices [B, pages_per_seq]``, shared by
 all layers) and its length. A (layer, page) block is one contiguous
@@ -39,7 +42,8 @@ from onebit_tpu_torch.kernels.paged_attention import (_MAX_INT8,
                                                       _gather_seq_kv,
                                                       paged_attention_flat)
 from onebit_tpu_torch.model import bitllama
-from onebit_tpu_torch.model.bitllama import _decoder_layer, _lm_head
+from onebit_tpu_torch.model.bitllama import (Proj, _decoder_layer, _lm_head,
+                                             default_proj)
 from onebit_tpu_torch.model.config import BitLlamaConfig
 from onebit_tpu_torch.model.rope import apply_rope, rope_cos_sin
 from onebit_tpu_torch.utils.device import resolve_device
@@ -80,16 +84,19 @@ class QuantPagedKVCache(NamedTuple):
 
 def init_paged_kv_cache(config: BitLlamaConfig, num_pages: int,
                         page_size: int = 16, dtype=torch.bfloat16,
-                        quantized=False, device=None):
+                        quantized=False, device=None, num_kv_heads=None):
     """``quantized``: False (pages in ``dtype``) or True / "int8" (int8
-    pages + raw absmax scales). fp8 pages are not ported yet."""
+    pages + raw absmax scales). fp8 pages are not ported yet.
+    ``num_kv_heads`` overrides the config's head count (a tensor-parallel
+    rank holds ``nkv / mp`` heads)."""
     if quantized == "fp8":
         raise NotImplementedError(
             f"fp8 pages are not ported yet: they wait for "
             f"{ENGINE_OPTIONS_WAIT}")
     device = resolve_device(device)
     shape = (config.num_hidden_layers, num_pages,
-             config.num_key_value_heads, page_size, config.head_dim)
+             num_kv_heads or config.num_key_value_heads, page_size,
+             config.head_dim)
     z = lambda s, dt: torch.zeros(s, dtype=dt, device=device)  # noqa: E731
     if quantized:
         sshape = shape[:-1] + (1,)
@@ -205,14 +212,16 @@ def _use_kernel(cache, impl: str) -> bool:
 # Cores: the window (decode and chunk append) and the batched prefill
 # ---------------------------------------------------------------------------
 
-def _window_core(params, cache, tokens, lengths, page_indices,
+def _window_core(proj: Proj, cache, tokens, lengths, page_indices,
                  config: BitLlamaConfig, impl: str, compute_dtype):
     """W tokens per row written at ``lengths .. lengths+W-1``, attending to
     each row's pages as just updated. ``tokens [B, W]``, ``lengths [B]``
     write-start positions, ``page_indices [B, max_pages]`` int32, all on
     the cache's device. Returns the final-normed hidden ``[B, W, d]``.
 
-    W = 1 is the decode step (B10 on the card); W > 1 a chunk append."""
+    W = 1 is the decode step (B10 on the card); W > 1 a chunk append. The
+    projections are ``proj``'s: one device's, or a tensor-parallel rank's
+    over the pool's ``nkv / mp`` heads."""
     w = tokens.shape[1]
     ps, mp = cache.page_size, page_indices.shape[1]
     positions = lengths[:, None] + torch.arange(w, device=tokens.device)
@@ -222,7 +231,7 @@ def _window_core(params, cache, tokens, lengths, page_indices,
     # live page (the JAX _window_core's rule)
     pages = torch.where(positions < mp * ps, pages, 0)
     slots = positions % ps
-    x = params["embed_tokens"][tokens].to(compute_dtype)
+    x = proj.embed(tokens)
     cos, sin = _cos_sin(positions, config, compute_dtype)
     quant = isinstance(cache, QuantPagedKVCache)
     use_kernel = w == 1 and _use_kernel(cache, impl)
@@ -232,7 +241,6 @@ def _window_core(params, cache, tokens, lengths, page_indices,
         kj = torch.arange(mp * ps, device=tokens.device)
         mask = (kj[None, None, None, :] <= positions[:, None, :, None])
 
-    layers = params["layers"]
     for i in range(config.num_hidden_layers):
         def attend(q, k, v, i=i):
             q, k = apply_rope(q, k, cos, sin)
@@ -244,11 +252,11 @@ def _window_core(params, cache, tokens, lengths, page_indices,
                     quant=quant).to(compute_dtype)[:, None]
             return _paged_attend_window(q, cache, quant, mask, page_indices,
                                         i, compute_dtype)
-        x = _decoder_layer(x, layers, i, config, impl, attend)
-    return bitllama.rms_norm(x, params["final_norm"], config.rms_norm_eps)
+        x = _decoder_layer(x, proj, i, attend)
+    return proj.final(x)
 
 
-def _prefill_rows_core(params, cache, ids, lengths, page_indices,
+def _prefill_rows_core(proj: Proj, cache, ids, lengths, page_indices,
                        config: BitLlamaConfig, impl: str, compute_dtype):
     """Batched self-contained prefill: rows attend only within themselves
     (full-precision K/V); their K/V go into their pages. Returns the
@@ -261,19 +269,18 @@ def _prefill_rows_core(params, cache, ids, lengths, page_indices,
                                  dim=1)                         # [R, S]
     slots = (positions % ps)[None, :].expand(r, s_pad)          # [R, S]
     attn = positions[None, :] < lengths[:, None]
-    x = params["embed_tokens"][ids].to(compute_dtype)
+    x = proj.embed(ids)
     cos, sin = _cos_sin(positions[None, :], config, compute_dtype)
     mask = bitllama._causal_mask(s_pad, s_pad, 0, ids.device) & \
         attn[:, None, None, :]
-    layers = params["layers"]
     for i in range(config.num_hidden_layers):
         def attend(q, k, v, i=i):
             q, k = apply_rope(q, k, cos, sin)
             _write_pages(cache, i, pages, slots, k, v)
             return bitllama._attention(q, k, v, mask,
                                        num_kv_groups=config.num_kv_groups)
-        x = _decoder_layer(x, layers, i, config, impl, attend)
-    return bitllama.rms_norm(x, params["final_norm"], config.rms_norm_eps)
+        x = _decoder_layer(x, proj, i, attend)
+    return proj.final(x)
 
 
 def _on(cache, x, dtype) -> torch.Tensor:
@@ -310,7 +317,8 @@ def paged_decode_step(params, cache, input_ids, lengths, page_indices,
     if input_ids.shape[1] != 1:
         raise ValueError(f"paged_decode_step takes one token per row, got "
                          f"{input_ids.shape[1]}")
-    x = _window_core(params, cache, _on(cache, input_ids, torch.long),
+    x = _window_core(default_proj(params, config, impl, compute_dtype), cache,
+                     _on(cache, input_ids, torch.long),
                      _on(cache, lengths, torch.long),
                      _tables(cache, page_indices), config, impl,
                      compute_dtype)
@@ -326,7 +334,8 @@ def paged_prefill_rows(params, cache, ids, lengths, page_indices,
     duplicate writes are identical). Returns ``(last_logits [R, V] fp32,
     cache)``."""
     lengths = _on(cache, lengths, torch.long)
-    x = _prefill_rows_core(params, cache, _on(cache, ids, torch.long),
+    x = _prefill_rows_core(default_proj(params, config, impl, compute_dtype),
+                           cache, _on(cache, ids, torch.long),
                            lengths, _tables(cache, page_indices),
                            config, impl, compute_dtype)
     last = x[torch.arange(x.shape[0], device=x.device),
@@ -341,7 +350,8 @@ def paged_chunk_append_row(params, cache, ids, start: int, length: int,
     written from position ``start``, ``length`` of them valid. The chunk
     attends to the row's earlier pages and to itself. Returns
     ``(logits [V] fp32 at the last valid token, cache)``."""
-    x = _window_core(params, cache, _on(cache, ids, torch.long)[None, :],
+    x = _window_core(default_proj(params, config, impl, compute_dtype), cache,
+                     _on(cache, ids, torch.long)[None, :],
                      _on(cache, [start], torch.long),
                      _tables(cache, page_indices_row)[None, :],
                      config, impl, compute_dtype)
@@ -351,19 +361,26 @@ def paged_chunk_append_row(params, cache, ids, start: int, length: int,
 def paged_chunked_prefill_row(params, cache, prompt, page_indices_row,
                               config: BitLlamaConfig, *, chunk_size: int = 64,
                               impl: str = "auto",
-                              compute_dtype=torch.bfloat16, start: int = 0):
+                              compute_dtype=torch.bfloat16, start: int = 0,
+                              step_fn=None):
     """Chunked paged prefill of one row: a host loop of
     :func:`paged_chunk_append_row` over ``prompt[start:]`` in chunks of
     ``chunk_size``. ``start`` skips tokens whose K/V already sit in the
-    row's (shared) pages (prefix caching). Returns ``(logits [V], cache)``
-    of the last chunk."""
+    row's (shared) pages (prefix caching). ``step_fn(params, cache, ids,
+    start, length, table_row)`` replaces the chunk program (the
+    tensor-parallel engine passes ``TPServing.paged_chunk_append``).
+    Returns ``(logits [V], cache)`` of the last chunk."""
+    if step_fn is None:
+        def step_fn(params, cache, ids, ci, length, table):
+            return paged_chunk_append_row(params, cache, ids, ci, length,
+                                          table, config, impl=impl,
+                                          compute_dtype=compute_dtype)
     prompt = list(prompt)
     logits = None
     for ci in range(start, len(prompt), chunk_size):
         chunk = prompt[ci:ci + chunk_size]
         padded = np.zeros(chunk_size, np.int64)
         padded[:len(chunk)] = chunk
-        logits, cache = paged_chunk_append_row(
-            params, cache, padded, ci, len(chunk), page_indices_row, config,
-            impl=impl, compute_dtype=compute_dtype)
+        logits, cache = step_fn(params, cache, padded, ci, len(chunk),
+                                page_indices_row)
     return logits, cache

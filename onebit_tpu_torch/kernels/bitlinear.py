@@ -139,23 +139,35 @@ def fused_bitlinear_apply_stacked(x, w: FusedBitLinearWeights, layer: int,
                                  impl=impl, eps=eps)
 
 
+def bitlinear_packed_raw(x, packed, g, h, *, impl: str = "auto"
+                         ) -> torch.Tensor:
+    """``((x⊙g)·Sᵀ)⊙h`` without the LayerNorm on packed signs ``[K/32, N]``:
+    B4 (``bitlinear_pallas.py:723``), the projection of a tensor-parallel
+    shard, whose LayerNorm runs after the cross-shard reduction. fp32 for
+    M <= 128 rows; above, in x.dtype, as the large-M kernel stores it."""
+    small, _, large = _ops(impl)
+    x2 = _rows(x)
+    n = packed.shape[-1]
+    g = g.to(x.dtype).contiguous()
+    h = _opt_f32(h)
+    if x2.shape[0] <= bc.SMALL_M_MAX:
+        z = small(x2, packed, g, h, raw=True)
+    else:
+        z = large(x2, packed, g[None], h, n_true=n, raw=True)
+    return z.reshape(*x.shape[:-1], n)
+
+
 def bitlinear_apply_stacked_raw(x, w: BitLinearWeights, layer: int, *,
                                 impl: str = "auto") -> torch.Tensor:
     """Layer ``layer`` of a stacked BitLinear without the LayerNorm: fp32
-    ``((x⊙g)·Sᵀ)⊙h`` (the tensor-parallel shard body of a later slice).
-    Latent and dense-sign weights take the plain math."""
+    ``((x⊙g)·Sᵀ)⊙h`` (``bitlinear_pallas.py:691``), the shard projection of
+    the tensor-parallel layers (``model/tp_decode.py``); above 128 rows it
+    is rounded to x.dtype first, as JAX's large-M kernel rounds it. Latent
+    and dense-sign weights take the plain math."""
     wl = _pick_layer(w, layer)
     if wl.mode != "packed":
         sign_w = sign_ste(wl.latent) if wl.mode == "latent" \
             else wl.dense_sign
         return bitlinear_raw(x, sign_w, wl.input_factor, wl.weight_scale)
-    small, _, large = _ops(impl)
-    x2 = _rows(x)
-    n = wl.packed.shape[-1]
-    g = wl.input_factor.to(x.dtype).contiguous()
-    h = _opt_f32(wl.weight_scale)
-    if x2.shape[0] <= bc.SMALL_M_MAX:
-        z = small(x2, wl.packed, g, h, raw=True)
-    else:
-        z = large(x2, wl.packed, g[None], h, n_true=n, raw=True).float()
-    return z.reshape(*x.shape[:-1], n)
+    return bitlinear_packed_raw(x, wl.packed, wl.input_factor,
+                                wl.weight_scale, impl=impl).float()

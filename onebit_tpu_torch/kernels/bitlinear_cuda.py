@@ -10,13 +10,19 @@ Port of ``onebit_tpu/kernels/bitlinear_pallas.py``. Three kernels, sources in
   (q/k/v and gate/up after ``fuse_for_decode``);
 * K3 :func:`large_m`, for M > 128 rows (prefill, and every projection of
   an fp32 eval window), single or fused; its launches are counted per dtype
-  instance (bf16 ``bitlinear_large_m``, fp32 ``bitlinear_large_m_f32``).
+  instance (bf16 ``bitlinear_large_m``, fp32 ``bitlinear_large_m_f32``);
+* B4, the raw projection of a tensor-parallel shard
+  (``bitlinear_packed_raw_stacked`` / ``bitlinear_packed_raw``): K1 and K3
+  with ``raw=True``, which skip the LayerNorm launch. Their launches are
+  counted as B4's two instances, ``bitlinear_raw_small_m`` (M <= 128, fp32
+  out) and ``bitlinear_raw_large_m`` (M > 128, z in x's dtype), never under
+  K1 or K3.
 
 Every kernel computes ``LayerNorm(((x ⊙ g_j) · S_jᵀ) ⊙ h_j) (+ bias)`` per
 segment ``j``, with the signs in the port's K-major layout
 (``core/packing.py``), and each LayerNorm runs over the segment's true width
 ``n_true``, never over pad columns. ``raw=True`` returns the projection
-before the LayerNorm.
+before the LayerNorm (B4).
 
 A wrapper given CPU tensors returns its plain version (the reference's
 strategy: unpack to a dense ±1 matrix, then matmul). Given CUDA tensors it
@@ -64,7 +70,14 @@ LARGE_M = KernelInfo(
 LARGE_M_F32 = KernelInfo(
     "bitlinear_large_m_f32", "onebit_tpu_torch/csrc/bitlinear_large_m.cu",
     "onebit_tpu/kernels/bitlinear_pallas.py:608", "bitlinear_large_m.cu")
-KERNELS = (SMALL_M, FUSED_SMALL_M, LARGE_M, LARGE_M_F32)
+RAW_SMALL_M = KernelInfo(
+    "bitlinear_raw_small_m", "onebit_tpu_torch/csrc/bitlinear_small_m.cu",
+    "onebit_tpu/kernels/bitlinear_pallas.py:691", "bitlinear_small_m.cu")
+RAW_LARGE_M = KernelInfo(
+    "bitlinear_raw_large_m", "onebit_tpu_torch/csrc/bitlinear_large_m.cu",
+    "onebit_tpu/kernels/bitlinear_pallas.py:691", "bitlinear_large_m.cu")
+KERNELS = (SMALL_M, FUSED_SMALL_M, LARGE_M, LARGE_M_F32, RAW_SMALL_M,
+           RAW_LARGE_M)
 
 
 def reset_launch_counts() -> None:
@@ -216,7 +229,7 @@ def small_m(x2, packed, g, h, bias=None, *, raw: bool = False,
             eps: float = LN_EPS) -> torch.Tensor:
     """K1: ``x2 [M<=128, K]``, ``packed [K/32, N]``, ``g [K]`` (x.dtype),
     ``h [N]`` fp32, ``bias [N]`` fp32 or None -> ``[M, N]`` in x.dtype
-    (fp32 ``z ⊙ h`` before the LayerNorm with ``raw=True``)."""
+    (with ``raw=True`` B4: fp32 ``z ⊙ h`` before the LayerNorm)."""
     if x2.device.type == "cpu":
         return small_m_torch(x2, packed, g, h, bias, raw=raw, eps=eps)
     _check(x2, packed, g[None], h, bias, 1, packed.shape[-1])
@@ -230,8 +243,9 @@ def small_m(x2, packed, g, h, bias=None, *, raw: bool = False,
         x2.data_ptr(), g.data_ptr(), packed.data_ptr(), h.data_ptr(),
         _ptr(bias), z.data_ptr(), out.data_ptr(), m, k, n,
         _DTYPE_CODES[x2.dtype], int(raw), eps, _stream(x2))
-    _raise_on(err, SMALL_M)
-    SMALL_M.launches += 1
+    info = RAW_SMALL_M if raw else SMALL_M
+    _raise_on(err, info)
+    info.launches += 1
     return out
 
 
@@ -263,8 +277,8 @@ def large_m(x2, packed, g, h, *, n_true: int, bias=None, raw: bool = False,
             eps: float = LN_EPS) -> torch.Tensor:
     """K3: ``x2 [M, K]`` (any M), ``packed [K/32, ns*seg_pad]``,
     ``g [ns, K]`` (x.dtype), ``h`` fp32, ``bias`` (ns = 1 only) ->
-    ``[ns, M, n_true]`` in x.dtype (``z ⊙ h [M, ns*seg_pad]`` in x.dtype
-    with ``raw=True``)."""
+    ``[ns, M, n_true]`` in x.dtype (with ``raw=True`` B4:
+    ``z ⊙ h [M, ns*seg_pad]`` in x.dtype)."""
     if x2.device.type == "cpu":
         return large_m_torch(x2, packed, g, h, n_true=n_true, bias=bias,
                              raw=raw, eps=eps)
@@ -281,7 +295,10 @@ def large_m(x2, packed, g, h, *, n_true: int, bias=None, raw: bool = False,
         x2.data_ptr(), g.data_ptr(), packed.data_ptr(), h.data_ptr(),
         _ptr(bias), z.data_ptr(), out.data_ptr(), m, k, n, ns, n // ns,
         n_true, _DTYPE_CODES[x2.dtype], int(raw), eps, _stream(x2))
-    info = LARGE_M_F32 if x2.dtype == torch.float32 else LARGE_M
+    if raw:
+        info = RAW_LARGE_M
+    else:
+        info = LARGE_M_F32 if x2.dtype == torch.float32 else LARGE_M
     _raise_on(err, info)
     info.launches += 1
     return out

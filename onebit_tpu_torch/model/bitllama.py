@@ -1,5 +1,7 @@
 """BitLlama: the KV cache, fused decode params, RMSNorm, the per-layer
-projection helpers, one decoder layer and the full-sequence ``forward``.
+projection helpers and their strategy (``Proj``: one device's here, a
+tensor-parallel rank's in ``model/tp_decode.py``), one decoder layer and
+the full-sequence ``forward``.
 
 Port of ``onebit_tpu/model/bitllama.py`` for serving, evaluation and
 training. Params are plain dicts of tensors with layers stacked on a
@@ -26,7 +28,7 @@ transposed-K int8/int4 caches in B5/B7 (``kernels/kv_attention.py``).
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -71,10 +73,13 @@ class KVCache(NamedTuple):
 
 
 def init_kv_cache(config: BitLlamaConfig, batch: int, max_len: int,
-                  dtype=torch.bfloat16, device=None) -> KVCache:
+                  dtype=torch.bfloat16, device=None,
+                  num_kv_heads: Optional[int] = None) -> KVCache:
+    """Zeros; ``num_kv_heads`` overrides the config's head count (a
+    tensor-parallel rank holds ``nkv / mp`` heads)."""
     device = resolve_device(device)
     shape = (config.num_hidden_layers, batch, max_len,
-             config.num_key_value_heads, config.head_dim)
+             num_kv_heads or config.num_key_value_heads, config.head_dim)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
@@ -237,31 +242,63 @@ def _project_gateup_flat(hx, layers, i: int, impl: str, n_out: int):
                  for n in ("gate_proj", "up_proj"))
 
 
-# ---- one decoder layer and the full-sequence forward -----------------------
+# ---- the projection strategy and one decoder layer -------------------------
 
-def _decoder_layer(x, layers, i: int, config: BitLlamaConfig, impl: str,
-                   attend):
+class Proj(NamedTuple):
+    """A decoder stack's per-layer projections and head geometry: the seam
+    between one device and a tensor-parallel shard, the counterpart of the
+    JAX package's ``PagedProj`` (``engine/paged.py:315``).
+    :func:`default_proj` is one device's; ``model/tp_decode.py`` ``tp_proj``
+    a shard's, whose ``nh`` and ``nkv`` are the heads that rank holds."""
+    embed: Callable    # ids -> x [..., d] in the compute dtype
+    qkv: Callable      # (hx, i) -> (q, k, v), flat
+    o: Callable        # (ctx [..., nh*hd], i) -> [..., d]
+    gateup: Callable   # (hx, i) -> (gate, up)
+    down: Callable     # (act, i) -> [..., d]
+    ln: Callable       # (x, norm name, i) -> rms-normed x
+    final: Callable    # x -> final-normed x
+    nh: int
+    nkv: int
+
+
+def default_proj(params, config: BitLlamaConfig, impl: str,
+                 compute_dtype=torch.bfloat16) -> Proj:
+    """One device's strategy: the flat projections of the stacked params
+    (BitLinear, fused or not, or the teacher's plain Linear)."""
+    layers = params["layers"]
+    eps = config.rms_norm_eps
+    nkv_hd = config.num_key_value_heads * config.head_dim
+    return Proj(
+        embed=lambda ids: params["embed_tokens"][ids].to(compute_dtype),
+        qkv=lambda hx, i: _project_qkv_flat(hx, layers, i, impl, nkv_hd),
+        o=lambda v, i: _project_flat(v, layers, "o_proj", i, impl),
+        gateup=lambda hx, i: _project_gateup_flat(
+            hx, layers, i, impl, config.intermediate_size),
+        down=lambda v, i: _project_flat(v, layers, "down_proj", i, impl),
+        ln=lambda x, name, i: rms_norm(x, layers[name][i], eps),
+        final=lambda x: rms_norm(x, params["final_norm"], eps),
+        nh=config.num_attention_heads, nkv=config.num_key_value_heads)
+
+
+def _decoder_layer(x, proj: Proj, i: int, attend):
     """Layer ``i`` on ``x [B, S, d]`` around ``attend(q, k, v) -> ctx``,
     which takes the projections before RoPE (``[B, S, n, hd]``) and returns
     ``[B, S, nh, hd]``: the caller owns RoPE, the cache and the mask."""
     b, s = x.shape[:2]
-    nh, nkv, hd = (config.num_attention_heads, config.num_key_value_heads,
-                   config.head_dim)
     residual = x
-    hx = rms_norm(x, layers["input_layernorm"][i], config.rms_norm_eps)
-    q, k, v = _project_qkv_flat(hx, layers, i, impl, nkv * hd)
-    ctx = attend(q.reshape(b, s, nh, hd), k.reshape(b, s, nkv, hd),
-                 v.reshape(b, s, nkv, hd))
-    x = residual + _project_flat(ctx.reshape(b, s, nh * hd), layers,
-                                 "o_proj", i, impl)
+    hx = proj.ln(x, "input_layernorm", i)
+    q, k, v = proj.qkv(hx, i)
+    hd = q.shape[-1] // proj.nh
+    ctx = attend(q.reshape(b, s, proj.nh, hd), k.reshape(b, s, proj.nkv, hd),
+                 v.reshape(b, s, proj.nkv, hd))
+    x = residual + proj.o(ctx.reshape(b, s, proj.nh * hd), i)
     residual = x
-    hx = rms_norm(x, layers["post_attention_layernorm"][i],
-                  config.rms_norm_eps)
-    gate, up = _project_gateup_flat(hx, layers, i, impl,
-                                    config.intermediate_size)
-    return residual + _project_flat(F.silu(gate) * up, layers, "down_proj",
-                                    i, impl)
+    hx = proj.ln(x, "post_attention_layernorm", i)
+    gate, up = proj.gateup(hx, i)
+    return residual + proj.down(F.silu(gate) * up, i)
 
+
+# ---- the full-sequence forward ----------------------------------------------
 
 def _lm_head(x, params, compute_dtype) -> torch.Tensor:
     """fp32-accumulated logits of the lm_head cast to ``compute_dtype``."""
@@ -299,7 +336,8 @@ def forward(params, input_ids, config: BitLlamaConfig, *,
     non-reentrant), which runs B11's forward a second time."""
     b, s = input_ids.shape
     device = input_ids.device
-    x = params["embed_tokens"][input_ids].to(compute_dtype)
+    proj = default_proj(params, config, impl, compute_dtype)
+    x = proj.embed(input_ids)
     if attention_mask is not None:
         attention_mask = torch.as_tensor(attention_mask, device=device)
         positions = (torch.cumsum(attention_mask, dim=1) - 1).clamp(min=0)
@@ -321,7 +359,6 @@ def forward(params, input_ids, config: BitLlamaConfig, *,
         if attention_mask is not None:
             mask = mask & (attention_mask[:, None, None, :] > 0)
     g = config.num_kv_groups
-    layers = params["layers"]
 
     def layer(x, i):
         probs = []
@@ -337,7 +374,7 @@ def forward(params, input_ids, config: BitLlamaConfig, *,
                 return ctx
             return _attention(q, k, v, mask, num_kv_groups=g)
 
-        x = _decoder_layer(x, layers, i, config, impl, attend)
+        x = _decoder_layer(x, proj, i, attend)
         return (x, probs[0]) if output_attentions else x
 
     hidden, attn = [x], []
@@ -350,7 +387,7 @@ def forward(params, input_ids, config: BitLlamaConfig, *,
         x = out
         if output_hidden_states:
             hidden.append(x)
-    h = rms_norm(x, params["final_norm"], config.rms_norm_eps)
+    h = proj.final(x)
     if return_prelogits:
         return h
     logits = _lm_head(h, params, compute_dtype)
@@ -458,6 +495,29 @@ def _flat_attention(cache, cache_index: int, s: int, key_start, cos, sin,
     return attend_at
 
 
+def decode_step_hidden(proj: Proj, cache, input_ids, cache_index: int,
+                       config: BitLlamaConfig, *, impl: str = "auto",
+                       compute_dtype=torch.bfloat16, positions=None,
+                       key_start=None) -> torch.Tensor:
+    """:func:`decode_step_flat` through the projection strategy ``proj``, up
+    to the final norm: returns the hidden ``[B, s, d]``. The attention runs
+    on the heads the cache holds (a tensor-parallel rank's ``nkv / mp``)."""
+    s = input_ids.shape[1]
+    device = cache[0].device
+    x = proj.embed(input_ids)
+    if positions is None:
+        positions = cache_index + torch.arange(s, device=device)[None, :]
+    cos, sin = rope_cos_sin(positions, config.head_dim, config.rope_theta,
+                            config.rope_scaling,
+                            config.max_position_embeddings,
+                            seq_len=cache.max_len, dtype=compute_dtype)
+    attend_at = _flat_attention(cache, int(cache_index), s, key_start, cos,
+                                sin, config, impl)
+    for i in range(config.num_hidden_layers):
+        x = _decoder_layer(x, proj, i, attend_at(i))
+    return proj.final(x)
+
+
 def decode_step_flat(params, cache, input_ids, cache_index: int,
                      config: BitLlamaConfig, *, impl: str = "auto",
                      compute_dtype=torch.bfloat16, positions=None,
@@ -478,21 +538,10 @@ def decode_step_flat(params, cache, input_ids, cache_index: int,
     write their pools themselves; several tokens take the plain masked
     attention. ``impl="torch"`` takes the kernels' plain versions, as do
     CPU tensors."""
-    b, s = input_ids.shape
-    device = cache[0].device
-    x = params["embed_tokens"][input_ids].to(compute_dtype)
-    if positions is None:
-        positions = cache_index + torch.arange(s, device=device)[None, :]
-    cos, sin = rope_cos_sin(positions, config.head_dim, config.rope_theta,
-                            config.rope_scaling,
-                            config.max_position_embeddings,
-                            seq_len=cache.max_len, dtype=compute_dtype)
-    attend_at = _flat_attention(cache, int(cache_index), s, key_start, cos,
-                                sin, config, impl)
-    layers = params["layers"]
-    for i in range(config.num_hidden_layers):
-        x = _decoder_layer(x, layers, i, config, impl, attend_at(i))
-    x = rms_norm(x, params["final_norm"], config.rms_norm_eps)
+    x = decode_step_hidden(default_proj(params, config, impl, compute_dtype),
+                           cache, input_ids, cache_index, config, impl=impl,
+                           compute_dtype=compute_dtype, positions=positions,
+                           key_start=key_start)
     return _lm_head(x, params, compute_dtype), cache
 
 

@@ -67,9 +67,11 @@ class QuantKVCacheKT4(NamedTuple):
         return self.k_st.shape[3]
 
 
-def _dims(config: BitLlamaConfig):
-    return (config.num_hidden_layers, config.num_key_value_heads,
-            config.head_dim)
+def _dims(config: BitLlamaConfig, num_kv_heads=None):
+    """(layers, kv heads, head_dim); ``num_kv_heads`` overrides the
+    config's head count, as a tensor-parallel rank holds ``nkv / mp``."""
+    return (config.num_hidden_layers,
+            num_kv_heads or config.num_key_value_heads, config.head_dim)
 
 
 def init_quant_kv_cache(config: BitLlamaConfig, batch: int, max_len: int,
@@ -85,9 +87,9 @@ def init_quant_kv_cache(config: BitLlamaConfig, batch: int, max_len: int,
 
 
 def init_quant_kv_cache_kt(config: BitLlamaConfig, batch: int, max_len: int,
-                           device=None) -> QuantKVCacheKT:
+                           device=None, num_kv_heads=None) -> QuantKVCacheKT:
     device = resolve_device(device)
-    L, nkv, hd = _dims(config)
+    L, nkv, hd = _dims(config, num_kv_heads)
     z = lambda *s, dt=torch.float32: torch.zeros(  # noqa: E731
         s, dtype=dt, device=device)
     return QuantKVCacheKT(k_qt=z(L, batch, nkv, hd, max_len, dt=torch.int8),
@@ -97,11 +99,12 @@ def init_quant_kv_cache_kt(config: BitLlamaConfig, batch: int, max_len: int,
 
 
 def init_quant_kv_cache_kt4(config: BitLlamaConfig, batch: int, max_len: int,
-                            device=None) -> QuantKVCacheKT4:
+                            device=None, num_kv_heads=None
+                            ) -> QuantKVCacheKT4:
     if max_len % 2:
         raise ValueError(f"int4 cache needs even max_len, got {max_len}")
     device = resolve_device(device)
-    L, nkv, hd = _dims(config)
+    L, nkv, hd = _dims(config, num_kv_heads)
     th = max_len // 2
     z = lambda *s, dt=torch.float32: torch.zeros(  # noqa: E731
         s, dtype=dt, device=device)

@@ -16,6 +16,10 @@ the reference's short-cache fallback is not needed. With the dense cache on
 the card each decode layer writes its row positions, then attends the whole
 pool in kernel B9 over each row's length; on the CPU and with
 ``impl="torch"`` it attends the length-aware window of the reference.
+
+``ragged_decode_hidden`` and ``prefill_rows_hidden`` run the same steps
+through a projection strategy up to the final norm: a tensor-parallel
+rank's, on its shards and head-sharded cache (``engine/tp_backend.py``).
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ from onebit_tpu_torch.kernels.kv_attention import (PLAIN,
                                                    kv_attention_append_kt4,
                                                    kv_attention_decode)
 from onebit_tpu_torch.model import bitllama
-from onebit_tpu_torch.model.bitllama import KVCache, _decoder_layer, _lm_head
+from onebit_tpu_torch.model.bitllama import (KVCache, Proj, _decoder_layer,
+                                             _lm_head, default_proj)
 from onebit_tpu_torch.model.config import BitLlamaConfig
 from onebit_tpu_torch.model.kv_cache import (QuantKVCacheKT, QuantKVCacheKT4,
                                              merge_nibbles, quantize_kv,
@@ -130,6 +135,33 @@ def _decode_attention(cache, pos, act, pos_np, act_np, cos, sin,
     return attend_at
 
 
+def ragged_decode_hidden(proj: Proj, cache, input_ids, row_pos, active,
+                         config: BitLlamaConfig, *, impl: str = "auto",
+                         compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """:func:`ragged_decode_step` through the projection strategy ``proj``,
+    up to the final norm: returns the hidden ``[B, 1, d]``. The attention
+    runs on the heads the cache holds (a tensor-parallel rank's
+    ``nkv / mp``)."""
+    s = input_ids.shape[1]
+    if s != 1:
+        raise ValueError(f"ragged_decode_step takes one token per row, got {s}")
+    device = cache[0].device
+    pos_np, act_np = np.asarray(row_pos), np.asarray(active, bool)
+    pos = torch.as_tensor(pos_np, dtype=torch.long).to(device)
+    act = torch.as_tensor(act_np).to(device)
+
+    x = proj.embed(input_ids)
+    cos, sin = rope_cos_sin(pos[:, None], config.head_dim, config.rope_theta,
+                            config.rope_scaling,
+                            config.max_position_embeddings,
+                            seq_len=cache.max_len, dtype=compute_dtype)
+    attend_at = _decode_attention(cache, pos, act, pos_np, act_np, cos, sin,
+                                  config, impl)
+    for i in range(config.num_hidden_layers):
+        x = _decoder_layer(x, proj, i, attend_at(i))
+    return proj.final(x)
+
+
 def ragged_decode_step(params, cache, input_ids, row_pos, active,
                        config: BitLlamaConfig, *, impl: str = "auto",
                        compute_dtype=torch.bfloat16):
@@ -142,26 +174,9 @@ def ragged_decode_step(params, cache, input_ids, row_pos, active,
     a device read). Inactive rows are fully masked, but their cache row is
     still written at ``row_pos``. Returns ``(logits [B, 1, V] fp32, cache)``.
     """
-    s = input_ids.shape[1]
-    if s != 1:
-        raise ValueError(f"ragged_decode_step takes one token per row, got {s}")
-    device = cache[0].device
-    pos_np, act_np = np.asarray(row_pos), np.asarray(active, bool)
-    pos = torch.as_tensor(pos_np, dtype=torch.long).to(device)
-    act = torch.as_tensor(act_np).to(device)
-
-    x = params["embed_tokens"][input_ids].to(compute_dtype)
-    cos, sin = rope_cos_sin(pos[:, None], config.head_dim, config.rope_theta,
-                            config.rope_scaling,
-                            config.max_position_embeddings,
-                            seq_len=cache.max_len, dtype=compute_dtype)
-    attend_at = _decode_attention(cache, pos, act, pos_np, act_np, cos, sin,
-                                  config, impl)
-    layers = params["layers"]
-    for i in range(config.num_hidden_layers):
-        x = _decoder_layer(x, layers, i, config, impl, attend_at(i))
-
-    x = bitllama.rms_norm(x, params["final_norm"], config.rms_norm_eps)
+    x = ragged_decode_hidden(default_proj(params, config, impl, compute_dtype),
+                             cache, input_ids, row_pos, active, config,
+                             impl=impl, compute_dtype=compute_dtype)
     return _lm_head(x, params, compute_dtype), cache
 
 
@@ -200,6 +215,37 @@ def _prefill_write(cache, i: int, rows, k, v) -> None:
             v_pool[i, rows, :n], nvq[:, p0:p0 + n], hi)
 
 
+def prefill_rows_hidden(proj: Proj, cache, ids, lengths, rows,
+                        config: BitLlamaConfig, *, impl: str = "auto",
+                        compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """:func:`prefill_rows` through the projection strategy ``proj``, up to
+    the final norm: returns each row's last hidden ``[R, d]``."""
+    r, s_pad = ids.shape
+    device = cache[0].device
+    lengths = lengths.to(device=device, dtype=torch.long)
+    rows = rows.to(device=device, dtype=torch.long)
+    x = proj.embed(ids)
+    positions = torch.arange(s_pad, device=device)
+    cos, sin = rope_cos_sin(positions[None, :], config.head_dim,
+                            config.rope_theta, config.rope_scaling,
+                            config.max_position_embeddings,
+                            seq_len=cache.max_len, dtype=compute_dtype)
+    attn = positions[None, :] < lengths[:, None]
+    mask = bitllama._causal_mask(s_pad, s_pad, 0, device) & \
+        attn[:, None, None, :]
+
+    for i in range(config.num_hidden_layers):
+        def attend(q, k, v, i=i):
+            q, k = apply_rope(q, k, cos, sin)
+            _prefill_write(cache, i, rows, k, v)
+            return bitllama._attention(q, k, v, mask,
+                                       num_kv_groups=config.num_kv_groups)
+        x = _decoder_layer(x, proj, i, attend)
+
+    x = proj.final(x)
+    return x[torch.arange(r, device=device), (lengths - 1).clamp(min=0)]
+
+
 def prefill_rows(params, cache, ids, lengths, rows,
                  config: BitLlamaConfig, *, impl: str = "auto",
                  compute_dtype=torch.bfloat16):
@@ -213,31 +259,9 @@ def prefill_rows(params, cache, ids, lengths, rows,
     prefill uses the full-precision K/V. Returns
     ``(last_logits [R, V] fp32, cache)``.
     """
-    r, s_pad = ids.shape
-    device = cache[0].device
-    lengths = lengths.to(device=device, dtype=torch.long)
-    rows = rows.to(device=device, dtype=torch.long)
-    x = params["embed_tokens"][ids].to(compute_dtype)
-    positions = torch.arange(s_pad, device=device)
-    cos, sin = rope_cos_sin(positions[None, :], config.head_dim,
-                            config.rope_theta, config.rope_scaling,
-                            config.max_position_embeddings,
-                            seq_len=cache.max_len, dtype=compute_dtype)
-    attn = positions[None, :] < lengths[:, None]
-    mask = bitllama._causal_mask(s_pad, s_pad, 0, device) & \
-        attn[:, None, None, :]
-    layers = params["layers"]
-
-    for i in range(config.num_hidden_layers):
-        def attend(q, k, v, i=i):
-            q, k = apply_rope(q, k, cos, sin)
-            _prefill_write(cache, i, rows, k, v)
-            return bitllama._attention(q, k, v, mask,
-                                       num_kv_groups=config.num_kv_groups)
-        x = _decoder_layer(x, layers, i, config, impl, attend)
-
-    x = bitllama.rms_norm(x, params["final_norm"], config.rms_norm_eps)
-    last = x[torch.arange(r, device=device), (lengths - 1).clamp(min=0)]
+    last = prefill_rows_hidden(
+        default_proj(params, config, impl, compute_dtype), cache, ids,
+        lengths, rows, config, impl=impl, compute_dtype=compute_dtype)
     return _lm_head(last, params, compute_dtype), cache
 
 

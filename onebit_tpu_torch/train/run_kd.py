@@ -8,7 +8,8 @@ loss plots. The resume state is the port's own file, ``train_state.pt``
 (the params under their native-checkpoint keys, the Adam moments, the
 step): optax's state pytree has no torch counterpart, so the JAX package's
 ``train_state.npz`` does not load here, nor the port's there. Meshes of
-more than one device and orbax sharded states wait for slice 7.
+more than one device and orbax sharded states wait for the rest of
+parallelism (ROADMAP.md §1 item 8).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 
 from onebit_tpu_torch.ckpt.native import save_native
 from onebit_tpu_torch.model.config import BitLlamaConfig
+from onebit_tpu_torch.parallel.mesh import PARALLEL_WAIT
 from onebit_tpu_torch.train.data import batch_iterator, split_dataset
 from onebit_tpu_torch.train.losses import KDConfig
 from onebit_tpu_torch.train.trainer import (TrainConfig, TrainState,
@@ -37,7 +39,6 @@ from onebit_tpu_torch.utils.logging import TrainerLog, get_logger, plot_loss
 logger = get_logger(__name__)
 
 STATE_FILE = "train_state.pt"
-PARALLEL_SLICE = 7   # data/model parallel training and sharded states
 
 
 def save_train_state(path: str, state: TrainState) -> None:
@@ -75,7 +76,7 @@ class KDRunConfig:
     max_steps: Optional[int] = None
     log_steps: int = 10
     save_steps: int = 5000          # reference llama_7b.sh:46
-    mesh_shape: Optional[tuple] = None   # one device; more wait for slice 7
+    mesh_shape: Optional[tuple] = None   # one device; more wait (item 8)
     compute_dtype: Any = torch.bfloat16
     resume_from: Optional[str] = None
     plot: bool = True
@@ -86,7 +87,7 @@ class KDRunConfig:
     val_split: float = 0.0
     eval_steps: Optional[int] = None   # default: evaluate at save points
     eval_batches: int = 16             # eval subset size cap (batches)
-    sharded_ckpt: bool = False         # orbax sharded states: slice 7
+    sharded_ckpt: bool = False         # orbax sharded states: item 8
     # keep only the newest N checkpoint-* dirs (HF Trainer save_total_limit,
     # training_args save_total_limit semantics); None = keep all
     save_total_limit: Optional[int] = None
@@ -97,12 +98,11 @@ def _one_device(run_cfg: KDRunConfig) -> None:
     if shape is not None and int(np.prod(shape)) != 1:
         raise NotImplementedError(
             f"mesh_shape {tuple(shape)}: data- and model-parallel training "
-            f"come with slice {PARALLEL_SLICE} of the PyTorch port "
-            "(ROADMAP.md); run_kd trains on one device")
+            f"wait for {PARALLEL_WAIT}; run_kd trains on one device")
     if run_cfg.sharded_ckpt:
         raise NotImplementedError(
-            "sharded_ckpt: orbax sharded train states come with slice "
-            f"{PARALLEL_SLICE} of the PyTorch port (ROADMAP.md)")
+            f"sharded_ckpt: orbax sharded train states wait for "
+            f"{PARALLEL_WAIT}")
 
 
 def run_kd(config: BitLlamaConfig, student_params, teacher_params,

@@ -161,9 +161,112 @@ def test_engine_kernel_path_matches_plain(dev):
             impl=impl, compute_dtype=torch.float32)
     torch.cuda.synchronize()
     assert (out["auto"] - out["torch"]).abs().max().item() < 1e-3
-    # fp32 throughout: K3's bf16 instance has nothing to do
-    assert all(k.launches > 0 for k in bc.KERNELS if k is not bc.LARGE_M)
+    # fp32 throughout: K3's bf16 instance has nothing to do, and B4 (the
+    # raw instances) runs only under tensor parallelism
+    assert all(k.launches > 0 for k in (bc.SMALL_M, bc.FUSED_SMALL_M,
+                                        bc.LARGE_M_F32))
     assert all(len(v) == 4 for v in eng.run().values())
+
+
+# ---------------------------------------------------------------------------
+# B4: the raw projection of a tensor-parallel shard (K1/K3 with raw=True)
+# ---------------------------------------------------------------------------
+
+def _tp_shards(d, inter, mp):
+    """(K, N) of every shard of tensor-parallel llama over ``mp`` ranks:
+    q/k/v and gate/up column-parallel, o and down row-parallel."""
+    return [(d, d // mp), (d, inter // mp), (d // mp, d), (inter // mp, d)]
+
+
+B4_SHAPES = sorted({kn for d, inter in ((4096, 11008), (5120, 13824))
+                    for mp in (2, 4) for kn in _tp_shards(d, inter, mp)})
+# fp32 z (M <= 128): the two sides sum the same bf16 y over K signed terms
+# in another order, partial sums under 1024: 1e-2 (chip_smoke.py's
+# RAW_TOL_F32); bf16 z (M > 128): one bf16 ulp of each row's largest |z|
+B4_TOL_F32 = 1e-2
+
+
+@pytest.mark.parametrize("m", [1, 8, 128, 129, 2048])
+@pytest.mark.parametrize("k,n", B4_SHAPES)
+def test_b4_matches_plain_at_tp_shards(dev, k, n, m):
+    """Every shard shape of 7B and 13B at mp = 2 and 4 (most K end in a
+    partial 1024-k chunk), decode and admission M; launches counted as
+    B4's instances, never as K1 or K3."""
+    x, g, h, packed, _ = _case(dev, torch.bfloat16, m, k, n)
+    small = m <= bc.SMALL_M_MAX
+    info = bc.RAW_SMALL_M if small else bc.RAW_LARGE_M
+    before = [i.launches for i in bc.KERNELS]
+    if small:
+        got = bc.small_m(x, packed, g[0], h, raw=True)
+        want = bc.small_m_torch(x, packed, g[0], h, raw=True)
+    else:
+        got = bc.large_m(x, packed, g, h, n_true=n, raw=True)
+        want = bc.large_m_torch(x, packed, g, h, n_true=n, raw=True)
+    torch.cuda.synchronize()
+    assert [i.launches - b for i, b in zip(bc.KERNELS, before)] == \
+        [int(i is info) for i in bc.KERNELS]
+    assert got.dtype == (torch.float32 if small else torch.bfloat16)
+    assert got.shape == want.shape == (m, n) and torch.isfinite(got).all()
+    top = want.float().abs().amax(-1, keepdim=True)
+    tol = (torch.full_like(top, B4_TOL_F32) if small
+           else torch.exp2(torch.floor(torch.log2(top)) - 7))
+    assert ((got.float() - want.float()).abs() <= tol).all()
+    assert (top >= 8 * tol).all()
+
+
+def _tp_engine_rank(group, seed):
+    """A rank of a 2-rank tensor-parallel engine on the card (fp32, tiny):
+    its greedy tokens and launch counts."""
+    import numpy as np
+
+    from onebit_tpu_torch import (BitLlamaConfig, ContinuousBatchingEngine,
+                                  host_random_packed_params)
+    config = BitLlamaConfig.named("tiny", max_position_embeddings=512)
+    params = host_random_packed_params(config, seed=seed,
+                                       dtype=torch.float32,
+                                       device=group.device)
+    eng = ContinuousBatchingEngine(params, config, max_batch=4, max_len=256,
+                                   compute_dtype=torch.float32,
+                                   tp_group=group)
+    rng = np.random.default_rng(0)
+    infos = bc.KERNELS + kc.KERNELS
+    for i in infos:
+        i.launches = 0
+    uids = [eng.add_request(rng.integers(3, 500, n).tolist(),
+                            max_new_tokens=8) for n in (150, 140, 7, 3)]
+    out = eng.run()
+    torch.cuda.synchronize()
+    return [out[u] for u in uids], {i.name: i.launches for i in infos}
+
+
+def test_tp_engine_on_the_card_matches_single_device(dev):
+    """Two gloo ranks sharing the card: both emit the single-device
+    engine's greedy tokens, through B4 and B9 and never K1-K3."""
+    import numpy as np
+
+    from onebit_tpu_torch import (BitLlamaConfig, ContinuousBatchingEngine,
+                                  host_random_packed_params)
+    from onebit_tpu_torch.parallel.mesh import spawn_tp
+    config = BitLlamaConfig.named("tiny", max_position_embeddings=512)
+    params = host_random_packed_params(config, seed=1, dtype=torch.float32,
+                                       device=dev)
+    eng = ContinuousBatchingEngine(params, config, max_batch=4, max_len=256,
+                                   compute_dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(0)
+    uids = [eng.add_request(rng.integers(3, 500, n).tolist(),
+                            max_new_tokens=8) for n in (150, 140, 7, 3)]
+    out = eng.run()
+    want = [out[u] for u in uids]
+    ranks = spawn_tp(_tp_engine_rank, 2, backend="gloo", device="cuda",
+                     timeout=300, args=(1,))
+    for tokens, launches in ranks:
+        assert tokens == want
+        assert launches[bc.RAW_SMALL_M.name] > 0
+        assert launches[bc.RAW_LARGE_M.name] > 0
+        # B9 once a layer (2) in each of the 7 decode steps
+        assert launches[kc.DECODE_F32.name] == 2 * 7
+        assert not any(launches[i.name] for i in (
+            bc.SMALL_M, bc.FUSED_SMALL_M, bc.LARGE_M, bc.LARGE_M_F32))
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,7 @@ from onebit_tpu_torch import (BitLlamaConfig, ContinuousBatchingEngine,
 from onebit_tpu_torch.engine.batching import _bucket
 from onebit_tpu_torch.engine.sampler import sample_token, warp_logits
 from onebit_tpu_torch.model.bitllama import init_kv_cache
+from onebit_tpu_torch.parallel.mesh import TPGroup
 
 
 def _prompts():
@@ -87,7 +88,9 @@ def test_bucket_and_streaming_callbacks():
 
 @pytest.mark.parametrize("kwargs,waits_for", [
     (dict(paged=True, quantized_kv="fp8"), "item 5"),
-    (dict(draft_params={}), "item 5"), (dict(tp_mesh=object()), "slice 7"),
+    (dict(draft_params={}), "item 5"),
+    (dict(tp_group=TPGroup(None, 0, 2, torch.device("cpu")),
+          prefill_chunk_size=64), "item 5"),
     (dict(prefill_chunk_size=64), "item 5"), (dict(block_steps=4), "item 5"),
     (dict(pipeline_blocks=True), "item 5"),
     (dict(paged=True, prefix_cache=True, draft_params={}), "item 5")])

@@ -254,10 +254,10 @@ def test_cli_check_engines(packed, tmp_path, capsys):
 
 def test_cli_sharded_checkpoint_exits_nonzero(tmp_path, capsys):
     """A sharded checkpoint (``metadata.json`` of format onebit-sharded)
-    is not ported: every command exits nonzero naming the slice it waits
-    for, before it reads anything else."""
+    is not ported: every command exits nonzero naming the ROADMAP item it
+    waits for, before it reads anything else."""
     (tmp_path / "metadata.json").write_text(json.dumps(
         {"format": "onebit-sharded"}))
-    with pytest.raises(SystemExit, match="slice 7"):
+    with pytest.raises(SystemExit, match="item 8"):
         _port_cli(capsys, "generate", "--ckpt", str(tmp_path), "--prompt",
                   "1")

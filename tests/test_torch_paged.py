@@ -33,6 +33,7 @@ from onebit_tpu_torch import (BitLlamaConfig, ContinuousBatchingEngine,
                               fuse_for_decode, init_paged_kv_cache,
                               params_from_jax)
 from onebit_tpu_torch.engine import paged as tpg
+from onebit_tpu_torch.parallel.mesh import TPGroup
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 QUANT_TOL = dict(rtol=1e-2, atol=1e-2)
@@ -317,9 +318,11 @@ def test_host_page_tables_are_checked(models):
     (dict(paged=True, block_steps=4), NotImplementedError),
     (dict(paged=True, pipeline_blocks=True), NotImplementedError),
     (dict(paged=True, draft_params={}), NotImplementedError),
-    (dict(paged=True, tp_mesh=object()), NotImplementedError)],
+    (dict(paged=True, block_steps=2,
+          tp_group=TPGroup(None, 0, 2, torch.device("cpu"))),
+     NotImplementedError)],
     ids=["int4", "fp8", "block_steps", "pipeline_blocks", "draft",
-         "tp_mesh"])
+         "tp_group_block_steps"])
 def test_paged_exclusions(kwargs, error):
     """Paged int4 raises the JAX engine's ValueError in its wording; fp8
     pages and the options not ported yet raise NotImplementedError."""

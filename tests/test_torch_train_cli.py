@@ -125,7 +125,7 @@ def test_run_kd_matches_jax(models, tmp_path):
 def test_run_kd_resume_and_one_device(models, tmp_path):
     """A run resumed from its step-2 state ends where the unbroken run
     ends, bit for bit; a mesh of several devices and sharded states raise
-    naming slice 7."""
+    naming ROADMAP.md §1 item 8, the rest of parallelism."""
     jc, teacher, student, c, blocks = models
     kw = dict(batch_size=2, max_steps=4, save_steps=2, plot=False,
               compute_dtype=torch.float32)
@@ -146,7 +146,7 @@ def test_run_kd_resume_and_one_device(models, tmp_path):
         for field, arr in a["layers"][name].items():
             assert arr.tobytes() == b["layers"][name][field].tobytes()
     for bad in (dict(mesh_shape=(2, 1)), dict(sharded_ckpt=True)):
-        with pytest.raises(NotImplementedError, match="slice 7"):
+        with pytest.raises(NotImplementedError, match="item 8"):
             trun.run_kd(c, _port(student, c), _port(teacher, c), blocks,
                         run_cfg=trun.KDRunConfig(
                             output_dir=str(tmp_path / "c"), **bad))
