@@ -7,7 +7,8 @@ Run from the root of a checkout on a machine with a CUDA card, the CUDA
 toolkit and PyTorch. It imports nothing of JAX. Phases, one JSON line each:
 
 1. the device (``nvidia-smi`` name and power limit);
-2. the build of every CUDA source (one ``nvcc`` each, all in parallel);
+2. the build of every CUDA source (one ``nvcc`` each, all in parallel),
+   with each kernel's registers and spilled bytes as ``ptxas`` reports them;
 3. each BitLinear kernel (K1-K3) at llama2-7b shapes against its plain
    PyTorch version, with random g and h (and h = 0 pads), timed with CUDA
    events beside its bound, its plain version and one PyTorch matmul (K3
@@ -30,7 +31,10 @@ toolkit and PyTorch. It imports nothing of JAX. Phases, one JSON line each:
    attention over the flat pools) at layer 31 of full llama2-7b pools
    [32, 8, 2048, 32, 128], int8 with scales, bf16 (and a GQA case, nkv 8)
    and fp32, rows of 1-2048 positions with starts and one empty row, beside
-   ``scaled_dot_product_attention`` with a boolean mask;
+   ``scaled_dot_product_attention`` with a boolean mask; last, each
+   kernel's share of its bound (bound_ms / ms; K3's fp32 instance bounded
+   by three bf16 tensor-core passes, the arithmetic it runs), none of which
+   may pass 1;
 4. the slice's paths end to end at full llama2-7b width and depth on random
    packed weights (``host_random_packed_params(seed=0)`` and
    ``fuse_for_decode``), each an 8-slot ``ContinuousBatchingEngine``
@@ -113,6 +117,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -131,8 +136,12 @@ KERNEL_TOL_BF16 = 0.0625
 # rounds by half an ulp of a partial sum of order sqrt(K) * |y|, so each
 # side's sum strays by a random walk of about sqrt(K) * 2**-24 * |z|, a
 # relative 4e-6 or less of the row's spread; the LayerNorm divides by that
-# spread, so outputs of order 1 differ by a few 1e-6, their largest over
-# 8192 x 11008 outputs under 3e-5. The tolerance is 1e-4.
+# spread, so outputs of order 1 differ by a few 1e-6. The kernel sums the
+# exact products of y's three bf16 parts on the tensor cores, whose fp32
+# adds round toward zero, over 512 k at a time (then in fp32 registers):
+# each such add loses up to a whole ulp, one way, so the largest of the
+# 8192 x 11008 outputs lands a few 1e-5 off (rms about 1e-6;
+# scripts/torch_large_m_probe.py). The tolerance is 1e-4.
 KERNEL_TOL_F32 = 1e-4
 # B4 at M <= 128 (fp32 z, no LayerNorm): both sides sum the same bf16-rounded
 # y = x * g (|y| < 16) over K <= 5504 signed terms in fp32, in another
@@ -157,6 +166,18 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log: str) -> dict:
+    """Each kernel's registers and spilled bytes from ``nvcc -Xptxas -v``
+    output: {mangled name: [registers, spill stores, spill loads]}."""
+    out = {}
+    for m in re.finditer(
+            r"Compiling entry function '(\S+)'.*?(\d+) bytes spill stores, "
+            r"(\d+) bytes spill loads.*?Used (\d+) registers", log, re.S):
+        out[m.group(1)] = [int(m.group(4)), int(m.group(2)),
+                           int(m.group(3))]
+    return out
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -193,19 +214,24 @@ def _case(gen, m, k, n_true, ns, seg_pad, dev, dtype=torch.bfloat16):
                 sign=sign, m=m, k=k, n_true=n_true, ns=ns)
 
 
+# K3's fp32 instance multiplies on the bf16 tensor cores in three passes
+# (y split into three bf16 parts, each product with the ±1 signs exact)
+K3_F32_PASSES = 3
+
+
 def _bound(c, out_elem=None) -> tuple:
     """Least time for one call: inputs read once, outputs written once
-    (``out_elem`` bytes each, x's by default), or its products at the
-    dtype's peak (bf16 tensor cores; fp32 CUDA cores), whichever is
+    (``out_elem`` bytes each, x's by default), or its products at the bf16
+    tensor-core peak (K3's fp32 instance: three bf16 passes), whichever is
     larger."""
     m, k, ns, n_cat = c["m"], c["k"], c["ns"], c["packed"].shape[1]
     elem = c["x"].element_size()
     bytes_ = (c["packed"].numel() * 4 + m * k * elem + ns * k * elem
               + n_cat * 4 + ns * m * c["n_true"] * (out_elem or elem))
     flops = 2 * m * k * ns * c["n_true"]
-    peak = (FP32_FLOP_PER_S if c["x"].dtype == torch.float32
-            else BF16_FLOP_PER_S)
-    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / peak
+    if c["x"].dtype == torch.float32:
+        flops *= K3_F32_PASSES
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops
             else "operations")
 
@@ -319,6 +345,9 @@ def kernel_checks(dev) -> dict:
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by="operations" if "operations" in kinds else "bytes",
             library_ms=lib_ms)
+        basis = results[info.name]["bound_by"] + (
+            f", {K3_F32_PASSES} bf16 tensor-core passes"
+            if dtype == torch.float32 else "")
         tol = {"bitlinear_raw_large_m": "one bf16 ulp of each row's largest "
                                         "|z|",
                "bitlinear_raw_small_m": RAW_TOL_F32}.get(
@@ -329,7 +358,8 @@ def kernel_checks(dev) -> dict:
               "m": [c["m"] for c in cases[info.name]],
               "k_n": [[c["k"], c["n_true"]] for c in cases[info.name]],
               "calls": len(cases[info.name]), "kernel_ms": ms,
-              "min_row_max_abs_out": out_scale, **results[info.name]})
+              "min_row_max_abs_out": out_scale, "bound_basis": basis,
+              **results[info.name]})
         if not ok:
             raise RuntimeError(f"{info.name}: max_abs_err {err} over its "
                                f"tolerance {tol}, or smallest row max |out| "
@@ -2432,7 +2462,7 @@ def main() -> int:
             for s in build.SOURCES}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_s": per_source,
-          "ptxas": {s: p.read_text()[-800:] for s, p in logs.items()
+          "ptxas": {s: ptxas_summary(p.read_text()) for s, p in logs.items()
                     if p.exists()}})
     results = kernel_checks(dev)
     results.update(kv_kernel_checks(dev))
@@ -2440,6 +2470,10 @@ def main() -> int:
     results.update(flash_kernel_checks(dev))
     results.update(flash_bwd_kernel_checks(dev))
     results.update(flat_kernel_checks(dev))
+    shares = {name: r["bound_ms"] / r["ms"] for name, r in results.items()}
+    emit({"phase": "kernel", "bound_share": shares})
+    if max(shares.values()) > 1:
+        raise RuntimeError(f"a kernel ran faster than its bound: {shares}")
     launches = end_to_end(dev)
     emit({"phase": "done", "wall_s": time.perf_counter() - t_wall})
     emit({"kernels": [

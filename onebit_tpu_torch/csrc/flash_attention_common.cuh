@@ -1,5 +1,6 @@
-// Pieces shared by the causal flash-attention kernels: the forward B11
-// (flash_attention.cu) and its backward, B11-dkv and B11-dq
+// Pieces shared by the causal flash-attention kernels on the CUDA cores:
+// the fp32 forward B11 (flash_attention.cu; its bf16 instance runs on the
+// tensor cores, wgmma_common.cuh) and the backward, B11-dkv and B11-dq
 // (flash_attention_bwd.cu). Each kernel stages 64-row tiles of q, k, v (and
 // do) in shared memory as fp32 rows, with 16-byte global loads.
 #pragma once

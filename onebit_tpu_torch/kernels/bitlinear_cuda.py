@@ -9,8 +9,10 @@ Port of ``onebit_tpu/kernels/bitlinear_pallas.py``. Three kernels, sources in
 * K2 :func:`fused_small_m`, for ``ns`` projections sharing x at M <= 128
   (q/k/v and gate/up after ``fuse_for_decode``);
 * K3 :func:`large_m`, for M > 128 rows (prefill, and every projection of
-  an fp32 eval window), single or fused; its launches are counted per dtype
-  instance (bf16 ``bitlinear_large_m``, fp32 ``bitlinear_large_m_f32``);
+  an fp32 eval window), single or fused, on the tensor cores (wgmma on a
+  ±1 bf16 tile; the fp32 instance in three bf16 passes,
+  :func:`split_bf16x3`); its launches are counted per dtype instance (bf16
+  ``bitlinear_large_m``, fp32 ``bitlinear_large_m_f32``);
 * B4, the raw projection of a tensor-parallel shard
   (``bitlinear_packed_raw_stacked`` / ``bitlinear_packed_raw``): K1 and K3
   with ``raw=True``, which skip the LayerNorm launch. Their launches are
@@ -117,6 +119,30 @@ def _layernorm_segments_torch(z, bias, ns: int, seg_pad: int, n_true: int,
     return torch.stack(outs)
 
 
+def split_bf16x3(y: torch.Tensor):
+    """The fp32 instance of K3's split of fp32 ``y = x ⊙ g`` into three bf16
+    parts, ``hi = bf16(y)``, ``mid = bf16(y - hi)``, ``lo = bf16(y - hi -
+    mid)``, as the kernel forms them in registers: together 24 mantissa
+    bits, so ``hi + mid + lo == y`` wherever y's exponent leaves room for
+    the parts (not near fp32's underflow). Each part's product with a ±1
+    sign is exact, and the kernel sums the three products in fp32. A plain
+    mirror of the kernel's arithmetic for the CPU tests; no path calls it."""
+    hi = y.to(torch.bfloat16)
+    r = y - hi.float()
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+def large_m_block_n(n: int, ns: int) -> int:
+    """K3's column tile for ``ns`` segments over ``n`` columns: 128, or 64
+    where fused segments are not a multiple of 128, since a tile must not
+    straddle a segment (its A operand depends on the segment's g). The
+    kernel's launch applies the same rule (``block_n`` in
+    ``csrc/bitlinear_large_m.cu``)."""
+    return 128 if ns == 1 or (n // ns) % 128 == 0 else 64
+
+
 def small_m_torch(x2, packed, g, h, bias=None, *, raw: bool = False,
                   eps: float = LN_EPS) -> torch.Tensor:
     n = packed.shape[-1]
@@ -218,7 +244,15 @@ def _large_m_lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.onebit_bitlinear_large_m.argtypes = [p] * 7 + [i] * 8 + [f, p]
     lib.onebit_bitlinear_large_m.restype = i
+    lib.onebit_large_m_block_n.argtypes = [i, i]
+    lib.onebit_large_m_block_n.restype = i
     return lib
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when it starts on 16 bytes (K3's 16-byte copies), else a
+    fresh copy, which does."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _stream(x: torch.Tensor) -> int:
@@ -278,7 +312,8 @@ def large_m(x2, packed, g, h, *, n_true: int, bias=None, raw: bool = False,
     """K3: ``x2 [M, K]`` (any M), ``packed [K/32, ns*seg_pad]``,
     ``g [ns, K]`` (x.dtype), ``h`` fp32, ``bias`` (ns = 1 only) ->
     ``[ns, M, n_true]`` in x.dtype (with ``raw=True`` B4:
-    ``z ⊙ h [M, ns*seg_pad]`` in x.dtype)."""
+    ``z ⊙ h [M, ns*seg_pad]`` in x.dtype). The column tile is
+    :func:`large_m_block_n`'s."""
     if x2.device.type == "cpu":
         return large_m_torch(x2, packed, g, h, n_true=n_true, bias=bias,
                              raw=raw, eps=eps)
@@ -288,6 +323,7 @@ def large_m(x2, packed, g, h, *, n_true: int, bias=None, raw: bool = False,
     _check(x2, packed, g, h, bias, ns, n_true)
     m, k = x2.shape
     n = packed.shape[-1]
+    x2, g = _aligned16(x2), _aligned16(g)
     z = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
     out = z if raw else torch.empty((ns, m, n_true), dtype=x2.dtype,
                                     device=x2.device)

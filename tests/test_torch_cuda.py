@@ -105,8 +105,15 @@ def test_fused_small_m_matches_plain(dev, dtype, m, k, n_true, ns, seg_pad):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("m,k,n_true,ns,seg_pad", [
     (129, 256, 200, 1, 200), (300, 1024, 384, 3, 448),
-    (1024, 4096, 4096, 1, 4096), (256, 11008, 512, 2, 512)])
+    (1024, 4096, 4096, 1, 4096), (256, 11008, 512, 2, 512),
+    (8193, 800, 200, 1, 200), (300, 800, 384, 3, 448),
+    (8193, 4096, 1024, 2, 1024), (8192, 11008, 512, 1, 512)])
 def test_large_m_matches_plain(dev, dtype, m, k, n_true, ns, seg_pad):
+    """The edges of K3's tiles: ragged M (129, 300, 8193), ragged N (200),
+    K of an odd number of words (800: a last half k step), fused segments
+    of 448 (the 64-column instance), and the eval's K = 11008 at M = 8192;
+    each also raw (B4's z in x's dtype: fp32 z to 1e-5 sqrt(K) of its
+    largest |z|, bf16 z to one bf16 ulp of each row's largest |z|)."""
     x, g, h, packed, bias = _case(dev, dtype, m, k, n_true, ns, seg_pad)
     info = bc.LARGE_M_F32 if dtype == torch.float32 else bc.LARGE_M
     before = info.launches
@@ -117,6 +124,29 @@ def test_large_m_matches_plain(dev, dtype, m, k, n_true, ns, seg_pad):
         _close(bc.large_m(x, packed, g, h, n_true=n_true, bias=bias),
                bc.large_m_torch(x, packed, g, h, n_true=n_true, bias=bias),
                dtype)
+    before = bc.RAW_LARGE_M.launches
+    raw = bc.large_m(x, packed, g, h, n_true=n_true, raw=True)
+    want = bc.large_m_torch(x, packed, g, h, n_true=n_true, raw=True)
+    torch.cuda.synchronize()
+    assert bc.RAW_LARGE_M.launches == before + 1
+    assert raw.dtype == dtype and raw.shape == want.shape == (m, ns * seg_pad)
+    assert torch.isfinite(raw).all()
+    top = want.float().abs().amax(-1, keepdim=True)
+    tol = (torch.full_like(top, 1e-5 * top.max().item() * k ** 0.5)
+           if dtype == torch.float32
+           else torch.exp2(torch.floor(torch.log2(top)) - 7))
+    assert ((raw.float() - want.float()).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("n,ns", [(4096, 1), (200, 1), (3 * 4096, 3),
+                                  (2 * 11008, 2), (3 * 448, 3), (2 * 384, 2),
+                                  (2048, 1), (5504, 1)])
+def test_large_m_block_n_matches_the_kernel(dev, n, ns):
+    """The column tile ``large_m_block_n`` states is the one the kernel's
+    launch picks."""
+    lib = bc._large_m_lib()
+    assert lib.onebit_large_m_block_n(ns, n // ns) == \
+        bc.large_m_block_n(n, ns)
 
 
 def test_wrappers_check_inputs(dev):
@@ -966,7 +996,7 @@ def test_flash_bwd_matches_plain(dev, dtype, b, g, hd, s):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("s", [1, 100, 2048])
+@pytest.mark.parametrize("s", [1, 17, 100, 300, 2048])
 def test_flash_lse_matches_logsumexp(dev, dtype, s):
     """The forward's optional log-sum-exp against ``torch.logsumexp`` of
     the plain scaled causal scores (fp32, of order 10: to 1e-4); the
