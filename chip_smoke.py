@@ -27,7 +27,9 @@ toolkit and PyTorch. It imports nothing of JAX. Phases, one JSON line each:
    beside ``scaled_dot_product_attention(is_causal=True)``; then its
    backward kernels B11-dkv and B11-dq at the same shapes, the gradients
    through B11's autograd rule against autograd through the plain version,
-   beside the backward of ``scaled_dot_product_attention``; then B9 (decode
+   beside the backward of ``scaled_dot_product_attention``, each kernel
+   with its bound share, ``ptxas`` registers and spills, and shared bytes a
+   CTA; then B9 (decode
    attention over the flat pools) at layer 31 of full llama2-7b pools
    [32, 8, 2048, 32, 128], int8 with scales, bf16 (and a GQA case, nkv 8)
    and fp32, rows of 1-2048 positions with starts and one empty row, beside
@@ -905,10 +907,13 @@ def flash_kernel_checks(dev) -> dict:
 # few 1e-6, so P, dS and every gradient a relative few 1e-6: 1e-4. bf16:
 # each side rounds its gradients to bf16, at most one ulp apart (2**-7 of
 # the slice's top binade), after rounding operands at different places
-# (the kernels round P to bf16 for dV and keep dS in fp32; the plain
-# version rounds P and dP), relative 2**-9 per term of sums whose terms
-# peak near the result: 2**-6 (the CPU test holds the plain gradient to the
-# Pallas kernels' to the same bound, measured 7.7e-3).
+# (the kernels, as the TPU kernel does, round P to bf16 for dV and dS,
+# scaled, for dK and dQ, all products of bf16 operands on the tensor cores
+# summed in fp32; the plain version rounds P and dP), relative 2**-9 per
+# term of sums whose terms peak near the result: 2**-6. The CPU tests
+# (tests/test_torch_flash_bwd.py) emulate the kernels' roundings step by
+# step: within 7.9e-3 of the Pallas kernels' gradients and 1.2e-2 of the
+# plain gradient per (row, head).
 FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -6}
 
 
@@ -927,6 +932,25 @@ def _flash_bwd_bound(b, s, nh, nkv, hd, dtype, kernel: str) -> tuple:
     t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / peak
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops
             else "operations")
+
+
+def _flash_bwd_resources(kernel: str, hd: int, dtype) -> dict:
+    """What one CTA of a backward kernel holds at this head_dim: ``ptxas``'s
+    [registers, spill stores, spill loads] (from the build's log) and the
+    dynamic shared memory its launcher asks for, in bytes."""
+    from onebit_tpu_torch.kernels import build
+    source = "flash_attention_bwd.cu"
+    bf16 = dtype == torch.bfloat16
+    entry = (f"flash_bwd_{kernel}_wgmmaILi{hd}E" if bf16
+             else f"flash_bwd_{kernel}IfLi{hd}E")
+    path = build.library_path(source)
+    log = path.with_name(path.name + ".log")
+    found = [v for k, v in ptxas_summary(log.read_text()).items()
+             if entry in k] if log.exists() else []
+    smem = build.load(source).onebit_flash_bwd_smem_bytes(
+        0 if kernel == "dkv" else 1, hd, int(bf16))
+    return {"ptxas_regs_spill_stores_loads": found[0] if found else None,
+            "smem_bytes": smem}
 
 
 def _backward_ms(fwd, do, iters: int) -> float:
@@ -1030,6 +1054,8 @@ def flash_bwd_kernel_checks(dev) -> dict:
                       "backward_ms": ms_dkv + ms_dq + ms_di, "di_ms": ms_di,
                       "backward_bound_ms": _flash_bound(
                           b, s, nh, nkv, hd, dtype)[0] * 2.5,
+                      "bound_share": bound_ms / ms,
+                      **_flash_bwd_resources(kernel, hd, dtype),
                       "note": "plain_ms and library_ms: the whole "
                               "backward (dq, dk and dv)", **line})
             if not ok:

@@ -208,46 +208,12 @@ flash_causal(const T* __restrict__ q, const T* __restrict__ k,
 using bf16 = __nv_bfloat16;
 using namespace onebit_sm90;
 
-constexpr int kWgThreads = 128;   // one warpgroup
-
 template <int HD>
 struct WgLayout {
-  // a 64-row tile: HD / 64 swizzled blocks of [64 rows][128 bytes]
-  static constexpr int kTileBytes = kTile * HD * 2;
-  static constexpr int kBlock = kTile * 128;
   // Q, two K tiles, one V tile, four mbarriers (Q, K even, K odd, V),
   // + alignment
-  static constexpr int kBytes = 4 * kTileBytes + 4 * 8 + 1024;
+  static constexpr int kBytes = 4 * WgTile<HD>::kBytes + 4 * 8 + 1024;
 };
-
-// One thread: rows [r0, r0 + 64) of head n of row b of a [B, S, n, HD]
-// tensor map into a swizzled tile at dst (HD / 64 boxes of 64 x 128
-// bytes), its bytes counted on bar; rows at or past S arrive as zeros.
-template <int HD>
-__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int n, int r0, int b) {
-  mbar_expect_tx(bar, WgLayout<HD>::kTileBytes);
-#pragma unroll
-  for (int blk = 0; blk < HD / 64; ++blk)
-    tma_load_4d(dst + blk * WgLayout<HD>::kBlock, map, bar, blk * 64, n, r0,
-                b);
-}
-
-template <int HD>
-__device__ __forceinline__ void pv_mma(float (&o)[HD / 2],
-                                       const uint32_t (&a)[4], uint64_t desc);
-template <>
-__device__ __forceinline__ void pv_mma<64>(float (&o)[32],
-                                           const uint32_t (&a)[4],
-                                           uint64_t desc) {
-  wgmma_rs_n64<1>(o, a, desc);
-}
-template <>
-__device__ __forceinline__ void pv_mma<128>(float (&o)[64],
-                                            const uint32_t (&a)[4],
-                                            uint64_t desc) {
-  wgmma_rs_n128<1>(o, a, desc);
-}
 
 template <int HD>
 __global__ void __launch_bounds__(kWgThreads)
@@ -256,15 +222,15 @@ flash_causal_wgmma(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap vmap,
                    bf16* __restrict__ out, float* __restrict__ lse, int S,
                    int nh, int G, float scale) {
-  using L = WgLayout<HD>;
+  constexpr int TB = WgTile<HD>::kBytes;
   constexpr int KS = HD / 16;   // k16 steps of S = Q Kᵀ
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t qs = (raw + 1023) & ~1023u;
   // tiles: Q, K of even and of odd key tiles, V; then their mbarriers
-  const uint32_t vs = qs + 3 * L::kTileBytes;
-  const uint32_t bar_q = qs + 4 * L::kTileBytes, bar_v = bar_q + 24;
-  auto kslot = [&](int j) { return qs + (1 + (j & 1)) * L::kTileBytes; };
+  const uint32_t vs = qs + 3 * TB;
+  const uint32_t bar_q = qs + 4 * TB, bar_v = bar_q + 24;
+  auto kslot = [&](int j) { return qs + (1 + (j & 1)) * TB; };
   auto bar_k = [&](int j) { return bar_q + 8 + 8 * (j & 1); };
 
   const int tid = threadIdx.x, lane = tid & 31;
@@ -273,7 +239,7 @@ flash_causal_wgmma(const __grid_constant__ CUtensorMap qmap,
   const int qt = gridDim.x - 1 - blockIdx.x;       // longest rows first
   const int h = blockIdx.y, b = blockIdx.z, hk = h / G;
   const int q0 = qt * kTile;
-  const float scale2 = scale * 1.4426950408889634f;   // log2(e)
+  const float scale2 = scale * kLog2e;
 
   // one thread issues every copy (TMA); each tile's mbarrier says it is in
   if (tid == 0) {
@@ -305,11 +271,8 @@ flash_causal_wgmma(const __grid_constant__ CUtensorMap qmap,
     for (int i = 0; i < 32; ++i) s[i] = 0.f;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      const uint32_t off = (kk / 4) * L::kBlock + (kk % 4) * 32;
-      wgmma_ss_n64(s, desc128(qs + off, 16, 1024),
-                   desc128(ks + off, 16, 1024));
-    }
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_ss_n64(s, kmajor_desc<HD>(qs, kk), kmajor_desc<HD>(ks, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -354,15 +317,11 @@ flash_causal_wgmma(const __grid_constant__ CUtensorMap qmap,
     mbar_wait(bar_v, kt & 1);   // V(kt) is in
     // ---- 3. O += P V: P in bf16 as the register A operand (k = keys)
     uint32_t pa[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        pa[kk][j] = bf16_pair(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
+    pack_a(pa, s);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      pv_mma<HD>(o, pa[kk], desc128(vs + kk * 16 * 128, L::kBlock, 1024));
+      mma_rs_mn<HD>(o, pa[kk], mn_desc<HD>(vs, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
@@ -398,25 +357,14 @@ int run_wgmma(const void* q, const void* k, const void* v, void* out,
       flash_causal_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) return (int)e;
-  // q, k, v as [B, S, n, HD] tensor maps (innermost first) in boxes of 64
-  // rows x 64 elements, 128-byte swizzled; a dimension of size 1 gets a
-  // stride it never steps
+  // q, k, v as [B, S, n, HD] tensor maps
   CUtensorMap maps[3];
   const void* bases[3] = {q, k, v};
   const int heads[3] = {nh, nh / G, nh / G};
-  for (int i = 0; i < 3; ++i) {
-    const long long sb = strides[2 * i], ss = strides[2 * i + 1];
-    const long long row = S > 1 ? ss : (long long)heads[i] * HD;
-    const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)heads[i],
-                                (cuuint64_t)S, (cuuint64_t)B};
-    const cuuint64_t bytes[3] = {(cuuint64_t)HD * 2, (cuuint64_t)row * 2,
-                                 (cuuint64_t)(B > 1 ? sb : row * S) * 2};
-    const cuuint32_t box[4] = {64, 1, kTile, 1};
-    if (!make_tensor_map(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                         bases[i], dims, bytes, box,
-                         CU_TENSOR_MAP_SWIZZLE_128B))
+  for (int i = 0; i < 3; ++i)
+    if (!make_rows_map(&maps[i], bases[i], B, S, heads[i], HD,
+                       strides[2 * i], strides[2 * i + 1]))
       return (int)cudaErrorInvalidValue;
-  }
   const dim3 grid((S + kTile - 1) / kTile, nh, B);
   flash_causal_wgmma<HD><<<grid, kWgThreads, smem, st>>>(
       maps[0], maps[1], maps[2], static_cast<bf16*>(out), lse, S, nh, G,

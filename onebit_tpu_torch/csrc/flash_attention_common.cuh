@@ -1,13 +1,17 @@
-// Pieces shared by the causal flash-attention kernels on the CUDA cores:
-// the fp32 forward B11 (flash_attention.cu; its bf16 instance runs on the
-// tensor cores, wgmma_common.cuh) and the backward, B11-dkv and B11-dq
-// (flash_attention_bwd.cu). Each kernel stages 64-row tiles of q, k, v (and
-// do) in shared memory as fp32 rows, with 16-byte global loads.
+// Pieces shared by the causal flash-attention kernels: the forward B11
+// (flash_attention.cu) and its backward, B11-dkv and B11-dq
+// (flash_attention_bwd.cu). The fp32 instances run on the CUDA cores and
+// stage 64-row tiles of q, k, v (and do) in shared memory as fp32 rows,
+// with 16-byte global loads. The bf16 instances run on the tensor cores
+// (wgmma_common.cuh): one warpgroup a CTA, 64-row tiles brought by TMA into
+// 128-byte swizzled shared tiles (the pieces at the end of this file).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "wgmma_common.cuh"
 
 namespace onebit_flash {
 
@@ -15,15 +19,14 @@ constexpr int kThreads = 256;
 constexpr int kTile = 64;  // queries per CTA, keys per tile
 constexpr int kPad = 4;    // floats of padding per staged row
 
+// The CUDA-core kernels are templates of their element type T, of which
+// only float is instantiated: the bf16 instances run on the tensor cores.
+
 // v rounded to T's precision, as a float.
 template <typename T>
 __device__ __forceinline__ float round_to(float v);
 template <>
 __device__ __forceinline__ float round_to<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 // 16 bytes of T, stored to shared memory as floats.
 template <typename T>
@@ -38,29 +41,6 @@ struct Convert<float> {
   }
   __device__ __forceinline__ static void store4(float* dst, const float4& v) {
     *reinterpret_cast<float4*>(dst) = v;
-  }
-};
-
-template <>
-struct Convert<__nv_bfloat16> {
-  // element 2w is the low half of word w (little-endian)
-  __device__ __forceinline__ static void store(float* dst, const uint4& r) {
-    reinterpret_cast<float4*>(dst)[0] = make_float4(
-        __uint_as_float(r.x << 16), __uint_as_float(r.x & 0xffff0000u),
-        __uint_as_float(r.y << 16), __uint_as_float(r.y & 0xffff0000u));
-    reinterpret_cast<float4*>(dst)[1] = make_float4(
-        __uint_as_float(r.z << 16), __uint_as_float(r.z & 0xffff0000u),
-        __uint_as_float(r.w << 16), __uint_as_float(r.w & 0xffff0000u));
-  }
-  // 4 floats rounded to bf16, stored as 8 bytes
-  __device__ __forceinline__ static void store4(__nv_bfloat16* dst,
-                                                const float4& v) {
-    *reinterpret_cast<uint2*>(dst) = make_uint2(pair(v.x, v.y),
-                                                pair(v.z, v.w));
-  }
-  __device__ __forceinline__ static uint32_t pair(float lo, float hi) {
-    return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
-           ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
   }
 };
 
@@ -155,6 +135,95 @@ __device__ __forceinline__ void matmul_rows(float (&acc)[4][HD / 64][4],
       }
     }
   }
+}
+
+// ---- the bf16 instances: wgmma on the tensor cores ----
+
+constexpr int kWgThreads = 128;   // one warpgroup
+constexpr float kLog2e = 1.4426950408889634f;
+
+// A 64-row bf16 tile of HD columns in shared memory: HD / 64 swizzled
+// blocks of [64 rows][128 bytes], each a TMA box.
+template <int HD>
+struct WgTile {
+  static constexpr int kBytes = kTile * HD * 2;
+  static constexpr int kBlock = kTile * 128;
+};
+
+// One thread: rows [r0, r0 + 64) of head n of row b of a [B, S, n, HD]
+// tensor map into a swizzled tile at dst, one arrival on bar that expects
+// the tile's bytes; rows at or past S arrive as zeros.
+template <int HD>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int n, int r0, int b) {
+  onebit_sm90::mbar_expect_tx(bar, WgTile<HD>::kBytes);
+#pragma unroll
+  for (int blk = 0; blk < HD / 64; ++blk)
+    onebit_sm90::tma_load_4d(dst + blk * WgTile<HD>::kBlock, map, bar,
+                             blk * 64, n, r0, b);
+}
+
+// d[HD / 2] += A (registers, a k16 fragment) . B, B a [k rows, HD] tile
+// read as an MN-major operand through its descriptor (the transpose bit).
+template <int HD>
+__device__ __forceinline__ void mma_rs_mn(float (&d)[HD / 2],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc);
+template <>
+__device__ __forceinline__ void mma_rs_mn<64>(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc) {
+  onebit_sm90::wgmma_rs_n64<1>(d, a, desc);
+}
+template <>
+__device__ __forceinline__ void mma_rs_mn<128>(float (&d)[64],
+                                               const uint32_t (&a)[4],
+                                               uint64_t desc) {
+  onebit_sm90::wgmma_rs_n128<1>(d, a, desc);
+}
+
+// Descriptor of the k16 step kk of a K-major operand: a swizzled [64 rows,
+// HD] tile at `tile` whose rows run along k (S = Q Kᵀ and its kin).
+template <int HD>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
+  return onebit_sm90::desc128(
+      tile + (kk / 4) * WgTile<HD>::kBlock + (kk % 4) * 32, 16, 1024);
+}
+// Descriptor of the k16 step kk of an MN-major B: rows 16 kk.. + 15 of a
+// swizzled [64 rows, HD] tile whose rows run along k (P V and its kin).
+template <int HD>
+__device__ __forceinline__ uint64_t mn_desc(uint32_t tile, int kk) {
+  return onebit_sm90::desc128(tile + kk * 16 * 128, WgTile<HD>::kBlock,
+                              1024);
+}
+
+// The 16 k-pairs of a 64 x 64 accumulator fragment (keys or queries along
+// its columns) rounded to bf16 as the A operand of four k16 steps.
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4],
+                                       const float (&d)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      a[kk][j] = onebit_sm90::bf16_pair(d[8 * kk + 2 * j],
+                                        d[8 * kk + 2 * j + 1]);
+}
+
+// Host: a [B, S, n, HD] bf16 tensor at base, each row's [n, HD]
+// contiguous, at batch and sequence strides sb and ss (elements), as a
+// tensor map (innermost first) in boxes of 64 rows x 64 elements,
+// 128-byte swizzled; a dimension of size 1 gets a stride it never steps.
+inline bool make_rows_map(CUtensorMap* map, const void* base, int B, int S,
+                          int n, int HD, long long sb, long long ss) {
+  const long long row = S > 1 ? ss : (long long)n * HD;
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)n, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t bytes[3] = {(cuuint64_t)HD * 2, (cuuint64_t)row * 2,
+                               (cuuint64_t)(B > 1 ? sb : row * S) * 2};
+  const cuuint32_t box[4] = {64, 1, kTile, 1};
+  return onebit_sm90::make_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                                      4, base, dims, bytes, box,
+                                      CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace onebit_flash

@@ -1,9 +1,9 @@
 // Hopper building blocks shared by the tensor-core kernels (K3 in
-// bitlinear_large_m.cu, B11's bf16 forward in flash_attention.cu): cp.async
-// copies into shared memory, mbarriers and TMA tensor copies (with the host
-// side of a tensor map), the wgmma matrix descriptor of a 128-byte swizzled
-// tile, and the wgmma instructions the kernels issue, all in PTX for
-// sm_90a.
+// bitlinear_large_m.cu, B11's bf16 forward in flash_attention.cu and its
+// backward in flash_attention_bwd.cu): cp.async copies into shared memory,
+// mbarriers and TMA tensor copies (with the host side of a tensor map), the
+// wgmma matrix descriptor of a 128-byte swizzled tile, and the wgmma
+// instructions the kernels issue, all in PTX for sm_90a.
 //
 // A 128-byte swizzled tile is a run of 1024-byte atoms, each 8 rows of 128
 // bytes; the 16-byte chunk c of row r sits at chunk c ^ (r % 8) of that row
@@ -71,6 +71,13 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
                    "r"(bar),
                "r"(bytes)
+               : "memory");
+}
+// One arrival, made once this thread's earlier cp.async copies are in
+// (.noinc: the barrier's count at init includes it).
+__device__ __forceinline__ void mbar_arrive_cp_async(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(bar)
                : "memory");
 }
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {

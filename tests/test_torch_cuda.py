@@ -969,12 +969,13 @@ def _grads(fn, q, k, v, do, g):
 @pytest.mark.parametrize("b", [1, 3])
 @pytest.mark.parametrize("g", [1, 2, 4, 8])
 @pytest.mark.parametrize("hd", [64, 128])
-@pytest.mark.parametrize("s", [1, 17, 128, 300, 2048])
+@pytest.mark.parametrize("s", [1, 17, 63, 64, 65, 128, 129, 300, 2048])
 def test_flash_bwd_matches_plain(dev, dtype, b, g, hd, s):
     """dq, dk and dv through B11's autograd rule (B11, B11-dkv, B11-dq)
     against autograd through the plain version. B = 3 reads strided views
     of a fused projection output and a strided ``do`` in place; B = 1
-    contiguous q, k, v and a transposed ``do``."""
+    contiguous q, k, v and a transposed ``do``. S of 63-65 and 128-129 sit
+    on the edges of the kernels' 64-row tiles."""
     from onebit_tpu_torch.kernels import attention as ta
     from onebit_tpu_torch.kernels import attention_cuda as fc
     q, k, v = _flash_case(dev, dtype, b, s, 2, g, hd, fused=b > 1)
@@ -993,6 +994,29 @@ def test_flash_bwd_matches_plain(dev, dtype, b, g, hd, s):
         top = w.float().abs().amax(dim=(1, 3)).clamp(min=1.0)
         err = (a.float() - w.float()).abs().amax(dim=(1, 3))
         assert (err <= tol * top).all(), (name, (err / top).max().item())
+
+
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_bwd_bf16_is_deterministic(dev, g, hd):
+    """Two launches of each bf16 backward kernel on the same inputs give
+    the same bits: each CTA owns its outputs and sums in a fixed order, with
+    no atomics."""
+    from onebit_tpu_torch.kernels import attention_cuda as fc
+    q, k, v = _flash_case(dev, torch.bfloat16, 2, 300, 2, g, hd, fused=True)
+    do = _flash_do(dev, torch.bfloat16, 2, 300, 2 * g, hd, readable=True)
+    out, lse = fc.launch(q, k, v, g, with_lse=True)
+    di = (out.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+
+    def grads():
+        return [*fc.launch_bwd_dkv(q, k, v, do, lse, di, g),
+                fc.launch_bwd_dq(q, k, v, do, lse, di, g)]
+
+    first, second = grads(), grads()
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dk", "dv", "dq"), first, second):
+        assert torch.isfinite(a).all() and a.abs().max() > 0, name
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

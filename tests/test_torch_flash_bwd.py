@@ -14,6 +14,19 @@ different places before that (the Pallas kernels round P and dS to bf16
 before their products, the plain version P and dP), relative errors of
 2**-9 per term of sums whose terms peak near the result; measured up to
 7.7e-3. q of std 5 peaks the softmax and makes every gradient of order 1.
+
+The bf16 kernels' arithmetic (``csrc/flash_attention_bwd.cu``: products of
+bf16 operands summed in fp32 on the tensor cores) is emulated here step by
+step: P = exp(s - lse) from the forward's log-sum-exp, rounded to bf16 for
+dV; dS = P (dP - di), scaled by hd**-0.5, rounded to bf16 for dK and dQ
+(as the Pallas kernels round it). It is held to 2**-6 of each gradient's
+largest magnitude against the Pallas kernels (hd 64; measured 7.5e-7 at
+S = 128 with g = 1, up to 7.9e-3 elsewhere) and, per (row, head), against
+the plain gradient (hd 64 and 128; measured up to 1.2e-2 at hd 64, S = 256,
+g = 4, and 1.0e-2 at hd 128): the two sides round operands at different
+places (the plain version P and dP, the kernels P and dS), 2**-9 relative
+per term of sums whose terms peak near the result, and their results to
+bf16, one ulp (2**-7 of the top binade) apart.
 """
 
 import jax
@@ -47,6 +60,33 @@ def _plain_grads(fn, q, k, v, do, g):
     return out.detach(), [x.grad for x in xs]
 
 
+def _kernel_emulation(q, k, v, do, g):
+    """(dq, dk, dv) in bf16 as the bf16 kernels B11-dkv and B11-dq form
+    them from bf16 q, k, v, do: fp32 sums of bf16 products; lse and the
+    output o from the forward (o rounded to bf16, di = Σ o·do in fp32);
+    P = exp(s·scale - lse) rounded to bf16 for dV; scale·P·(dP - di)
+    rounded to bf16 for dK and dQ; dK and dV summed over the group's query
+    heads in fp32 before their one rounding."""
+    b, s, nh, hd = q.shape
+    scale = hd ** -0.5
+    out = ta.flash_causal_attention_torch(q, k, v, num_kv_groups=g)
+    kr, vr = (x.float().repeat_interleave(g, dim=2) for x in (k, v))
+    qf, dof = q.float(), do.float()
+    causal = ta._causal_mask(s, s, 0)
+    scores = torch.einsum("bihd,bjhd->bhij", qf, kr) * scale
+    lse = torch.logsumexp(scores.masked_fill(~causal, float("-inf")), -1)
+    p = torch.exp(scores - lse[..., None]).masked_fill(~causal, 0.0)
+    dp = torch.einsum("bihd,bjhd->bhij", dof, vr)
+    di = (out.float() * dof).sum(-1).transpose(1, 2)
+    ds = ((dp - di[..., None]) * p * scale).to(torch.bfloat16).float()
+    pb = p.to(torch.bfloat16).float()
+    dq = torch.einsum("bhij,bjhd->bihd", ds, kr)
+    dk = torch.einsum("bhij,bihd->bjhd", ds, qf)
+    dv = torch.einsum("bhij,bihd->bjhd", pb, dof)
+    dk, dv = (x.reshape(b, s, nh // g, g, hd).sum(3) for x in (dk, dv))
+    return [x.to(torch.bfloat16) for x in (dq, dk, dv)]
+
+
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("g", [1, 2])
 @pytest.mark.parametrize("s", [128, 256])
@@ -61,6 +101,8 @@ def test_plain_grad_matches_jax_flash(dtype, g, s):
         _, vjp = jax.vjp(lambda a, b, c: jflash(a, b, c, num_kv_groups=g),
                          jq, jk, jv)
         want = vjp(jdo)
+    # the bf16 kernels' arithmetic against the same Pallas gradients
+    emulated = _kernel_emulation(q, k, v, do, g) if dtype == "bf16" else []
     for name, a, w in zip("qkv", got, want):
         w = np.asarray(w.astype(jnp.float32))
         assert a.dtype == tdt and a.shape == w.shape, name
@@ -69,6 +111,28 @@ def test_plain_grad_matches_jax_flash(dtype, g, s):
         assert err <= tol * top, (name, err / top, tol)
         # every (head) of every gradient is of order 1: zeros would fail
         assert np.abs(w).max(axis=(0, 1, 3)).min() >= 0.1, name
+    for name, a, w in zip("qkv", emulated, want):
+        w = np.asarray(w.astype(jnp.float32))
+        err = np.abs(a.float().numpy() - w).max()
+        assert err <= tol * np.abs(w).max(), (name, err, tol)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("s,g", [(128, 1), (256, 4)])
+def test_kernel_rounding_matches_plain_grad(hd, s, g):
+    """The bf16 kernels' emulated arithmetic against autograd through the
+    plain version, per (row, head) relative to that slice's largest
+    |gradient|, as the card test holds the kernels themselves."""
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in _inputs(2, s, 2, g, hd, seed=7 * s + g))
+    _, want = _plain_grads(ta.flash_causal_attention_torch, q, k, v, do, g)
+    got = _kernel_emulation(q, k, v, do, g)
+    for name, a, w in zip("qkv", got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == w.shape, name
+        top = w.float().abs().amax(dim=(1, 3))
+        err = (a.float() - w.float()).abs().amax(dim=(1, 3))
+        assert top.min() >= 0.1, name
+        assert (err <= 2 ** -6 * top).all(), (name, (err / top).max())
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
