@@ -11,7 +11,11 @@ toolkit and PyTorch. It imports nothing of JAX. Phases, one JSON line each:
    with each kernel's registers and spilled bytes as ``ptxas`` reports them;
 3. each BitLinear kernel (K1-K3) at llama2-7b shapes against its plain
    PyTorch version, with random g and h (and h = 0 pads), timed with CUDA
-   events beside its bound, its plain version and one PyTorch matmul (K3
+   events (every timed run enqueued behind a device sleep, so that the
+   events time the device, not the host's launches; K1, K2 and B4's
+   small-M instance cold, cycling over copies of their words past 64 MB, as
+   decode reads them, and their matmul yardstick over copies of its sign
+   matrix) beside its bound, its plain version and one PyTorch matmul (K3
    twice: bf16 at the prefill's M = 2048, and its fp32 instance on one eval
    layer's seven projections at M = 8192), and B4, the raw projection of a
    tensor-parallel shard (K1 and K3 with ``raw=True``, counted as their own
@@ -183,11 +187,19 @@ def ptxas_summary(log: str) -> dict:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Device ms per call of ``fn``: CUDA events around ``iters`` calls
+    enqueued behind a device-side sleep that outlasts their enqueue (twice
+    the warm-up's host time a call), so that the events time the calls back
+    to back, never the host's gaps between launches of a kernel faster
+    than its Python wrapper."""
+    t = time.perf_counter()
     for _ in range(warmup):
         fn()
+    host_s = (time.perf_counter() - t) / max(warmup, 1)
     start, end = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
     torch.cuda.synchronize()
+    torch.cuda._sleep(int(min(2 * iters * host_s + 1e-3, 0.2) * 2e9))
     start.record()
     for _ in range(iters):
         fn()
@@ -238,7 +250,37 @@ def _bound(c, out_elem=None) -> tuple:
             else "operations")
 
 
+# the small-M kernels (K1, K2, B4 small-M) are timed cycling over copies of
+# each case's packed words whose total passes this, as decode reads each
+# layer's words once, cold, from HBM (the L2 holds 50 MB); the matmul
+# yardstick cycles over copies of its dense sign matrix the same way
+COLD_BYTES = 64 * 2 ** 20
+
+
+def cold_copies(t: torch.Tensor, at_least: int = 1) -> list:
+    """``t`` and clones of it, together past ``COLD_BYTES``."""
+    n = max(at_least, COLD_BYTES // (t.numel() * t.element_size()) + 1)
+    return [t] + [t.clone() for _ in range(n - 1)]
+
+
+def small_m_launch(bc, c):
+    """The small-M kernel's plan for case ``c``: block_n, splits, kw, CTAs
+    and dynamic shared bytes a CTA (the layout of
+    ``csrc/bitlinear_small_m.cu``); None for a checkout without the plan."""
+    if not hasattr(bc, "small_m_plan"):
+        return None
+    m, k, n, ns = c["m"], c["k"], c["packed"].shape[1], c["ns"]
+    bn, splits, kw, _ = bc.small_m_plan(
+        m, k, n, ns, torch.cuda.get_device_properties(0).multi_processor_count)
+    elem = c["x"].element_size()
+    row = bn * 4 + 9 * 32 * elem                 # words, 8 x rows, g
+    red = 8 * 8 * (bn + 4) * 4 + 8 * bn * 4      # warps' sums, z tile
+    ctas = -(-n // bn) * splits * -(-m // 8)
+    return [bn, splits, kw, ctas, max(kw * row, red)]
+
+
 def kernel_checks(dev) -> dict:
+    import itertools
     from onebit_tpu_torch.kernels import bitlinear_cuda as bc
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -278,8 +320,9 @@ def kernel_checks(dev) -> dict:
             + [_case(gen, m_eval, inter, d, 1, d, dev, f32)],
     }
 
-    def calls(name, c):
-        x, p, g, h, nt = c["x"], c["packed"], c["g"], c["h"], c["n_true"]
+    def calls(name, c, p=None):
+        x, g, h, nt = c["x"], c["g"], c["h"], c["n_true"]
+        p = c["packed"] if p is None else p
         if name == "bitlinear_raw_small_m":
             return (lambda: bc.small_m(x, p, g[0], h, raw=True),
                     lambda: bc.small_m_torch(x, p, g[0], h, raw=True))
@@ -336,10 +379,20 @@ def kernel_checks(dev) -> dict:
             out_elem = 4 if info.name == "bitlinear_raw_small_m" else None
             del got, want, diff
             iters = 3 if c["m"] > 128 else 20
-            ms += cuda_ms(kern, iters)
+            y = c["x"] * c["g"][0]
+            if c["m"] <= bc.SMALL_M_MAX:
+                words = itertools.cycle(cold_copies(c["packed"]))
+                signs = itertools.cycle(cold_copies(c["sign"], 2))
+                ms += cuda_ms(lambda: calls(info.name, c, next(words))[0](),
+                              iters)
+                lib_ms += cuda_ms(lambda: torch.matmul(y, next(signs).T),
+                                  iters)
+                del words, signs
+            else:
+                ms += cuda_ms(kern, iters)
+                lib_ms += cuda_ms(lambda: torch.matmul(y, c["sign"].T),
+                                  iters)
             plain_ms += cuda_ms(plain, 2, warmup=1)
-            y, s = c["x"] * c["g"][0], c["sign"]
-            lib_ms += cuda_ms(lambda: torch.matmul(y, s.T), iters)
             b, kind = _bound(c, out_elem)
             bound_ms += b
             kinds.add(kind)
@@ -355,10 +408,15 @@ def kernel_checks(dev) -> dict:
                "bitlinear_raw_small_m": RAW_TOL_F32}.get(
             info.name, KERNEL_TOL_F32 if dtype == torch.float32
             else KERNEL_TOL_BF16)
+        plans = [small_m_launch(bc, c) for c in cases[info.name]
+                 if c["m"] <= bc.SMALL_M_MAX]
         emit({"phase": "kernel", "name": info.name, "tol": tol, "ok": ok,
               "dtype": str(dtype).replace("torch.", ""),
               "m": [c["m"] for c in cases[info.name]],
               "k_n": [[c["k"], c["n_true"]] for c in cases[info.name]],
+              **({"cold_copies_past_bytes": COLD_BYTES,
+                  "plans_block_n_splits_kw_ctas_smem": plans}
+                 if plans else {}),
               "calls": len(cases[info.name]), "kernel_ms": ms,
               "min_row_max_abs_out": out_scale, "bound_basis": basis,
               **results[info.name]})

@@ -1,7 +1,7 @@
 // Fused decode attention over the quantized KT pools, with an optional
 // append of this step's K/V: the body of kernels B5-B8 of the port; and the
-// dtype helpers, warp reductions and row loads (Row8) that B9
-// (kv_attention_decode.cu) and B10 (paged_attention.cu) share with it.
+// dtype helpers and warp reductions that B9 (kv_attention_decode.cu) and
+// B10 (paged_attention.cu) share with it, and the row loads (Row8) of B10.
 //
 // Replaces, in onebit_tpu/kernels/kv_attention.py,
 //   _kernel_append_kt  / _kernel_kt   (int8 pools, kv_attention_int8.cu)
@@ -107,8 +107,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// 8 consecutive elements of one row-major K/V row (the flat pools of B9, the
-// pages of B10), loaded raw in one (bf16, int8) or two (f32) vector loads
+// 8 consecutive elements of one row-major K/V row (the pages of B10), loaded raw in one (bf16, int8) or two (f32) vector loads
 // through the read-only path, read back as floats. The address must be
 // 16-byte (bf16, f32) or 8-byte (int8) aligned.
 template <typename P>

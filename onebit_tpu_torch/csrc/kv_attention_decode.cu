@@ -27,27 +27,40 @@
 // Bound on an H100: HBM bytes. Every K and V byte (and scale) of a row's
 // positions in [start, length) is read once for 4 flops per element and
 // query head, far below the 295 flops per byte where bf16 compute would
-// bound it. The design is B10's (paged_attention.cu) without the page
-// table: it reads each pool byte once, with 8-byte (int8) or 16-byte loads,
-// and keeps scores, P and the accumulator on chip:
-//   * one CTA per (kv head n, row b) serves the G query heads of that kv
-//     head, so each pool byte is read by one CTA only;
-//   * the CTA walks its row in tiles of 64 positions from `start` up to
-//     `length` (a masked position adds an exact zero in the reference, so
-//     skipping it is the same function); the tiles start at the row's
-//     first position, so a row's arithmetic depends on its positions
-//     relative to `start` only: a left-padded batch (generate) and the
-//     same prompts at position 0 (the serving engine) give the same bits;
-//   * K is read the way kv_attention_common.cuh reads V: HD / 8 lanes cover
-//     one position's row, 8 elements each, so a 128-thread CTA has 8
-//     (HD = 128) or 16 (HD = 64) rows in flight per pass, and each thread
-//     issues 4 row loads before their arithmetic;
-//   * the q . k partial dots meet by warp shuffles within the row's lanes;
-//     the online softmax runs one warp per query head; each thread keeps
-//     G x 8 fp32 accumulators for its 8 columns; the row groups' partial
-//     accumulators meet in shared memory at the end.
-// Simple first: one serial walk per CTA (256 CTAs at 7B batch 8), no
-// split-T, no cp.async/TMA pipelining, no tensor cores.
+// bound it. The design:
+//   * split-T: each row's positions are cut into chunks of kChunk = 256
+//     counted from the row's `start` (chunk c is [start + 256 c, start +
+//     256 (c + 1)) within [start, length)); one CTA runs per (chunk, kv
+//     head, row) and serves the G query heads of that kv head, so each pool
+//     byte is read by one CTA only, and a 2048-position row spreads over 8
+//     CTAs a head instead of walking serially in one. The grid is
+//     (ceil(T / 256), nkv, B); a CTA past its row's last chunk exits;
+//   * inside a CTA, each of the 4 warps takes every 4th tile of 16 positions
+//     of the chunk and runs its own online softmax over them: two lanes a
+//     position (each dots half of HD with q, one shuffle joins them), the
+//     tile's max and sum by warp shuffles, then P . V with each lane
+//     accumulating HD / 32 columns for the G heads. No block barrier in the
+//     loop: a warp's tiles come through its own ring of two shared-memory
+//     stages filled by cp.async (K rows padded by 16 bytes, so the lanes'
+//     row reads do not share banks), the next tile's K, V (and scales) in
+//     flight while the current tile's scores, softmax and P . V run, behind
+//     cp.async.wait_group and __syncwarp;
+//   * the 4 warps' (m, l, acc) meet in shared memory in warp order; a row
+//     of one chunk writes its output there. Otherwise the chunk's fp32
+//     partial goes to scratch the wrapper allocates, and the last of the
+//     row's chunks to arrive (an atomic ticket on a per-(row, head) counter
+//     the wrapper keeps per device, reset by that CTA) merges them in chunk
+//     order, in the same launch: m = max m_c, l = Σ l_c e^(m_c - m),
+//     acc = Σ acc_c e^(m_c - m). No float atomics: the same call gives the
+//     same bits;
+//   * the chunks, the warps' tiles and the masks depend on a row's positions
+//     relative to `start` only, never on the batch or on other rows: a
+//     left-padded batch (generate) and the same prompts at position 0 (the
+//     serving engine) give the same bits.
+// G query heads run on the CUDA cores (a GQA group of up to 8 heads reads
+// each K/V element once from shared memory); the tensor cores are not used.
+// The counters are shared by every launch on a device: two streams must not
+// run this kernel at once.
 //
 // A row with nothing to attend (length 0, or start >= length) gets out = 0
 // (finite; the Pallas kernel gives a uniform average there; no caller reads
@@ -55,21 +68,87 @@
 #include <type_traits>
 
 #include "kv_attention_common.cuh"
+#include "wgmma_common.cuh"
 
 namespace onebit_kv_decode {
 
 using onebit_kv::from_f32;
-using onebit_kv::Row8;
 using onebit_kv::round_to;
 using onebit_kv::to_f32;
 using onebit_kv::warp_max;
 using onebit_kv::warp_sum;
+using onebit_sm90::cp_async16;
+using onebit_sm90::cp_async4;
+using onebit_sm90::cp_async_commit;
+using onebit_sm90::cp_async_wait;
+using onebit_sm90::smem_u32;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 64;  // positions per tile
-constexpr int kEpl = 8;    // elements of a K/V row per lane
-constexpr int kBatch = 4;  // row loads a thread keeps in flight
+constexpr int kChunk = 256;   // positions a CTA, counted from the row's start
+constexpr int kTileP = 16;    // positions a warp tile: two lanes a position
+constexpr int kStages = 2;    // a warp's ring of tiles
+constexpr int kTilesPerWarp = kChunk / (kWarps * kTileP);
+static_assert(kTilesPerWarp * kWarps * kTileP == kChunk, "chunk tiling");
+
+// One stage of a warp's ring: K [16][HD] (rows padded by 16 bytes), V
+// [16][HD], and for int8 pools the tile's K and V scales.
+template <typename P, int HD>
+struct Stage {
+  static constexpr int kRowBytes = HD * (int)sizeof(P);
+  static constexpr int kKStride = kRowBytes + 16;
+  static constexpr int kK = 0;
+  static constexpr int kV = kTileP * kKStride;
+  static constexpr int kKs = kV + kTileP * kRowBytes;
+  static constexpr int kVs = kKs + kTileP * 4;
+  static constexpr int kBytes = kVs + kTileP * 4;
+  static_assert(kRowBytes % 16 == 0 && kBytes % 16 == 0, "16-byte copies");
+};
+
+// A CTA's shared memory: the warps' rings, then q in fp32 [G][HD]. After
+// the loop the warps' (m, l) [warp][G] and acc [warp][G][HD] reuse the
+// rings.
+template <typename P, int HD, int G>
+struct Smem {
+  static constexpr int kWarpBytes = kStages * Stage<P, HD>::kBytes;
+  static constexpr int kQ = kWarps * kWarpBytes;
+  static constexpr int kBytes = kQ + G * HD * 4;
+  static_assert(kWarps * G * (HD + 2) * 4 <= kQ, "the merge fits");
+};
+
+__device__ __forceinline__ float elem_f32(float v) { return v; }
+__device__ __forceinline__ float elem_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float elem_f32(int8_t v) { return (float)v; }
+
+template <int BYTES>
+struct Vec;
+template <>
+struct Vec<2> { using type = unsigned short; };
+template <>
+struct Vec<4> { using type = uint32_t; };
+template <>
+struct Vec<8> { using type = uint2; };
+template <>
+struct Vec<16> { using type = uint4; };
+
+// N consecutive elements of a row in shared memory (16-byte loads, or one
+// load of N elements below 16 bytes) as floats.
+template <typename P, int N>
+__device__ __forceinline__ void load_elems(const P* p, float (&v)[N]) {
+  constexpr int kBytes = N * (int)sizeof(P);
+  constexpr int kLoad = kBytes < 16 ? kBytes : 16;
+  constexpr int kPer = kLoad / (int)sizeof(P);
+  using V = typename Vec<kLoad>::type;
+#pragma unroll
+  for (int i = 0; i < kBytes / kLoad; ++i) {
+    const V raw = *reinterpret_cast<const V*>(p + i * kPer);
+    const P* e = reinterpret_cast<const P*>(&raw);
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) v[i * kPer + j] = elem_f32(e[j]);
+  }
+}
 
 template <typename T, typename P, int HD, int G>
 __global__ void __launch_bounds__(kThreads)
@@ -77,233 +156,290 @@ kv_attention_decode(const T* __restrict__ q, T* __restrict__ out,
                     const P* __restrict__ kp, const float* __restrict__ ks,
                     const P* __restrict__ vp, const float* __restrict__ vs,
                     const int32_t* __restrict__ lengths,
-                    const int32_t* __restrict__ starts, int nkv, int T_len,
-                    float hd_scale) {
+                    const int32_t* __restrict__ starts,
+                    float* __restrict__ part, int* __restrict__ counters,
+                    int nkv, int T_len, float hd_scale) {
   constexpr bool QUANT = std::is_same<P, int8_t>::value;
-  constexpr int LPR = HD / kEpl;         // lanes per row: 16 or 8
-  constexpr int NGRP = kThreads / LPR;   // rows in flight per pass
-  constexpr int RPG = kTile / NGRP;      // rows of a tile per lane group
-  static_assert(HD % (8 * kEpl) == 0 && LPR <= 32, "unsupported head_dim");
-  static_assert(RPG % kBatch == 0, "row batches");
-
-  __shared__ float s_s[G][kTile];              // scores of the tile
-  __shared__ float p_s[G][kTile];              // P (* v scale) rounded to T
-  __shared__ float vs_s[kTile];                // V scales of the tile
-  __shared__ float red[NGRP][G][HD];           // partial accumulators
-  __shared__ float m_s[G], l_s[G], alpha_s[G];
+  using S = Stage<P, HD>;
+  using SM = Smem<P, HD, G>;
+  constexpr int kHalf = HD / 2;    // elements of a K row one lane dots
+  constexpr int kCols = HD / 32;   // V columns one lane accumulates
+  constexpr int kRowChunks = S::kRowBytes / 16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int last_s;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n = blockIdx.x, b = blockIdx.y;
-  const int grp = tid / LPR, li = tid % LPR, d0 = li * kEpl;
+  const int c = blockIdx.x, n = blockIdx.y, b = blockIdx.z;
+  const int max_chunks = gridDim.x;
   const size_t bn = (size_t)b * nkv + n;
-  const size_t stride = (size_t)nkv * HD;   // elements between positions
-  const P* k_bn = kp + (size_t)b * T_len * stride + (size_t)n * HD + d0;
-  const P* v_bn = vp + (size_t)b * T_len * stride + (size_t)n * HD + d0;
-  const float* ks_bn = QUANT ? ks + (size_t)b * T_len * nkv + n : nullptr;
-  const float* vs_bn = QUANT ? vs + (size_t)b * T_len * nkv + n : nullptr;
-
-  // this lane's 8 columns of the G query heads
-  float qr[G][kEpl];
-  const T* qb = q + bn * G * HD;
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int e = 0; e < kEpl; ++e) qr[g][e] = to_f32(qb[g * HD + d0 + e]);
-  if (tid < G) {
-    m_s[tid] = -1e30f;
-    l_s[tid] = 0.f;
-  }
-
+  T* o = out + bn * G * HD;
   const int length = min(lengths[b], T_len);
   const int start = starts != nullptr ? max(starts[b], 0) : 0;
-  float acc[G][kEpl];
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int e = 0; e < kEpl; ++e) acc[g][e] = 0.f;
+  const int span = max(length - start, 0);
+  const int n_chunks = (span + kChunk - 1) / kChunk;
+  if (span == 0) {
+    if (c == 0)
+      for (int i = tid; i < G * HD; i += kThreads) o[i] = from_f32<T>(0.f);
+    return;
+  }
+  if (c >= n_chunks) return;
+  const int c0 = start + c * kChunk, c1 = min(c0 + kChunk, length);
 
-  for (int t0 = start; t0 < length; t0 += kTile) {
-    // ---- 1. scores: q . k over the row's lanes (times the K scale), times
-    // HD**-0.5; and the tile's V scales
+  float* q_s = reinterpret_cast<float*>(smem + SM::kQ);
+  for (int i = tid; i < G * HD; i += kThreads)
+    q_s[i] = to_f32(q[bn * G * HD + i]);
+
+  // ---- this warp's tiles: local tile warp + 4 i, i < nt
+  const size_t stride = (size_t)nkv * HD;  // elements between positions
+  const P* k_b = kp + (size_t)b * T_len * stride + (size_t)n * HD;
+  const P* v_b = vp + (size_t)b * T_len * stride + (size_t)n * HD;
+  const float* ks_b = QUANT ? ks + (size_t)b * T_len * nkv + n : nullptr;
+  const float* vs_b = QUANT ? vs + (size_t)b * T_len * nkv + n : nullptr;
+  int nt = 0;
 #pragma unroll
-    for (int r0 = 0; r0 < RPG; r0 += kBatch) {
-      Row8<P> kr[kBatch];
-      float ksc[kBatch];
-#pragma unroll
-      for (int j = 0; j < kBatch; ++j) {
-        const int t = t0 + grp + (r0 + j) * NGRP;
-        kr[j].zero();
-        ksc[j] = 1.f;
-        if (t >= start && t < length) {
-          kr[j].load(k_bn + (size_t)t * stride);
-          if (QUANT) ksc[j] = ks_bn[(size_t)t * nkv];
-        }
+  for (int i = 0; i < kTilesPerWarp; ++i)
+    if (c0 + (warp + kWarps * i) * kTileP < c1) nt = i + 1;
+  const uint32_t ring = smem_u32(smem) + warp * SM::kWarpBytes;
+  // tile i's K, V (and scales) into stage i % 2; positions past the chunk
+  // arrive as zeros. Every call commits one group, empty or not.
+  auto issue = [&](int i) {
+    if (i < nt) {
+      const uint32_t st = ring + (i % kStages) * S::kBytes;
+      const int t0 = c0 + (warp + kWarps * i) * kTileP;
+      for (int e = lane; e < kTileP * kRowChunks; e += 32) {
+        const int j = e / kRowChunks, ch = e % kRowChunks;
+        const bool ok = t0 + j < c1;
+        const size_t off = (size_t)(ok ? t0 + j : c0) * stride +
+                           ch * (16 / (int)sizeof(P));
+        cp_async16(st + S::kK + j * S::kKStride + 16 * ch, k_b + off, ok);
+        cp_async16(st + S::kV + j * S::kRowBytes + 16 * ch, v_b + off, ok);
       }
-#pragma unroll
-      for (int j = 0; j < kBatch; ++j) {
-        const int r = grp + (r0 + j) * NGRP, t = t0 + r;
-        float dot[G];
-#pragma unroll
-        for (int g = 0; g < G; ++g) dot[g] = 0.f;
-#pragma unroll
-        for (int e = 0; e < kEpl; ++e) {
-          const float kv = kr[j].get(e);
-#pragma unroll
-          for (int g = 0; g < G; ++g) dot[g] = fmaf(qr[g][e], kv, dot[g]);
-        }
-#pragma unroll
-        for (int g = 0; g < G; ++g)
-#pragma unroll
-          for (int o = LPR / 2; o > 0; o >>= 1)
-            dot[g] += __shfl_xor_sync(0xffffffffu, dot[g], o);
-        if (li == 0) {
-          const bool valid = t >= start && t < length;
-#pragma unroll
-          for (int g = 0; g < G; ++g)
-            s_s[g][r] = valid ? dot[g] * ksc[j] * hd_scale : -INFINITY;
-        }
+      if (QUANT) {
+        const int j = lane & 15;
+        const bool ok = t0 + j < c1;
+        const size_t off = (size_t)(ok ? t0 + j : c0) * nkv;
+        cp_async4(st + (lane < 16 ? S::kKs : S::kVs) + 4 * j,
+                  (lane < 16 ? ks_b : vs_b) + off, ok);
       }
     }
-    if (QUANT) {
-      for (int col = tid; col < kTile; col += kThreads) {
-        const int t = t0 + col;
-        vs_s[col] = t >= start && t < length ? vs_bn[(size_t)t * nkv] : 0.f;
+    cp_async_commit();
+  };
+  __syncthreads();  // q_s
+  issue(0);
+  issue(1);
+
+  float m[G], l[G], acc[G][kCols];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    m[g] = -1e30f;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < kCols; ++e) acc[g][e] = 0.f;
+  }
+  const int j = lane & 15, half = lane >> 4;
+  for (int i = 0; i < nt; ++i) {
+    cp_async_wait<1>();
+    __syncwarp();
+    const unsigned char* st =
+        smem + warp * SM::kWarpBytes + (i % kStages) * S::kBytes;
+    const bool valid = c0 + (warp + kWarps * i) * kTileP + j < c1;
+
+    // ---- scores: q . k over the two lanes of the position, x K scale,
+    // x HD**-0.5
+    float dot[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) dot[g] = 0.f;
+    const P* krow =
+        reinterpret_cast<const P*>(st + S::kK + j * S::kKStride) + half * kHalf;
+    const float* qh = q_s + half * kHalf;
+#pragma unroll
+    for (int d = 0; d < kHalf; d += 8) {
+      float kv[8];
+      load_elems<P, 8>(krow + d, kv);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float4 qa = *reinterpret_cast<const float4*>(qh + g * HD + d);
+        const float4 qb =
+            *reinterpret_cast<const float4*>(qh + g * HD + d + 4);
+        dot[g] = fmaf(qa.x, kv[0], dot[g]);
+        dot[g] = fmaf(qa.y, kv[1], dot[g]);
+        dot[g] = fmaf(qa.z, kv[2], dot[g]);
+        dot[g] = fmaf(qa.w, kv[3], dot[g]);
+        dot[g] = fmaf(qb.x, kv[4], dot[g]);
+        dot[g] = fmaf(qb.y, kv[5], dot[g]);
+        dot[g] = fmaf(qb.z, kv[6], dot[g]);
+        dot[g] = fmaf(qb.w, kv[7], dot[g]);
       }
     }
-    __syncthreads();
+    const float ksc =
+        QUANT ? reinterpret_cast<const float*>(st + S::kKs)[j] : 1.f;
+    const float vsc =
+        QUANT ? reinterpret_cast<const float*>(st + S::kVs)[j] : 1.f;
 
-    // ---- 2. online softmax, one warp per query head
-    for (int g = warp; g < G; g += kWarps) {
-      float mx = -1e30f;
-      for (int col = lane; col < kTile; col += 32)
-        mx = fmaxf(mx, s_s[g][col]);
-      mx = warp_max(mx);
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int col = lane; col < kTile; col += 32) {
-        const float p = expf(s_s[g][col] - m_new);  // 0 when masked
-        sum += p;
-        p_s[g][col] = round_to<T>(QUANT ? p * vs_s[col] : p);
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        l_s[g] = l_s[g] * alpha + sum;
-        m_s[g] = m_new;
-        alpha_s[g] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // ---- 3. acc = acc * alpha + P . V
+    // ---- online softmax over the tile (lanes j and j + 16 hold the same
+    // position), P (x V scale) rounded to q's dtype
+    float pr[G];
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      const float a = alpha_s[g];
+      const float full = dot[g] + __shfl_xor_sync(0xffffffffu, dot[g], 16);
+      const float s = valid ? full * ksc * hd_scale : -INFINITY;
+      const float m_new = fmaxf(m[g], warp_max(s));
+      const float alpha = expf(m[g] - m_new);
+      const float p = expf(s - m_new);  // 0 when masked
+      l[g] = l[g] * alpha + warp_sum(lane < 16 ? p : 0.f);
+      m[g] = m_new;
+      pr[g] = round_to<T>(QUANT ? p * vsc : p);
 #pragma unroll
-      for (int e = 0; e < kEpl; ++e) acc[g][e] *= a;
+      for (int e = 0; e < kCols; ++e) acc[g][e] *= alpha;
     }
-#pragma unroll
-    for (int r0 = 0; r0 < RPG; r0 += kBatch) {
-      Row8<P> vr[kBatch];
-#pragma unroll
-      for (int j = 0; j < kBatch; ++j) {
-        const int t = t0 + grp + (r0 + j) * NGRP;
-        vr[j].zero();
-        if (t >= start && t < length) vr[j].load(v_bn + (size_t)t * stride);
-      }
-#pragma unroll
-      for (int j = 0; j < kBatch; ++j) {
-        const int r = grp + (r0 + j) * NGRP;
-#pragma unroll
-        for (int e = 0; e < kEpl; ++e) {
-          const float vv = vr[j].get(e);
-#pragma unroll
-          for (int g = 0; g < G; ++g)
-            acc[g][e] = fmaf(p_s[g][r], vv, acc[g][e]);
-        }
-      }
-    }
-    // no barrier here: the next tile writes s_s and vs_s, which this pass
-    // does not read, and p_s and alpha_s only after a barrier every thread
-    // reaches once this pass is done
-  }
 
-  // ---- the row groups' partial accumulators meet; out = acc / l
+    // ---- acc += P . V, this lane's HD / 32 columns
+    const P* vcol = reinterpret_cast<const P*>(st + S::kV) + lane * kCols;
+#pragma unroll
+    for (int jj = 0; jj < kTileP; ++jj) {
+      float vv[kCols];
+      load_elems<P, kCols>(vcol + jj * HD, vv);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float pj = __shfl_sync(0xffffffffu, pr[g], jj);
+#pragma unroll
+        for (int e = 0; e < kCols; ++e) acc[g][e] = fmaf(pj, vv[e], acc[g][e]);
+      }
+    }
+    __syncwarp();  // every lane is done with the stage
+    issue(i + 2);
+  }
+  cp_async_wait<0>();
+
+  // ---- the warps meet in warp order: the chunk's (m, l, acc)
+  __syncthreads();  // every warp is done with its ring
+  float* mw = reinterpret_cast<float*>(smem);
+  float* lw = mw + kWarps * G;
+  float* aw = lw + kWarps * G;
+  if (lane == 0) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      mw[warp * G + g] = m[g];
+      lw[warp * G + g] = l[g];
+    }
+  }
 #pragma unroll
   for (int g = 0; g < G; ++g)
 #pragma unroll
-    for (int e = 0; e < kEpl; ++e) red[grp][g][d0 + e] = acc[g][e];
+    for (int e = 0; e < kCols; ++e)
+      aw[(warp * G + g) * HD + lane * kCols + e] = acc[g][e];
   __syncthreads();
+  const size_t ml_of_row = bn * max_chunks * G * 2;
+  const size_t acc_base = (size_t)gridDim.z * nkv * max_chunks * G * 2;
+  const size_t acc_of_row = acc_base + bn * max_chunks * G * HD;
   for (int i = tid; i < G * HD; i += kThreads) {
     const int g = i / HD, d = i % HD;
-    float s = 0.f;
+    float mx = mw[g];
 #pragma unroll
-    for (int r = 0; r < NGRP; ++r) s += red[r][g][d];
-    out[bn * G * HD + i] = from_f32<T>(s / fmaxf(l_s[g], 1e-30f));
+    for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, mw[w * G + g]);
+    float ls = 0.f, as = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float f = expf(mw[w * G + g] - mx);
+      ls += lw[w * G + g] * f;
+      as += aw[(w * G + g) * HD + d] * f;
+    }
+    if (n_chunks == 1) {
+      o[i] = from_f32<T>(as / fmaxf(ls, 1e-30f));
+    } else {
+      part[acc_of_row + (size_t)c * G * HD + i] = as;
+      if (d == 0) {
+        part[ml_of_row + ((size_t)c * G + g) * 2] = mx;
+        part[ml_of_row + ((size_t)c * G + g) * 2 + 1] = ls;
+      }
+    }
+  }
+  if (n_chunks == 1) return;
+
+  // ---- the row's last chunk to arrive merges them all, in chunk order
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    int* cnt = counters + bn;
+    const bool last = atomicAdd(cnt, 1) == n_chunks - 1;
+    if (last) *cnt = 0;
+    last_s = last;
+  }
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+  for (int i = tid; i < G * HD; i += kThreads) {
+    const int g = i / HD;
+    const float* pm = part + ml_of_row + 2 * g;
+    const float* pa = part + acc_of_row + i;
+    float mx = __ldcg(pm);
+    for (int cc = 1; cc < n_chunks; ++cc)
+      mx = fmaxf(mx, __ldcg(pm + (size_t)cc * G * 2));
+    float ls = 0.f, as = 0.f;
+    for (int cc = 0; cc < n_chunks; ++cc) {
+      const float f = expf(__ldcg(pm + (size_t)cc * G * 2) - mx);
+      ls += __ldcg(pm + (size_t)cc * G * 2 + 1) * f;
+      as += __ldcg(pa + (size_t)cc * G * HD) * f;
+    }
+    o[i] = from_f32<T>(as / fmaxf(ls, 1e-30f));
   }
 }
 
 // Host side: pick the instance for (q dtype, pool kind, head_dim, group).
-template <typename T, typename P>
-struct Launch {
-  template <int HD, int G>
-  static int run(const void* q, void* out, const void* kp, const void* ks,
-                 const void* vp, const void* vs, const void* lengths,
-                 const void* starts, int B, int nkv, int T_len,
-                 float hd_scale, cudaStream_t st) {
-    kv_attention_decode<T, P, HD, G><<<dim3(nkv, B), kThreads, 0, st>>>(
-        static_cast<const T*>(q), static_cast<T*>(out),
-        static_cast<const P*>(kp), static_cast<const float*>(ks),
-        static_cast<const P*>(vp), static_cast<const float*>(vs),
-        static_cast<const int32_t*>(lengths),
-        static_cast<const int32_t*>(starts), nkv, T_len, hd_scale);
-    return (int)cudaGetLastError();
-  }
-
-  template <int HD>
-  static int by_group(int g, const void* q, void* out, const void* kp,
-                      const void* ks, const void* vp, const void* vs,
-                      const void* lengths, const void* starts, int B, int nkv,
-                      int T_len, float hd_scale, cudaStream_t st) {
-#define ONEBIT_KVD_G(GV)                                                     \
-  if (g == GV)                                                               \
-    return run<HD, GV>(q, out, kp, ks, vp, vs, lengths, starts, B, nkv,     \
-                       T_len, hd_scale, st);
-    ONEBIT_KVD_G(1)
-    ONEBIT_KVD_G(2)
-    ONEBIT_KVD_G(4)
-    ONEBIT_KVD_G(8)
-#undef ONEBIT_KVD_G
-    return (int)cudaErrorInvalidValue;
-  }
-
-  static int by_head_dim(int hd, int g, const void* q, void* out,
-                         const void* kp, const void* ks, const void* vp,
-                         const void* vs, const void* lengths,
-                         const void* starts, int B, int nkv, int T_len,
-                         float hd_scale, cudaStream_t st) {
-    if (hd == 64)
-      return by_group<64>(g, q, out, kp, ks, vp, vs, lengths, starts, B, nkv,
-                          T_len, hd_scale, st);
-    if (hd == 128)
-      return by_group<128>(g, q, out, kp, ks, vp, vs, lengths, starts, B,
-                           nkv, T_len, hd_scale, st);
-    return (int)cudaErrorInvalidValue;
-  }
+struct Call {
+  const void *q, *kp, *ks, *vp, *vs, *lengths, *starts;
+  void *out, *part, *counters;
+  int B, nkv, T_len;
+  float hd_scale;
+  cudaStream_t stream;
 };
 
+template <typename T, typename P, int HD, int G>
+int run(const Call& a) {
+  auto kernel = kv_attention_decode<T, P, HD, G>;
+  constexpr int smem = Smem<P, HD, G>::kBytes;
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 64 || !done[dev]) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 64) done[dev] = true;
+  }
+  const dim3 grid((a.T_len + kChunk - 1) / kChunk, a.nkv, a.B);
+  kernel<<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<T*>(a.out),
+      static_cast<const P*>(a.kp), static_cast<const float*>(a.ks),
+      static_cast<const P*>(a.vp), static_cast<const float*>(a.vs),
+      static_cast<const int32_t*>(a.lengths),
+      static_cast<const int32_t*>(a.starts), static_cast<float*>(a.part),
+      static_cast<int*>(a.counters), a.nkv, a.T_len, a.hd_scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename P, int HD>
+int by_group(int g, const Call& a) {
+  if (g == 1) return run<T, P, HD, 1>(a);
+  if (g == 2) return run<T, P, HD, 2>(a);
+  if (g == 4) return run<T, P, HD, 4>(a);
+  if (g == 8) return run<T, P, HD, 8>(a);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, typename P>
+int by_head_dim(int hd, int g, const Call& a) {
+  if (hd == 64) return by_group<T, P, 64>(g, a);
+  if (hd == 128) return by_group<T, P, 128>(g, a);
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename T>
-int by_pool(int quant, int hd, int g, const void* q, void* out,
-            const void* kp, const void* ks, const void* vp, const void* vs,
-            const void* lengths, const void* starts, int B, int nkv,
-            int T_len, float hd_scale, cudaStream_t st) {
-  if (quant)
-    return Launch<T, int8_t>::by_head_dim(hd, g, q, out, kp, ks, vp, vs,
-                                          lengths, starts, B, nkv, T_len,
-                                          hd_scale, st);
-  return Launch<T, T>::by_head_dim(hd, g, q, out, kp, ks, vp, vs, lengths,
-                                   starts, B, nkv, T_len, hd_scale, st);
+int by_pool(int quant, int hd, int g, const Call& a) {
+  return quant ? by_head_dim<T, int8_t>(hd, g, a)
+               : by_head_dim<T, T>(hd, g, a);
 }
 
 }  // namespace onebit_kv_decode
@@ -311,19 +447,25 @@ int by_pool(int quant, int hd, int g, const void* q, void* out,
 // q/out [B, nkv * g, hd] (dtype 0 = float32, 1 = bfloat16); the layer's
 // pools k/v [B, T, nkv, hd] in q's dtype (quant = 0) or int8 with scales
 // k_s/v_s [B, T, nkv] f32 (quant = 1; null otherwise); lengths and starts
-// (or null) [B] int32 on the device. Returns cudaGetLastError() after the
-// launch (0 on success).
+// (or null) [B] int32 on the device. `chunk` must be the kernel's chunk of
+// positions (kv_attention_cuda.DECODE_CHUNK); `part` holds part_floats
+// floats, at least B * nkv * ceil(T / chunk) * g * (hd + 2); `counters`
+// B * nkv ints
+// that are zero before the launch and after it. Returns cudaGetLastError()
+// after the launch (0 on success).
 extern "C" int onebit_kv_attention_decode(
     const void* q, void* out, const void* k, const void* k_s, const void* v,
-    const void* v_s, const void* lengths, const void* starts, int B, int nkv,
-    int g, int hd, int T, int dtype, int quant, float hd_scale,
+    const void* v_s, const void* lengths, const void* starts, void* part,
+    void* counters, int B, int nkv, int g, int hd, int T, int dtype,
+    int quant, int chunk, long long part_floats, float hd_scale,
     void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return onebit_kv_decode::by_pool<__nv_bfloat16>(
-        quant, hd, g, q, out, k, k_s, v, v_s, lengths, starts, B, nkv, T,
-        hd_scale, st);
-  return onebit_kv_decode::by_pool<float>(quant, hd, g, q, out, k, k_s, v,
-                                          v_s, lengths, starts, B, nkv, T,
-                                          hd_scale, st);
+  using namespace onebit_kv_decode;
+  const long long need = (long long)B * nkv * ((T + kChunk - 1) / kChunk) *
+                         g * (hd + 2);
+  if (chunk != kChunk || part_floats < need || B < 1 || B > 65535 || T < 1)
+    return (int)cudaErrorInvalidValue;
+  const Call a{q, k, k_s, v, v_s, lengths, starts, out, part, counters,
+               B, nkv, T, hd_scale, static_cast<cudaStream_t>(stream)};
+  if (dtype == 1) return by_pool<__nv_bfloat16>(quant, hd, g, a);
+  return by_pool<float>(quant, hd, g, a);
 }

@@ -7,7 +7,9 @@ Port of ``onebit_tpu/kernels/bitlinear_pallas.py``. Three kernels, sources in
 * K1 :func:`small_m`, for one projection at M <= 128 rows (o_proj, down_proj,
   and q/k/v when they are not fused);
 * K2 :func:`fused_small_m`, for ``ns`` projections sharing x at M <= 128
-  (q/k/v and gate/up after ``fuse_for_decode``);
+  (q/k/v and gate/up after ``fuse_for_decode``); K1 and K2 are one kernel
+  on the tensor cores (mma.sync), its LayerNorm in the same launch, split
+  over k by :func:`small_m_plan`;
 * K3 :func:`large_m`, for M > 128 rows (prefill, and every projection of
   an fp32 eval window), single or fused, on the tensor cores (wgmma on a
   ±1 bf16 tile; the fp32 instance in three bf16 passes,
@@ -15,7 +17,7 @@ Port of ``onebit_tpu/kernels/bitlinear_pallas.py``. Three kernels, sources in
   ``bitlinear_large_m``, fp32 ``bitlinear_large_m_f32``);
 * B4, the raw projection of a tensor-parallel shard
   (``bitlinear_packed_raw_stacked`` / ``bitlinear_packed_raw``): K1 and K3
-  with ``raw=True``, which skip the LayerNorm launch. Their launches are
+  with ``raw=True``, which skip the LayerNorm. Their launches are
   counted as B4's two instances, ``bitlinear_raw_small_m`` (M <= 128, fp32
   out) and ``bitlinear_raw_large_m`` (M > 128, z in x's dtype), never under
   K1 or K3.
@@ -30,6 +32,9 @@ A wrapper given CPU tensors returns its plain version (the reference's
 strategy: unpack to a dense ±1 matrix, then matmul). Given CUDA tensors it
 launches its kernel or raises; there is no fallback. Each wrapper counts its
 launches in ``KernelInfo.launches``.
+
+The small-M kernel keeps ticket counters per device (:func:`counters`),
+which every launch leaves at zero: two streams must not run it at once.
 """
 
 from __future__ import annotations
@@ -47,6 +52,12 @@ from onebit_tpu_torch.kernels import build
 
 SMALL_M_MAX = 128   # rows; above it prefill takes K3 (bitlinear_pallas.py:51)
 _SEG_ALIGN = 64     # fused segments: a multiple of both kernels' column tile
+SMALL_M_ROWS = 8        # rows of x a small-M CTA owns: the MMA's N
+SMALL_M_WORDS = 64      # word rows (of 32 k) a small-M CTA stages, at most
+SMALL_M_MAX_WORDS = 128  # ... unless K needs more (up to K = 32768)
+SMALL_M_MAX_SPLITS = 8  # splits of K: one portable thread-block cluster
+SMALL_M_CTAS_PER_SM = 1.5  # the grid the small-M plan aims at
+SMALL_M_NORMALIZERS = 8  # CTAs that normalise a (row block, segment)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -135,12 +146,93 @@ def split_bf16x3(y: torch.Tensor):
 
 
 def large_m_block_n(n: int, ns: int) -> int:
-    """K3's column tile for ``ns`` segments over ``n`` columns: 128, or 64
-    where fused segments are not a multiple of 128, since a tile must not
-    straddle a segment (its A operand depends on the segment's g). The
-    kernel's launch applies the same rule (``block_n`` in
-    ``csrc/bitlinear_large_m.cu``)."""
+    """K3's column tile for ``ns`` segments over ``n`` columns, and the
+    small-M kernel's (:func:`small_m_plan`): 128, or 64 where fused
+    segments are not a multiple of 128, since a tile must not straddle a
+    segment (its A operand depends on the segment's g). K3's launch applies
+    the same rule (``block_n`` in ``csrc/bitlinear_large_m.cu``)."""
     return 128 if ns == 1 or (n // ns) % 128 == 0 else 64
+
+
+@functools.lru_cache(maxsize=256)
+def small_m_plan(m: int, k: int, n: int, ns: int,
+                 sm_count: int = 132) -> tuple:
+    """``(block_n, splits, kw, normalizers)`` of the small-M kernel's
+    launch. Column tiles of ``block_n`` (:func:`large_m_block_n`'s rule);
+    the K/32 word rows cut into
+    ``splits`` of ``kw`` (the last one shorter), so that tiles x splits x
+    row blocks of 8 come to about ``SMALL_M_CTAS_PER_SM`` CTAs an SM (every
+    weight byte in flight in one wave), with at least 4 and at most
+    ``SMALL_M_WORDS`` word rows a split where K allows, and at most
+    ``SMALL_M_MAX_SPLITS`` splits, the CTAs of one cluster (the choices
+    measured best by ``scripts/torch_small_m_probe.py`` over the llama2-7b
+    decode shapes, within its spread). The last
+    ``normalizers`` column tiles of a (row block, segment) to finish
+    normalise it, a slice each; they wait for the segment's other tiles,
+    so all of them together stay under a quarter of the SMs. The wrapper
+    passes the plan to the kernel, which checks it."""
+    row_blocks = -(-m // SMALL_M_ROWS)
+    block_n = large_m_block_n(n, ns)
+    tiles = -(-n // block_n) * row_blocks
+    nw = k // WORD_BITS
+    splits = min(round(SMALL_M_CTAS_PER_SM * sm_count / tiles), -(-nw // 4),
+                 SMALL_M_MAX_SPLITS)
+    splits = min(max(splits, -(-nw // SMALL_M_WORDS), 1), SMALL_M_MAX_SPLITS)
+    kw = -(-nw // splits)
+    if kw > SMALL_M_MAX_WORDS:
+        raise ValueError(f"K = {k} is past the small-M kernel's "
+                         f"{SMALL_M_MAX_SPLITS * SMALL_M_MAX_WORDS * 32}")
+    seg_tiles = -(-(n // ns) // block_n)
+    normalizers = min(seg_tiles, SMALL_M_NORMALIZERS,
+                      max(1, sm_count // (4 * row_blocks * ns)))
+    return block_n, -(-nw // kw), kw, normalizers
+
+
+def small_m_emulation(x2, packed, g, h, bias=None, *, n_true: int,
+                      raw: bool = False, sm_count: int = 132,
+                      eps: float = LN_EPS) -> torch.Tensor:
+    """The small-M kernel's arithmetic on the CPU, step by step: y = x ⊙ g
+    rounded to x's dtype (fp32 y as its three bf16 parts), each split's
+    fp32 partial over its ``kw`` word rows, the partials summed in split
+    order, ``z ⊙ h``; then per (row, segment) the tiles' sums and squared
+    deviations about their own means, combined in tile order into the
+    mean and variance (biased, over ``n_true``), + bias, cast. Returns what
+    :func:`fused_small_m` returns (``[ns, M, n_true]``; raw: fp32 ``[M,
+    N]``). A plain mirror for the CPU tests; no path calls it."""
+    m, k = x2.shape
+    ns, n = g.shape[0], packed.shape[-1]
+    seg_pad = n // ns
+    block_n, splits, kw, _ = small_m_plan(m, k, n, ns, sm_count)
+    sign = unpack_signs_kmajor(packed, dtype=torch.float32)     # [N, K]
+    z = torch.zeros((m, n), dtype=torch.float32)
+    for j in range(ns):
+        cols = slice(j * seg_pad, (j + 1) * seg_pad)
+        y = (x2 * g[j]).float()
+        parts = split_bf16x3(y) if x2.dtype == torch.float32 else (y,)
+        for s in range(splits):
+            ks = slice(s * kw * WORD_BITS, min((s + 1) * kw, k // WORD_BITS)
+                       * WORD_BITS)
+            z[:, cols] += sum(p[:, ks].float() @ sign[cols, ks].T
+                              for p in parts)
+    z = z * h
+    if raw:
+        return z
+    outs = []
+    for j in range(ns):
+        a = z[:, j * seg_pad:j * seg_pad + n_true]
+        tiles = a.split(block_n, dim=-1)
+        sums = torch.stack([t.sum(-1) for t in tiles], -1)
+        cnt = torch.tensor([t.shape[-1] for t in tiles], dtype=torch.float32)
+        m2 = torch.stack([(t - t.mean(-1, keepdim=True)).square().sum(-1)
+                          for t in tiles], -1)
+        mean = sums.sum(-1, keepdim=True) / n_true
+        var = (m2 + cnt * (sums / cnt - mean).square()).sum(
+            -1, keepdim=True) / n_true
+        r = (a - mean) * torch.rsqrt(var + eps)
+        if bias is not None:
+            r = r + bias[:n_true]
+        outs.append(r.to(x2.dtype))
+    return torch.stack(outs)
 
 
 def small_m_torch(x2, packed, g, h, bias=None, *, raw: bool = False,
@@ -231,11 +323,30 @@ def _raise_on(err: int, kernel: KernelInfo) -> None:
 def _small_m_lib() -> ctypes.CDLL:
     lib = build.load(SMALL_M.library)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.onebit_bitlinear_small_m.argtypes = [p] * 7 + [i] * 5 + [f, p]
+    lib.onebit_bitlinear_small_m.argtypes = [p] * 9 + [i] * 13 + [f, p]
     lib.onebit_bitlinear_small_m.restype = i
-    lib.onebit_bitlinear_fused_small_m.argtypes = [p] * 6 + [i] * 7 + [f, p]
-    lib.onebit_bitlinear_fused_small_m.restype = i
     return lib
+
+
+_COUNTERS: dict = {}
+
+
+def counters(device: torch.device, n: int) -> torch.Tensor:
+    """``n`` int32 ticket counters on ``device``, zero between launches
+    (every launch that uses them leaves them at zero). One buffer a device,
+    grown when a launch needs more; the kernels that take it run on one
+    stream at a time."""
+    key = (device.type, device.index)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.cache
@@ -259,6 +370,38 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _launch_small_m(info: KernelInfo, x2, packed, g, h, bias, *, ns: int,
+                    n_true: int, raw: bool, eps: float) -> torch.Tensor:
+    """One launch of the small-M kernel on checked CUDA tensors: fp32 ``z ⊙
+    h [M, N]`` (raw) or ``[ns, M, n_true]`` in x's dtype."""
+    m, k = x2.shape
+    n = packed.shape[-1]
+    if m > SMALL_M_MAX:
+        raise ValueError(f"{info.name} takes at most {SMALL_M_MAX} rows")
+    dev = x2.device
+    block_n, splits, kw, normalizers = small_m_plan(m, k, n, ns,
+                                                    _sm_count(dev.index))
+    x2, g = _aligned16(x2), _aligned16(g)
+    if bias is not None:
+        bias = _aligned16(bias)
+    tiles = -(-n // block_n)
+    row_blocks = -(-m // SMALL_M_ROWS)
+    z = torch.empty((m, n), dtype=torch.float32, device=dev)
+    stats = torch.empty(2 * m * tiles, dtype=torch.float32, device=dev)
+    out = z if raw else torch.empty((ns, m, n_true), dtype=x2.dtype,
+                                    device=dev)
+    vec = int(n % 4 == 0 and packed.data_ptr() % 16 == 0)
+    err = _small_m_lib().onebit_bitlinear_small_m(
+        x2.data_ptr(), g.data_ptr(), packed.data_ptr(), h.data_ptr(),
+        _ptr(bias), z.data_ptr(), stats.data_ptr(), out.data_ptr(),
+        counters(dev, 2 * row_blocks * ns).data_ptr(), m, k, n, ns, n // ns,
+        n_true, _DTYPE_CODES[x2.dtype], int(raw), block_n, splits, kw,
+        normalizers, vec, eps, _stream(x2))
+    _raise_on(err, info)
+    info.launches += 1
+    return out
+
+
 def small_m(x2, packed, g, h, bias=None, *, raw: bool = False,
             eps: float = LN_EPS) -> torch.Tensor:
     """K1: ``x2 [M<=128, K]``, ``packed [K/32, N]``, ``g [K]`` (x.dtype),
@@ -267,20 +410,10 @@ def small_m(x2, packed, g, h, bias=None, *, raw: bool = False,
     if x2.device.type == "cpu":
         return small_m_torch(x2, packed, g, h, bias, raw=raw, eps=eps)
     _check(x2, packed, g[None], h, bias, 1, packed.shape[-1])
-    m, k = x2.shape
     n = packed.shape[-1]
-    if m > SMALL_M_MAX:
-        raise ValueError(f"{SMALL_M.name} takes at most {SMALL_M_MAX} rows")
-    z = torch.empty((m, n), dtype=torch.float32, device=x2.device)
-    out = z if raw else torch.empty((m, n), dtype=x2.dtype, device=x2.device)
-    err = _small_m_lib().onebit_bitlinear_small_m(
-        x2.data_ptr(), g.data_ptr(), packed.data_ptr(), h.data_ptr(),
-        _ptr(bias), z.data_ptr(), out.data_ptr(), m, k, n,
-        _DTYPE_CODES[x2.dtype], int(raw), eps, _stream(x2))
-    info = RAW_SMALL_M if raw else SMALL_M
-    _raise_on(err, info)
-    info.launches += 1
-    return out
+    out = _launch_small_m(RAW_SMALL_M if raw else SMALL_M, x2, packed,
+                          g[None], h, bias, ns=1, n_true=n, raw=raw, eps=eps)
+    return out if raw else out[0]
 
 
 def fused_small_m(x2, packed, g, h, *, n_true: int,
@@ -291,20 +424,8 @@ def fused_small_m(x2, packed, g, h, *, n_true: int,
         return fused_small_m_torch(x2, packed, g, h, n_true=n_true, eps=eps)
     ns = g.shape[0]
     _check(x2, packed, g, h, None, ns, n_true)
-    m, k = x2.shape
-    n = packed.shape[-1]
-    if m > SMALL_M_MAX:
-        raise ValueError(f"{FUSED_SMALL_M.name} takes at most "
-                         f"{SMALL_M_MAX} rows")
-    z = torch.empty((m, n), dtype=torch.float32, device=x2.device)
-    out = torch.empty((ns, m, n_true), dtype=x2.dtype, device=x2.device)
-    err = _small_m_lib().onebit_bitlinear_fused_small_m(
-        x2.data_ptr(), g.data_ptr(), packed.data_ptr(), h.data_ptr(),
-        z.data_ptr(), out.data_ptr(), m, k, n, ns, n // ns, n_true,
-        _DTYPE_CODES[x2.dtype], eps, _stream(x2))
-    _raise_on(err, FUSED_SMALL_M)
-    FUSED_SMALL_M.launches += 1
-    return out
+    return _launch_small_m(FUSED_SMALL_M, x2, packed, g, h, None, ns=ns,
+                           n_true=n_true, raw=False, eps=eps)
 
 
 def large_m(x2, packed, g, h, *, n_true: int, bias=None, raw: bool = False,

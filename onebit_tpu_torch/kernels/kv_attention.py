@@ -157,6 +157,73 @@ def kv_attention_decode_torch(q, k_q, k_s, v_q, v_s, lengths, layer, *,
                       num_kv_groups=nh // nkv)[:, 0]
 
 
+def kv_attention_decode_chunked(q, k_q, k_s, v_q, v_s, lengths, layer, *,
+                                starts=None, chunk: int = kc.DECODE_CHUNK,
+                                warps: int = 4, tile: int = 16):
+    """B9's arithmetic on the CPU, step by step (``csrc/kv_attention_decode.cu``):
+    row b's positions ``[start, length)`` cut into chunks of ``chunk`` from
+    its start; in a chunk, warp w takes tiles ``w, w + warps, ...`` of
+    ``tile`` positions and runs an online softmax over them (fp32 scores x
+    the K scale x hd**-0.5, P = exp(s - m) at the running max, x the V
+    scale, rounded to q's dtype, the PV sum in fp32, l the sum of the
+    unrounded P); the warps' (m, l, acc) merge in warp order, the chunks'
+    in chunk order; out = acc / max(l, 1e-30) in q's dtype, zeros for a row
+    with nothing to attend. A plain mirror for the CPU tests; no path calls
+    it."""
+    b, nh, hd = q.shape
+    t_len, nkv = k_q.shape[2], k_q.shape[3]
+    g = nh // nkv
+    qf = q.float().reshape(b, nkv, g, hd)
+    out = torch.zeros((b, nkv, g, hd), dtype=torch.float32)
+    length = _rows(lengths, b, "cpu").clamp(max=t_len)
+    start = (_rows(starts, b, "cpu").clamp(min=0) if starts is not None
+             else torch.zeros(b, dtype=torch.int32))
+
+    def merge(parts):
+        m = torch.stack([p[0] for p in parts])          # [n, nkv, g]
+        top = m.amax(0)
+        f = torch.exp(m - top)
+        l_sum = sum(p[1] * f[i] for i, p in enumerate(parts))
+        acc = sum(p[2] * f[i][..., None] for i, p in enumerate(parts))
+        return top, l_sum, acc
+
+    for row in range(b):
+        lo, hi = int(start[row]), int(length[row])
+        if hi <= lo:
+            continue
+        chunks = []
+        for c0 in range(lo, hi, chunk):
+            c1 = min(c0 + chunk, hi)
+            per_warp = []
+            for w in range(warps):
+                m = torch.full((nkv, g), -1e30)
+                l_sum = torch.zeros((nkv, g))
+                acc = torch.zeros((nkv, g, hd))
+                for t0 in range(c0 + w * tile, c1, warps * tile):
+                    pos = torch.arange(t0, min(t0 + tile, c1))
+                    k = k_q[layer, row, pos].float()          # [p, nkv, hd]
+                    v = v_q[layer, row, pos].float()
+                    s = torch.einsum("ngd,pnd->ngp", qf[row], k)
+                    if k_s is not None:
+                        s = s * k_s[layer, row, pos].T[:, None, :]
+                    s = s * hd ** -0.5
+                    m_new = torch.maximum(m, s.amax(-1))
+                    alpha = torch.exp(m - m_new)
+                    p = torch.exp(s - m_new[..., None])
+                    l_sum = l_sum * alpha + p.sum(-1)
+                    if v_s is not None:
+                        p = p * v_s[layer, row, pos].T[:, None, :]
+                    pr = p.to(q.dtype).float()
+                    acc = acc * alpha[..., None] + torch.einsum(
+                        "ngp,pnd->ngd", pr, v)
+                    m = m_new
+                per_warp.append((m, l_sum, acc))
+            chunks.append(merge(per_warp))
+        _, l_sum, acc = merge(chunks)
+        out[row] = acc / l_sum.clamp(min=1e-30)[..., None]
+    return out.reshape(b, nh, hd).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Wrappers: the plain version for CPU tensors, the kernel for CUDA tensors
 # ---------------------------------------------------------------------------

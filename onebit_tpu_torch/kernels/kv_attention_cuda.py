@@ -8,6 +8,11 @@ bf16 pools, f32 pools). :func:`launch` and :func:`launch_flat` check their
 tensors, launch one kernel on PyTorch's current stream and count the launch
 in the kernel's ``KernelInfo``. The public wrappers and the plain PyTorch
 versions live in ``kernels/kv_attention.py``.
+
+B9 splits each row into chunks of ``DECODE_CHUNK`` positions from its start
+(``kv_attention.kv_attention_decode_chunked`` mirrors its arithmetic) and
+merges them in the same launch through ticket counters kept per device
+(``bitlinear_cuda.counters``): two streams must not run it at once.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import torch
 
 from onebit_tpu_torch.kernels import build
 from onebit_tpu_torch.kernels.bitlinear_cuda import (KernelInfo, _raise_on,
-                                                     _stream)
+                                                     _stream, counters)
 
 _SRC = "onebit_tpu_torch/csrc/"
 _JAX = "onebit_tpu/kernels/kv_attention.py:"
@@ -48,6 +53,7 @@ FLAT_KERNELS = {torch.int8: DECODE_INT8, torch.bfloat16: DECODE_BF16,
 KERNELS = (APPEND_KT, DECODE_KT, APPEND_KT4, DECODE_KT4, DECODE_INT8,
            DECODE_BF16, DECODE_F32)
 
+DECODE_CHUNK = 256   # positions a B9 CTA attends (the kernel's kChunk)
 HEAD_DIMS = (64, 128)
 GROUPS = (1, 2, 4, 8)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -65,8 +71,10 @@ def reset_launch_counts() -> None:
 def _fn(library: str):
     fn = getattr(build.load(library), _SYMBOLS[library])
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    n_ptr, n_int = (8, 7) if library == _FLAT else (13, 7)
-    fn.argtypes = [p] * n_ptr + [i] * n_int + [f, p]
+    if library == _FLAT:
+        fn.argtypes = [p] * 10 + [i] * 8 + [ctypes.c_longlong, f, p]
+    else:
+        fn.argtypes = [p] * 13 + [i] * 7 + [f, p]
     fn.restype = i
     return fn
 
@@ -198,11 +206,15 @@ def launch_flat(q, k_pool, k_scale, v_pool, v_scale, lengths, layer: int, *,
     k_ptr, ks_ptr, v_ptr, vs_ptr = ptrs if quant else (ptrs[0], None,
                                                        ptrs[1], None)
     out = torch.empty_like(q)
+    # each chunk's (m, l) and accumulator, for rows of more than one chunk
+    part_floats = b * nkv * -(-t // DECODE_CHUNK) * nh * (hd + 2) // nkv
+    part = torch.empty(part_floats, dtype=torch.float32, device=q.device)
     err = _fn(_FLAT)(
         q.data_ptr(), out.data_ptr(), k_ptr, ks_ptr, v_ptr, vs_ptr,
         lengths.data_ptr(), None if starts is None else starts.data_ptr(),
-        b, nkv, nh // nkv, hd, t, _DTYPE_CODES[q.dtype], int(quant),
-        hd ** -0.5, _stream(q))
+        part.data_ptr(), counters(q.device, b * nkv).data_ptr(), b, nkv,
+        nh // nkv, hd, t, _DTYPE_CODES[q.dtype], int(quant), DECODE_CHUNK,
+        part_floats, hd ** -0.5, _stream(q))
     _raise_on(err, info)
     info.launches += 1
     return out

@@ -1,17 +1,21 @@
 """Time the kernels of two checkouts of the port on one card, in turns.
 
-    python scripts/torch_kernel_ab.py OTHER [--phases kernel_checks,flash_kernel_checks] [--rounds 2]
+    python scripts/torch_kernel_ab.py OTHER [--phases kernel_checks,flat_kernel_checks] [--rounds 2]
 
 OTHER is another checkout of the repository (for example the parent
 commit unpacked with ``git archive`` into a directory that ``.gitignore``
 lists). Each run builds that checkout's CUDA sources into its own
-``build/kernels`` and calls the named phase functions of its
-``chip_smoke.py`` (``kernel_checks``: K1-K3 and B4; ``flash_kernel_checks``:
-B11; ``flash_bwd_kernel_checks``: B11-dkv/dq), in a process of its own, in
-the order OTHER, this, this, OTHER for two rounds. Every JSON line a phase
-prints comes out with the checkout (``"other"`` or ``"this"``) and the run's
-index added; a phase that raises (a kernel outside its tolerance) prints
-its error and the run goes on. Needs a CUDA device.
+``build/kernels`` and calls the named phase functions of this checkout's
+``chip_smoke.py`` (``kernel_checks``: K1-K3 and B4, the small-M kernels
+timed cold over copies of their words; ``flat_kernel_checks``: B9 on the
+flat pools, cycling over the 32 layers; ``kv_kernel_checks``: B5-B8;
+``paged_kernel_checks``: B10; ``flash_kernel_checks``: B11;
+``flash_bwd_kernel_checks``: B11-dkv/dq), so that both checkouts' kernels
+are driven and timed the same way, in a process of its own, in the order
+OTHER, this, this, OTHER for two rounds. Every JSON line a phase prints
+comes out with the checkout (``"other"`` or ``"this"``) and the run's index
+added; a phase that raises (a kernel outside its tolerance) prints its
+error and the run goes on. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -25,10 +29,12 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 CHILD = """
-import json, sys, traceback
+import importlib.util, json, sys, traceback
 import torch
 sys.path.insert(0, ".")
-import chip_smoke as cs
+spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[2])
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
 from onebit_tpu_torch.kernels import build
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -43,7 +49,8 @@ for phase in sys.argv[1].split(","):
 
 
 def run(checkout: str, label: str, index: int, phases: str) -> None:
-    proc = subprocess.run([sys.executable, "-c", CHILD, phases],
+    proc = subprocess.run([sys.executable, "-c", CHILD, phases,
+                           os.path.join(ROOT, "chip_smoke.py")],
                           cwd=checkout, capture_output=True, text=True)
     for line in proc.stdout.splitlines():
         try:
@@ -62,7 +69,7 @@ def run(checkout: str, label: str, index: int, phases: str) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("other")
-    ap.add_argument("--phases", default="kernel_checks,flash_kernel_checks")
+    ap.add_argument("--phases", default="kernel_checks,flat_kernel_checks")
     ap.add_argument("--rounds", type=int, default=2)
     args = ap.parse_args()
     order = [(os.path.abspath(args.other), "other"), (ROOT, "this")]

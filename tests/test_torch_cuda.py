@@ -73,8 +73,15 @@ DTYPES = [torch.float32, torch.bfloat16]
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("m,k,n", [(1, 256, 128), (8, 4096, 4096),
-                                   (37, 1024, 200), (128, 11008, 512)])
+                                   (37, 1024, 200), (128, 11008, 512),
+                                   (9, 800, 200), (16, 5504, 4096),
+                                   (17, 11008, 256), (1, 5504, 200),
+                                   (128, 800, 4096)])
 def test_small_m_matches_plain(dev, dtype, m, k, n):
+    """The edges of the small-M kernel's tiles: M 1, 8, 9, 16, 17, 37 and
+    128 (row blocks of 8), ragged N (200), K of an odd number of words
+    (800 = 25) and splits that end short (5504, 11008); with bias and
+    raw."""
     x, g, h, packed, bias = _case(dev, dtype, m, k, n)
     before = bc.SMALL_M.launches
     _close(bc.small_m(x, packed, g[0], h), bc.small_m_torch(x, packed, g[0], h),
@@ -92,14 +99,38 @@ def test_small_m_matches_plain(dev, dtype, m, k, n):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("m,k,n_true,ns,seg_pad", [
     (8, 4096, 4096, 3, 4096), (8, 4096, 11008, 2, 11008),
-    (5, 512, 300, 3, 320), (128, 256, 384, 2, 448)])
+    (5, 512, 300, 3, 320), (128, 256, 384, 2, 448),
+    (9, 800, 300, 3, 320), (17, 5504, 400, 2, 448),
+    (16, 11008, 4000, 3, 4096), (1, 4096, 11008, 2, 11008)])
 def test_fused_small_m_matches_plain(dev, dtype, m, k, n_true, ns, seg_pad):
+    """Segments of 320 and 448 (the 64-column tile), true widths short of
+    the pad (h = 0 there), M 1-128."""
     x, g, h, packed, _ = _case(dev, dtype, m, k, n_true, ns, seg_pad)
     before = bc.FUSED_SMALL_M.launches
     got = bc.fused_small_m(x, packed, g, h, n_true=n_true)
     assert bc.FUSED_SMALL_M.launches == before + 1
     assert got.shape == (ns, m, n_true)
     _close(got, bc.fused_small_m_torch(x, packed, g, h, n_true=n_true), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,k,n_true,ns,seg_pad", [
+    (8, 4096, 4096, 1, 4096), (8, 11008, 4096, 1, 4096),
+    (8, 4096, 4000, 3, 4096), (17, 800, 300, 3, 320)])
+def test_small_m_is_deterministic(dev, dtype, m, k, n_true, ns, seg_pad):
+    """Two launches on the same inputs give the same bits: the split
+    partials and the LayerNorm's tile statistics meet in a fixed order."""
+    x, g, h, packed, bias = _case(dev, dtype, m, k, n_true, ns, seg_pad)
+    if ns == 1:
+        for kw in (dict(bias=bias), dict(raw=True)):
+            a = bc.small_m(x, packed, g[0], h, **kw)
+            b = bc.small_m(x, packed, g[0], h, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(a, b)
+    a = bc.fused_small_m(x, packed, g, h, n_true=n_true)
+    b = bc.fused_small_m(x, packed, g, h, n_true=n_true)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -586,6 +617,71 @@ def test_kv_decode_pool_past_2_31_elements(dev):
     (4.8 GB each): layer 31's rows lie past 2**31 elements, and past 2**32
     bytes, and read what the plain version reads."""
     _flat_check(dev, torch.bfloat16, "bf16", (32, 9, 2048, 32, 1, 128), 31)
+
+
+def _shifted_case(dev, pool, q_dtype, shift, span, seed=3):
+    """Row 0 attends [0, span); row 1 holds the same K/V at [shift, shift +
+    span) and attends exactly those: a left-padded row and its unpadded
+    twin."""
+    t = 1024
+    q, pools, _, _ = _flat_case(dev, q_dtype, pool, (1, 2, t, 2, 2, 64),
+                                seed)
+    q = q[:1].expand(2, -1, -1).contiguous()
+    for x in pools:
+        if x is not None:
+            x[0, 1, shift:shift + span] = x[0, 0, :span]
+    lengths = torch.tensor([span, shift + span], dtype=torch.int32,
+                           device=dev)
+    starts = torch.tensor([0, shift], dtype=torch.int32, device=dev)
+    return q, pools, lengths, starts
+
+
+@pytest.mark.parametrize("kind", sorted(FLAT_KINDS))
+@pytest.mark.parametrize("shift,span", [(1, 1), (100, 255), (300, 256),
+                                        (5, 257), (123, 700)])
+def test_kv_decode_left_pad_gives_the_same_bits(dev, kind, shift, span):
+    """A row that starts at ``shift`` gives bit for bit the output of the
+    same K/V and q at start 0: chunks and tiles count from the start."""
+    q_dtype, pool = FLAT_KINDS[kind]
+    q, pools, lengths, starts = _shifted_case(dev, pool, q_dtype, shift,
+                                              span)
+    got = ka.kv_attention_decode(q, *pools, lengths, 0, starts=starts)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], got[1])
+
+
+@pytest.mark.parametrize("kind", sorted(FLAT_KINDS))
+def test_kv_decode_is_deterministic(dev, kind):
+    """Two launches on the same inputs give the same bits: the chunks merge
+    in chunk order."""
+    q_dtype, pool = FLAT_KINDS[kind]
+    q, pools, lengths, starts = _flat_case(dev, q_dtype, pool,
+                                           (2, 8, 2048, 2, 4, 128))
+    a = ka.kv_attention_decode(q, *pools, lengths, 1, starts=starts)
+    b = ka.kv_attention_decode(q, *pools, lengths, 1, starts=starts)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", sorted(FLAT_KINDS))
+@pytest.mark.parametrize("g", [1, 8])
+def test_kv_decode_chunk_edges(dev, kind, g):
+    """Rows of C - 1, C and C + 1 positions (C the chunk), of many chunks,
+    and starts inside a chunk, against the plain version."""
+    q_dtype, pool = FLAT_KINDS[kind]
+    c = kc.DECODE_CHUNK
+    q, pools, _, _ = _flat_case(dev, q_dtype, pool, (1, 8, 6 * c, 1, g, 64))
+    rows = [(c - 1, 0), (c, 0), (c + 1, 0), (6 * c, 0), (6 * c - 7, 17),
+            (2 * c + 101, 100), (c + 3, c + 2), (5 * c + 1, c - 1)]
+    as_dev = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa
+    lengths, starts = as_dev([r[0] for r in rows]), as_dev([r[1] for r in rows])
+    want = ka.kv_attention_decode_torch(q, *pools, lengths, 0, starts=starts)
+    got = ka.kv_attention_decode(q, *pools, lengths, 0, starts=starts)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= FLAT_TOL[q_dtype], err
+    assert want.float().abs().amax(dim=(1, 2)).min() >= 8 * FLAT_TOL[
+        torch.bfloat16]
 
 
 def test_kv_decode_wrapper_checks_inputs(dev):
