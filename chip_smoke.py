@@ -26,9 +26,11 @@ toolkit and PyTorch. It imports nothing of JAX. Phases, one JSON line each:
    version, timed beside its bound, its plain version and one
    ``scaled_dot_product_attention`` on K/V dequantized beforehand; then B10
    (paged attention) on a full-size llama2-7b page pool, bf16 and int8
-   pages, the same way; then B11 (causal flash attention) at the llama2-7b
-   eval shape [4, 2048, 32, 128] and a GQA case (nkv 8) in fp32 and bf16,
-   beside ``scaled_dot_product_attention(is_causal=True)``; then its
+   pages, the same way, and the same bits from a second call; then B11
+   (causal flash attention) at the llama2-7b eval shape [4, 2048, 32, 128]
+   and a GQA case (nkv 8) in fp32 and bf16, beside
+   ``scaled_dot_product_attention(is_causal=True)``; B10 and B11 fp32 with
+   ``ptxas`` registers and spills and shared bytes a CTA; then its
    backward kernels B11-dkv and B11-dq at the same shapes, the gradients
    through B11's autograd rule against autograd through the plain version,
    beside the backward of ``scaled_dot_product_attention``, each kernel
@@ -39,8 +41,8 @@ toolkit and PyTorch. It imports nothing of JAX. Phases, one JSON line each:
    and fp32, rows of 1-2048 positions with starts and one empty row, beside
    ``scaled_dot_product_attention`` with a boolean mask; last, each
    kernel's share of its bound (bound_ms / ms; K3's fp32 instance bounded
-   by three bf16 tensor-core passes, the arithmetic it runs), none of which
-   may pass 1;
+   by three bf16 tensor-core passes and B11's by twelve bf16 products, the
+   arithmetic they run), none of which may pass 1;
 4. the slice's paths end to end at full llama2-7b width and depth on random
    packed weights (``host_random_packed_params(seed=0)`` and
    ``fuse_for_decode``), each an 8-slot ``ContinuousBatchingEngine``
@@ -624,8 +626,10 @@ def paged_kernel_checks(dev) -> dict:
     permutation of pages 1-1024, rows of KV_LENGTHS: the pool untouched,
     the context within PAGED_TOL of the plain version on the live
     rows (each with a largest |ctx| of at least 8 times it), zeros on the
-    length-0 row. Timed cycling over the 32 layers, so that each launch
-    finds its layer's pages out of the L2 cache, as the decode step does."""
+    length-0 row, the same bits from a second call; its row with its
+    bound share, ``ptxas`` registers and spills and shared bytes a CTA.
+    Timed cycling over the 32 layers, so that each launch finds its
+    layer's pages out of the L2 cache, as the decode step does."""
     import itertools
     import torch.nn.functional as F
     from onebit_tpu_torch.kernels import paged_attention as pa
@@ -664,6 +668,8 @@ def paged_kernel_checks(dev) -> dict:
         before = [x.clone() for x in pool]
         want = pa.paged_attention_flat_torch(q, *pool, layer=KV_LAYER, **kw)
         got = pa.paged_attention_flat(q, *pool, layer=KV_LAYER, **kw)
+        same_bits = torch.equal(got, pa.paged_attention_flat(
+            q, *pool, layer=KV_LAYER, **kw))
         torch.cuda.synchronize()
         untouched = all(torch.equal(x, y) for x, y in zip(pool, before))
         del before
@@ -693,18 +699,28 @@ def paged_kernel_checks(dev) -> dict:
         results[info.name] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by, library_ms=lib_ms)
+        # the bf16-q instance's mangled name: its page type (int8 'a', or
+        # bf16 by substitution '..._'), then HD and G
+        resources = {
+            "ptxas_regs_spill_stores_loads": _ptxas_of(
+                "paged_attention.cu", "15paged_attentionI13__nv_bfloat16",
+                ("a" if quant else "_") + f"Li{hd}ELi1E"),
+            "smem_bytes": _smem_bytes(pc, torch.bfloat16, quant, hd, 1)}
         tol = PAGED_TOL[quant]
-        ok = (untouched and finite and zero_row and err <= tol
-              and ctx_scale >= 8 * tol)
+        ok = (untouched and finite and zero_row and same_bits
+              and err <= tol and ctx_scale >= 8 * tol)
         emit({"phase": "kernel", "name": info.name, "tol": tol,
               "ok": ok, "pool_untouched": untouched, "ctx_finite": finite,
               "length0_row_zero": zero_row,
               "min_row_max_abs_ctx": ctx_scale, "layer": KV_LAYER,
               "pool_shape": list(PAGED_SHAPE), "page_indices": [b, PAGED_MP],
-              "lengths": KV_LENGTHS, **results[info.name]})
+              "lengths": KV_LENGTHS, "bound_share": bound_ms / ms,
+              "same_bits_twice": same_bits, **resources,
+              **results[info.name]})
         if not ok:
             raise RuntimeError(f"{info.name}: pool untouched {untouched}, "
                                f"finite {finite}, zero row {zero_row}, "
+                               f"same bits twice {same_bits}, "
                                f"max_abs_err {err}, smallest row max |ctx| "
                                f"{ctx_scale}")
     return results
@@ -881,18 +897,54 @@ FLASH_GQA_NKV = 8                  # the GQA case at 7B width: g = 4
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 1 / 16}
 
 
-def _flash_bound(b, s, nh, nkv, hd, dtype) -> tuple:
+# B11's fp32 instance multiplies on the bf16 tensor cores: six products of
+# split bf16 parts for S = Q Kᵀ and six for P V (csrc/flash_attention.cu)
+FLASH_F32_PRODUCTS = 12
+
+
+def _flash_bound(b, s, nh, nkv, hd, dtype, cuda_cores=False) -> tuple:
     """Least time for one call: q, k, v read once and the output written
-    once, or the products of the causal half, 4 * B * nh * hd * S(S+1)/2,
-    at the dtype's peak: the CUDA cores' fp32 rate for float32 (the kernel
-    must not use TF32), the bf16 tensor-core rate for bfloat16."""
+    once, or the products of the causal half, 4 * B * nh * hd * S(S+1)/2
+    (two products), at the rate of the arithmetic the kernel runs: for
+    bfloat16 the bf16 tensor-core peak; for float32 FLASH_F32_PRODUCTS bf16
+    products at that peak, or with ``cuda_cores`` the two fp32 products at
+    the CUDA cores' fp32 rate (the first fp32 kernel's basis, and the
+    backward's fp32 kernels')."""
     elem = 4 if dtype == torch.float32 else 2
     bytes_ = elem * b * s * hd * (2 * nh + 2 * nkv)
     flops = 4 * b * nh * hd * s * (s + 1) / 2
-    peak = FP32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
+    peak = BF16_FLOP_PER_S
+    if dtype == torch.float32:
+        if cuda_cores:
+            peak = FP32_FLOP_PER_S
+        else:
+            flops *= FLASH_F32_PRODUCTS / 2
     t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / peak
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops
             else "operations")
+
+
+def _smem_bytes(binding, *args):
+    """The dynamic shared bytes a CTA of a kernel asks for, from its
+    binding's ``smem_bytes`` (None for a checkout without one, as
+    ``scripts/torch_kernel_ab.py`` may drive)."""
+    fn = getattr(binding, "smem_bytes", None)
+    return fn(*args) if fn is not None else None
+
+
+def _ptxas_of(source: str, *parts: str):
+    """``ptxas``'s [registers, spill stores, spill loads] of the kernel
+    built from ``source`` whose mangled name holds every one of ``parts``,
+    from the build's log; None when not found."""
+    from onebit_tpu_torch.kernels import build
+    path = build.library_path(source)
+    log = path.with_name(path.name + ".log")
+    if not log.exists():
+        return None
+    for name, v in ptxas_summary(log.read_text()).items():
+        if all(x in name for x in parts):
+            return v
+    return None
 
 
 def flash_kernel_checks(dev) -> dict:
@@ -940,11 +992,19 @@ def flash_kernel_checks(dev) -> dict:
                         library_ms=lib_ms)
             if nkv == nh:
                 results[info.name] = line
+            extra = {}
+            if dtype == torch.float32:
+                extra = {"bound_ms_fp32_cuda_cores": _flash_bound(
+                    b, s, nh, nkv, hd, dtype, cuda_cores=True)[0],
+                    "ptxas_regs_spill_stores_loads": _ptxas_of(
+                        "flash_attention.cu", f"flash_causal_splitILi{hd}E"),
+                    "smem_bytes": _smem_bytes(fc, dtype, hd)}
             tol = FLASH_TOL[dtype]
             ok = finite and err <= tol and ctx_scale >= 8 * tol
             emit({"phase": "kernel", "name": info.name, "tol": tol, "ok": ok,
                   "shape": [b, s, nh, hd], "nkv": nkv, "out_finite": finite,
-                  "min_row_head_max_abs_ctx": ctx_scale, **line})
+                  "min_row_head_max_abs_ctx": ctx_scale,
+                  "bound_share": bound_ms / ms, **extra, **line})
             if not ok:
                 raise RuntimeError(f"{info.name} (nkv {nkv}): finite "
                                    f"{finite}, max_abs_err {err}, smallest "
@@ -1001,13 +1061,9 @@ def _flash_bwd_resources(kernel: str, hd: int, dtype) -> dict:
     bf16 = dtype == torch.bfloat16
     entry = (f"flash_bwd_{kernel}_wgmmaILi{hd}E" if bf16
              else f"flash_bwd_{kernel}IfLi{hd}E")
-    path = build.library_path(source)
-    log = path.with_name(path.name + ".log")
-    found = [v for k, v in ptxas_summary(log.read_text()).items()
-             if entry in k] if log.exists() else []
     smem = build.load(source).onebit_flash_bwd_smem_bytes(
         0 if kernel == "dkv" else 1, hd, int(bf16))
-    return {"ptxas_regs_spill_stores_loads": found[0] if found else None,
+    return {"ptxas_regs_spill_stores_loads": _ptxas_of(source, entry),
             "smem_bytes": smem}
 
 
@@ -1111,7 +1167,7 @@ def flash_bwd_kernel_checks(dev) -> dict:
                       "min_row_head_max_abs_grad": floor,
                       "backward_ms": ms_dkv + ms_dq + ms_di, "di_ms": ms_di,
                       "backward_bound_ms": _flash_bound(
-                          b, s, nh, nkv, hd, dtype)[0] * 2.5,
+                          b, s, nh, nkv, hd, dtype, cuda_cores=True)[0] * 2.5,
                       "bound_share": bound_ms / ms,
                       **_flash_bwd_resources(kernel, hd, dtype),
                       "note": "plain_ms and library_ms: the whole "
@@ -2156,7 +2212,7 @@ def eval_checks(params, config, dev) -> dict:
 # teacher (0.8 GB) and some 9 GB of activations at 4 x 2048 tokens (the
 # latent projections keep fp32 copies for their products), so 4 layers fit
 # one 80 GB card beside the embeddings and the [4, 2048, 32000] logits of
-# the KL; the 32 of llama2-7b need a sharded model (ROADMAP.md §1 item 8).
+# the KL; the 32 of llama2-7b need a sharded model (ROADMAP.md §1 item 6).
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQLEN, TRAIN_STEPS = 4, 4, 2048, 3
 # The first KD step's loss and each trainable leaf's gradient on the kernel
 # path against impl="torch", relative to the leaf's largest |gradient|.
@@ -2279,7 +2335,7 @@ def train_checks(dev) -> dict:
           "reduced": "depth 32 -> 4: at 7B width a layer's fp32 latent "
                      "weights, gradients, Adam moments, teacher share and "
                      "activations take about 13 GB; 32 layers need a "
-                     "sharded model (ROADMAP.md §1 item 8)"})
+                     "sharded model (ROADMAP.md §1 item 6)"})
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)

@@ -56,22 +56,40 @@
 // eval shape, 43% of the tensor cores' rate. Overlapping S(j + 1) with
 // PV(j) inside a warpgroup needs a third K/V stage, which costs the third
 // CTA; the next step is two consumer warpgroups per CTA sharing K/V.
-// The fp32 instance (the eval dtype, held to 2e-4 logits) runs on the CUDA
-// cores' fp32 FMA, not TF32, against the 67 TFLOP/s fp32 peak (2.05 ms a
-// layer):
-//   * one CTA of 256 threads per (query tile of 64, head, row), launched
-//     longest rows first; it walks the key tiles of 64 only up to the
-//     diagonal and masks j > i inside the diagonal tile;
-//   * each K and V tile is staged in shared memory as fp32 with 16-byte
-//     global loads, every load of the tile issued before any is stored
-//     (4-8 in flight per thread); the Q tile is staged once;
-//   * a 16 x 16 thread grid: thread (ty, tx) owns score rows ty + 16a and
-//     columns tx + 16c (a, c < 4), reading Q and K rows as float4 from
-//     rows padded by 4 floats (conflict-free); the row max and sum meet by
-//     shuffles within the 16 lanes of a row; P is written over the K tile;
-//   * the same thread owns output rows ty + 16a and columns 64n + 4tx..+3,
-//     reading P and V as float4;
-//   * every global offset is 64-bit.
+// The fp32 instance (the eval dtype and the fp32 KD step, held to 1e-4 of
+// the plain fp32 version) also runs both products on the bf16 tensor cores,
+// on operands split into bf16 parts, as K3's fp32 instance does
+// (bitlinear_large_m.cu). A float x is hi + mid + lo, hi = bf16(x), mid =
+// bf16(x - hi), lo = bf16(x - hi - mid), each difference exact in fp32, so
+// the three parts carry x's 24 bits and every product of two parts is exact
+// in fp32:
+//   * S = Q Kᵀ needs about 2**-20 relative (a score error e moves the
+//     context by about e * |v|, and the scores reach |25| at the eval
+//     inputs): six products, Qhi Khi + (Qhi Kmid + Qmid Khi + Qmid Kmid +
+//     Qhi Klo + Qlo Khi), dropping terms of 2**-24 and below;
+//   * O += P V the same six, P (fp32, unrounded in this instance) split in
+//     registers into the A fragments, V into three tiles read MN-major as
+//     in the bf16 instance: the forward alone would pass with three (2**-17
+//     on the output), but the backward's di = Σ o·do turns that into
+//     gradient errors of 1.4e-4 where the gradient is zero (S = 1: P = 1,
+//     and three products drop V's low part);
+//   * the tensor cores' fp32 sums round toward zero, each add up to an ulp
+//     of the running sum, one way: so the large product (8 k16 steps for S,
+//     4 for a key tile's P V) sums apart from the five small ones (at 2**-8
+//     of its size), the two joined on the CUDA cores; each key tile's P V
+//     sums afresh and joins O, rescaled by alpha, on the CUDA cores, so O's
+//     error does not grow with the number of key tiles; P V runs in two
+//     halves of 64 columns to keep its four accumulators in registers;
+//   * the splits are made in the kernel: the warpgroup reads each fp32 tile
+//     with 16-byte loads (through L2: 32 query tiles read each K/V tile)
+//     and writes its parts as 128-byte swizzled bf16 tiles, the layout TMA
+//     gives the bf16 instance. Q's three parts stay (48 KB at HD 128); K's
+//     three parts (48 KB) give way to V's once S is done, so a CTA holds
+//     96 KB and two CTAs share an SM, one converting while the other
+//     multiplies.
+// Its bound is twelve bf16 products at the tensor cores' peak (0.834 ms at
+// the eval shape); the old CUDA-core kernel's was the fp32 FMA rate (2.05
+// ms).
 #include <math.h>
 
 #include <type_traits>
@@ -80,128 +98,6 @@
 #include "wgmma_common.cuh"
 
 namespace onebit_flash {
-
-template <int HD>
-constexpr size_t smem_bytes() {
-  // Q and K (P over K) padded, V unpadded
-  return (size_t)(2 * kTile * (HD + kPad) + kTile * HD) * sizeof(float);
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_causal(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out,
-             float* __restrict__ lse, int S, int nh, int G, long long q_sb,
-             long long q_ss, long long k_sb, long long k_ss, long long v_sb,
-             long long v_ss, float scale) {
-  constexpr int LDK = HD + kPad;     // Q, K rows
-  constexpr int LDP = kTile + kPad;  // P rows
-  constexpr int NC = HD / 64;        // float4 column groups of out per thread
-  static_assert(HD % 64 == 0, "head_dim");
-  static_assert(kTile * LDP <= kTile * LDK, "P fits over K");
-
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ks = Qs + kTile * LDK;
-  float* Vs = Ks + kTile * LDK;
-  float* Ps = Ks;                    // P is written over K once scored
-
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int qt = gridDim.x - 1 - blockIdx.x;   // longest rows first
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / G;
-  const int q0 = qt * kTile;
-
-  load_tile<T, HD>(Qs, LDK, q + b * q_sb + (long long)h * HD, q_ss, q0, S);
-
-  float acc[4][NC][4], m[4], l[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    m[a] = -1e30f;
-    l[a] = 0.f;
-#pragma unroll
-    for (int n = 0; n < NC; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[a][n][e] = 0.f;
-  }
-
-  const T* kb = k + b * k_sb + (long long)hk * HD;
-  const T* vb = v + b * v_sb + (long long)hk * HD;
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * kTile;
-    load_tile<T, HD>(Ks, LDK, kb, k_ss, k0, S);
-    load_tile<T, HD>(Vs, HD, vb, v_ss, k0, S);
-    __syncthreads();
-
-    // ---- 1. scores of the thread's 4 x 4 cells
-    float s[4][4] = {};
-    dot_4x4<HD>(s, Qs, Ks, LDK, ty, tx);
-    // only the diagonal tile holds keys above the diagonal; a query row
-    // past S (the last tile's padding) sees zero keys and is never stored
-    const bool diag = kt == qt;
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        s[a][c] = (diag && tx + 16 * c > ty + 16 * a) ? -INFINITY
-                                                      : s[a][c] * scale;
-    __syncthreads();   // every thread is done with K: P goes over it
-
-    // ---- 2. online softmax; the 16 lanes of a row meet by shuffles
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      float mx = fmaxf(fmaxf(s[a][0], s[a][1]), fmaxf(s[a][2], s[a][3]));
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m[a], mx);
-      const float alpha = expf(m[a] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = expf(s[a][c] - m_new);   // 0 above the diagonal
-        sum += p;
-        Ps[(ty + 16 * a) * LDP + tx + 16 * c] = round_to<T>(p);
-      }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      l[a] = l[a] * alpha + sum;
-      m[a] = m_new;
-#pragma unroll
-      for (int n = 0; n < NC; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[a][n][e] *= alpha;
-    }
-    __syncthreads();
-
-    // ---- 3. acc += P . V
-    matmul_rows<HD>(acc, Ps, LDP, Vs, HD, ty, tx);
-    __syncthreads();   // before the next tile's loads overwrite P and V
-  }
-
-  // ---- out = acc / l, in T
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = q0 + ty + 16 * a;
-    if (i >= S) continue;
-    T* o = out + (((size_t)b * S + i) * nh + h) * HD;
-#pragma unroll
-    for (int n = 0; n < NC; ++n)
-      Convert<T>::store4(o + n * 64 + tx * 4,
-                         make_float4(acc[a][n][0] / l[a], acc[a][n][1] / l[a],
-                                     acc[a][n][2] / l[a],
-                                     acc[a][n][3] / l[a]));
-  }
-  // ---- the rows' log-sum-exp, for the backward (every lane of a row holds
-  // the same m and l)
-  if (lse != nullptr && tx == 0) {
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int i = q0 + ty + 16 * a;
-      if (i < S) lse[((size_t)b * nh + h) * S + i] = m[a] + logf(l[a]);
-    }
-  }
-}
 
 // ---- the bf16 instance: wgmma on the tensor cores ----
 
@@ -348,6 +244,261 @@ flash_causal_wgmma(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
+// ---- the fp32 instance: split operands on the bf16 tensor cores ----
+
+// Q's three parts, then K's three (V's two over K's hi and mid), + alignment
+template <int HD>
+struct SplitLayout {
+  static constexpr int kBytes = 6 * WgTile<HD>::kBytes + 1024;
+};
+
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint32_t a,
+                                             uint32_t b, uint32_t c,
+                                             uint32_t d) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(a), "r"(b), "r"(c), "r"(d)
+               : "memory");
+}
+
+// The bf16 parts of x (NP of hi, mid, lo) as bf16 pairs of (x0, x1).
+template <int NP>
+__device__ __forceinline__ void split_pair(float x0, float x1,
+                                           uint32_t (&w)[NP]) {
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    w[p] = bits_of(h);
+    const float2 hf = __bfloat1622float2(h);
+    x0 -= hf.x;   // exact: the rounding error of a bf16 rounding
+    x1 -= hf.y;
+  }
+}
+
+// Rows [r0, r0 + 64) of one head (row r at base + r * ss, HD contiguous
+// floats) split into NP bf16 parts, part p a swizzled tile at dst + p *
+// the tile's bytes; rows at or past S are zeros. Each thread takes 8-float
+// chunks, four at a time in flight.
+template <int HD, int NP>
+__device__ __forceinline__ void split_tile(uint32_t dst, const float* base,
+                                           long long ss, int r0, int S) {
+  constexpr int CPR = HD / 8;                      // chunks per row
+  constexpr int PER = kTile * CPR / kWgThreads;    // chunks per thread
+  constexpr int BATCH = 4;
+  static_assert(PER % BATCH == 0, "chunk batches");
+#pragma unroll
+  for (int n0 = 0; n0 < PER; n0 += BATCH) {
+    float4 x[BATCH][2];
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j) {
+      const int idx = threadIdx.x + (n0 + j) * kWgThreads;
+      const int r = idx / CPR, c = idx % CPR;
+      x[j][0] = x[j][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r0 + r < S) {
+        const float4* src = reinterpret_cast<const float4*>(
+            base + (long long)(r0 + r) * ss + 8 * c);
+        x[j][0] = __ldg(src);
+        x[j][1] = __ldg(src + 1);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j) {
+      const int idx = threadIdx.x + (n0 + j) * kWgThreads;
+      const int r = idx / CPR, c = idx % CPR;
+      uint32_t w[4][NP];
+      split_pair<NP>(x[j][0].x, x[j][0].y, w[0]);
+      split_pair<NP>(x[j][0].z, x[j][0].w, w[1]);
+      split_pair<NP>(x[j][1].x, x[j][1].y, w[2]);
+      split_pair<NP>(x[j][1].z, x[j][1].w, w[3]);
+      const uint32_t off =
+          (c / 8) * WgTile<HD>::kBlock + swizzle128(r, c % 8);
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        st_shared_v4(dst + p * WgTile<HD>::kBytes + off, w[0][p], w[1][p],
+                     w[2][p], w[3][p]);
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads, 2)
+flash_causal_split(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ out,
+                   float* __restrict__ lse, int S, int nh, int G,
+                   long long q_sb, long long q_ss, long long k_sb,
+                   long long k_ss, long long v_sb, long long v_ss,
+                   float scale) {
+  constexpr int TB = WgTile<HD>::kBytes;
+  constexpr int KS = HD / 16;   // k16 steps of S = Q Kᵀ
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t qs = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t ks = qs + 3 * TB;   // K hi, mid, lo; V hi, mid after S
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int row = (tid >> 5) * 16 + (lane >> 2);   // and row + 8
+  const int col = 2 * (lane & 3);
+  const int qt = gridDim.x - 1 - blockIdx.x;       // longest rows first
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / G;
+  const int q0 = qt * kTile;
+
+  split_tile<HD, 3>(qs, q + b * q_sb + (long long)h * HD, q_ss, q0, S);
+
+  float o[HD / 2], m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+
+  const float* kb = k + b * k_sb + (long long)hk * HD;
+  const float* vb = v + b * v_sb + (long long)hk * HD;
+  for (int kt = 0; kt <= qt; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();   // the last P V is done with V's parts
+    split_tile<HD, 3>(ks, kb, k_ss, k0, S);
+    fence_proxy_async();
+    __syncthreads();
+
+    // ---- 1. s = Qhi Khi + (the five small products), two accumulators
+    float s[32], sm[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = sm[i] = 0.f;
+    fence_regs(s);
+    fence_regs(sm);
+    wgmma_fence();
+    auto small = [&](int qp, int kp) {   // Q part qp times K part kp
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        wgmma_ss_n64(sm, kmajor_desc<HD>(qs + qp * TB, kk),
+                     kmajor_desc<HD>(ks + kp * TB, kk));
+    };
+    small(1, 1);   // smallest first: mid mid, hi lo, lo hi, hi mid, mid hi
+    small(0, 2);
+    small(2, 0);
+    small(0, 1);
+    small(1, 0);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_ss_n64(s, kmajor_desc<HD>(qs, kk), kmajor_desc<HD>(ks, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(sm);
+
+    // ---- 2. scale, mask above the diagonal (only the diagonal tile has
+    // such keys; a query row past S is never stored), online softmax
+    const bool diag = kt == qt;
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      s[i] = (diag && 8 * (i / 4) + col + (i & 1) > row + 8 * ((i >> 1) & 1))
+                 ? -INFINITY
+                 : (s[i] + sm[i]) * scale;
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        mx = fmaxf(mx, fmaxf(s[4 * i + 2 * r], s[4 * i + 2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
+      alpha[r] = expf(m[r] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = expf(s[4 * i + 2 * r + e] - m_new);
+          s[4 * i + 2 * r + e] = p;   // 0 where masked
+          sum += p;
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l[r] = l[r] * alpha[r] + sum;
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+    // ---- 3. V's three parts over K's, once every warp's S is done
+    __syncthreads();
+    split_tile<HD, 3>(ks, vb, v_ss, k0, S);
+    fence_proxy_async();
+    __syncthreads();
+
+    // ---- 4. O += Phi Vhi + (the five small products), for each 64
+    // columns of V: two fresh accumulators joined into O on the CUDA cores
+    uint32_t pa[3][4][4];   // P's hi, mid and lo as A fragments
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t w[3];
+        split_pair<3>(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1], w);
+#pragma unroll
+        for (int p = 0; p < 3; ++p) pa[p][kk][j] = w[p];
+      }
+#pragma unroll
+    for (int half = 0; half < HD / 64; ++half) {
+      float big[32], sm2[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) big[i] = sm2[i] = 0.f;
+      fence_regs(big);
+      fence_regs(sm2);
+      wgmma_fence();
+      // P part pp times V part vp, V's 64 columns `half` (MN-major)
+      auto pv = [&](float (&d)[32], int pp, int vp) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs_n64<1>(d, pa[pp][kk],
+                          mn_desc<HD>(ks + vp * TB + half * WgTile<HD>::kBlock,
+                                      kk));
+      };
+      pv(sm2, 1, 1);   // smallest first, as for S
+      pv(sm2, 0, 2);
+      pv(sm2, 2, 0);
+      pv(sm2, 0, 1);
+      pv(sm2, 1, 0);
+      pv(big, 0, 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(big);
+      fence_regs(sm2);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[32 * half + i] += big[i] + sm2[i];
+    }
+  }
+
+  // ---- out = O / l in fp32; the rows' log-sum-exp for the backward
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = q0 + row + 8 * r;
+    if (i >= S) continue;
+    float* orow = out + (((size_t)b * S + i) * nh + h) * HD;
+#pragma unroll
+    for (int c = 0; c < HD / 8; ++c)
+      *reinterpret_cast<float2*>(orow + 8 * c + col) =
+          make_float2(o[4 * c + 2 * r] / l[r], o[4 * c + 2 * r + 1] / l[r]);
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[((size_t)b * nh + h) * S + i] = m[r] + logf(l[r]);
+  }
+}
+
+template <int HD>
+int run_split(const void* q, const void* k, const void* v, void* out,
+              float* lse, int B, int S, int nh, int G,
+              const long long* strides, float scale, cudaStream_t st) {
+  constexpr int smem = SplitLayout<HD>::kBytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_causal_split<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((S + kTile - 1) / kTile, nh, B);
+  flash_causal_split<HD><<<grid, kWgThreads, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), lse, S, nh, G,
+      strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
+      scale);
+  return (int)cudaGetLastError();
+}
+
 template <int HD>
 int run_wgmma(const void* q, const void* k, const void* v, void* out,
               float* lse, int B, int S, int nh, int G,
@@ -376,22 +527,10 @@ template <typename T, int HD>
 int run(const void* q, const void* k, const void* v, void* out, float* lse,
         int B, int S, int nh, int G, const long long* strides, float scale,
         cudaStream_t st) {
-  if constexpr (std::is_same<T, bf16>::value) {
+  if constexpr (std::is_same<T, bf16>::value)
     return run_wgmma<HD>(q, k, v, out, lse, B, S, nh, G, strides, scale, st);
-  } else {
-    constexpr size_t smem = smem_bytes<HD>();
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_causal<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    const dim3 grid((S + kTile - 1) / kTile, nh, B);
-    flash_causal<T, HD><<<grid, kThreads, smem, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out), lse, S, nh, G,
-        strides[0], strides[1], strides[2], strides[3], strides[4],
-        strides[5], scale);
-    return (int)cudaGetLastError();
-  }
+  else
+    return run_split<HD>(q, k, v, out, lse, B, S, nh, G, strides, scale, st);
 }
 
 template <typename T>
@@ -429,4 +568,14 @@ extern "C" int onebit_flash_causal_attention(
         hd, q, k, v, out, l, B, S, nh, G, strides, scale, st);
   return onebit_flash::by_head_dim<float>(hd, q, k, v, out, l, B, S, nh, G,
                                           strides, scale, st);
+}
+
+// The dynamic shared bytes a CTA of the forward asks for (0: no such
+// instance).
+extern "C" int onebit_flash_smem_bytes(int hd, int dtype) {
+  using namespace onebit_flash;
+  if (hd != 64 && hd != 128) return 0;
+  if (dtype == 1)
+    return hd == 64 ? WgLayout<64>::kBytes : WgLayout<128>::kBytes;
+  return hd == 64 ? SplitLayout<64>::kBytes : SplitLayout<128>::kBytes;
 }

@@ -1,10 +1,12 @@
 // Pieces shared by the causal flash-attention kernels: the forward B11
 // (flash_attention.cu) and its backward, B11-dkv and B11-dq
-// (flash_attention_bwd.cu). The fp32 instances run on the CUDA cores and
-// stage 64-row tiles of q, k, v (and do) in shared memory as fp32 rows,
-// with 16-byte global loads. The bf16 instances run on the tensor cores
-// (wgmma_common.cuh): one warpgroup a CTA, 64-row tiles brought by TMA into
-// 128-byte swizzled shared tiles (the pieces at the end of this file).
+// (flash_attention_bwd.cu). The backward's fp32 instances run on the CUDA
+// cores and stage 64-row tiles of q, k, v (and do) in shared memory as fp32
+// rows, with 16-byte global loads. The bf16 instances and the forward's
+// fp32 instance run on the tensor cores (wgmma_common.cuh): one warpgroup a
+// CTA, 64-row bf16 tiles in 128-byte swizzled shared tiles, brought by TMA
+// or, for the fp32 forward, split from fp32 in the kernel (the pieces at
+// the end of this file).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -19,8 +21,8 @@ constexpr int kThreads = 256;
 constexpr int kTile = 64;  // queries per CTA, keys per tile
 constexpr int kPad = 4;    // floats of padding per staged row
 
-// The CUDA-core kernels are templates of their element type T, of which
-// only float is instantiated: the bf16 instances run on the tensor cores.
+// The CUDA-core kernels (the backward's fp32 instances) are templates of
+// their element type T, of which only float is instantiated.
 
 // v rounded to T's precision, as a float.
 template <typename T>

@@ -1,7 +1,8 @@
 // Fused decode attention over the quantized KT pools, with an optional
 // append of this step's K/V: the body of kernels B5-B8 of the port; and the
 // dtype helpers and warp reductions that B9 (kv_attention_decode.cu) and
-// B10 (paged_attention.cu) share with it, and the row loads (Row8) of B10.
+// B10 (paged_attention.cu) share with it, and their shared-memory
+// element loads (load_elems).
 //
 // Replaces, in onebit_tpu/kernels/kv_attention.py,
 //   _kernel_append_kt  / _kernel_kt   (int8 pools, kv_attention_int8.cu)
@@ -107,55 +108,41 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// 8 consecutive elements of one row-major K/V row (the pages of B10), loaded raw in one (bf16, int8) or two (f32) vector loads
-// through the read-only path, read back as floats. The address must be
-// 16-byte (bf16, f32) or 8-byte (int8) aligned.
-template <typename P>
-struct Row8;
+// A K/V element as a float.
+__device__ __forceinline__ float elem_f32(float v) { return v; }
+__device__ __forceinline__ float elem_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float elem_f32(int8_t v) { return (float)v; }
 
+template <int BYTES>
+struct Vec;
 template <>
-struct Row8<__nv_bfloat16> {
-  uint4 r;
-  __device__ __forceinline__ void zero() { r = make_uint4(0, 0, 0, 0); }
-  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
-    r = __ldg(reinterpret_cast<const uint4*>(p));
-  }
-  __device__ __forceinline__ float get(int e) const {
-    const uint32_t w = e < 2 ? r.x : e < 4 ? r.y : e < 6 ? r.z : r.w;
-    return __uint_as_float((e & 1) ? (w & 0xffff0000u) : (w << 16));
-  }
-};
+struct Vec<2> { using type = unsigned short; };
+template <>
+struct Vec<4> { using type = uint32_t; };
+template <>
+struct Vec<8> { using type = uint2; };
+template <>
+struct Vec<16> { using type = uint4; };
 
-template <>
-struct Row8<float> {
-  float4 a, b;
-  __device__ __forceinline__ void zero() {
-    a = make_float4(0.f, 0.f, 0.f, 0.f);
-    b = a;
+// N consecutive elements of a K/V row in shared memory (16-byte loads, or
+// one load of N elements below 16 bytes) as floats: the warp tiles of B9
+// (kv_attention_decode.cu) and B10 (paged_attention.cu).
+template <typename P, int N>
+__device__ __forceinline__ void load_elems(const P* p, float (&v)[N]) {
+  constexpr int kBytes = N * (int)sizeof(P);
+  constexpr int kLoad = kBytes < 16 ? kBytes : 16;
+  constexpr int kPer = kLoad / (int)sizeof(P);
+  using V = typename Vec<kLoad>::type;
+#pragma unroll
+  for (int i = 0; i < kBytes / kLoad; ++i) {
+    const V raw = *reinterpret_cast<const V*>(p + i * kPer);
+    const P* e = reinterpret_cast<const P*>(&raw);
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) v[i * kPer + j] = elem_f32(e[j]);
   }
-  __device__ __forceinline__ void load(const float* p) {
-    a = __ldg(reinterpret_cast<const float4*>(p));
-    b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  }
-  __device__ __forceinline__ float get(int e) const {
-    const float4& h = e < 4 ? a : b;
-    const int i = e & 3;
-    return i == 0 ? h.x : i == 1 ? h.y : i == 2 ? h.z : h.w;
-  }
-};
-
-template <>
-struct Row8<int8_t> {
-  uint2 r;
-  __device__ __forceinline__ void zero() { r = make_uint2(0, 0); }
-  __device__ __forceinline__ void load(const int8_t* p) {
-    r = __ldg(reinterpret_cast<const uint2*>(p));
-  }
-  __device__ __forceinline__ float get(int e) const {
-    const uint32_t w = e < 4 ? r.x : r.y;
-    return (float)(int8_t)(uint8_t)(w >> (8 * (e & 3)));
-  }
-};
+}
 
 // Byte i of w as a sign-extended int.
 __device__ __forceinline__ int byte_of(uint32_t w, int i) {

@@ -73,6 +73,7 @@
 namespace onebit_kv_decode {
 
 using onebit_kv::from_f32;
+using onebit_kv::load_elems;
 using onebit_kv::round_to;
 using onebit_kv::to_f32;
 using onebit_kv::warp_max;
@@ -115,40 +116,6 @@ struct Smem {
   static constexpr int kBytes = kQ + G * HD * 4;
   static_assert(kWarps * G * (HD + 2) * 4 <= kQ, "the merge fits");
 };
-
-__device__ __forceinline__ float elem_f32(float v) { return v; }
-__device__ __forceinline__ float elem_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ float elem_f32(int8_t v) { return (float)v; }
-
-template <int BYTES>
-struct Vec;
-template <>
-struct Vec<2> { using type = unsigned short; };
-template <>
-struct Vec<4> { using type = uint32_t; };
-template <>
-struct Vec<8> { using type = uint2; };
-template <>
-struct Vec<16> { using type = uint4; };
-
-// N consecutive elements of a row in shared memory (16-byte loads, or one
-// load of N elements below 16 bytes) as floats.
-template <typename P, int N>
-__device__ __forceinline__ void load_elems(const P* p, float (&v)[N]) {
-  constexpr int kBytes = N * (int)sizeof(P);
-  constexpr int kLoad = kBytes < 16 ? kBytes : 16;
-  constexpr int kPer = kLoad / (int)sizeof(P);
-  using V = typename Vec<kLoad>::type;
-#pragma unroll
-  for (int i = 0; i < kBytes / kLoad; ++i) {
-    const V raw = *reinterpret_cast<const V*>(p + i * kPer);
-    const P* e = reinterpret_cast<const P*>(&raw);
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) v[i * kPer + j] = elem_f32(e[j]);
-  }
-}
 
 template <typename T, typename P, int HD, int G>
 __global__ void __launch_bounds__(kThreads)

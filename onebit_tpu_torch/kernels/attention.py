@@ -63,6 +63,62 @@ def flash_causal_attention_torch(q, k, v, *, num_kv_groups: int
                       num_kv_groups=num_kv_groups)
 
 
+def split_bf16(x: torch.Tensor, parts: int) -> list:
+    """fp32 ``x`` as ``parts`` bf16 parts (hi, mid, lo), returned as fp32
+    tensors: hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), each
+    difference exact in fp32."""
+    out, rest = [], x.float()
+    for _ in range(parts):
+        part = rest.to(torch.bfloat16).float()
+        out.append(part)
+        rest = rest - part
+    return out
+
+
+# B11's fp32 instance (csrc/flash_attention.cu) multiplies, for S = Q Kᵀ and
+# for P V alike, hi x hi and apart from it these five pairs of parts (0 hi,
+# 1 mid, 2 lo), smallest first
+SPLIT_SMALL = ((1, 1), (0, 2), (2, 0), (0, 1), (1, 0))
+
+
+def flash_causal_attention_split(q, k, v, *, num_kv_groups: int):
+    """B11's fp32 arithmetic on the CPU, step by step: q, k and v split into
+    three bf16 parts, S = Qhi Khi + the ``SPLIT_SMALL`` products (each
+    product of parts exact in fp32, the two sums apart, then joined), times
+    hd**-0.5, causal mask; per key tile of 64, an online fp32 softmax and
+    O = O * alpha + (P's and V's parts multiplied the same way, in fresh
+    sums); out = O / l and the rows' log-sum-exp ``m + log l``
+    ``[B, nh, S]``. A plain mirror for the CPU tests; no path calls it."""
+    b, s, nh, hd = q.shape
+    g = num_kv_groups
+    qp = split_bf16(q.transpose(1, 2), 3)                 # [B, nh, S, hd]
+    kp = split_bf16(k.repeat_interleave(g, 2).transpose(1, 2), 3)
+    vp = split_bf16(v.repeat_interleave(g, 2).transpose(1, 2), 3)
+    m = torch.full((b, nh, s), -1e30)
+    l_sum = torch.zeros((b, nh, s))
+    o = torch.zeros((b, nh, s, hd))
+    qi = torch.arange(s)[:, None]
+    for k0 in range(0, s, 64):
+        keys = slice(k0, min(k0 + 64, s))
+
+        def prods(a, c):            # a's and c's parts, split as the kernel
+            return a[0] @ c[0] + sum(a[i] @ c[j] for i, j in SPLIT_SMALL)
+
+        sc = prods(qp, [x[:, :, keys].transpose(-1, -2) for x in kp])
+        sc = sc * hd ** -0.5
+        kj = torch.arange(k0, keys.stop)[None, :]
+        sc = sc.masked_fill(kj > qi, float("-inf"))
+        m_new = torch.maximum(m, sc.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new[..., None])
+        l_sum = l_sum * alpha + p.sum(-1)
+        o = o * alpha[..., None] + prods(split_bf16(p, 3),
+                                         [x[:, :, keys] for x in vp])
+        m = m_new
+    out = (o / l_sum[..., None]).transpose(1, 2).contiguous()
+    return out, m + torch.log(l_sum)
+
+
 class _FlashCausal(torch.autograd.Function):
     """B11 with its backward: the forward saves q, k, v, o and the rows'
     log-sum-exp; the backward forms ``di = Σ o·do`` in fp32 (a plain op, as

@@ -71,6 +71,14 @@ def _fn():
                  [_P] * 5 + [_I] * 5 + [_LL] * 6 + [_I, ctypes.c_float, _P])
 
 
+def smem_bytes(dtype: torch.dtype, hd: int) -> int:
+    """The dynamic shared bytes a CTA of B11's forward instance asks for."""
+    fn = build.load(_SOURCE).onebit_flash_smem_bytes
+    fn.argtypes = [_I, _I]
+    fn.restype = _I
+    return fn(hd, _INFO[dtype][1])
+
+
 @functools.cache
 def _fn_dkv():
     return _bind(_BWD_SOURCE, "onebit_flash_bwd_dkv",

@@ -6,6 +6,11 @@ q) and int8 pages with raw absmax scales. :func:`launch` checks its tensors,
 launches the kernel on PyTorch's current stream and counts the launch. The
 public wrapper and the plain PyTorch version live in
 ``kernels/paged_attention.py``.
+
+B10 splits each row into chunks of ``PAGED_CHUNK`` positions from position 0
+(``paged_attention.paged_attention_flat_chunked`` mirrors its arithmetic)
+and merges them in the same launch through the ticket counters kept per
+device (``bitlinear_cuda.counters``): two streams must not run it at once.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ import torch
 
 from onebit_tpu_torch.kernels import build
 from onebit_tpu_torch.kernels.bitlinear_cuda import (KernelInfo, _raise_on,
-                                                     _stream)
+                                                     _stream, counters)
 from onebit_tpu_torch.kernels.kv_attention_cuda import (_check_geometry,
                                                         _check_tensors)
 
@@ -28,6 +33,8 @@ PAGED = KernelInfo("paged_attention_flat", "onebit_tpu_torch/csrc/" + _SOURCE,
 PAGED_INT8 = KernelInfo("paged_attention_flat_int8",
                         "onebit_tpu_torch/csrc/" + _SOURCE, _JAX, _SOURCE)
 KERNELS = (PAGED, PAGED_INT8)
+
+PAGED_CHUNK = 256    # positions a B10 CTA attends (the kernel's kChunk)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -41,9 +48,17 @@ def reset_launch_counts() -> None:
 def _fn():
     fn = build.load(_SOURCE).onebit_paged_attention
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p] * 8 + [i] * 8 + [f, p]
+    fn.argtypes = [p] * 10 + [i] * 9 + [ctypes.c_longlong, f, p]
     fn.restype = i
     return fn
+
+
+def smem_bytes(dtype: torch.dtype, quant: bool, hd: int, g: int) -> int:
+    """The dynamic shared bytes a CTA of B10's instance asks for."""
+    fn = build.load(_SOURCE).onebit_paged_attention_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    return fn(_DTYPE_CODES[dtype], int(quant), hd, g)
 
 
 def launch(q, pool, lengths, page_indices, layer: int, quant: bool
@@ -86,10 +101,14 @@ def launch(q, pool, lengths, page_indices, layer: int, quant: bool
     ptrs = [t[layer].data_ptr() for t in pool]
     k_ptr, ks_ptr, v_ptr, vs_ptr = ptrs if quant else (ptrs[0], None,
                                                        ptrs[1], None)
+    # each chunk's (m, l) and accumulator, for rows of more than one chunk
+    part_floats = b * nh * -(-(mp * ps) // PAGED_CHUNK) * (hd + 2)
+    part = torch.empty(part_floats, dtype=torch.float32, device=q.device)
     err = _fn()(q.data_ptr(), out.data_ptr(), k_ptr, ks_ptr, v_ptr, vs_ptr,
-                lengths.data_ptr(), page_indices.data_ptr(), b, nkv,
-                nh // nkv, hd, ps, mp, _DTYPE_CODES[q.dtype], int(quant),
-                hd ** -0.5, _stream(q))
+                lengths.data_ptr(), page_indices.data_ptr(), part.data_ptr(),
+                counters(q.device, b * nkv).data_ptr(), b, nkv, nh // nkv,
+                hd, ps, mp, _DTYPE_CODES[q.dtype], int(quant), PAGED_CHUNK,
+                part_floats, hd ** -0.5, _stream(q))
     _raise_on(err, info)
     info.launches += 1
     return out

@@ -838,6 +838,62 @@ def test_paged_attention_pool_past_2_31_elements(dev):
                  (32, 1025, 32, 1, 16, 128, 8, 128), 31)
 
 
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("g", [1, 8])
+@pytest.mark.parametrize("ps", [1, 16, 48])
+def test_paged_chunk_edges(dev, quant, g, ps):
+    """Rows of C - 1, C and C + 1 positions (C the chunk), of many chunks
+    (many pages a chunk at ps 1 and 16), of one page, of one position, and
+    of the whole table, against the plain version."""
+    from onebit_tpu_torch.kernels import paged_attention as pa
+    from onebit_tpu_torch.kernels import paged_attention_cuda as pc
+    c = pc.PAGED_CHUNK
+    mp = -(-6 * c // ps)
+    q, pool, _, tables = _paged_case(dev, torch.bfloat16, quant,
+                                     (1, 8 * mp + 1, 1, g, ps, 64, 8, mp))
+    lengths = torch.tensor([c - 1, c, c + 1, 6 * c - 7, ps, 1, mp * ps,
+                            2 * c + 101], dtype=torch.int32, device=dev)
+    kw = dict(lengths=lengths, page_indices=tables, layer=0, quant=quant)
+    want = pa.paged_attention_flat_torch(q, *pool, **kw)
+    got = pa.paged_attention_flat(q, *pool, **kw)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    assert err <= KV_TOL[torch.bfloat16], err
+    assert want.abs().amax(dim=(1, 2)).min() >= 8 * KV_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("ps", [8, 16])
+def test_paged_is_deterministic_and_follows_positions(dev, quant, ps):
+    """Two launches on the same inputs give the same bits (the chunks merge
+    in chunk order), and so do the same positions through a permuted page
+    table and its pool against the identity table: chunks and tiles count
+    positions, never page ids."""
+    from onebit_tpu_torch.kernels import paged_attention as pa
+    mp = 2048 // ps
+    b = 4
+    q, pool, lengths, _ = _paged_case(dev, torch.bfloat16, quant,
+                                      (1, b * mp + 1, 2, 4, ps, 128, b, mp))
+    ident = (torch.arange(b * mp, device=dev, dtype=torch.int32) + 1
+             ).view(b, mp)
+    perm = torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
+                      torch.randperm(b * mp, device=dev) + 1])
+    moved = []
+    for x in pool:
+        y = torch.empty_like(x)
+        y[:, perm] = x                 # page p's contents now at perm[p]
+        moved.append(y)
+    kw = dict(lengths=lengths, layer=0, quant=quant)
+    a = pa.paged_attention_flat(q, *pool, page_indices=ident, **kw)
+    a2 = pa.paged_attention_flat(q, *pool, page_indices=ident, **kw)
+    moved_tables = perm[ident.long()].to(torch.int32)
+    c = pa.paged_attention_flat(q, *moved, page_indices=moved_tables, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(a).all() and a.abs().max() > 0
+    assert torch.equal(a, a2)
+    assert torch.equal(a, c)
+
+
 def test_paged_wrapper_checks_inputs(dev):
     from onebit_tpu_torch.kernels import paged_attention as pa
     q, pool, lengths, tables = _paged_case(
@@ -948,10 +1004,11 @@ def _flash_case(dev, dtype, b, s, nkv, g, hd, fused, seed=0):
 @pytest.mark.parametrize("b", [1, 3])
 @pytest.mark.parametrize("g", [1, 2, 4, 8])
 @pytest.mark.parametrize("hd", [64, 128])
-@pytest.mark.parametrize("s", [1, 17, 128, 300, 2048])
+@pytest.mark.parametrize("s", [1, 17, 63, 64, 65, 128, 129, 300, 2048])
 def test_flash_attention_matches_plain(dev, dtype, b, g, hd, s):
     """B = 3 reads strided views of a fused projection output, B = 1
-    contiguous tensors."""
+    contiguous tensors. S of 63-65 and 128-129 sit on the edges of the
+    64-row tiles."""
     from onebit_tpu_torch.kernels import attention as ta
     from onebit_tpu_torch.kernels import attention_cuda as fc
     q, k, v = _flash_case(dev, dtype, b, s, 2, g, hd, fused=b > 1)
@@ -1113,6 +1170,20 @@ def test_flash_bwd_bf16_is_deterministic(dev, g, hd):
     for name, a, b in zip(("dk", "dv", "dq"), first, second):
         assert torch.isfinite(a).all() and a.abs().max() > 0, name
         assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("g", [1, 4])
+def test_flash_attention_is_deterministic(dev, dtype, g):
+    """Two launches of the forward on the same inputs give the same bits,
+    the log-sum-exp too: each CTA owns its rows and sums in a fixed
+    order."""
+    from onebit_tpu_torch.kernels import attention_cuda as fc
+    q, k, v = _flash_case(dev, dtype, 2, 300, 2, g, 128, fused=True)
+    a, lse_a = fc.launch(q, k, v, g, with_lse=True)
+    b, lse_b = fc.launch(q, k, v, g, with_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(lse_a, lse_b)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
