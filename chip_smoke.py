@@ -22,9 +22,11 @@ toolkit and PyTorch. It imports nothing of JAX. Phases, one JSON line each:
    instances), at the four shard shapes of llama2-7b over two ranks (M = 8,
    fp32 z; and M = 2048 on the q and down shards, bf16 z); then
    each KV-attention kernel (B5-B8) on full-size llama2-7b int8 and int4
-   pools at layer 31 with ragged rows: pools bit-exact with the plain
-   version, timed beside its bound, its plain version and one
-   ``scaled_dot_product_attention`` on K/V dequantized beforehand; then B10
+   pools at layer 31 with ragged rows, and on GQA pools of the same width
+   (nkv 8, g 4): pools bit-exact with the plain version, timed beside its
+   bound, its plain version and one ``scaled_dot_product_attention`` on
+   K/V dequantized beforehand, with ``ptxas`` registers and spills and
+   shared bytes a CTA; then B10
    (paged attention) on a full-size llama2-7b page pool, bf16 and int8
    pages, the same way, and the same bits from a second call; then B11
    (causal flash attention) at the llama2-7b eval shape [4, 2048, 32, 128]
@@ -435,7 +437,7 @@ def kernel_checks(dev) -> dict:
 # phase 3, continued: the KV-attention kernels at llama2-7b shapes
 # ---------------------------------------------------------------------------
 
-KV_SHAPE = (32, 8, 32, 128, 2048)      # L, B, nkv, hd, T: llama2-7b pools
+KV_SHAPE = (32, 8, 32, 128, 2048)      # L, B, nh, hd, T: llama2-7b pools
 KV_LAYER = 31
 # ragged rows: both int4 planes (T/2 = 1024), tile edges, an inactive row
 KV_LENGTHS = [2048, 1931, 1500, 1025, 1024, 777, 129, 0]
@@ -488,24 +490,28 @@ def _dequantized_layer(pools, int4, layer):
 
 
 def kv_kernel_checks(dev) -> dict:
-    """B5-B8 on full-size llama2-7b pools at layer 31: bf16 q, random
-    pools and scales, ragged rows. Pools must be bit-exact with the plain
-    version after the call, ctx within KV_TOL_BF16 on the active rows (each
-    with a largest |ctx| of at least 8 times it) and finite on the inactive
-    one. Timed cycling over the 32 layers, so that
-    each launch finds its layer's pools out of the L2 cache, as the decode
-    step does."""
+    """B5-B8 on full-size llama2-7b pools at layer 31 (nkv 32), and on the
+    GQA pools of the same width (nkv 8, g 4): bf16 q, random pools and
+    scales, ragged rows. Pools must be bit-exact with the plain version
+    after the call, ctx within KV_TOL_BF16 on the active rows (each with a
+    largest |ctx| of at least 8 times it) and finite on the inactive one.
+    Timed cycling over the 32 layers, so that each launch finds its layer's
+    pools out of the L2 cache, as the decode step does; beside its bound,
+    its plain version and one ``scaled_dot_product_attention`` on the
+    layer's K/V dequantized beforehand (GQA: repeated), each row with its
+    bound share, ``ptxas`` registers and spills and shared bytes a CTA. The
+    ``kernels`` line carries the nkv 32 rows."""
     import itertools
     import torch.nn.functional as F
     from onebit_tpu_torch.kernels import kv_attention as ka
     from onebit_tpu_torch.kernels import kv_attention_cuda as kc
-    n_layers, b, nkv, hd, t = KV_SHAPE
+    n_layers, b, nh, hd, t = KV_SHAPE
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     lengths = torch.tensor(KV_LENGTHS, dtype=torch.int32, device=dev)
     pos = torch.tensor([n - 1 if n else KV_FROZEN_POS for n in KV_LENGTHS],
                        dtype=torch.int32, device=dev)
-    q = (KV_Q_STD * torch.randn(b, nkv, hd, generator=gen, device=dev)
+    q = (KV_Q_STD * torch.randn(b, nh, hd, generator=gen, device=dev)
          ).to(torch.bfloat16)
     live = lengths > 0
     mask = (torch.arange(t, device=dev)[None, :] < lengths[:, None]
@@ -519,7 +525,8 @@ def kv_kernel_checks(dev) -> dict:
         return (torch.rand(shape, generator=gen, device=dev) + 0.5) / levels
 
     results = {}
-    for int4 in (False, True):
+    for int4, nkv in itertools.product((False, True), (nh, FLASH_GQA_NKV)):
+        g = nh // nkv
         tb = t // 2 if int4 else t
         lo, new_lo, new_hi = (-128, -7, 8) if int4 else (-127, -127, 128)
         levels = 7 if int4 else 127
@@ -531,7 +538,8 @@ def kv_kernel_checks(dev) -> dict:
                scales(b, nkv, levels=levels),
                ints(b, nkv, hd, lo=new_lo, hi=new_hi),
                scales(b, nkv, levels=levels)]
-        k_deq, v_deq = _dequantized_layer(pools, int4, KV_LAYER)
+        k_deq, v_deq = (x.repeat_interleave(g, dim=1) for x in
+                        _dequantized_layer(pools, int4, KV_LAYER))
         qs = q[:, :, None, :]
         pairs = ((ka.kv_attention_append_kt4, kc.APPEND_KT4, True),
                  (ka.kv_attention_decode_kt4, kc.DECODE_KT4, False)) \
@@ -560,23 +568,34 @@ def kv_kernel_checks(dev) -> dict:
                 warmup=1)
             lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                 qs, k_deq, v_deq, attn_mask=mask), 32)
-            bound_ms, bound_by = _kv_bound(KV_LENGTHS, nkv, 1, hd, t, int4,
+            bound_ms, bound_by = _kv_bound(KV_LENGTHS, nkv, g, hd, t, int4,
                                            append)
             del plain_pools, kern_pools
-            results[info.name] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+            line = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        library_ms=lib_ms)
+            if nkv == nh:
+                results[info.name] = line
+            # the bf16-q instance's mangled name: HD, G, APPEND, INT4
+            resources = {
+                "ptxas_regs_spill_stores_loads": _ptxas_of(
+                    info.library, "15kv_attention_ktI13__nv_bfloat16",
+                    f"Li{hd}ELi{g}ELb{int(append)}ELb{int(int4)}E"),
+                "smem_bytes": _smem_bytes(kc, info, torch.bfloat16, hd, g)}
             ok = (exact and finite and err <= KV_TOL_BF16
                   and ctx_scale >= 8 * KV_TOL_BF16)
             emit({"phase": "kernel", "name": info.name, "tol": KV_TOL_BF16,
                   "ok": ok, "pools_bit_exact": exact, "ctx_finite": finite,
                   "min_row_max_abs_ctx": ctx_scale,
-                  "layer": KV_LAYER, "pool_shape": list(KV_SHAPE),
-                  "lengths": KV_LENGTHS, **results[info.name]})
+                  "layer": KV_LAYER,
+                  "pool_shape": [n_layers, b, nkv, hd, t], "nkv": nkv,
+                  "g": g, "lengths": KV_LENGTHS,
+                  "bound_share": bound_ms / ms, **resources, **line})
             if not ok:
-                raise RuntimeError(f"{info.name}: pools exact {exact}, "
-                                   f"finite {finite}, max_abs_err {err}, "
-                                   f"smallest row max |ctx| {ctx_scale}")
+                raise RuntimeError(f"{info.name} (nkv {nkv}): pools exact "
+                                   f"{exact}, finite {finite}, max_abs_err "
+                                   f"{err}, smallest row max |ctx| "
+                                   f"{ctx_scale}")
         del pools, new, k_deq, v_deq
         torch.cuda.empty_cache()
     return results

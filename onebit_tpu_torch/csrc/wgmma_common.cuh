@@ -26,11 +26,17 @@ __device__ __forceinline__ uint32_t swizzle128(int r, int c) {
   return (uint32_t)(r * 128 + ((c ^ (r & 7)) << 4));
 }
 
-// 16 (or 4) bytes from global to shared memory; zeros when !valid.
+// 16 (or 8, or 4) bytes from global to shared memory; zeros when !valid.
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 8 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,

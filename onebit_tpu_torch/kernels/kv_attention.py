@@ -100,15 +100,21 @@ def _write_scales(k_snew, v_snew, k_st, v_s, layer, rows, pos):
     v_s[layer, rows, pos] = v_snew.to(v_s.dtype)
 
 
-def kv_attention_append_kt_torch(q, k_new, k_snew, v_new, v_snew, k_qt, k_st,
-                                 v_q, v_s, lengths, layer, pos, *,
-                                 starts=None):
-    b = q.shape[0]
-    rows = torch.arange(b, device=q.device)
-    pos = _rows(pos, b, q.device).long()
+def _append_kt(k_new, k_snew, v_new, v_snew, k_qt, k_st, v_q, v_s, layer,
+               pos):
+    """Write each row's int8 K column, V row and scales at its ``pos``."""
+    b = k_new.shape[0]
+    rows = torch.arange(b, device=k_qt.device)
+    pos = _rows(pos, b, k_qt.device).long()
     k_qt[layer, rows, :, :, pos] = k_new
     v_q[layer, rows, pos] = v_new
     _write_scales(k_snew, v_snew, k_st, v_s, layer, rows, pos)
+
+
+def kv_attention_append_kt_torch(q, k_new, k_snew, v_new, v_snew, k_qt, k_st,
+                                 v_q, v_s, lengths, layer, pos, *,
+                                 starts=None):
+    _append_kt(k_new, k_snew, v_new, v_snew, k_qt, k_st, v_q, v_s, layer, pos)
     return kv_attention_decode_kt_torch(q, k_qt, k_st, v_q, v_s, lengths,
                                         layer, starts=starts)
 
@@ -121,13 +127,14 @@ def kv_attention_decode_kt4_torch(q, k_qp, k_st, v_qp, v_s, lengths, layer, *,
                          v, v_s[layer], lengths, starts)
 
 
-def kv_attention_append_kt4_torch(q, k_new, k_snew, v_new, v_snew, k_qp,
-                                  k_st, v_qp, v_s, lengths, layer, pos, *,
-                                  starts=None):
-    b = q.shape[0]
+def _append_kt4(k_new, k_snew, v_new, v_snew, k_qp, k_st, v_qp, v_s, layer,
+                pos):
+    """Merge each row's int4 K and V into byte column ``pos % (T/2)`` (low
+    nibble below T/2, high from T/2 on) and write its scales at ``pos``."""
+    b = k_new.shape[0]
     t_half = k_st.shape[-1] // 2
-    rows = torch.arange(b, device=q.device)
-    pos = _rows(pos, b, q.device).long()
+    rows = torch.arange(b, device=k_qp.device)
+    pos = _rows(pos, b, k_qp.device).long()
     hi = pos >= t_half
     c = torch.where(hi, pos - t_half, pos)
     hi3 = hi[:, None, None]
@@ -135,6 +142,13 @@ def kv_attention_append_kt4_torch(q, k_new, k_snew, v_new, v_snew, k_qp,
                                                k_new, hi3)
     v_qp[layer, rows, c] = merge_nibbles(v_qp[layer, rows, c], v_new, hi3)
     _write_scales(k_snew, v_snew, k_st, v_s, layer, rows, pos)
+
+
+def kv_attention_append_kt4_torch(q, k_new, k_snew, v_new, v_snew, k_qp,
+                                  k_st, v_qp, v_s, lengths, layer, pos, *,
+                                  starts=None):
+    _append_kt4(k_new, k_snew, v_new, v_snew, k_qp, k_st, v_qp, v_s, layer,
+                pos)
     return kv_attention_decode_kt4_torch(q, k_qp, k_st, v_qp, v_s, lengths,
                                          layer, starts=starts)
 
@@ -155,6 +169,50 @@ def kv_attention_decode_torch(q, k_q, k_s, v_q, v_s, lengths, layer, *,
     return _attention(q[:, None], k_q[layer].to(q.dtype),
                       v_q[layer].to(q.dtype), mask,
                       num_kv_groups=nh // nkv)[:, 0]
+
+
+def _fresh(nkv: int, g: int, hd: int):
+    """An empty online-softmax state ``(m, l, acc)``."""
+    return (torch.full((nkv, g), -1e30), torch.zeros((nkv, g)),
+            torch.zeros((nkv, g, hd)))
+
+
+def _tile_step(qf, k, ks, v, vs, valid, state, dtype):
+    """One warp tile of the kernels' online softmax: ``qf [nkv, g, hd]``
+    f32; the tile's K and V ``[p, nkv, hd]`` and scales ``[p, nkv]`` (or
+    None); the positions to attend ``valid [p]`` (None: all). Scores
+    ``q·k x k_scale x hd**-0.5``; P = exp(s - m) at the running max, x the V
+    scale (0 where masked), rounded to ``dtype`` for the PV sum in fp32; l
+    sums the unrounded P."""
+    m, l_sum, acc = state
+    s = torch.einsum("ngd,pnd->ngp", qf, k.float())
+    if ks is not None:
+        s = s * ks.T[:, None, :]
+    s = s * qf.shape[-1] ** -0.5
+    if valid is not None:
+        s = s.masked_fill(~valid, float("-inf"))
+    m_new = torch.maximum(m, s.amax(-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    l_sum = l_sum * alpha + p.sum(-1)
+    if vs is not None:
+        if valid is not None:
+            vs = vs.masked_fill(~valid[:, None], 0.0)
+        p = p * vs.T[:, None, :]
+    pr = p.to(dtype).float()
+    acc = acc * alpha[..., None] + torch.einsum("ngp,pnd->ngd", pr, v.float())
+    return m_new, l_sum, acc
+
+
+def _merge(parts):
+    """Online-softmax partials ``(m, l, acc)`` merged in list order: m =
+    max m_i, l = sum l_i e^(m_i - m), acc = sum acc_i e^(m_i - m)."""
+    m = torch.stack([p[0] for p in parts])
+    top = m.amax(0)
+    f = torch.exp(m - top)
+    l_sum = sum(p[1] * f[i] for i, p in enumerate(parts))
+    acc = sum(p[2] * f[i][..., None] for i, p in enumerate(parts))
+    return top, l_sum, acc
 
 
 def kv_attention_decode_chunked(q, k_q, k_s, v_q, v_s, lengths, layer, *,
@@ -179,14 +237,6 @@ def kv_attention_decode_chunked(q, k_q, k_s, v_q, v_s, lengths, layer, *,
     start = (_rows(starts, b, "cpu").clamp(min=0) if starts is not None
              else torch.zeros(b, dtype=torch.int32))
 
-    def merge(parts):
-        m = torch.stack([p[0] for p in parts])          # [n, nkv, g]
-        top = m.amax(0)
-        f = torch.exp(m - top)
-        l_sum = sum(p[1] * f[i] for i, p in enumerate(parts))
-        acc = sum(p[2] * f[i][..., None] for i, p in enumerate(parts))
-        return top, l_sum, acc
-
     for row in range(b):
         lo, hi = int(start[row]), int(length[row])
         if hi <= lo:
@@ -196,31 +246,88 @@ def kv_attention_decode_chunked(q, k_q, k_s, v_q, v_s, lengths, layer, *,
             c1 = min(c0 + chunk, hi)
             per_warp = []
             for w in range(warps):
-                m = torch.full((nkv, g), -1e30)
-                l_sum = torch.zeros((nkv, g))
-                acc = torch.zeros((nkv, g, hd))
+                state = _fresh(nkv, g, hd)
                 for t0 in range(c0 + w * tile, c1, warps * tile):
                     pos = torch.arange(t0, min(t0 + tile, c1))
-                    k = k_q[layer, row, pos].float()          # [p, nkv, hd]
-                    v = v_q[layer, row, pos].float()
-                    s = torch.einsum("ngd,pnd->ngp", qf[row], k)
-                    if k_s is not None:
-                        s = s * k_s[layer, row, pos].T[:, None, :]
-                    s = s * hd ** -0.5
-                    m_new = torch.maximum(m, s.amax(-1))
-                    alpha = torch.exp(m - m_new)
-                    p = torch.exp(s - m_new[..., None])
-                    l_sum = l_sum * alpha + p.sum(-1)
-                    if v_s is not None:
-                        p = p * v_s[layer, row, pos].T[:, None, :]
-                    pr = p.to(q.dtype).float()
-                    acc = acc * alpha[..., None] + torch.einsum(
-                        "ngp,pnd->ngd", pr, v)
-                    m = m_new
-                per_warp.append((m, l_sum, acc))
-            chunks.append(merge(per_warp))
-        _, l_sum, acc = merge(chunks)
+                    state = _tile_step(
+                        qf[row], k_q[layer, row, pos],
+                        None if k_s is None else k_s[layer, row, pos],
+                        v_q[layer, row, pos],
+                        None if v_s is None else v_s[layer, row, pos],
+                        None, state, q.dtype)
+                per_warp.append(state)
+            chunks.append(_merge(per_warp))
+        _, l_sum, acc = _merge(chunks)
         out[row] = acc / l_sum.clamp(min=1e-30)[..., None]
+    return out.reshape(b, nh, hd).to(q.dtype)
+
+
+def kv_attention_kt_chunked(q, k_pool, k_scale, v_pool, v_scale, lengths,
+                            layer, *, starts=None, append=None, int4=False):
+    """B5-B8's arithmetic on the CPU, step by step
+    (``csrc/kv_attention_kt.cuh``), over the int8 KT pools or (``int4``) the
+    half-plane int4 ones: row b's byte columns cut into chunks of
+    ``KT_CHUNK`` (``KT4_CHUNK``) from column 0. With ``append = (k_new,
+    k_snew, v_new, v_snew, pos)`` each row's fresh column is written first
+    (the pools are MUTATED IN PLACE), whether or not the row attends
+    anything; the kernel's owner chunk writes the same bytes before it
+    attends them. A chunk whose columns hold no position of [start, length)
+    is skipped; in a chunk, warp w of 4 takes tiles ``w, w + 4, ...`` of
+    ``KT_TILE`` byte columns, skips those with no position to attend, and
+    runs an online softmax over each tile's positions (int4: both nibbles
+    of each column, the low plane's then the high plane's); the warps merge
+    in warp order, the live chunks in chunk order; out = acc / max(l,
+    1e-30) in q's dtype, zeros for a row with nothing to attend. A plain
+    mirror for the CPU tests; no path calls it."""
+    b, nh, hd = q.shape
+    nkv = k_pool.shape[2]
+    g = nh // nkv
+    t_len = k_scale.shape[-1]
+    tb = t_len // 2 if int4 else t_len
+    chunk, tile, warps = (kc.KT4_CHUNK if int4 else kc.KT_CHUNK), kc.KT_TILE, 4
+    if append is not None:
+        (_append_kt4 if int4 else _append_kt)(
+            *append[:4], k_pool, k_scale, v_pool, v_scale, layer, append[4])
+    qf = q.float().reshape(b, nkv, g, hd)
+    out = torch.zeros((b, nkv, g, hd), dtype=torch.float32)
+    length = _rows(lengths, b, "cpu").clamp(max=t_len)
+    start = (_rows(starts, b, "cpu").clamp(min=0) if starts is not None
+             else torch.zeros(b, dtype=torch.int32))
+    kq, ks, vq, vs = (x[layer] for x in (k_pool, k_scale, v_pool, v_scale))
+    for row in range(b):
+        lo, hi = int(start[row]), int(length[row])
+        spans = [(lo, min(hi, tb))] + ([(max(lo - tb, 0), hi - tb)] if int4
+                                       else [])
+
+        def live(x0, x1):
+            return any(max(x0, a) < min(x1, z) for a, z in spans)
+
+        chunks = []
+        for c0 in range(0, tb, chunk):
+            c1 = min(c0 + chunk, tb)
+            if not live(c0, c1):
+                continue
+            per_warp = []
+            for w in range(warps):
+                state = _fresh(nkv, g, hd)
+                for t0 in range(c0 + w * tile, c1, warps * tile):
+                    if not live(t0, t0 + tile):
+                        continue
+                    cols = torch.arange(t0, min(t0 + tile, tb))
+                    t = torch.cat([cols, cols + tb]) if int4 else cols
+                    k = kq[row][..., cols].permute(2, 0, 1)   # [c, nkv, hd]
+                    v = vq[row, cols]
+                    if int4:
+                        k = unpack_int4_halfplane(k, axis=0)
+                        v = unpack_int4_halfplane(v, axis=0)
+                    state = _tile_step(qf[row], k, ks[row][:, t].T, v,
+                                       vs[row, t], (t >= lo) & (t < hi),
+                                       state, q.dtype)
+                per_warp.append(state)
+            chunks.append(_merge(per_warp))
+        if chunks:
+            _, l_sum, acc = _merge(chunks)
+            out[row] = acc / l_sum.clamp(min=1e-30)[..., None]
     return out.reshape(b, nh, hd).to(q.dtype)
 
 

@@ -2,7 +2,7 @@
 
 Sources ``onebit_tpu_torch/csrc/kv_attention_int8.cu`` (B5, B6) and
 ``kv_attention_int4.cu`` (B7, B8), both instances of the kernel in
-``kv_attention_common.cuh``, and ``kv_attention_decode.cu`` (B9, over the
+``kv_attention_kt.cuh``, and ``kv_attention_decode.cu`` (B9, over the
 flat pools, with three instances counted apart: int8 pools with scales,
 bf16 pools, f32 pools). :func:`launch` and :func:`launch_flat` check their
 tensors, launch one kernel on PyTorch's current stream and count the launch
@@ -10,9 +10,12 @@ in the kernel's ``KernelInfo``. The public wrappers and the plain PyTorch
 versions live in ``kernels/kv_attention.py``.
 
 B9 splits each row into chunks of ``DECODE_CHUNK`` positions from its start
-(``kv_attention.kv_attention_decode_chunked`` mirrors its arithmetic) and
-merges them in the same launch through ticket counters kept per device
-(``bitlinear_cuda.counters``): two streams must not run it at once.
+(``kv_attention.kv_attention_decode_chunked`` mirrors its arithmetic), B5-B8
+into chunks of ``KT_CHUNK`` (int8) or ``KT4_CHUNK`` (int4) byte columns from
+column 0 (``kv_attention.kv_attention_kt_chunked``). Each merges its chunks
+in the same launch through ticket counters kept per device
+(``bitlinear_cuda.counters``, ``B * nkv`` a launch): two streams must not
+run them at once.
 """
 
 from __future__ import annotations
@@ -54,6 +57,9 @@ KERNELS = (APPEND_KT, DECODE_KT, APPEND_KT4, DECODE_KT4, DECODE_INT8,
            DECODE_BF16, DECODE_F32)
 
 DECODE_CHUNK = 256   # positions a B9 CTA attends (the kernel's kChunk)
+KT_CHUNK = 256       # byte columns a B5/B6 CTA attends (int8.cu's kChunk)
+KT4_CHUNK = 256      # byte columns a B7/B8 CTA attends (int4.cu's kChunk)
+KT_TILE = 16         # byte columns a B5-B8 warp tile (both sources' kTile)
 HEAD_DIMS = (64, 128)
 GROUPS = (1, 2, 4, 8)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -74,9 +80,19 @@ def _fn(library: str):
     if library == _FLAT:
         fn.argtypes = [p] * 10 + [i] * 8 + [ctypes.c_longlong, f, p]
     else:
-        fn.argtypes = [p] * 13 + [i] * 7 + [f, p]
+        fn.argtypes = [p] * 15 + [i] * 8 + [ctypes.c_longlong, f, p]
     fn.restype = i
     return fn
+
+
+def smem_bytes(info: KernelInfo, dtype: torch.dtype, hd: int, g: int) -> int:
+    """The dynamic shared bytes a CTA of a B5-B8 instance asks for."""
+    fn = getattr(build.load(info.library),
+                 _SYMBOLS[info.library] + "_smem_bytes")
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    append = info is APPEND_KT or info is APPEND_KT4
+    return fn(_DTYPE_CODES[dtype], hd, g, int(append))
 
 
 def _check_geometry(info: KernelInfo, hd: int, nh: int, nkv: int,
@@ -118,8 +134,8 @@ def launch(info: KernelInfo, q, k_pool, k_scale, v_pool, v_scale, lengths,
            append=None) -> torch.Tensor:
     """One launch of B5-B8 on the CUDA tensors given. ``append`` is None
     (B6, B8) or ``(k_new, k_snew, v_new, v_snew, pos)``, written into the
-    pools in place before the attention. Returns ``ctx [B, nh, hd]`` in q's
-    dtype."""
+    pools in place by the CTA that attends the written column. Returns
+    ``ctx [B, nh, hd]`` in q's dtype."""
     int4 = info.library == "kv_attention_int4.cu"
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
@@ -150,16 +166,23 @@ def launch(info: KernelInfo, q, k_pool, k_scale, v_pool, v_scale, lengths,
                           append))
     _check_tensors(q, named, dtypes, shapes, f"q {tuple(q.shape)}, T={t}")
     _check_geometry(info, hd, nh, nkv, layer, n_layers)
-    out = torch.empty_like(q)
-    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     # the layer's slices: the kernel sees one layer, with 64-bit offsets
     pools = [x[layer].data_ptr() for x in (k_pool, k_scale, v_pool, v_scale)]
+    if pools[2] % 16:
+        raise ValueError("the V pool's layer slice must be 16-byte aligned")
+    out = torch.empty_like(q)
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     new = [ptr(x) for x in append[:4]] if append is not None else [None] * 4
+    chunk = KT4_CHUNK if int4 else KT_CHUNK
+    # each chunk's (m, l) and accumulator, for rows of more than one chunk
+    part_floats = b * nkv * -(-tb // chunk) * nh * (hd + 2) // nkv
+    part = torch.empty(part_floats, dtype=torch.float32, device=q.device)
     err = _fn(info.library)(
         q.data_ptr(), out.data_ptr(), *pools, lengths.data_ptr(),
         ptr(starts), None if append is None else append[4].data_ptr(), *new,
-        b, nkv, nh // nkv, hd, t, _DTYPE_CODES[q.dtype],
-        int(append is not None), hd ** -0.5, _stream(q))
+        part.data_ptr(), counters(q.device, b * nkv).data_ptr(), b, nkv,
+        nh // nkv, hd, t, _DTYPE_CODES[q.dtype], int(append is not None),
+        chunk, part_floats, hd ** -0.5, _stream(q))
     _raise_on(err, info)
     info.launches += 1
     return out

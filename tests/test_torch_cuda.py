@@ -437,6 +437,90 @@ def test_kv_attention_pools_past_2_31_elements(dev):
               starts_on=False, layer=31)
 
 
+def _kt_call(int4, append, q, new, pools, lengths, layer, pos, starts, *,
+             plain=False):
+    """B5-B8 (or their plain versions) on one case."""
+    fns = ((ka.kv_attention_append_kt4, ka.kv_attention_decode_kt4) if int4
+           else (ka.kv_attention_append_kt, ka.kv_attention_decode_kt))
+    if plain:
+        fns = tuple(ka.PLAIN[fn] for fn in fns)
+    if append:
+        return fns[0](q, *new, *pools, lengths, layer, pos, starts=starts)
+    return fns[1](q, *pools, lengths, layer, starts=starts)
+
+
+@pytest.mark.parametrize("int4", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("append", [True, False], ids=["append", "decode"])
+def test_kt_is_deterministic(dev, int4, append):
+    """Two launches on the same inputs give the same bits (the chunks of a
+    row merge in chunk order), and the pools the same bytes."""
+    shape = (2, 8, 2, 4, 128, 2048)
+    q, new, pools = _kv_case(dev, torch.bfloat16, shape, int4)
+    lengths, pos, starts = _rows_of(shape[5], shape[1])
+    as_dev = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa
+    lengths, pos, starts = as_dev(lengths), as_dev(pos), as_dev(starts)
+    a = _kt_call(int4, append, q, new, pools, lengths, 1, pos, starts)
+    first = [x.clone() for x in pools]
+    b = _kt_call(int4, append, q, new, pools, lengths, 1, pos, starts)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert all(torch.equal(x, y) for x, y in zip(pools, first))
+
+
+def _kt_edge_rows(int4):
+    """(length, start, pos) at T = 4 chunks: a chunk's size and one either
+    side; a start inside a chunk and on a chunk's first column; writes at a
+    chunk's first and last column and at the edges of the warps' ring
+    stages (tiles of 16 columns; columns 63/64: warp 3's first tile, warp
+    0's second, in its second stage; 127/128: warp 3's second, warp 0's
+    third, back in its first); an inactive row written in a chunk it does
+    not attend. int4 adds rows at T/2 and one either side, a start past
+    T/2, writes at the high plane's chunk edges, and a row whose two
+    planes leave a gap of columns."""
+    c = kc.KT4_CHUNK if int4 else kc.KT_CHUNK      # byte columns a chunk
+    t = 4 * c * (2 if int4 else 1)
+    h = t // 2
+    rows = [(c - 1, 0, c - 2), (c, 0, c - 1), (c + 1, 0, c), (t, 0, t - 1),
+            (2 * c + 17, c + 3, 2 * c + 16), (3 * c, c, 3 * c - 1),
+            (0, 0, c + 15), (c + 40, 0, 64), (200, 0, 63), (300, 7, 128),
+            (150, 0, 127), (c + 200, 5, c + 127)]
+    if int4:
+        rows += [(h - 1, 0, h - 2), (h, 0, h - 1), (h + 1, 0, h),
+                 (h + c + 1, h + 5, h + c), (t - 3, h + 1, h + c - 1),
+                 (0, 0, h + 2 * c), (t, 0, h + 3 * c - 1),
+                 (h + 60, 200, h + 40), (h + 70, 0, h + 64)]
+    return t, rows
+
+
+@pytest.mark.parametrize("int4", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("g", [1, 8])
+@pytest.mark.parametrize("starts_on", [True, False],
+                         ids=["starts", "no_starts"])
+@pytest.mark.parametrize("append", [True, False], ids=["append", "decode"])
+def test_kt_chunk_edges(dev, int4, g, starts_on, append):
+    """Lengths, starts and write positions at chunk and ring-stage edges
+    against the plain version: pools bit-exact, ctx within KV_TOL (fp32),
+    zeros on the rows with nothing to attend."""
+    t, rows = _kt_edge_rows(int4)
+    q, new, pools = _kv_case(dev, torch.float32, (1, len(rows), 1, g, 64, t),
+                             int4, seed=g)
+    as_dev = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa
+    lengths, pos = as_dev([r[0] for r in rows]), as_dev([r[2] for r in rows])
+    starts = as_dev([r[1] for r in rows]) if starts_on else None
+    want_pools = [x.clone() for x in pools]
+    want = _kt_call(int4, append, q, new, want_pools, lengths, 0, pos, starts,
+                    plain=True)
+    got = _kt_call(int4, append, q, new, pools, lengths, 0, pos, starts)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(pools, want_pools))
+    live = lengths > (starts if starts is not None else 0)
+    assert (got[~live] == 0).all()
+    err = (got[live] - want[live]).abs().max().item()
+    assert err <= KV_TOL[torch.float32], err
+    assert want[live].abs().amax(dim=(1, 2)).min() >= 8 * KV_TOL[
+        torch.bfloat16]
+
+
 def test_kv_wrappers_check_inputs(dev):
     q, new, pools = _kv_case(dev, torch.float32, KV_SHAPES["small_gqa"],
                              False)
