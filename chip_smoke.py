@@ -43,7 +43,8 @@ toolkit and PyTorch. It imports nothing of JAX. Phases, one JSON line each:
    and fp32, rows of 1-2048 positions with starts and one empty row, beside
    ``scaled_dot_product_attention`` with a boolean mask; last, each
    kernel's share of its bound (bound_ms / ms; K3's fp32 instance bounded
-   by three bf16 tensor-core passes and B11's by twelve bf16 products, the
+   by three bf16 tensor-core passes, B11's by twelve bf16 products and
+   B11-dkv's and B11-dq's by six bf16 products an fp32 product, the
    arithmetic they run), none of which may pass 1;
 4. the slice's paths end to end at full llama2-7b width and depth on random
    packed weights (``host_random_packed_params(seed=0)`` and
@@ -99,7 +100,8 @@ toolkit and PyTorch. It imports nothing of JAX. Phases, one JSON line each:
    (:func:`train_checks`): a random plain teacher and its SVID start
    student; the first KD step's loss and gradients on the kernel path
    against ``impl="torch"`` in fp32 and bf16, and a planted fault (one
-   head's dq zeroed in layer 0) that must break the fp32 limit; three KD
+   head's dq zeroed in layer 0) that must break the fp32 limit, and each
+   dtype's micro-step again under the profiler for its device ms; three KD
    steps at the reference recipe (batch 4 x 2048, bf16): finite losses, B11
    2 x 4 x 3 and B11-dkv, B11-dq 4 x 3 launches, ms per step, training
    tokens/s, peak memory, device busy share; the trained student packed
@@ -927,8 +929,7 @@ def _flash_bound(b, s, nh, nkv, hd, dtype, cuda_cores=False) -> tuple:
     (two products), at the rate of the arithmetic the kernel runs: for
     bfloat16 the bf16 tensor-core peak; for float32 FLASH_F32_PRODUCTS bf16
     products at that peak, or with ``cuda_cores`` the two fp32 products at
-    the CUDA cores' fp32 rate (the first fp32 kernel's basis, and the
-    backward's fp32 kernels')."""
+    the CUDA cores' fp32 rate (the first fp32 kernel's basis)."""
     elem = 4 if dtype == torch.float32 else 2
     bytes_ = elem * b * s * hd * (2 * nh + 2 * nkv)
     flops = 4 * b * nh * hd * s * (s + 1) / 2
@@ -1052,20 +1053,34 @@ def flash_kernel_checks(dev) -> dict:
 # step: within 7.9e-3 of the Pallas kernels' gradients and 1.2e-2 of the
 # plain gradient per (row, head).
 FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -6}
+# B11-dkv's and B11-dq's fp32 instances multiply on the bf16 tensor cores:
+# six products of split bf16 parts for each fp32 product
+# (csrc/flash_attention_bwd.cu)
+FLASH_BWD_F32_PRODUCTS = 6
 
 
-def _flash_bwd_bound(b, s, nh, nkv, hd, dtype, kernel: str) -> tuple:
+def _flash_bwd_bound(b, s, nh, nkv, hd, dtype, kernel: str,
+                     cuda_cores=False) -> tuple:
     """Least time for one call of a backward kernel: q, do, k, v, and the
     fp32 lse and di read once, its outputs (dk and dv, or dq) written once;
     or its products of the causal half, 2 * B * nh * hd * S(S+1)/2 flops
-    each, at the dtype's peak: B11-dkv forms S, dP, dV and dK (4), B11-dq
-    S, dP and dQ (3); the whole backward's five cost 2.5 times B11's two."""
+    each, at the rate of the arithmetic the kernel runs: B11-dkv forms S,
+    dP, dV and dK (4), B11-dq S, dP and dQ (3); the whole backward's five
+    cost 2.5 times B11's two. bfloat16 at the bf16 tensor-core peak;
+    float32 as FLASH_BWD_F32_PRODUCTS bf16 products at that peak, or with
+    ``cuda_cores`` at the CUDA cores' fp32 rate (the first fp32 kernels'
+    basis)."""
     elem = 4 if dtype == torch.float32 else 2
     bytes_ = elem * b * s * hd * (2 * nh + 2 * nkv) + 2 * 4 * b * nh * s
     bytes_ += elem * b * s * hd * (2 * nkv if kernel == "dkv" else nh)
     products = 4 if kernel == "dkv" else 3
     flops = products * 2 * b * nh * hd * s * (s + 1) / 2
-    peak = FP32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
+    peak = BF16_FLOP_PER_S
+    if dtype == torch.float32:
+        if cuda_cores:
+            peak = FP32_FLOP_PER_S
+        else:
+            flops *= FLASH_BWD_F32_PRODUCTS
     t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / peak
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops
             else "operations")
@@ -1078,8 +1093,7 @@ def _flash_bwd_resources(kernel: str, hd: int, dtype) -> dict:
     from onebit_tpu_torch.kernels import build
     source = "flash_attention_bwd.cu"
     bf16 = dtype == torch.bfloat16
-    entry = (f"flash_bwd_{kernel}_wgmmaILi{hd}E" if bf16
-             else f"flash_bwd_{kernel}IfLi{hd}E")
+    entry = f"flash_bwd_{kernel}_{'wgmma' if bf16 else 'split'}ILi{hd}E"
     smem = build.load(source).onebit_flash_bwd_smem_bytes(
         0 if kernel == "dkv" else 1, hd, int(bf16))
     return {"ptxas_regs_spill_stores_loads": _ptxas_of(source, entry),
@@ -1179,6 +1193,15 @@ def flash_bwd_kernel_checks(dev) -> dict:
                             library_ms=lib_ms)
                 if nkv == nh:
                     results[info.name] = line
+                extra = {}
+                if dtype == torch.float32:
+                    extra = {
+                        "bound_ms_fp32_cuda_cores": _flash_bwd_bound(
+                            b, s, nh, nkv, hd, dtype, kernel,
+                            cuda_cores=True)[0],
+                        "backward_bound_ms_fp32_cuda_cores": _flash_bound(
+                            b, s, nh, nkv, hd, dtype,
+                            cuda_cores=True)[0] * 2.5}
                 emit({"phase": "kernel", "name": info.name, "tol": tol,
                       "ok": ok, "shape": [b, s, nh, hd], "nkv": nkv,
                       "grads_finite": finite,
@@ -1186,8 +1209,8 @@ def flash_bwd_kernel_checks(dev) -> dict:
                       "min_row_head_max_abs_grad": floor,
                       "backward_ms": ms_dkv + ms_dq + ms_di, "di_ms": ms_di,
                       "backward_bound_ms": _flash_bound(
-                          b, s, nh, nkv, hd, dtype, cuda_cores=True)[0] * 2.5,
-                      "bound_share": bound_ms / ms,
+                          b, s, nh, nkv, hd, dtype)[0] * 2.5,
+                      "bound_share": bound_ms / ms, **extra,
                       **_flash_bwd_resources(kernel, hd, dtype),
                       "note": "plain_ms and library_ms: the whole "
                               "backward (dq, dk and dv)", **line})
@@ -2289,6 +2312,53 @@ def _kd_grads(config, kd_cfg, params, teacher, batch, dtype, impl):
     return loss.item(), grads, counts
 
 
+def _kd_step_device_ms(config, kd_cfg, params, teacher, batch, dtype):
+    """One more kernel-path remat micro-step of :func:`_kd_grads`, profiled:
+    its device ms (summed over kernels) and its ten largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _kd_grads(config, kd_cfg, params, teacher, batch, dtype, "auto")
+    return _device_ms(prof)
+
+
+def _train_setup(dev):
+    """(a): the config at TRAIN_LAYERS, a random plain teacher and its SVID
+    start student, the KD config, the token blocks and the first batch."""
+    from onebit_tpu_torch import BitLlamaConfig
+    from onebit_tpu_torch.core.build_start import build_start_params
+    from onebit_tpu_torch.model.bitllama import init_params
+    from onebit_tpu_torch.train.losses import KDConfig
+    config = BitLlamaConfig.named("llama2-7b", num_hidden_layers=TRAIN_LAYERS)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    teacher = init_params(config, gen, mode="linear", device=dev)
+    student = build_start_params(teacher)
+    torch.cuda.synchronize()
+    kd_cfg = KDConfig(kd_alpha=1.0, kd_beta=1.0, kd_gamma=0.0,
+                      kd_loss_scale=0.01)
+    rng = np.random.default_rng(7)
+    blocks = rng.integers(3, config.vocab_size,
+                          (TRAIN_STEPS * TRAIN_BATCH, TRAIN_SEQLEN)
+                          ).astype(np.int32)
+    first = {k: torch.from_numpy(blocks[:TRAIN_BATCH]).long().to(dev)
+             for k in ("input_ids", "labels")}
+    return config, teacher, student, kd_cfg, blocks, first
+
+
+def kd_step_timing(dev) -> None:
+    """The device ms of (b)'s fp32 kernel-path micro-step alone (for
+    ``scripts/torch_kernel_ab.py``: the same step on two checkouts'
+    kernels)."""
+    config, teacher, student, kd_cfg, _, first = _train_setup(dev)
+    _kd_grads(config, kd_cfg, student, teacher, first, torch.float32, "auto")
+    device_ms, top = _kd_step_device_ms(config, kd_cfg, student, teacher,
+                                        first, torch.float32)
+    emit({"phase": "kd_step_timing", "dtype": "float32", "remat": True,
+          "layers": TRAIN_LAYERS, "batch": [TRAIN_BATCH, TRAIN_SEQLEN],
+          "device_ms": device_ms, "top_kernels": top})
+
+
 def _grad_rel(grads, ref) -> float:
     """The largest over leaves of max |g - g_ref| / max |g_ref|."""
     return max(((g - r).abs().max() / r.abs().max()).item()
@@ -2320,7 +2390,8 @@ def train_checks(dev) -> dict:
     (b) the first KD step's loss and gradients at batch 4 x 2048 with
         remat, kernel path against impl="torch", in fp32 and in bf16
         (TRAIN_GRAD_TOL); B11 launches 3 times a layer (student, its
-        recomputation, teacher), B11-dkv and B11-dq once;
+        recomputation, teacher), B11-dkv and B11-dq once; the kernel
+        path's micro-step again, profiled: its device ms;
     (c) the fp32 step again with a planted fault in B11-dq
         (:func:`_zero_dq_head_fault`), which must break the limit;
     (d) three KD steps (``make_train_step``) at the reference recipe
@@ -2336,19 +2407,15 @@ def train_checks(dev) -> dict:
     Returns the backward kernels' launches: fp32 from (b), bf16 from (d)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from onebit_tpu_torch import BitLlamaConfig
-    from onebit_tpu_torch.core.build_start import build_start_params
     from onebit_tpu_torch.eval import ppl as ppl_mod
     from onebit_tpu_torch.kernels import attention_cuda as fc
     from onebit_tpu_torch.kernels import bitlinear_cuda as bc
-    from onebit_tpu_torch.model.bitllama import init_params, pack_model_params
+    from onebit_tpu_torch.model.bitllama import pack_model_params
     from onebit_tpu_torch.train.data import batch_iterator
-    from onebit_tpu_torch.train.losses import KDConfig
     from onebit_tpu_torch.train.trainer import (TrainConfig,
                                                 init_train_state,
                                                 make_train_step)
     L = TRAIN_LAYERS
-    config = BitLlamaConfig.named("llama2-7b", num_hidden_layers=L)
     emit({"phase": "train_config", "config": "llama2-7b", "layers": L,
           "full_depth": 32, "batch": [TRAIN_BATCH, TRAIN_SEQLEN],
           "reduced": "depth 32 -> 4: at 7B width a layer's fp32 latent "
@@ -2356,24 +2423,12 @@ def train_checks(dev) -> dict:
                      "activations take about 13 GB; 32 layers need a "
                      "sharded model (ROADMAP.md §1 item 6)"})
     t0 = time.perf_counter()
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    teacher = init_params(config, gen, mode="linear", device=dev)
-    student = build_start_params(teacher)
-    torch.cuda.synchronize()
+    config, teacher, student, kd_cfg, blocks, first = _train_setup(dev)
     emit({"phase": "train_start", "seconds": time.perf_counter() - t0,
           "teacher": "linear fp32, torch.Generator seed 0",
           "student_h_finite": all(
               bool(torch.isfinite(student["layers"][n].weight_scale).all())
               for n in ("q_proj", "down_proj"))})
-    kd_cfg = KDConfig(kd_alpha=1.0, kd_beta=1.0, kd_gamma=0.0,
-                      kd_loss_scale=0.01)
-    rng = np.random.default_rng(7)
-    blocks = rng.integers(3, config.vocab_size,
-                          (TRAIN_STEPS * TRAIN_BATCH, TRAIN_SEQLEN)
-                          ).astype(np.int32)
-    first = {k: torch.from_numpy(blocks[:TRAIN_BATCH]).long().to(dev)
-             for k in ("input_ids", "labels")}
     launches = {}
 
     # (b), (c): the first step's gradients, kernel path against impl="torch"
@@ -2399,6 +2454,8 @@ def train_checks(dev) -> dict:
         counted = {k: v for k, v in counts.items() if v and "flash" in k}
         ok = (math.isfinite(loss_k) and rel <= tol and loss_rel <= tol
               and counted == want and not any(counts_t.values()))
+        line["device_ms"], line["top_kernels"] = _kd_step_device_ms(
+            config, kd_cfg, student, teacher, first, dtype)
         if dtype == torch.float32:
             launches.update({dkv.name: counts[dkv.name],
                              dq.name: counts[dq.name]})

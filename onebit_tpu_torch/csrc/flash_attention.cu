@@ -252,73 +252,6 @@ struct SplitLayout {
   static constexpr int kBytes = 6 * WgTile<HD>::kBytes + 1024;
 };
 
-__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint32_t a,
-                                             uint32_t b, uint32_t c,
-                                             uint32_t d) {
-  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
-               "r"(a), "r"(b), "r"(c), "r"(d)
-               : "memory");
-}
-
-// The bf16 parts of x (NP of hi, mid, lo) as bf16 pairs of (x0, x1).
-template <int NP>
-__device__ __forceinline__ void split_pair(float x0, float x1,
-                                           uint32_t (&w)[NP]) {
-#pragma unroll
-  for (int p = 0; p < NP; ++p) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-    w[p] = bits_of(h);
-    const float2 hf = __bfloat1622float2(h);
-    x0 -= hf.x;   // exact: the rounding error of a bf16 rounding
-    x1 -= hf.y;
-  }
-}
-
-// Rows [r0, r0 + 64) of one head (row r at base + r * ss, HD contiguous
-// floats) split into NP bf16 parts, part p a swizzled tile at dst + p *
-// the tile's bytes; rows at or past S are zeros. Each thread takes 8-float
-// chunks, four at a time in flight.
-template <int HD, int NP>
-__device__ __forceinline__ void split_tile(uint32_t dst, const float* base,
-                                           long long ss, int r0, int S) {
-  constexpr int CPR = HD / 8;                      // chunks per row
-  constexpr int PER = kTile * CPR / kWgThreads;    // chunks per thread
-  constexpr int BATCH = 4;
-  static_assert(PER % BATCH == 0, "chunk batches");
-#pragma unroll
-  for (int n0 = 0; n0 < PER; n0 += BATCH) {
-    float4 x[BATCH][2];
-#pragma unroll
-    for (int j = 0; j < BATCH; ++j) {
-      const int idx = threadIdx.x + (n0 + j) * kWgThreads;
-      const int r = idx / CPR, c = idx % CPR;
-      x[j][0] = x[j][1] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (r0 + r < S) {
-        const float4* src = reinterpret_cast<const float4*>(
-            base + (long long)(r0 + r) * ss + 8 * c);
-        x[j][0] = __ldg(src);
-        x[j][1] = __ldg(src + 1);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < BATCH; ++j) {
-      const int idx = threadIdx.x + (n0 + j) * kWgThreads;
-      const int r = idx / CPR, c = idx % CPR;
-      uint32_t w[4][NP];
-      split_pair<NP>(x[j][0].x, x[j][0].y, w[0]);
-      split_pair<NP>(x[j][0].z, x[j][0].w, w[1]);
-      split_pair<NP>(x[j][1].x, x[j][1].y, w[2]);
-      split_pair<NP>(x[j][1].z, x[j][1].w, w[3]);
-      const uint32_t off =
-          (c / 8) * WgTile<HD>::kBlock + swizzle128(r, c % 8);
-#pragma unroll
-      for (int p = 0; p < NP; ++p)
-        st_shared_v4(dst + p * WgTile<HD>::kBytes + off, w[0][p], w[1][p],
-                     w[2][p], w[3][p]);
-    }
-  }
-}
-
 template <int HD>
 __global__ void __launch_bounds__(kWgThreads, 2)
 flash_causal_split(const float* __restrict__ q, const float* __restrict__ k,
@@ -328,7 +261,6 @@ flash_causal_split(const float* __restrict__ q, const float* __restrict__ k,
                    long long k_ss, long long v_sb, long long v_ss,
                    float scale) {
   constexpr int TB = WgTile<HD>::kBytes;
-  constexpr int KS = HD / 16;   // k16 steps of S = Q Kᵀ
   extern __shared__ uint8_t smem_raw[];
   const uint32_t qs = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t ks = qs + 3 * TB;   // K hi, mid, lo; V hi, mid after S
@@ -355,31 +287,9 @@ flash_causal_split(const float* __restrict__ q, const float* __restrict__ k,
     fence_proxy_async();
     __syncthreads();
 
-    // ---- 1. s = Qhi Khi + (the five small products), two accumulators
-    float s[32], sm[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = sm[i] = 0.f;
-    fence_regs(s);
-    fence_regs(sm);
-    wgmma_fence();
-    auto small = [&](int qp, int kp) {   // Q part qp times K part kp
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-        wgmma_ss_n64(sm, kmajor_desc<HD>(qs + qp * TB, kk),
-                     kmajor_desc<HD>(ks + kp * TB, kk));
-    };
-    small(1, 1);   // smallest first: mid mid, hi lo, lo hi, hi mid, mid hi
-    small(0, 2);
-    small(2, 0);
-    small(0, 1);
-    small(1, 0);
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk)
-      wgmma_ss_n64(s, kmajor_desc<HD>(qs, kk), kmajor_desc<HD>(ks, kk));
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
-    fence_regs(sm);
+    // ---- 1. s = Qhi Khi + (the five small products), summed apart
+    float s[32];
+    split_product_ss<HD>(s, qs, ks);
 
     // ---- 2. scale, mask above the diagonal (only the diagonal tile has
     // such keys; a query row past S is never stored), online softmax
@@ -388,7 +298,7 @@ flash_causal_split(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < 32; ++i)
       s[i] = (diag && 8 * (i / 4) + col + (i & 1) > row + 8 * ((i >> 1) & 1))
                  ? -INFINITY
-                 : (s[i] + sm[i]) * scale;
+                 : s[i] * scale;
     float alpha[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -426,15 +336,7 @@ flash_causal_split(const float* __restrict__ q, const float* __restrict__ k,
     // ---- 4. O += Phi Vhi + (the five small products), for each 64
     // columns of V: two fresh accumulators joined into O on the CUDA cores
     uint32_t pa[3][4][4];   // P's hi, mid and lo as A fragments
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        uint32_t w[3];
-        split_pair<3>(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1], w);
-#pragma unroll
-        for (int p = 0; p < 3; ++p) pa[p][kk][j] = w[p];
-      }
+    split_a(pa, s);
 #pragma unroll
     for (int half = 0; half < HD / 64; ++half) {
       float big[32], sm2[32];

@@ -64,225 +64,53 @@
 // exponentials between them one after another inside its warpgroup, and
 // two CTAs an SM fill only part of the gaps; S and dP are formed in both
 // kernels.
-// The fp32 instances run on the CUDA cores' fp32 FMA (the bound is the
-// 67 TFLOP/s fp32 peak) and keep dS in fp32:
-//   * B11-dkv: one CTA of 256 threads per (key tile of 64, kv head, row),
-//     the first keys first, K and V in shared memory, walking the query
-//     heads of the group and their query tiles as the bf16 instance does.
-//     Thread (ty, tx) forms the transposed scores of key rows ty + 16a and
-//     query columns tx + 16c (a, c < 4), writes P and dS transposed to
-//     shared memory, then owns dk and dv rows ty + 16a, columns 64n +
-//     4tx.. +3, in registers for the whole walk;
-//   * B11-dq: one CTA per (query tile of 64, head, row), longest first,
-//     walking the key tiles up to the diagonal; dS goes over the V tile in
-//     shared memory, and dq accumulates in registers;
-//   * rows past S load as zeros, are masked, and are never stored; every
-//     global offset is 64-bit.
+// The fp32 instances (the fp32 KD step, held to 1e-4 of the plain fp32
+// gradients) run every product on the bf16 tensor cores too, on operands
+// split into three bf16 parts in the kernel, as B11's fp32 forward does
+// (flash_attention.cu; the split pieces in flash_attention_common.cuh):
+//   * each fp32 product (B11-dkv: Sᵀ, dPᵀ, dV, dK; B11-dq: S, dP, dQ) is
+//     six bf16 products, hi hi apart from the five small ones (mid mid, hi
+//     lo, lo hi, hi mid, mid hi), the two sums joined on the CUDA cores
+//     (the tensor cores' fp32 sums round toward zero). Fewer fail: three
+//     drop v's and do's low parts from dP, and through di = Σ o·do that
+//     leaves gradient errors past 1e-4 where the gradient is zero (S = 1;
+//     tests/test_torch_flash_bwd_design.py). P and dS stay unrounded fp32
+//     and are split in registers into the A fragments of dV, dK and dQ;
+//   * each query tile's dV and dK (B11-dkv), each key tile's dQ (B11-dq),
+//     sums afresh and joins the running fp32 sum on the CUDA cores, so the
+//     error does not grow with the walk (up to 32 query tiles x G heads):
+//     the five small products' sum first, then hi hi's, in the same 32
+//     registers (both fresh sums at once beside B11-dkv's running dV or dK
+//     spilled at 255 registers);
+//   * two warpgroups a CTA (256 threads), the grids of the bf16 instances
+//     (B11-dkv one CTA per key tile, kv head and row, walking the group's
+//     query heads, no atomics; B11-dq one per query tile, head and row,
+//     longest rows first). All 256 threads split the walked tiles (16-byte
+//     loads, 128-byte swizzled part tiles: fp32 is not TMA-loadable as
+//     parts); then warpgroup 0 forms S (Sᵀ) and P while warpgroup 1 forms
+//     dP (dPᵀ) on the tensor cores at the same time, the two accumulator
+//     fragments alike, so P (B11-dkv) or P and then dS (B11-dq) cross
+//     between them element for element through 16 KB of shared memory.
+//     B11-dkv: warpgroup 0 sums dV, warpgroup 1 dK, each for the whole
+//     walk in registers (64 floats a thread at HD 128); B11-dq: each
+//     warpgroup sums 64 of dQ's columns (at HD 64, warpgroup 0 all);
+//   * the parts of four 64-row tiles stay in shared memory (B11-dkv: K and
+//     V once, Q and dO a step; B11-dq: Q and dO once, K and V a step), 192
+//     KB at HD 128, with the exchange, the stats and alignment 214,528
+//     bytes: one CTA an SM, and no room for a second stage, so the split of
+//     the next tile waits for this tile's products. 254 (B11-dkv) and 204
+//     (B11-dq) registers at HD 128, no spills.
+// Their bound is six bf16 products an fp32 product at the tensor cores'
+// peak (B11-dkv 1.668 ms, B11-dq 1.251 at the training shape); the first
+// version's, on the CUDA cores' fp32 FMA, was 4.105 and 3.078 ms. What
+// holds them back (PERF.md): each step's split runs on every thread while
+// the tensor cores wait, and so do the exponentials and the exchange.
 #include <math.h>
-
-#include <type_traits>
 
 #include "flash_attention_common.cuh"
 #include "wgmma_common.cuh"
 
 namespace onebit_flash {
-
-constexpr int kBwdThreads = kThreads;
-
-template <int HD>
-constexpr size_t dkv_smem_bytes() {
-  // K, V, Q, dO padded; P and dS transposed [key][query]; lse and di
-  return (size_t)(4 * kTile * (HD + kPad) + 2 * kTile * (kTile + kPad) +
-                  2 * kTile) * sizeof(float);
-}
-
-template <int HD>
-constexpr size_t dq_smem_bytes() {
-  // Q, dO, K, V padded (dS over V); lse and di
-  return (size_t)(4 * kTile * (HD + kPad) + 2 * kTile) * sizeof(float);
-}
-
-// lse and di of the query rows [r0, r0 + kTile) of one (row, head): zeros
-// past S.
-__device__ __forceinline__ void load_row_stats(float* Ls, float* Ds,
-                                               const float* lse,
-                                               const float* di,
-                                               size_t base, int r0, int S) {
-  const int t = threadIdx.x;
-  if (t < kTile) {
-    Ls[t] = r0 + t < S ? lse[base + r0 + t] : 0.f;
-  } else if (t < 2 * kTile) {
-    Ds[t - kTile] = r0 + t - kTile < S ? di[base + r0 + t - kTile] : 0.f;
-  }
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kBwdThreads, 1)
-flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const T* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ di,
-              T* __restrict__ dk, T* __restrict__ dv, int S, int nh, int G,
-              long long q_sb, long long q_ss, long long k_sb, long long k_ss,
-              long long v_sb, long long v_ss, long long o_sb, long long o_ss,
-              float scale) {
-  constexpr int LDK = HD + kPad;
-  constexpr int LDP = kTile + kPad;
-  constexpr int NC = HD / 64;
-  static_assert(HD % 64 == 0, "head_dim");
-
-  extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + kTile * LDK;
-  float* Qs = Vs + kTile * LDK;
-  float* Os = Qs + kTile * LDK;       // dO
-  float* Pt = Os + kTile * LDK;       // [key][query], rounded to T
-  float* dSt = Pt + kTile * LDP;      // dS, [key][query]
-  float* Ls = dSt + kTile * LDP;
-  float* Ds = Ls + kTile;
-
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int kt = blockIdx.x;          // the first keys have the most work
-  const int hk = blockIdx.y, b = blockIdx.z, nkv = gridDim.y;
-  const int k0 = kt * kTile, nq = (S + kTile - 1) / kTile;
-
-  load_tile<T, HD>(Ks, LDK, k + b * k_sb + (long long)hk * HD, k_ss, k0, S);
-  load_tile<T, HD>(Vs, LDK, v + b * v_sb + (long long)hk * HD, v_ss, k0, S);
-
-  float acc_v[4][NC][4] = {}, acc_k[4][NC][4] = {};
-  for (int gi = 0; gi < G; ++gi) {
-    const int h = hk * G + gi;
-    const T* qb = q + b * q_sb + (long long)h * HD;
-    const T* ob = dout + b * o_sb + (long long)h * HD;
-    const size_t sb = ((size_t)b * nh + h) * S;
-    for (int qt = kt; qt < nq; ++qt) {
-      const int q0 = qt * kTile;
-      load_tile<T, HD>(Qs, LDK, qb, q_ss, q0, S);
-      load_tile<T, HD>(Os, LDK, ob, o_ss, q0, S);
-      load_row_stats(Ls, Ds, lse, di, sb, q0, S);
-      __syncthreads();
-
-      // ---- transposed scores and dP of key rows ty + 16a, query cols
-      // tx + 16c
-      float st[4][4] = {}, dpt[4][4] = {};
-      dot_4x4<HD>(st, Ks, Qs, LDK, ty, tx);
-      dot_4x4<HD>(dpt, Vs, Os, LDK, ty, tx);
-      const bool diag = qt == kt;
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int jl = ty + 16 * a, il = tx + 16 * c;
-          const bool masked = (diag && jl > il) || q0 + il >= S;
-          const float p = masked ? 0.f : expf(st[a][c] * scale - Ls[il]);
-          Pt[jl * LDP + il] = round_to<T>(p);
-          dSt[jl * LDP + il] = p * (dpt[a][c] - Ds[il]);
-        }
-      __syncthreads();
-
-      // ---- dv += P^T . dO, dk += dS^T . Q (scaled at the end)
-      matmul_rows<HD>(acc_v, Pt, LDP, Os, LDK, ty, tx);
-      matmul_rows<HD>(acc_k, dSt, LDP, Qs, LDK, ty, tx);
-      __syncthreads();   // before the next tile's loads overwrite Q and dO
-    }
-  }
-
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int j = k0 + ty + 16 * a;
-    if (j >= S) continue;
-    const size_t off = (((size_t)b * S + j) * nkv + hk) * HD;
-#pragma unroll
-    for (int n = 0; n < NC; ++n) {
-      Convert<T>::store4(dv + off + n * 64 + tx * 4,
-                         make_float4(acc_v[a][n][0], acc_v[a][n][1],
-                                     acc_v[a][n][2], acc_v[a][n][3]));
-      Convert<T>::store4(dk + off + n * 64 + tx * 4,
-                         make_float4(acc_k[a][n][0] * scale,
-                                     acc_k[a][n][1] * scale,
-                                     acc_k[a][n][2] * scale,
-                                     acc_k[a][n][3] * scale));
-    }
-  }
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kBwdThreads, 1)
-flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const T* __restrict__ dout,
-             const float* __restrict__ lse, const float* __restrict__ di,
-             T* __restrict__ dq, int S, int nh, int G, long long q_sb,
-             long long q_ss, long long k_sb, long long k_ss, long long v_sb,
-             long long v_ss, long long o_sb, long long o_ss, float scale) {
-  constexpr int LDK = HD + kPad;
-  constexpr int LDP = kTile + kPad;
-  constexpr int NC = HD / 64;
-  static_assert(HD % 64 == 0, "head_dim");
-  static_assert(LDP <= LDK, "dS fits over V");
-
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Os = Qs + kTile * LDK;       // dO
-  float* Ks = Os + kTile * LDK;
-  float* Vs = Ks + kTile * LDK;
-  float* Ss = Vs;                     // dS [query][key], over V once used
-  float* Ls = Vs + kTile * LDK;
-  float* Ds = Ls + kTile;
-
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int qt = gridDim.x - 1 - blockIdx.x;   // longest rows first
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / G;
-  const int q0 = qt * kTile;
-
-  load_tile<T, HD>(Qs, LDK, q + b * q_sb + (long long)h * HD, q_ss, q0, S);
-  load_tile<T, HD>(Os, LDK, dout + b * o_sb + (long long)h * HD, o_ss, q0,
-                   S);
-  load_row_stats(Ls, Ds, lse, di, ((size_t)b * nh + h) * S, q0, S);
-
-  float acc[4][NC][4] = {};
-  const T* kb = k + b * k_sb + (long long)hk * HD;
-  const T* vb = v + b * v_sb + (long long)hk * HD;
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * kTile;
-    load_tile<T, HD>(Ks, LDK, kb, k_ss, k0, S);
-    load_tile<T, HD>(Vs, LDK, vb, v_ss, k0, S);
-    __syncthreads();
-
-    // ---- scores and dP of query rows ty + 16a, key cols tx + 16c
-    float s[4][4] = {}, dp[4][4] = {};
-    dot_4x4<HD>(s, Qs, Ks, LDK, ty, tx);
-    dot_4x4<HD>(dp, Os, Vs, LDK, ty, tx);
-    __syncthreads();   // every thread is done with V: dS goes over it
-    const bool diag = kt == qt;
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int il = ty + 16 * a, jl = tx + 16 * c;
-        const float p = (diag && jl > il) ? 0.f
-                                          : expf(s[a][c] * scale - Ls[il]);
-        Ss[il * LDP + jl] = p * (dp[a][c] - Ds[il]);
-      }
-    __syncthreads();
-
-    // ---- dq += dS . K (scaled at the end)
-    matmul_rows<HD>(acc, Ss, LDP, Ks, LDK, ty, tx);
-    __syncthreads();   // before the next tile's loads overwrite K and dS
-  }
-
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = q0 + ty + 16 * a;
-    if (i >= S) continue;
-    T* o = dq + (((size_t)b * S + i) * nh + h) * HD;
-#pragma unroll
-    for (int n = 0; n < NC; ++n)
-      Convert<T>::store4(o + n * 64 + tx * 4,
-                         make_float4(acc[a][n][0] * scale,
-                                     acc[a][n][1] * scale,
-                                     acc[a][n][2] * scale,
-                                     acc[a][n][3] * scale));
-  }
-}
 
 // ---- the bf16 instances: wgmma on the tensor cores ----
 
@@ -567,6 +395,311 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
   store_rows<HD>(dq, acc, b, S, nh, h, q0, row, col);
 }
 
+// ---- the fp32 instances: split operands on the bf16 tensor cores ----
+
+constexpr int kSplitThreads = 2 * kWgThreads;   // two warpgroups
+
+// Shared memory of both fp32 kernels: the three bf16 parts of four 64-row
+// tiles, the exchange between the warpgroups (32 floats for each thread of
+// one warpgroup), the query tile's lse and di (B11-dkv), + alignment.
+template <int HD>
+struct SplitBwdLayout {
+  static constexpr int kXch = 12 * WgTile<HD>::kBytes;   // offsets
+  static constexpr int kStats = kXch + kWgThreads * 32 * 4;
+  static constexpr int kBytes = kStats + 2 * kTile * 4 + 1024;
+};
+
+// acc (64 x 64, fp32) += A B on one warpgroup: A's three parts as register
+// fragments a[p] (k = 64: four k16 steps), B the 64 columns of block blk of
+// three part tiles at b + p TB ([64 k rows, HD], read MN-major). The five
+// small products sum afresh and join acc on the CUDA cores, then hi hi
+// does the same in the same 32 registers (two fresh sums at once, beside
+// B11-dkv's running dV or dK, would not fit in 255 registers).
+template <int HD>
+__device__ __forceinline__ void split_product_rs(float (&acc)[32],
+                                                 const uint32_t (&a)[3][4][4],
+                                                 uint32_t b, int blk) {
+  constexpr int TB = WgTile<HD>::kBytes;
+  float d[32];
+  auto part = [&](int ap, int bp) {   // A part ap times B part bp
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_n64<1>(d, a[ap][kk],
+                      mn_desc<HD>(b + bp * TB + blk * WgTile<HD>::kBlock, kk));
+  };
+  auto fresh = [&] {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) d[i] = 0.f;
+    fence_regs(d);
+    wgmma_fence();
+  };
+  auto join = [&] {
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(d);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] += d[i];
+  };
+  fresh();
+  part(1, 1);   // smallest first, as in split_product_ss
+  part(0, 2);
+  part(2, 0);
+  part(0, 1);
+  part(1, 0);
+  join();
+  fresh();
+  part(0, 0);
+  join();
+}
+
+// The fp32 stores of rows r0 + row and r0 + row + 8 (those below S) of a
+// 64 x 64 accumulator fragment to columns [c0, c0 + 64) of the [B, S,
+// nheads, HD] tensor out at head n.
+template <int HD>
+__device__ __forceinline__ void store_block(float* out, const float (&d)[32],
+                                            int b, int S, int nheads, int n,
+                                            int c0, int r0, int row,
+                                            int col) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = r0 + row + 8 * r;
+    if (i >= S) continue;
+    float* o = out + (((size_t)b * S + i) * nheads + n) * HD + c0;
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      *reinterpret_cast<float2*>(o + 8 * c + col) =
+          make_float2(d[4 * c + 2 * r], d[4 * c + 2 * r + 1]);
+  }
+}
+
+// This thread's 32 floats of a 64 x 64 fragment to (put) or from (take)
+// the exchange: float4 j of thread t at xch[j * 128 + t], so both
+// warpgroups' thread t meet on the same (row, column) elements.
+__device__ __forceinline__ void xch_put(float4* xch, int t,
+                                        const float (&x)[32]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    xch[j * kWgThreads + t] =
+        make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
+}
+__device__ __forceinline__ void xch_take(const float4* xch, int t,
+                                         float (&x)[32]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float4 v = xch[j * kWgThreads + t];
+    x[4 * j] = v.x;
+    x[4 * j + 1] = v.y;
+    x[4 * j + 2] = v.z;
+    x[4 * j + 3] = v.w;
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kSplitThreads, 1)
+flash_bwd_dkv_split(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ di, float* __restrict__ dk,
+                    float* __restrict__ dv, int S, int nh, int G,
+                    long long q_sb, long long q_ss, long long k_sb,
+                    long long k_ss, long long v_sb, long long v_ss,
+                    long long o_sb, long long o_ss, float scale) {
+  using L = SplitBwdLayout<HD>;
+  constexpr int TB = WgTile<HD>::kBytes;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  // the parts of K, V, Q and dO, three tiles each
+  const uint32_t ks = (raw + 1023) & ~1023u, vs = ks + 3 * TB;
+  const uint32_t qs = ks + 6 * TB, os = ks + 9 * TB;
+  uint8_t* aligned = smem_raw + (ks - raw);
+  float4* xch = reinterpret_cast<float4*>(aligned + L::kXch);
+  float* stats = reinterpret_cast<float*>(aligned + L::kStats);  // lse, di
+
+  const int tid = threadIdx.x, wg = tid / kWgThreads;
+  const int t = tid % kWgThreads, lane = tid & 31;
+  const int row = (t >> 5) * 16 + (lane >> 2);   // key rows, and row + 8
+  const int col = 2 * (lane & 3);                // query columns
+  const int kt = blockIdx.x;          // the first keys have the most work
+  const int hk = blockIdx.y, b = blockIdx.z, nkv = gridDim.y;
+  const int k0 = kt * kTile, nq = (S + kTile - 1) / kTile;
+  const int per_head = nq - kt, steps = G * per_head;
+
+  split_tile<HD, 3, kSplitThreads>(ks, k + b * k_sb + (long long)hk * HD,
+                                   k_ss, k0, S);
+  split_tile<HD, 3, kSplitThreads>(vs, v + b * v_sb + (long long)hk * HD,
+                                   v_ss, k0, S);
+
+  // warpgroup 0 sums dV, warpgroup 1 dK, 64 columns a block
+  float acc[HD / 64][32];
+#pragma unroll
+  for (int c = 0; c < HD / 64; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+
+  for (int it = 0; it < steps; ++it) {
+    const int h = hk * G + it / per_head, qt = kt + it % per_head;
+    const int q0 = qt * kTile;
+    // the last step's products are done with Q's and dO's parts, the
+    // exchange and the stats
+    __syncthreads();
+    split_tile<HD, 3, kSplitThreads>(qs, q + b * q_sb + (long long)h * HD,
+                                     q_ss, q0, S);
+    split_tile<HD, 3, kSplitThreads>(
+        os, dout + b * o_sb + (long long)h * HD, o_ss, q0, S);
+    if (tid < 2 * kTile) {   // the query rows' lse, then their di
+      const int r = q0 + (tid & (kTile - 1));
+      stats[tid] = r < S ? (tid < kTile ? lse : di)[((size_t)b * nh + h) * S +
+                                                    r]
+                         : 0.f;
+    }
+    fence_proxy_async();
+    __syncthreads();
+
+    // ---- 1. warpgroup 0: Sᵀ = K Qᵀ, warpgroup 1: dPᵀ = V dOᵀ (keys x
+    // queries, fp32)
+    float x[32];
+    split_product_ss<HD>(x, wg == 0 ? ks : vs, wg == 0 ? qs : os);
+    const bool diag = qt == kt, tail = q0 + kTile > S;
+    if (wg == 0) {
+      // Pᵀ from the forward's log-sum-exp; zero above the diagonal (j > i,
+      // only in the diagonal tile) and on query rows past S (the last tile)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int qc = 8 * (i / 4) + col + (i & 1);
+        const int kr = row + 8 * ((i >> 1) & 1);
+        const float p = expf(fmaf(x[i], scale, -stats[qc]));
+        x[i] = (diag && kr > qc) || (tail && q0 + qc >= S) ? 0.f : p;
+      }
+      xch_put(xch, t, x);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        x[i] -= stats[kTile + 8 * (i / 4) + col + (i & 1)];
+    }
+    __syncthreads();
+    if (wg == 1) {   // scale dSᵀ = scale Pᵀ (dPᵀ - di)
+      float p[32];
+      xch_take(xch, t, p);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) x[i] = x[i] * p[i] * scale;
+    }
+
+    // ---- 2. warpgroup 0: dV += Pᵀ dO, warpgroup 1: dK += (scale dSᵀ) Q
+    // (k = queries): this tile's product afresh, joined in fp32
+    uint32_t xa[3][4][4];
+    split_a(xa, x);
+#pragma unroll
+    for (int c = 0; c < HD / 64; ++c)
+      split_product_rs<HD>(acc[c], xa, wg == 0 ? os : qs, c);
+  }
+
+#pragma unroll
+  for (int c = 0; c < HD / 64; ++c)
+    store_block<HD>(wg == 0 ? dv : dk, acc[c], b, S, nkv, hk, 64 * c, k0, row,
+                    col);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kSplitThreads, 1)
+flash_bwd_dq_split(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v,
+                   const float* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ di, float* __restrict__ dq,
+                   int S, int nh, int G, long long q_sb, long long q_ss,
+                   long long k_sb, long long k_ss, long long v_sb,
+                   long long v_ss, long long o_sb, long long o_ss,
+                   float scale) {
+  using L = SplitBwdLayout<HD>;
+  constexpr int TB = WgTile<HD>::kBytes;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  // the parts of Q, dO, K and V, three tiles each
+  const uint32_t qs = (raw + 1023) & ~1023u, os = qs + 3 * TB;
+  const uint32_t ks = qs + 6 * TB, vs = qs + 9 * TB;
+  float4* xch = reinterpret_cast<float4*>(smem_raw + (qs - raw) + L::kXch);
+
+  const int tid = threadIdx.x, wg = tid / kWgThreads;
+  const int t = tid % kWgThreads, lane = tid & 31;
+  const int row = (t >> 5) * 16 + (lane >> 2);   // query rows, and + 8
+  const int col = 2 * (lane & 3);                // key columns
+  const int qt = gridDim.x - 1 - blockIdx.x;     // longest rows first
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / G;
+  const int q0 = qt * kTile;
+  const bool owns = wg < HD / 64;   // dQ's columns [64 wg, 64 wg + 64)
+
+  split_tile<HD, 3, kSplitThreads>(qs, q + b * q_sb + (long long)h * HD,
+                                   q_ss, q0, S);
+  split_tile<HD, 3, kSplitThreads>(os, dout + b * o_sb + (long long)h * HD,
+                                   o_ss, q0, S);
+  // the rows' lse (warpgroup 0) or di (warpgroup 1); rows past S are never
+  // stored
+  float stat[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    stat[r] = (wg == 0 ? lse : di)[((size_t)b * nh + h) * S +
+                                   min(q0 + row + 8 * r, S - 1)];
+
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+
+  const float* kb = k + b * k_sb + (long long)hk * HD;
+  const float* vb = v + b * v_sb + (long long)hk * HD;
+  for (int kt = 0; kt <= qt; ++kt) {
+    const int k0 = kt * kTile;
+    // the last tile's products are done with K's and V's parts and the
+    // exchange
+    __syncthreads();
+    split_tile<HD, 3, kSplitThreads>(ks, kb, k_ss, k0, S);
+    split_tile<HD, 3, kSplitThreads>(vs, vb, v_ss, k0, S);
+    fence_proxy_async();
+    __syncthreads();
+
+    // ---- 1. warpgroup 0: S = Q Kᵀ, warpgroup 1: dP = dO Vᵀ (queries x
+    // keys, fp32)
+    float x[32];
+    split_product_ss<HD>(x, wg == 0 ? qs : os, wg == 0 ? ks : vs);
+    if (wg == 0) {
+      // P from the forward's log-sum-exp, zero above the diagonal (only in
+      // the diagonal tile)
+      const bool diag = kt == qt;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int kc = 8 * (i / 4) + col + (i & 1);
+        const int qr = row + 8 * ((i >> 1) & 1);
+        const float p = expf(fmaf(x[i], scale, -stat[(i >> 1) & 1]));
+        x[i] = diag && kc > qr ? 0.f : p;
+      }
+      xch_put(xch, t, x);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) x[i] -= stat[(i >> 1) & 1];
+    }
+    __syncthreads();
+    if (wg == 1) {   // scale dS = scale P (dP - di), and back to warpgroup 0
+      float p[32];
+      xch_take(xch, t, p);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) x[i] = x[i] * p[i] * scale;
+      xch_put(xch, t, x);
+    }
+    __syncthreads();
+    if (wg == 0) xch_take(xch, t, x);
+
+    // ---- 2. dQ += (scale dS) K over this warpgroup's 64 columns (k =
+    // keys): this tile's product afresh, joined in fp32
+    if (owns) {
+      uint32_t xa[3][4][4];
+      split_a(xa, x);
+      split_product_rs<HD>(acc, xa, ks, wg);
+    }
+  }
+
+  if (owns) store_block<HD>(dq, acc, b, S, nh, h, 64 * wg, q0, row, col);
+}
+
 struct BwdArgs {
   const void *q, *k, *v, *dout;
   const float *lse, *di;
@@ -609,54 +742,42 @@ int run_wgmma(int which, const BwdArgs& a) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, int HD>
-int run_dkv(const BwdArgs& a) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    return run_wgmma<HD>(0, a);
-  } else {
-    constexpr size_t smem = dkv_smem_bytes<HD>();
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_dkv<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    const long long* s = a.strides;
-    const dim3 grid((a.S + kTile - 1) / kTile, a.nkv, a.B);
-    flash_bwd_dkv<T, HD><<<grid, kBwdThreads, smem, a.st>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-        static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-        a.di, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.S, a.nh,
-        a.nh / a.nkv, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7],
-        a.scale);
-    return (int)cudaGetLastError();
-  }
+// The fp32 instances: q, k, v and do read as fp32 rows and split in the
+// kernel.
+template <int HD>
+int run_split(int which, const BwdArgs& a) {
+  constexpr int smem = SplitBwdLayout<HD>::kBytes;
+  cudaError_t e = which == 0
+      ? cudaFuncSetAttribute(flash_bwd_dkv_split<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem)
+      : cudaFuncSetAttribute(flash_bwd_dq_split<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long* s = a.strides;
+  const float *q = static_cast<const float*>(a.q),
+              *k = static_cast<const float*>(a.k),
+              *v = static_cast<const float*>(a.v),
+              *o = static_cast<const float*>(a.dout);
+  const int nt = (a.S + kTile - 1) / kTile, G = a.nh / a.nkv;
+  if (which == 0)
+    flash_bwd_dkv_split<HD><<<dim3(nt, a.nkv, a.B), kSplitThreads, smem,
+                              a.st>>>(
+        q, k, v, o, a.lse, a.di, static_cast<float*>(a.dk),
+        static_cast<float*>(a.dv), a.S, a.nh, G, s[0], s[1], s[2], s[3],
+        s[4], s[5], s[6], s[7], a.scale);
+  else
+    flash_bwd_dq_split<HD><<<dim3(nt, a.nh, a.B), kSplitThreads, smem,
+                             a.st>>>(
+        q, k, v, o, a.lse, a.di, static_cast<float*>(a.dq), a.S, a.nh, G,
+        s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], a.scale);
+  return (int)cudaGetLastError();
 }
 
-template <typename T, int HD>
-int run_dq(const BwdArgs& a) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    return run_wgmma<HD>(1, a);
-  } else {
-    constexpr size_t smem = dq_smem_bytes<HD>();
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_dq<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    const long long* s = a.strides;
-    const dim3 grid((a.S + kTile - 1) / kTile, a.nh, a.B);
-    flash_bwd_dq<T, HD><<<grid, kBwdThreads, smem, a.st>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-        static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-        a.di, static_cast<T*>(a.dq), a.S, a.nh, a.nh / a.nkv, s[0], s[1],
-        s[2], s[3], s[4], s[5], s[6], s[7], a.scale);
-    return (int)cudaGetLastError();
-  }
-}
-
-template <typename T>
-int dispatch(int which, int hd, const BwdArgs& a) {
-  if (hd == 64) return which == 0 ? run_dkv<T, 64>(a) : run_dq<T, 64>(a);
-  if (hd == 128) return which == 0 ? run_dkv<T, 128>(a) : run_dq<T, 128>(a);
-  return (int)cudaErrorInvalidValue;
+template <int HD>
+int run(int which, int dtype, const BwdArgs& a) {
+  return dtype == 1 ? run_wgmma<HD>(which, a) : run_split<HD>(which, a);
 }
 
 int launch(int which, const void* q, const void* k, const void* v,
@@ -669,8 +790,9 @@ int launch(int which, const void* q, const void* k, const void* v,
             static_cast<const float*>(di), dq, dk, dv, B, S, nh, nkv, {},
             scale, static_cast<cudaStream_t>(stream)};
   for (int i = 0; i < 8; ++i) a.strides[i] = strides[i];
-  return dtype == 1 ? dispatch<__nv_bfloat16>(which, hd, a)
-                    : dispatch<float>(which, hd, a);
+  if (hd == 64) return run<64>(which, dtype, a);
+  if (hd == 128) return run<128>(which, dtype, a);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace onebit_flash
@@ -712,10 +834,8 @@ extern "C" int onebit_flash_bwd_dq(
 // anything else.
 extern "C" int onebit_flash_bwd_smem_bytes(int which, int hd, int dtype) {
   using namespace onebit_flash;
-  if (hd != 64 && hd != 128) return 0;
+  if ((hd != 64 && hd != 128) || (which != 0 && which != 1)) return 0;
   if (dtype == 1)
     return hd == 64 ? BwdLayout<64>::kBytes : BwdLayout<128>::kBytes;
-  if (which == 0)
-    return (int)(hd == 64 ? dkv_smem_bytes<64>() : dkv_smem_bytes<128>());
-  return (int)(hd == 64 ? dq_smem_bytes<64>() : dq_smem_bytes<128>());
+  return hd == 64 ? SplitBwdLayout<64>::kBytes : SplitBwdLayout<128>::kBytes;
 }

@@ -1,12 +1,11 @@
 // Pieces shared by the causal flash-attention kernels: the forward B11
 // (flash_attention.cu) and its backward, B11-dkv and B11-dq
-// (flash_attention_bwd.cu). The backward's fp32 instances run on the CUDA
-// cores and stage 64-row tiles of q, k, v (and do) in shared memory as fp32
-// rows, with 16-byte global loads. The bf16 instances and the forward's
-// fp32 instance run on the tensor cores (wgmma_common.cuh): one warpgroup a
-// CTA, 64-row bf16 tiles in 128-byte swizzled shared tiles, brought by TMA
-// or, for the fp32 forward, split from fp32 in the kernel (the pieces at
-// the end of this file).
+// (flash_attention_bwd.cu). Every instance runs on the tensor cores
+// (wgmma_common.cuh) on 64-row bf16 tiles in 128-byte swizzled shared
+// tiles: brought by TMA (the bf16 instances, one warpgroup a CTA) or, for
+// the fp32 instances, split from fp32 in the kernel into three bf16 parts
+// (split_pair, split_tile, split_a, split_product_ss at the end of this
+// file).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -17,130 +16,7 @@
 
 namespace onebit_flash {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 64;  // queries per CTA, keys per tile
-constexpr int kPad = 4;    // floats of padding per staged row
-
-// The CUDA-core kernels (the backward's fp32 instances) are templates of
-// their element type T, of which only float is instantiated.
-
-// v rounded to T's precision, as a float.
-template <typename T>
-__device__ __forceinline__ float round_to(float v);
-template <>
-__device__ __forceinline__ float round_to<float>(float v) { return v; }
-
-// 16 bytes of T, stored to shared memory as floats.
-template <typename T>
-struct Convert;
-
-template <>
-struct Convert<float> {
-  __device__ __forceinline__ static void store(float* dst, const uint4& r) {
-    *reinterpret_cast<float4*>(dst) =
-        make_float4(__uint_as_float(r.x), __uint_as_float(r.y),
-                    __uint_as_float(r.z), __uint_as_float(r.w));
-  }
-  __device__ __forceinline__ static void store4(float* dst, const float4& v) {
-    *reinterpret_cast<float4*>(dst) = v;
-  }
-};
-
-// Rows [r0, r0 + kTile) of one head, row r at base + r * row_stride, into
-// shared rows of ld floats; rows at or past S are zeros. Every load of the
-// tile is issued before any is stored.
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* sm, int ld, const T* base,
-                                          long long row_stride, int r0,
-                                          int S) {
-  constexpr int VEC = 16 / sizeof(T);            // elements per 16 bytes
-  constexpr int VPR = HD / VEC;                  // 16-byte loads per row
-  constexpr int PER = kTile * VPR / kThreads;    // loads per thread
-  static_assert(kTile * VPR % kThreads == 0, "tile loads");
-  uint4 r[PER];
-#pragma unroll
-  for (int n = 0; n < PER; ++n) {
-    const int idx = threadIdx.x + n * kThreads;
-    const int row = r0 + idx / VPR;
-    r[n] = make_uint4(0, 0, 0, 0);
-    if (row < S)
-      r[n] = __ldg(reinterpret_cast<const uint4*>(
-          base + (long long)row * row_stride + (idx % VPR) * VEC));
-  }
-#pragma unroll
-  for (int n = 0; n < PER; ++n) {
-    const int idx = threadIdx.x + n * kThreads;
-    Convert<T>::store(sm + (idx / VPR) * ld + (idx % VPR) * VEC, r[n]);
-  }
-}
-
-__device__ __forceinline__ float comp(const float4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
-}
-
-// acc[a][c] += the dot products of shared rows A[ty + 16a] and B[tx + 16c]
-// (a, c < 4) over HD columns; both row sets padded to ld floats, read as
-// float4 (conflict-free with ld = HD + kPad).
-template <int HD>
-__device__ __forceinline__ void dot_4x4(float (&acc)[4][4], const float* A,
-                                        const float* B, int ld, int ty,
-                                        int tx) {
-#pragma unroll 4
-  for (int d = 0; d < HD; d += 4) {
-    float4 aa[4], bb[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-      aa[a] = *reinterpret_cast<const float4*>(A + (ty + 16 * a) * ld + d);
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      bb[c] = *reinterpret_cast<const float4*>(B + (tx + 16 * c) * ld + d);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        acc[a][c] = fmaf(aa[a].x, bb[c].x, acc[a][c]);
-        acc[a][c] = fmaf(aa[a].y, bb[c].y, acc[a][c]);
-        acc[a][c] = fmaf(aa[a].z, bb[c].z, acc[a][c]);
-        acc[a][c] = fmaf(aa[a].w, bb[c].w, acc[a][c]);
-      }
-  }
-}
-
-// acc[a][n][e] += sum over j < kTile of W[ty + 16a][j] * X[j][64n + 4tx + e]:
-// W rows of ldw floats (read as float4 along j), X rows of ldx floats.
-template <int HD>
-__device__ __forceinline__ void matmul_rows(float (&acc)[4][HD / 64][4],
-                                            const float* W, int ldw,
-                                            const float* X, int ldx, int ty,
-                                            int tx) {
-  constexpr int NC = HD / 64;
-#pragma unroll 2
-  for (int j = 0; j < kTile; j += 4) {
-    float4 wa[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-      wa[a] = *reinterpret_cast<const float4*>(W + (ty + 16 * a) * ldw + j);
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-      for (int n = 0; n < NC; ++n) {
-        const float4 xx = *reinterpret_cast<const float4*>(
-            X + (j + jj) * ldx + n * 64 + tx * 4);
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const float w = comp(wa[a], jj);
-          acc[a][n][0] = fmaf(w, xx.x, acc[a][n][0]);
-          acc[a][n][1] = fmaf(w, xx.y, acc[a][n][1]);
-          acc[a][n][2] = fmaf(w, xx.z, acc[a][n][2]);
-          acc[a][n][3] = fmaf(w, xx.w, acc[a][n][3]);
-        }
-      }
-    }
-  }
-}
-
-// ---- the bf16 instances: wgmma on the tensor cores ----
-
+constexpr int kTile = 64;         // queries per CTA, keys per tile
 constexpr int kWgThreads = 128;   // one warpgroup
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -226,6 +102,139 @@ inline bool make_rows_map(CUtensorMap* map, const void* base, int B, int S,
   return onebit_sm90::make_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                                       4, base, dims, bytes, box,
                                       CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// ---- fp32 operands as three bf16 parts (the fp32 instances) ----
+//
+// A float x is hi + mid + lo, hi = bf16(x), mid = bf16(x - hi), lo =
+// bf16(x - hi - mid), each difference exact in fp32, so the three parts
+// carry x's 24 bits and every product of two parts is exact in fp32. An
+// fp32 product A B runs as hi hi apart from the five small products (the
+// terms at 2**-8 and 2**-16 of it, smallest first: mid mid, hi lo, lo hi,
+// hi mid, mid hi), dropping those of 2**-24 and below; the two sums are
+// joined on the CUDA cores, since the tensor cores' fp32 sums round toward
+// zero (each add loses up to an ulp of the running sum, one way).
+
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint32_t a,
+                                             uint32_t b, uint32_t c,
+                                             uint32_t d) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(a), "r"(b), "r"(c), "r"(d)
+               : "memory");
+}
+
+// The bf16 parts of x (NP of hi, mid, lo) as bf16 pairs of (x0, x1).
+template <int NP>
+__device__ __forceinline__ void split_pair(float x0, float x1,
+                                           uint32_t (&w)[NP]) {
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    w[p] = onebit_sm90::bits_of(h);
+    const float2 hf = __bfloat1622float2(h);
+    x0 -= hf.x;   // exact: the rounding error of a bf16 rounding
+    x1 -= hf.y;
+  }
+}
+
+// Rows [r0, r0 + 64) of one head (row r at base + r * ss, HD contiguous
+// floats) split into NP bf16 parts, part p a swizzled tile at dst + p *
+// the tile's bytes; rows at or past S are zeros. The NT threads of the CTA
+// (threadIdx.x < NT) take 8-float chunks, up to four at a time in flight.
+template <int HD, int NP, int NT = kWgThreads>
+__device__ __forceinline__ void split_tile(uint32_t dst, const float* base,
+                                           long long ss, int r0, int S) {
+  constexpr int CPR = HD / 8;                      // chunks per row
+  constexpr int PER = kTile * CPR / NT;            // chunks per thread
+  constexpr int BATCH = PER < 4 ? PER : 4;
+  static_assert(PER * NT == kTile * CPR && PER % BATCH == 0, "chunks");
+#pragma unroll
+  for (int n0 = 0; n0 < PER; n0 += BATCH) {
+    float4 x[BATCH][2];
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j) {
+      const int idx = threadIdx.x + (n0 + j) * NT;
+      const int r = idx / CPR, c = idx % CPR;
+      x[j][0] = x[j][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r0 + r < S) {
+        const float4* src = reinterpret_cast<const float4*>(
+            base + (long long)(r0 + r) * ss + 8 * c);
+        x[j][0] = __ldg(src);
+        x[j][1] = __ldg(src + 1);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j) {
+      const int idx = threadIdx.x + (n0 + j) * NT;
+      const int r = idx / CPR, c = idx % CPR;
+      uint32_t w[4][NP];
+      split_pair<NP>(x[j][0].x, x[j][0].y, w[0]);
+      split_pair<NP>(x[j][0].z, x[j][0].w, w[1]);
+      split_pair<NP>(x[j][1].x, x[j][1].y, w[2]);
+      split_pair<NP>(x[j][1].z, x[j][1].w, w[3]);
+      const uint32_t off =
+          (c / 8) * WgTile<HD>::kBlock + onebit_sm90::swizzle128(r, c % 8);
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        st_shared_v4(dst + p * WgTile<HD>::kBytes + off, w[0][p], w[1][p],
+                     w[2][p], w[3][p]);
+    }
+  }
+}
+
+// The 16 k-pairs of a 64 x 64 fp32 accumulator fragment (keys or queries
+// along its columns) split into three bf16 parts, part p the A operand of
+// four k16 steps in a[p].
+__device__ __forceinline__ void split_a(uint32_t (&a)[3][4][4],
+                                        const float (&d)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t w[3];
+      split_pair<3>(d[8 * kk + 2 * j], d[8 * kk + 2 * j + 1], w);
+#pragma unroll
+      for (int p = 0; p < 3; ++p) a[p][kk][j] = w[p];
+    }
+}
+
+// d = A Bᵀ, 64 x 64 in fp32 on one warpgroup: A's and B's three part tiles
+// at a + p TB and b + p TB ([64 rows, HD], K-major), hi hi summed apart
+// from the five small products, the two joined here (S = Q Kᵀ and its kin
+// in the fp32 instances).
+template <int HD>
+__device__ __forceinline__ void split_product_ss(float (&d)[32], uint32_t a,
+                                                 uint32_t b) {
+  using namespace onebit_sm90;
+  constexpr int TB = WgTile<HD>::kBytes;
+  float sm[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = sm[i] = 0.f;
+  // the zeros in place before the fence (else ptxas sets them between the
+  // products and injects a wait there)
+  fence_regs(d);
+  fence_regs(sm);
+  wgmma_fence();
+  auto small = [&](int ap, int bp) {   // A part ap times B part bp
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss_n64(sm, kmajor_desc<HD>(a + ap * TB, kk),
+                   kmajor_desc<HD>(b + bp * TB, kk));
+  };
+  small(1, 1);   // smallest first: mid mid, hi lo, lo hi, hi mid, mid hi
+  small(0, 2);
+  small(2, 0);
+  small(0, 1);
+  small(1, 0);
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    wgmma_ss_n64(d, kmajor_desc<HD>(a, kk), kmajor_desc<HD>(b, kk));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(d);
+  fence_regs(sm);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] += sm[i];
 }
 
 }  // namespace onebit_flash

@@ -119,6 +119,63 @@ def flash_causal_attention_split(q, k, v, *, num_kv_groups: int):
     return out, m + torch.log(l_sum)
 
 
+def flash_causal_attention_bwd_split(q, k, v, do, lse, di, *,
+                                     num_kv_groups: int,
+                                     small=SPLIT_SMALL):
+    """B11-dkv's and B11-dq's fp32 arithmetic (csrc/flash_attention_bwd.cu),
+    step by step, on the tensors' device: q, k, v and do split into three
+    bf16 parts; every fp32 product is hi x hi and, summed apart, the
+    ``small`` products of parts; S and dP over the causal half, the two
+    sums joined; P = exp(S * scale - lse) and dS = P (dP - di) scale,
+    unrounded, split into three parts for dV += Pᵀ dO and dK += dSᵀ Q (each
+    query tile of 64's product afresh, the group's query heads outer and
+    their query tiles inner, as the kernel walks them) and dQ += dS K (each
+    key tile of 64's product afresh): a tile's small products' sum joins
+    the fp32 running sum, then its hi x hi's.
+    ``lse`` and ``di`` fp32 ``[B, nh, S]``; returns (dq, dk, dv) in fp32,
+    shaped like q, k, v. A plain mirror for the tests; no path calls it."""
+    b, s, nh, hd = q.shape
+    g = num_kv_groups
+    scale = hd ** -0.5
+
+    def parts(x, heads=1):                 # [B, n, S, hd], three parts
+        return split_bf16(x.float().transpose(1, 2)
+                          .repeat_interleave(heads, 1), 3)
+
+    def prods(a, c):
+        return a[0] @ c[0] + sum(a[i] @ c[j] for i, j in small)
+
+    def join(acc, a, c):
+        acc = acc + sum(a[i] @ c[j] for i, j in small)
+        return acc + a[0] @ c[0]
+
+    def tr(xs):
+        return [x.transpose(-1, -2) for x in xs]
+
+    qp, dop, kp, vp = parts(q), parts(do), parts(k, g), parts(v, g)
+    causal = _causal_mask(s, s, 0, q.device)[0]
+    p = torch.exp(prods(qp, tr(kp)) * scale - lse[..., None])
+    p = p.masked_fill(~causal, 0.0)
+    ds = p * (prods(dop, tr(vp)) - di[..., None]) * scale
+    pp, dsp = split_bf16(p, 3), split_bf16(ds, 3)
+    dq = torch.zeros((b, nh, s, hd), device=q.device)
+    for k0 in range(0, s, 64):
+        keys = slice(k0, k0 + 64)
+        dq = join(dq, [x[..., keys] for x in dsp],
+                  [x[:, :, keys] for x in kp])
+    dk = torch.zeros((b, nh // g, s, hd), device=q.device)
+    dv = torch.zeros_like(dk)
+    for gi in range(g):
+        heads = slice(gi, nh, g)           # head hk * g + gi of kv head hk
+        for q0 in range(0, s, 64):
+            rows = slice(q0, q0 + 64)
+            dv = join(dv, tr([x[:, heads, rows] for x in pp]),
+                      [x[:, heads, rows] for x in dop])
+            dk = join(dk, tr([x[:, heads, rows] for x in dsp]),
+                      [x[:, heads, rows] for x in qp])
+    return tuple(x.transpose(1, 2).contiguous() for x in (dq, dk, dv))
+
+
 class _FlashCausal(torch.autograd.Function):
     """B11 with its backward: the forward saves q, k, v, o and the rows'
     log-sum-exp; the backward forms ``di = Σ o·do`` in fp32 (a plain op, as

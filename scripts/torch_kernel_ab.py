@@ -11,8 +11,9 @@ lists). Each run builds that checkout's CUDA sources into its own
 timed cold over copies of their words; ``flat_kernel_checks``: B9 on the
 flat pools, cycling over the 32 layers; ``kv_kernel_checks``: B5-B8;
 ``paged_kernel_checks``: B10; ``flash_kernel_checks``: B11;
-``flash_bwd_kernel_checks``: B11-dkv/dq; the second line above is the
-A/B of B10 and B11's redesigns), so that both checkouts' kernels
+``flash_bwd_kernel_checks``: B11-dkv/dq; ``kd_step_timing``: the device
+ms of the fp32 KD micro-step at 7B width, 4 layers; the second line above
+is the A/B of B10 and B11's redesigns), so that both checkouts' kernels
 are driven and timed the same way, in a process of its own, in the order
 OTHER, this, this, OTHER for two rounds. Every JSON line a phase prints
 comes out with the checkout (``"other"`` or ``"this"``) and the run's index

@@ -1233,17 +1233,20 @@ def test_flash_bwd_matches_plain(dev, dtype, b, g, hd, s):
         assert (err <= tol * top).all(), (name, (err / top).max().item())
 
 
-@pytest.mark.parametrize("g", [1, 4])
-@pytest.mark.parametrize("hd", [64, 128])
-def test_flash_bwd_bf16_is_deterministic(dev, g, hd):
-    """Two launches of each bf16 backward kernel on the same inputs give
-    the same bits: each CTA owns its outputs and sums in a fixed order, with
-    no atomics."""
+def _flash_bwd_residuals(dev, dtype, b, s, g, hd):
+    """q, k, v, a readable do, and the forward's lse and di = Σ o·do as
+    B11's autograd rule forms them."""
     from onebit_tpu_torch.kernels import attention_cuda as fc
-    q, k, v = _flash_case(dev, torch.bfloat16, 2, 300, 2, g, hd, fused=True)
-    do = _flash_do(dev, torch.bfloat16, 2, 300, 2 * g, hd, readable=True)
+    q, k, v = _flash_case(dev, dtype, b, s, 2, g, hd, fused=True)
+    do = _flash_do(dev, dtype, b, s, 2 * g, hd, readable=True)
     out, lse = fc.launch(q, k, v, g, with_lse=True)
     di = (out.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, lse, di
+
+
+def _flash_bwd_twice(dev, dtype, g, hd):
+    from onebit_tpu_torch.kernels import attention_cuda as fc
+    q, k, v, do, lse, di = _flash_bwd_residuals(dev, dtype, 2, 300, g, hd)
 
     def grads():
         return [*fc.launch_bwd_dkv(q, k, v, do, lse, di, g),
@@ -1254,6 +1257,69 @@ def test_flash_bwd_bf16_is_deterministic(dev, g, hd):
     for name, a, b in zip(("dk", "dv", "dq"), first, second):
         assert torch.isfinite(a).all() and a.abs().max() > 0, name
         assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_bwd_bf16_is_deterministic(dev, g, hd):
+    """Two launches of each bf16 backward kernel on the same inputs give
+    the same bits: each CTA owns its outputs and sums in a fixed order, with
+    no atomics."""
+    _flash_bwd_twice(dev, torch.bfloat16, g, hd)
+
+
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_bwd_f32_is_deterministic(dev, g, hd):
+    """The same for the fp32 instances: their two warpgroups meet through
+    shared memory at fixed points, and every sum runs in a fixed order."""
+    _flash_bwd_twice(dev, torch.float32, g, hd)
+
+
+# The fp32 kernels against their arithmetic's mirror
+# (``flash_causal_attention_bwd_split``) run on the card on the same
+# residuals: both form every fp32 product from the same six products of
+# bf16 parts, P and dS unrounded, each tile's product afresh; they differ
+# in each sum's order and rounding (the mirror's fp32 matmuls round to
+# nearest, the tensor cores' fp32 adds toward zero), a few 1e-6 of each
+# gradient (the mirror is 1e-6 - 3.5e-6 from plain autograd on the CPU,
+# tests/test_torch_flash_bwd_design.py). 5e-5 per (row, head), relative
+# to the slice's largest |value| (at least 1), half of FLASH_BWD_TOL: the
+# mirror with three products (no lo parts, no mid x mid) lands 1.5e-4 -
+# 2e-4 off dk at S = 1, so a kernel that dropped them fails.
+FLASH_BWD_MIRROR_TOL = 5e-5
+
+
+def _row_head_err(got, want):
+    top = want.abs().amax(dim=(1, 3)).clamp(min=1.0)
+    return ((got - want).abs().amax(dim=(1, 3)) / top).max().item()
+
+
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("s", [1, 63, 65, 130, 300])
+def test_flash_bwd_f32_matches_split_mirror(dev, g, hd, s):
+    """dk, dv and dq of B11-dkv and B11-dq (fp32) against the mirror of
+    their arithmetic on the same inputs (B = 3 strided views of a fused
+    projection output), within FLASH_BWD_MIRROR_TOL; at S = 1 the
+    three-product mirror must miss it."""
+    from onebit_tpu_torch.kernels import attention as ta
+    from onebit_tpu_torch.kernels import attention_cuda as fc
+    q, k, v, do, lse, di = _flash_bwd_residuals(dev, torch.float32, 3, s, g,
+                                                hd)
+    dk, dv = fc.launch_bwd_dkv(q, k, v, do, lse, di, g)
+    dq = fc.launch_bwd_dq(q, k, v, do, lse, di, g)
+    want = ta.flash_causal_attention_bwd_split(q, k, v, do, lse, di,
+                                               num_kv_groups=g)
+    torch.cuda.synchronize()
+    for name, a, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert a.shape == w.shape and torch.isfinite(a).all(), name
+        err = _row_head_err(a, w)
+        assert err <= FLASH_BWD_MIRROR_TOL, (name, err)
+    if s == 1:
+        three = ta.flash_causal_attention_bwd_split(
+            q, k, v, do, lse, di, num_kv_groups=g, small=((0, 1), (1, 0)))
+        assert _row_head_err(dk, three[1]) > FLASH_BWD_MIRROR_TOL
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
