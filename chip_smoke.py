@@ -65,7 +65,21 @@ toolkit and PyTorch. It imports nothing of JAX. Phases, one JSON line each:
    the fused append+attend kernel (B5, B7) or B10 exactly 32 times per
    decode step,
    every page must be back in the pool (the prefix run: all but those the
-   cache holds), and the prefix run must reuse 7 x 64 = 448 pages. Then
+   cache holds), and the prefix run must reuse 7 x 64 = 448 pages. After
+   each served run the same prompts go through an engine with
+   ``block_steps=8, pipeline_blocks=True`` (:func:`block_run`): each block
+   one CUDA graph, captured in ``warmup`` and replayed; its tokens must be
+   the served run's, token for token, the per-step kernel must launch
+   exactly 32 times a step the replays ran (all inside the graph), K1 and
+   K2 inside it too, pages as above; each line gives the capture and
+   instantiate seconds, the graph pool's bytes, ms per token-step (a
+   replaying engine iteration's wall over 8, and a replay's device time
+   over 8), host ms per block, decode tok/s and the busy share of one
+   profiled block (its kernels' device time over its wall; the profiler's
+   count of the port's kernels in that block must be what the graph
+   recorded a replay). A dense block captured with one kv head of B9
+   zeroed in layer 0 must give other tokens (:func:`block_fault_check`).
+   Then
    batch generation (:func:`generate_checks`): ``generate`` of the dense
    run's 8 prompts, left-padded, 32 greedy tokens in bf16 (B9 exactly
    32 x 31 times; its first decode step's logits against ``impl="torch"``,
@@ -80,10 +94,11 @@ toolkit and PyTorch. It imports nothing of JAX. Phases, one JSON line each:
    depth; the first decode step's logits against the single-device
    engine's and ``impl="torch"``, with a planted fault (rank 1's share of
    layer 0's o_proj all-reduce dropped) that must break their limit; then
-   served runs (dense at ``max_len=256``, int8 KV pools, paged int8 pages
-   with the prefix cache) in which both ranks emit the same tokens, B4
-   launches exactly 7 x 32 times per forward pass, B9, B5 or B10 exactly 32
-   times per decode step and K1-K3 never;
+   served runs (dense at ``max_len=256``, the same in eager decode blocks
+   of 8, whose tokens must be the dense run's, int8 KV pools, paged int8
+   pages with the prefix cache) in which both ranks emit the same tokens,
+   B4 launches exactly 7 x 32 times per forward pass, B9, B5 or B10 exactly
+   32 times per decode step and K1-K3 never;
 5. evaluation at full llama2-7b width and depth on the same weights,
    unfused (:func:`eval_checks`): perplexity of 8 windows of 2048 at batch
    4 in fp32, direct and vocab-chunked, against ``impl="torch"`` per window
@@ -94,8 +109,11 @@ toolkit and PyTorch. It imports nothing of JAX. Phases, one JSON line each:
    bf16; and ``python -m onebit_tpu_torch eval`` on a 2-layer native
    checkpoint of 7B width, its ppl equal to the in-process one; then on that
    checkpoint ``convert --format reference``, ``generate`` from the
-   reference directory (the tokens of the in-process ``generate``) and
-   ``eval --check-engines dense,kvq,int4,paged`` (``engine_check.ok`` 1);
+   reference directory (the tokens of the in-process ``generate``),
+   ``eval --check-engines all`` (``engine_check.ok`` 1), ``serve
+   --block-steps 8 --pipeline-blocks`` on stdin lines of ids and ``serve
+   --http 0`` (one POST /generate, one GET /metrics), each with the tokens
+   of an engine in this process;
 6. KD training at llama2-7b width, depth cut to 4 layers
    (:func:`train_checks`): a random plain teacher and its SVID start
    student; the first KD step's loss and gradients on the kernel path
@@ -110,8 +128,9 @@ toolkit and PyTorch. It imports nothing of JAX. Phases, one JSON line each:
    checkpoint of 7B width under ``build/``.
 
 Then the wall time, the ``kernels`` line (each kernel's launches from the
-run of its own path; B6 and B8 are on none; B4's from rank 0 of the dense
-tensor-parallel run; B9's from the bf16 and fp32
+run of its own path, and ``graph_launches``, those that the graph replays
+of its path's block run made; B6 and B8 are on none; B4's from rank 0 of
+the dense tensor-parallel run; B9's from the bf16 and fp32
 ``generate`` runs and the flat int8 run; B10's from the paged bf16 and
 int8 runs; K3's fp32 instance's and B11's from the fp32 perplexity run,
 B11 bf16's from the bf16 forward, B11-dkv's and B11-dq's fp32 instances'
@@ -1260,7 +1279,7 @@ def all_kernels():
 
 def reset_counts() -> None:
     for k in all_kernels():
-        k.launches = 0
+        k.launches = k.graph_launches = 0
 
 
 def read_counts() -> dict:
@@ -1314,7 +1333,8 @@ def served_run(params, config, dev, prompts, new_tokens, opts,
                per_step) -> dict:
     """One served run whose kernel launches are counted: every count is
     set to 0 just before it and read just after. ``per_step``: the kernel
-    that must launch once per layer of every decode step, or None."""
+    that must launch once per layer of every decode step, or None. Returns
+    the launches and each request's tokens."""
     eng = _engine(params, config, dev, opts)
     pool_bytes = sum(x.numel() * x.element_size() for x in eng.cache)
     torch.cuda.synchronize()
@@ -1377,7 +1397,220 @@ def served_run(params, config, dev, prompts, new_tokens, opts,
         if m["prefix_pages_reused"] != 7 * 64:
             raise RuntimeError(f"prefix pages reused "
                                f"{m['prefix_pages_reused']}, not 448")
-    return launches
+    return launches, got
+
+
+BLOCK_STEPS = 8       # decode steps a block (one CUDA graph) in block runs
+
+
+def _serve_blocks(eng, prompts, new_tokens, profile=False):
+    """Serve ``prompts`` through ``eng`` (decode blocks on CUDA graphs),
+    an engine iteration at a time. Each replay is timed on the device by
+    CUDA events around it; each iteration that replays a block and admits
+    nothing by the host clock, whole (wall ms) and with the time it waits
+    for the block before taken out (host ms). With ``profile``, the first
+    such iteration whose block chains from one in flight runs alone (the
+    device idle before it) under ``torch.profiler``, and is left out of
+    the timings; the profiler also counts the port's kernels it ran.
+    Returns the requests' tokens and the timings."""
+    from onebit_tpu_torch.engine.block_graph import BlockOut
+    graph = eng._graph
+    waits, events = [], []
+    real_fetch, real_replay = BlockOut.fetch, graph.graph.replay
+
+    def timed_fetch(out):
+        t = time.perf_counter()
+        got = real_fetch(out)
+        waits.append(time.perf_counter() - t)
+        return got
+
+    def timed_replay():
+        pair = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        pair[0].record()
+        real_replay()
+        pair[1].record()
+        events.append(pair)
+
+    BlockOut.fetch = timed_fetch
+    graph.graph.replay = timed_replay
+    iters, walls, profiled, t_decode = [], [], None, None
+    try:
+        uids = [eng.add_request(p, max_new_tokens=new_tokens)
+                for p in prompts]
+        while eng.has_work():
+            t, n_wait, replays = time.perf_counter(), len(waits), \
+                graph.replays
+            admitting = bool(eng.waiting)
+            eng._admit()
+            if profile and profiled is None and not admitting \
+                    and eng._pending is not None:
+                torch.cuda.synchronize()
+                before = graph.replays
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    eng._decode()
+                    torch.cuda.synchronize()
+                device_ms, top = _device_ms(prof)
+                replay_ms = events[-1][0].elapsed_time(events[-1][1])
+                profiled = {"replay_ms": replay_ms, "kernel_ms": device_ms,
+                            "busy_share": device_ms / replay_ms,
+                            "replays": graph.replays - before,
+                            "port_kernels": _port_kernel_count(prof),
+                            "kernel_ms_per_step": [
+                                dict(k, ms=k["ms"] / BLOCK_STEPS)
+                                for k in top]}
+                events.pop()
+                continue
+            if t_decode is None and not eng.waiting:
+                # after the last admission: the decode phase
+                t_decode, tokens0 = time.perf_counter(), eng.total_tokens
+            eng._decode()
+            if graph.replays > replays and not admitting:
+                wall = time.perf_counter() - t
+                walls.append(wall)
+                iters.append(wall - sum(waits[n_wait:]))
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t_decode
+    finally:
+        BlockOut.fetch = real_fetch
+        graph.graph.replay = real_replay
+    return [eng.finished[u].generated for u in uids], {
+        "replay_ms": [a.elapsed_time(b) for a, b in events],
+        "host_ms": [h * 1e3 for h in iters],
+        "wall_ms": [w * 1e3 for w in walls], "decode_s": decode_s,
+        "decode_tokens": eng.total_tokens - tokens0,
+        "profiled_block": profiled}
+
+
+def block_run(params, config, dev, prompts, new_tokens, opts, per_step,
+              want) -> dict:
+    """The served run's prompts again through an engine with
+    ``block_steps=8, pipeline_blocks=True``: each block one captured CUDA
+    graph, replayed (captured in ``warmup``, before the counts are set to
+    0). Its tokens must be the eager run's ``want``, token for token; the
+    per-step kernel must launch exactly L times a step the replays ran
+    (8 a replay), K1 and K2 inside the graph; pages come back, and the
+    prefix run reuses 448. Timed by :func:`_serve_blocks`: ms per
+    token-step is the median wall of an engine iteration that replays a
+    block over 8 (``wall_ms_per_token_step``; pipelined, it waits for the
+    block before) and a replay's device time over 8
+    (``device_ms_per_token_step``); decode tok/s the tokens emitted after
+    the last admission over the wall from then to the last token. Then
+    the same requests again, one block of them profiled: its kernels'
+    device time over its replay's is the busy share, and the profiler's
+    count of the port's kernels must be what the capture recorded a
+    replay (``graph_launches`` is that record times the replays). Returns
+    each kernel's launches, and those from the graph."""
+    eng = _engine(params, config, dev, dict(opts, block_steps=BLOCK_STEPS,
+                                            pipeline_blocks=True))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.warmup()
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    graph = eng._graph
+    reset_counts()
+    t_start = time.perf_counter()
+    got, timing = _serve_blocks(eng, prompts, new_tokens)
+    wall = time.perf_counter() - t_start
+    launches = read_counts()
+    graph_launches = {k.name: k.graph_launches for k in all_kernels()}
+    m = eng.metrics()
+    layers = config.num_hidden_layers
+    replays, steps = graph.replays, graph.replays * BLOCK_STEPS
+    _, again = _serve_blocks(eng, prompts, new_tokens, profile=True)
+    block_ms = float(np.median(timing["replay_ms"]))
+    line = {"phase": "serve_blocks", **opts, "block_steps": BLOCK_STEPS,
+            "pipeline_blocks": True, "requests": len(prompts),
+            "new_tokens": new_tokens, "replays": replays,
+            "block_steps_run": steps, "warmup_s": warmup_s,
+            "capture_s": graph.capture_s,
+            "instantiate_s": graph.instantiate_s,
+            "graph_pool_bytes": graph.pool_bytes,
+            "replay_ms": timing["replay_ms"],
+            "wall_ms_per_token_step": (
+                float(np.median(timing["wall_ms"])) / BLOCK_STEPS
+                if timing["wall_ms"] else None),
+            "device_ms_per_token_step": block_ms / BLOCK_STEPS,
+            "host_ms_per_block": (float(np.median(timing["host_ms"]))
+                                  if timing["host_ms"] else None),
+            "host_ms_per_block_all": timing["host_ms"],
+            "decode_s": timing["decode_s"],
+            "decode_tokens": timing["decode_tokens"],
+            "decode_tok_per_s": timing["decode_tokens"] / timing["decode_s"],
+            "decode_tok_per_s_replay": len(prompts) * 1e3 / (
+                block_ms / BLOCK_STEPS),
+            "profiled_block": again["profiled_block"],
+            "wall_s": wall, "tokens_equal_eager": got == want,
+            "launches": {k: v for k, v in launches.items() if v},
+            "graph_launches": {k: v for k, v in graph_launches.items()
+                               if v}}
+    line.update({k: m[k] for k in ("free_pages", "total_pages",
+                                   "prefix_cache_entries",
+                                   "prefix_pages_reused") if k in m})
+    emit(line)
+    if not line["tokens_equal_eager"]:
+        raise RuntimeError(f"block run tokens differ from the eager run's: "
+                           f"{[g == w for g, w in zip(got, want)]}")
+    if launches[per_step.name] != layers * steps or steps == 0 or \
+            graph_launches[per_step.name] != launches[per_step.name]:
+        raise RuntimeError(f"{per_step.name} launched "
+                           f"{launches[per_step.name]} times "
+                           f"({graph_launches[per_step.name]} in graphs), "
+                           f"not {layers * steps} (L a replayed step)")
+    seen = again["profiled_block"]
+    recorded = sum(graph.per_replay.values())
+    if seen is None or seen["port_kernels"] != seen["replays"] * recorded \
+            or seen["replays"] != 1:
+        raise RuntimeError(f"the profiled block: {seen}; not one replay "
+                           f"of the {recorded} kernels the capture "
+                           f"recorded")
+    k1k2 = [k.name for k in all_kernels()[:2]]
+    if not all(graph_launches[n] > 0 for n in k1k2):
+        raise RuntimeError(f"K1/K2 not launched inside the graph: "
+                           f"{graph_launches}")
+    if eng.paged and m["free_pages"] != m["total_pages"] - m.get(
+            "prefix_cache_entries", 0):
+        raise RuntimeError(f"pages not returned: {m}")
+    if opts.get("prefix_cache") and m["prefix_pages_reused"] != 7 * 64:
+        raise RuntimeError(f"prefix pages reused "
+                           f"{m['prefix_pages_reused']}, not 448")
+    del eng, graph
+    torch.cuda.empty_cache()
+    return launches, graph_launches
+
+
+def block_fault_check(params, config, dev, prompts, new_tokens,
+                      want) -> None:
+    """A dense block captured with :func:`_zero_kv_head_fault` installed
+    (kv head 0 of B9 zeroed in layer 0): the graph keeps the fault after
+    the wrapper is restored, and its tokens must differ from the eager
+    run's ``want``, which shows that the comparison reads the graph's
+    output."""
+    from onebit_tpu_torch.kernels import kv_attention_cuda as kc
+    eng = _engine(params, config, dev, dict(max_len=256,
+                                            block_steps=BLOCK_STEPS,
+                                            pipeline_blocks=True))
+    remove = _zero_kv_head_fault(kc)
+    try:
+        eng.warmup()
+    finally:
+        remove()
+    uids = [eng.add_request(p, max_new_tokens=new_tokens) for p in prompts]
+    out = eng.run()
+    got = [out[u] for u in uids]
+    line = {"phase": "serve_blocks_fault",
+            "fault": "kv head 0 of B9 zeroed in layer 0, captured",
+            "replays": eng._graph.replays,
+            "rows_differing": sum(g != w for g, w in zip(got, want))}
+    emit(line)
+    if line["rows_differing"] == 0:
+        raise RuntimeError(f"the planted fault in the captured block left "
+                           f"every token equal: {line}")
+    del eng
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1603,6 +1836,10 @@ TP_NEW = 32
 # layer), each at full width and depth
 TP_RUNS = (
     ("dense", dict(max_len=256), "smoke", "kv_attention_decode_bf16"),
+    # the same in decode blocks, eager over gloo (no CUDA graph captures
+    # gloo's host all-reduce): the dense run's tokens
+    ("dense_blocks", dict(max_len=256, block_steps=BLOCK_STEPS), "smoke",
+     "kv_attention_decode_bf16"),
     ("int8_kt", dict(max_len=2048, quantized_kv=True), "deep",
      "kv_attention_append_kt"),
     ("paged_int8_prefix", dict(max_len=2048, paged=True, page_size=16,
@@ -1667,34 +1904,43 @@ def _tp_first_step(group, params, config, next_token):
 def _tp_served_run(group, params, config, prompts, opts) -> dict:
     """Rank side: one served run of the TP engine, every launch count set
     to 0 just before it and read just after; forward passes counted (each
-    decode step, and each admission's prefill or chunk-append call)."""
+    decode step, a block's ``block_steps``, and each admission's prefill or
+    chunk-append call)."""
     eng = _engine(params, config, None, dict(opts, tp_group=group))
-    calls = {"n": 0}
-    for prog in ("prefill_rows", "paged_prefill_rows", "paged_chunk_append"):
+    calls = {"decode": 0, "prefill": 0}
+    for prog, kind, n in (
+            ("prefill_rows", "prefill", 1),
+            ("paged_prefill_rows", "prefill", 1),
+            ("paged_chunk_append", "prefill", 1),
+            ("step", "decode", 1), ("greedy_step", "decode", 1),
+            ("paged_step", "decode", 1), ("paged_greedy_step", "decode", 1),
+            ("block", "decode", eng.block_steps),
+            ("paged_block", "decode", eng.block_steps)):
         real = getattr(eng._tp, prog)
 
-        def counted(*args, _real=real):
-            calls["n"] += 1
+        def counted(*args, _real=real, _kind=kind, _n=n):
+            calls[_kind] += _n
             return _real(*args)
         setattr(eng._tp, prog, counted)
     torch.cuda.synchronize()
     reset_counts()
     t_start = time.perf_counter()
     uids = [eng.add_request(p, max_new_tokens=TP_NEW) for p in prompts]
-    step_s, decode_steps = [], 0
+    step_s = []
     while eng.has_work():
         t = time.perf_counter()
-        eng._admit()
-        decode_steps += any(s is not None for s in eng.slots)
-        eng._decode()
-        step_s.append(time.perf_counter() - t)
+        before = calls["decode"]
+        eng.step()
+        if calls["decode"] > before:
+            step_s.append((time.perf_counter() - t)
+                          / (calls["decode"] - before))
     wall = time.perf_counter() - t_start
     m = eng.metrics()
     return {"tokens": [eng.finished[u].generated for u in uids],
-            "launches": read_counts(), "decode_steps": decode_steps,
-            "forwards": decode_steps + calls["n"],
+            "launches": read_counts(), "decode_steps": calls["decode"],
+            "forwards": calls["decode"] + calls["prefill"],
             "decode_ms_per_step_median":
-                float(np.median(step_s[1:TP_NEW])) * 1e3,
+                float(np.median(step_s[1:])) * 1e3,
             "wall_s": wall, "pool_bytes": sum(
                 x.numel() * x.element_size() for x in eng.cache),
             **{k: m[k] for k in ("free_pages", "total_pages",
@@ -1794,6 +2040,9 @@ def tp_checks(unfused, config, dev) -> dict:
                 "ranks_launches_equal": counts == r1["launches"],
                 "launches_rank0": {k: v for k, v in counts.items() if v},
                 "b4_launches": b4, "b4_want": 7 * layers * r0["forwards"],
+                **({"tokens_equal_eager_tp_run":
+                    r0["tokens"] == ranks[0]["dense"]["tokens"]}
+                   if opts.get("block_steps") else {}),
                 **{k: v for k, v in r0.items()
                    if k not in ("tokens", "launches")}}
         emit(line)
@@ -1809,6 +2058,8 @@ def tp_checks(unfused, config, dev) -> dict:
                 "prefix_cache_entries", 0)
         if opts.get("prefix_cache"):
             ok = ok and r0["prefix_pages_reused"] == 7 * 64
+        if opts.get("block_steps"):
+            ok = ok and line["tokens_equal_eager_tp_run"]
         if not ok:
             raise RuntimeError(f"TP run {name}: ranks disagree, a launch "
                                f"count is off, or bad tokens: {line}")
@@ -1818,13 +2069,80 @@ def tp_checks(unfused, config, dev) -> dict:
     return {k: dense[k] for k in raw}
 
 
+SERVE_PROMPTS = [[1, 2, 3], [4, 5, 6, 7, 8], [9, 10]]
+SERVE_NEW = 16
+SERVE_FLAGS = ("--max-batch", "2", "--max-len", "256", "--max-new-tokens",
+               str(SERVE_NEW), "--greedy", "--block-steps", str(BLOCK_STEPS),
+               "--pipeline-blocks")
+
+
+def _in_process_serve(loaded, dev, prompts) -> list:
+    """The tokens an eager engine (one step a call) of the ``serve``
+    flags gives ``prompts`` in this process."""
+    from onebit_tpu_torch import ContinuousBatchingEngine
+    from onebit_tpu_torch.engine.sampler import SamplingConfig
+    eng = ContinuousBatchingEngine(
+        loaded["params"], loaded["config"], max_batch=2, max_len=256,
+        sampling=SamplingConfig(greedy=True), device=dev)
+    uids = [eng.add_request(p, max_new_tokens=SERVE_NEW) for p in prompts]
+    out = eng.run()
+    return [out[u] for u in uids]
+
+
+def _serve_http(ref, prompt) -> dict:
+    """``serve --http 0`` in a process of its own: the port from its first
+    line, one POST /generate of ``prompt`` and one GET /metrics; the
+    process is interrupted, and killed if it lingers."""
+    import select
+    import signal
+    import urllib.request
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "onebit_tpu_torch", "serve", "--ckpt", ref,
+         "--http", "0", *SERVE_FLAGS], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        deadline, line = time.monotonic() + 300, ""
+        while "serving on" not in line:
+            left = deadline - time.monotonic()
+            if left <= 0 or proc.poll() is not None or not select.select(
+                    [proc.stdout], [], [], left)[0]:
+                raise RuntimeError(f"serve --http did not start: "
+                                   f"{proc.stderr.read()[-3000:]}"
+                                   if proc.poll() is not None
+                                   else "serve --http did not start")
+            line = proc.stdout.readline()
+        url = line.split()[2]
+        req = urllib.request.Request(
+            url + "/generate", headers={"Content-Type": "application/json"},
+            data=json.dumps({"prompt": prompt,
+                             "max_new_tokens": SERVE_NEW}).encode())
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as r:
+            tokens = json.loads(r.read())["tokens"]
+        request_s = time.perf_counter() - t
+        with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+            metrics = json.loads(r.read())
+        return {"tokens": tokens, "metrics": metrics, "request_s": request_s}
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
 def generate_cli_checks(dev) -> None:
     """The command lines on the 2-layer native checkpoint of 7B width that
     :func:`eval_checks` wrote under ``build/smoke_ckpt``: ``convert
     --format reference``; ``generate`` from the reference directory, whose
     tokens must equal the in-process ``generate`` of the checkpoint it
-    loads; ``eval --check-engines dense,kvq,int4,paged`` with a pinned
-    ``engine_check.ok`` of 1. The reference directory is removed after."""
+    loads; ``eval --check-engines all`` (dense, pipelined, kvq, int4, paged)
+    with a pinned ``engine_check.ok`` of 1; ``serve --block-steps 8
+    --pipeline-blocks`` on stdin lines of ids, and ``serve --http 0`` with
+    one POST /generate and one GET /metrics, each with the tokens of an
+    eager engine in this process. The reference directory is removed
+    after."""
     import shutil
 
     from onebit_tpu_torch import generate, load_reference_checkpoint
@@ -1833,11 +2151,11 @@ def generate_cli_checks(dev) -> None:
     ref = os.path.join(ROOT, "build", "smoke_ref")
     seconds = {}
 
-    def cli(*args):
+    def cli(*args, stdin=None):
         t = time.perf_counter()
         run = subprocess.run([sys.executable, "-m", "onebit_tpu_torch",
                               *args], cwd=ROOT, capture_output=True,
-                             text=True, timeout=600)
+                             text=True, timeout=600, input=stdin)
         seconds[args[0]] = time.perf_counter() - t
         if run.returncode != 0:
             raise RuntimeError(f"{args[0]} failed:\n{run.stdout[-2000:]}\n"
@@ -1851,23 +2169,40 @@ def generate_cli_checks(dev) -> None:
         loaded = load_reference_checkpoint(ref, device=dev)
         want = generate(loaded["params"], loaded["config"], [[1, 2, 3]],
                         sampling=SamplingConfig(greedy=True))[0]
+        serve_want = _in_process_serve(loaded, dev, SERVE_PROMPTS)
+        http_want = _in_process_serve(loaded, dev, SERVE_PROMPTS[1:2])[0]
         del loaded
         spec = os.path.join(ref, "expect.json")
         with open(spec, "w") as f:
             json.dump({"engine_check.ok": {"value": 1.0, "atol": 0.0}}, f)
-        out = cli("eval", "--ckpt", ref, "--check-engines",
-                  "dense,kvq,int4,paged", "--expect", spec)
+        out = cli("eval", "--ckpt", ref, "--check-engines", "all",
+                  "--expect", spec)
         result = json.loads([ln for ln in out if ln.startswith("{")][-1])
+        served = cli("serve", "--ckpt", ref, *SERVE_FLAGS, stdin="\n".join(
+            ",".join(map(str, p)) for p in SERVE_PROMPTS) + "\n")
+        served = [json.loads(ln) for ln in served if ln.startswith("{")]
+        t = time.perf_counter()
+        http = _serve_http(ref, SERVE_PROMPTS[1])
+        seconds["serve --http"] = time.perf_counter() - t
         line = {"phase": "generate_cli", "ckpt_layers": 2,
                 "cli_tokens": tokens,
                 "in_process_tokens": ",".join(map(str, want)),
                 "engine_check": result["engine_check"],
                 "engine_lines": [ln for ln in out if "engine check" in ln],
-                "seconds": seconds}
+                "serve_completions": [o["completion"] for o in served],
+                "serve_in_process": [",".join(map(str, w))
+                                     for w in serve_want],
+                "http_tokens": http["tokens"], "http_in_process": http_want,
+                "http_request_s": http["request_s"],
+                "http_metrics": http["metrics"], "seconds": seconds}
         emit(line)
         if tokens != line["in_process_tokens"] or \
-                result["engine_check"]["ok"] != 1.0:
-            raise RuntimeError(f"the generate and eval command lines: {line}")
+                result["engine_check"]["ok"] != 1.0 or \
+                line["serve_completions"] != line["serve_in_process"] or \
+                http["tokens"] != http_want or \
+                http["metrics"]["completed_requests"] != 1:
+            raise RuntimeError(f"the generate, eval and serve command "
+                               f"lines: {line}")
     finally:
         shutil.rmtree(ref, ignore_errors=True)
 
@@ -1879,8 +2214,11 @@ def end_to_end(dev) -> dict:
     (:func:`generate_checks`), then evaluation (:func:`eval_checks`), all
     at full llama2-7b width and depth on the same random weights; the
     generate and eval command lines (:func:`generate_cli_checks`); and KD
-    training (:func:`train_checks`). Returns each kernel's launches from the
-    run of its own path."""
+    training (:func:`train_checks`). Each served run goes again through
+    graph-replayed decode blocks (:func:`block_run`), the dense one also
+    with a fault captured in its graph (:func:`block_fault_check`). Returns
+    each kernel's launches from the run of its own path, and those that
+    its block run's graph replays made."""
     from onebit_tpu_torch import (BitLlamaConfig, fuse_for_decode,
                                   host_random_packed_params)
     from onebit_tpu_torch.kernels import kv_attention_cuda as kc
@@ -1895,9 +2233,9 @@ def end_to_end(dev) -> dict:
           config.num_hidden_layers, "seconds": time.perf_counter() - t0,
           "layers_keys": sorted(params["layers"])})
     paged = dict(max_len=2048, paged=True, page_size=16)
-    launches = {}
+    launches, graph_launches = {}, {}
     # (prompts, engine options, per-step kernel, kernels of this path,
-    # first-step check)
+    # first-step check); each served run again in graph-replayed blocks
     for prompts, opts, per_step, path_kernels, check in (
             (smoke_prompts(), dict(max_len=256), kc.DECODE_BF16,
              all_kernels()[:3], True),
@@ -1912,9 +2250,16 @@ def end_to_end(dev) -> dict:
              False)):
         if check:
             check_first_step(params, config, dev, prompts, 32, opts)
-        run = served_run(params, config, dev, prompts, 32, opts, per_step)
+        run, tokens = served_run(params, config, dev, prompts, 32, opts,
+                                 per_step)
         launches.update({k.name: run[k.name] for k in path_kernels})
         torch.cuda.empty_cache()
+        _, in_graph = block_run(params, config, dev, prompts, 32, opts,
+                                per_step, tokens)
+        for k in list(path_kernels) + [per_step]:
+            graph_launches.setdefault(k.name, in_graph[k.name])
+        if per_step is kc.DECODE_BF16:
+            block_fault_check(params, config, dev, prompts, 32, tokens)
     launches.update(generate_checks(params, config, dev))
     # the serving runs' memory goes before tensor-parallel serving and
     # evaluation, which read the projections unfused, as a checkpoint loads
@@ -1928,7 +2273,8 @@ def end_to_end(dev) -> dict:
     generate_cli_checks(dev)
     launches.update(train_checks(dev))
     # B6 and B8, the read-only variants, are on no path of the port
-    return {k.name: launches.get(k.name, 0) for k in all_kernels()}
+    return ({k.name: launches.get(k.name, 0) for k in all_kernels()},
+            {k.name: graph_launches.get(k.name, 0) for k in all_kernels()})
 
 
 # ---------------------------------------------------------------------------
@@ -2365,6 +2711,15 @@ def _grad_rel(grads, ref) -> float:
                for g, r in zip(grads, ref))
 
 
+def _port_kernel_count(prof) -> int:
+    """The profiled window's launches of the port's own kernels (the
+    ``onebit*`` namespaces of ``onebit_tpu_torch/csrc``)."""
+    from torch.autograd import DeviceType
+    return sum(evt.count for evt in prof.key_averages()
+               if evt.device_type == DeviceType.CUDA
+               and "onebit" in evt.key)
+
+
 def _device_ms(prof) -> tuple:
     """The profiled window's device time (ms, summed over kernels) and its
     ten largest kernels by device time."""
@@ -2375,7 +2730,10 @@ def _device_ms(prof) -> tuple:
             continue
         for name in ("self_device_time_total", "self_cuda_time_total"):
             if hasattr(evt, name):
-                kernels[evt.key[:80]] = float(getattr(evt, name)) / 1e3
+                # names cut to 80 characters can meet: add, never replace
+                key = evt.key[:80]
+                kernels[key] = kernels.get(key, 0.0) + float(
+                    getattr(evt, name)) / 1e3
                 break
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
     return sum(kernels.values()), [{"name": k, "ms": v} for k, v in top]
@@ -2690,11 +3048,15 @@ def main() -> int:
     emit({"phase": "kernel", "bound_share": shares})
     if max(shares.values()) > 1:
         raise RuntimeError(f"a kernel ran faster than its bound: {shares}")
-    launches = end_to_end(dev)
-    emit({"phase": "done", "wall_s": time.perf_counter() - t_wall})
+    launches, graph_launches = end_to_end(dev)
+    emit({"phase": "done", "wall_s": time.perf_counter() - t_wall,
+          "graph_launches_of": "the block run (8 steps a replayed CUDA "
+                               "graph) of the kernel's served path; "
+                               "launches: its eager path's"})
     emit({"kernels": [
         {"name": k.name, "route": k.route, "source": k.source,
          "replaces": k.replaces, "launches": launches[k.name],
+         "graph_launches": graph_launches[k.name],
          **results[k.name],
          **({"launches_of": "rank 0 of the dense tensor-parallel run"}
             if k.name.startswith("bitlinear_raw") else {})}

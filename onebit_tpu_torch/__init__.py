@@ -23,6 +23,10 @@ bytes), each decode layer in one fused append+attend kernel.
 pages, bf16 or int8 (``quantized_kv=True``), whose decode attention reads
 each row's pages through its page table (kernel B10); ``prefix_cache=True``
 shares full prompt pages between requests with the same prefix.
+``block_steps=N`` decodes N steps a block, on the card one replayed CUDA
+graph, and ``pipeline_blocks=True`` overlaps a block's bookkeeping with
+the next block; ``python -m onebit_tpu_torch serve`` serves from stdin or
+over HTTP (``engine/server.py``).
 
 Evaluation runs the full-sequence ``forward`` (each unpadded layer's causal
 attention in kernel B11 on the card) under ``perplexity`` (windowed, the

@@ -14,6 +14,11 @@
     python -m onebit_tpu_torch generate --ckpt DIR --prompt 1,2,3 \\
         [--max-new-tokens 64] [--greedy] [--temperature 0.95] \\
         [--top-k 50] [--top-p 0.7] [--device cuda|cpu]
+    python -m onebit_tpu_torch serve --ckpt DIR [--max-batch 8] \\
+        [--max-len 2048] [--max-new-tokens 128] [--block-steps N] \\
+        [--pipeline-blocks] [--paged] [--page-size 16] \\
+        [--kv-quant int8|int4] [--prefix-cache] [--fuse-decode] \\
+        [sampling flags] [--http [PORT]] [--host H] [--device cuda|cpu]
 
 Port of ``onebit_tpu/cli.py``'s pipeline. A checkpoint is a native
 directory (``config.json`` + ``params.npz``) or a reference Hugging Face
@@ -22,10 +27,12 @@ from a plain teacher, KD training on pre-tokenized blocks (``[N, S]``
 ``.npy``), packing for inference (native, or the reference's int8 format),
 the windowed perplexity of a pre-tokenized stream and the serving engines'
 greedy cross-check against ``generate``, printed as one JSON line and
-checked against pinned numbers with ``--expect``, and generation from a
-prompt of comma-separated token ids. What is not ported yet (text datasets
-and tokenizers, sharded checkpoints, beam search, the pipelined engine,
-``--dry-compile``) exits nonzero, naming what it waits for.
+checked against pinned numbers with ``--expect``, generation from a
+prompt of comma-separated token ids, and serving: one request a stdin line
+of comma-separated ids, or over HTTP (``engine/server.py``). What is not
+ported yet (text datasets and tokenizers, sharded checkpoints, beam search,
+speculative decoding, ``serve --tp``, ``--dry-compile``) exits nonzero,
+naming what it waits for.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import json
 import os
 import sys
 
+from onebit_tpu_torch.engine.paged import ENGINE_OPTIONS_WAIT
 from onebit_tpu_torch.parallel.mesh import PARALLEL_WAIT
 from onebit_tpu_torch.train.data import TEXT_DATASETS_WAIT_FOR
 
@@ -56,9 +64,8 @@ ENGINE_CHECKS = {
     "kvq": dict(quantized_kv=True),
     "int4": dict(quantized_kv="int4"),
     "paged": dict(paged=True, quantized_kv=True, page_size=16),
+    "pipelined": dict(block_steps=4, pipeline_blocks=True),
 }
-PIPELINED_WAITS_FOR = ("the engine's block_steps and pipeline_blocks "
-                       "(ROADMAP.md §1 item 5)")
 BEAM_WAITS_FOR = "engine/beam.py (ROADMAP.md §1 item 4)"
 
 
@@ -74,6 +81,14 @@ WAITING_TRAIN = {
     "--dry-compile",
 }
 WAITING_CONVERT = {"sharded": "sharded checkpoints, " + _PARALLEL}
+# serve flag -> what it waits for
+WAITING_SERVE = {
+    "dry_compile": "parallel/memplan.py, " + _PARALLEL,
+    "tokenizer": WAITING["tokenizer"],
+    "draft": "speculative decoding, " + ENGINE_OPTIONS_WAIT,
+    "tp": "a launcher of the tensor-parallel ranks behind one front end "
+          "(ROADMAP.md §1 item 4)",
+}
 
 
 def _check_expect(results, path: str, check_engines: bool) -> None:
@@ -196,10 +211,11 @@ def cmd_train(args) -> None:
 def _engine_consistency_check(loaded, configs, device, *, max_len: int = 256,
                               n_new: int = 6) -> dict:
     """Greedy cross-check of the serving engines against ``generate``
-    (onebit_tpu/cli.py:189-240): the bf16 dense engine must give
-    ``generate``'s tokens exactly; the quantized ones (int8 KT, int4 KT,
-    paged int8) its FIRST token exactly (every engine's prefill attends in
-    full precision) and only in-vocab tokens. Returns ``{"ok": 1/0,
+    (onebit_tpu/cli.py:189-240): the bf16 dense engine, one step a call
+    and in pipelined blocks, must give ``generate``'s tokens exactly; the
+    quantized ones (int8 KT, int4 KT, paged int8) its FIRST token exactly
+    (every engine's prefill attends in full precision) and only in-vocab
+    tokens. Returns ``{"ok": 1/0,
     "<config>": 1/0, ...}`` so that ``--expect`` can pin
     ``engine_check.ok``."""
     import numpy as np
@@ -223,7 +239,7 @@ def _engine_consistency_check(loaded, configs, device, *, max_len: int = 256,
         uids = [eng.add_request(p, max_new_tokens=n_new) for p in prompts]
         got = eng.run()
         got = [got[u] for u in uids]
-        if name == "dense":
+        if name in ("dense", "pipelined"):
             good = got == want
         else:
             good = all(g and g[0] == w[0]
@@ -237,13 +253,9 @@ def _engine_consistency_check(loaded, configs, device, *, max_len: int = 256,
 
 def _engine_configs(spec: str):
     """The configurations of ``--check-engines`` (``all`` or a comma list);
-    exits nonzero before anything runs when one is not ported."""
+    exits nonzero before anything runs when one is unknown."""
     names = (["dense", "pipelined", "kvq", "int4", "paged"] if spec == "all"
              else [c.strip() for c in spec.split(",") if c.strip()])
-    if "pipelined" in names:
-        raise SystemExit("--check-engines pipelined (in 'all') is not ported "
-                         f"yet: it waits for {PIPELINED_WAITS_FOR}; name the "
-                         "others, as in --check-engines dense,kvq,int4,paged")
     unknown = [n for n in names if n not in ENGINE_CHECKS]
     if unknown:
         raise SystemExit(f"--check-engines: unknown configurations {unknown} "
@@ -298,6 +310,85 @@ def cmd_generate(args) -> None:
     out = generate(loaded["params"], loaded["config"], [prompt],
                    max_new_tokens=args.max_new_tokens, sampling=sampling)[0]
     print(",".join(map(str, out)))
+
+
+def cmd_serve(args) -> None:
+    """Serving over the continuous-batching engine (onebit_tpu/cli.py:
+    425-518): one prompt of comma-separated ids a stdin line, completions
+    printed when all are done; ``--http PORT``: an HTTP server with POST
+    /generate (sync and ndjson streaming), GET /metrics and GET /health
+    (``engine/server.py``)."""
+    import time
+
+    from onebit_tpu_torch.engine.batching import ContinuousBatchingEngine
+    from onebit_tpu_torch.engine.sampler import SamplingConfig
+    from onebit_tpu_torch.engine.server import EngineServer
+
+    def wait(flag, why):
+        raise SystemExit(f"--{flag} is not ported yet: it waits for {why}")
+
+    if args.dry_compile:
+        wait("dry-compile", WAITING_SERVE["dry_compile"])
+    if args.tokenizer:
+        wait("tokenizer", WAITING_SERVE["tokenizer"])
+    if not args.paged and args.prefix_cache:
+        raise SystemExit("--prefix-cache requires --paged")
+    if not args.paged and args.kv_quant == "fp8":
+        raise SystemExit("--kv-quant fp8 requires --paged (dense "
+                         "quantized serving uses the int8 transposed-K "
+                         "fused kernel; fp8 pools are paged-only)")
+    if args.paged and args.kv_quant == "int4":
+        raise SystemExit("--kv-quant int4 is dense-engine only (no int4 "
+                         "paged pools); drop --paged")
+    if args.kv_quant == "fp8":
+        raise SystemExit("--kv-quant fp8 is not ported yet: fp8 pages wait "
+                         f"for {ENGINE_OPTIONS_WAIT}")
+    if args.draft:
+        wait("draft", WAITING_SERVE["draft"])
+    if args.tp > 1:
+        wait("tp", WAITING_SERVE["tp"])
+    if args.prefill_chunk and not args.paged:
+        wait("prefill-chunk without --paged", ENGINE_OPTIONS_WAIT)
+    if not args.ckpt:
+        raise SystemExit("serve needs --ckpt DIR")
+    loaded = _load_any_ckpt(args.ckpt, args.device)
+    config, params = loaded["config"], loaded["params"]
+    if args.fuse_decode:
+        from onebit_tpu_torch.model.bitllama import fuse_for_decode
+        params = fuse_for_decode(params, config)
+    sampling = SamplingConfig(greedy=args.greedy,
+                              temperature=args.temperature,
+                              top_k=args.top_k, top_p=args.top_p)
+    eng = ContinuousBatchingEngine(
+        params, config, max_batch=args.max_batch, max_len=args.max_len,
+        sampling=sampling, block_steps=args.block_steps, paged=args.paged,
+        quantized_kv=args.kv_quant or False, page_size=args.page_size,
+        prefix_cache=args.prefix_cache,
+        prefill_chunk_size=args.prefill_chunk,
+        pipeline_blocks=args.pipeline_blocks, device=args.device)
+    if args.http is not None:
+        server = EngineServer(eng)
+        port = server.start(host=args.host, port=args.http)
+        print(f"serving on http://{args.host}:{port} "
+              "(POST /generate, GET /metrics)", flush=True)
+        try:
+            while True:
+                time.sleep(3600)
+        except KeyboardInterrupt:
+            server.stop()
+        return
+    prompts = {}
+    for line in sys.stdin:
+        line = line.strip()
+        if not line:
+            continue
+        uid = eng.add_request([int(t) for t in line.split(",")],
+                              max_new_tokens=args.max_new_tokens)
+        prompts[uid] = line
+    out = eng.run()
+    for uid in sorted(out):
+        print(json.dumps({"prompt": prompts[uid],
+                          "completion": ",".join(map(str, out[uid]))}))
 
 
 def _device_flag(parser) -> None:
@@ -377,9 +468,9 @@ def build_parser() -> argparse.ArgumentParser:
         e.add_argument(f"--{flag}", help="not ported yet")
     e.add_argument("--check-engines", nargs="?", const="all", default=None,
                    help="greedy cross-check of the serving engines against "
-                   "generate: a comma list of dense, kvq, int4, paged "
-                   "('all' adds pipelined, not ported yet); adds "
-                   "engine_check.* to the results")
+                   "generate: a comma list of dense, pipelined, kvq, int4, "
+                   "paged (the bare flag: all); adds engine_check.* to the "
+                   "results")
     e.set_defaults(fn=cmd_eval)
 
     g = sub.add_parser("generate", help="generation from token ids")
@@ -397,6 +488,50 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--top-p", type=float, default=0.7)
     _device_flag(g)
     g.set_defaults(fn=cmd_generate)
+
+    sv = sub.add_parser("serve", help="continuous-batching serving loop "
+                        "(prompts of token ids on stdin, or --http)")
+    sv.add_argument("--ckpt", help="native or reference checkpoint dir")
+    sv.add_argument("--tokenizer", help="not ported yet")
+    sv.add_argument("--max-batch", type=int, default=8)
+    sv.add_argument("--max-len", type=int, default=2048)
+    sv.add_argument("--max-new-tokens", type=int, default=128)
+    sv.add_argument("--greedy", action="store_true")
+    sv.add_argument("--temperature", type=float, default=0.95)
+    sv.add_argument("--top-k", type=int, default=50)
+    sv.add_argument("--top-p", type=float, default=0.7)
+    sv.add_argument("--http", type=int, nargs="?", const=8000,
+                    help="serve over HTTP on this port (default 8000; 0: "
+                    "any free port)")
+    sv.add_argument("--host", default="127.0.0.1")
+    sv.add_argument("--block-steps", type=int, default=1,
+                    help="decode tokens a row per block (on the card one "
+                    "CUDA graph a block)")
+    sv.add_argument("--pipeline-blocks", action="store_true",
+                    help="dispatch block N+1 from block N's device finals "
+                    "before reading block N's tokens (with --block-steps "
+                    "> 1; the same tokens)")
+    sv.add_argument("--fuse-decode", action="store_true",
+                    help="fuse the q/k/v and gate/up projections for decode")
+    sv.add_argument("--paged", action="store_true",
+                    help="paged KV cache (page tables over a page pool)")
+    sv.add_argument("--kv-quant", choices=["int8", "fp8", "int4"],
+                    default=None,
+                    help="quantized KV cache: with --paged int8 pages (fp8 "
+                    "not ported yet); without, the int8 or int4 "
+                    "transposed-K pools of the fused append+attend kernels")
+    sv.add_argument("--page-size", type=int, default=16)
+    sv.add_argument("--prefix-cache", action="store_true",
+                    help="share full prompt pages between requests "
+                    "(requires --paged)")
+    sv.add_argument("--prefill-chunk", type=int, default=None,
+                    help="chunked prefill size (with --paged)")
+    sv.add_argument("--draft", help="not ported yet")
+    sv.add_argument("--tp", type=int, default=1, help="not ported yet")
+    sv.add_argument("--dry-compile", action="store_true",
+                    help="not ported yet")
+    _device_flag(sv)
+    sv.set_defaults(fn=cmd_serve)
     return p
 
 

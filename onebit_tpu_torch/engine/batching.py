@@ -19,7 +19,13 @@ Port of the dense and dense-quantized paths of
   most ``max_len``); a paged admission with prefix hits, or with
   ``prefill_chunk_size``, is prefilled alone in chunks;
 * every ``step()`` runs one ``ragged_decode_step`` (``paged_decode_step``)
-  for all slots, each row at its own cache position;
+  for all slots, each row at its own cache position; with ``block_steps >
+  1`` it runs ``block_steps`` of them as one decode block
+  (``ragged_decode_block``, ``paged_decode_block``), EOS and budgets
+  handled on the device. On the card a block is one captured CUDA graph,
+  replayed (``engine/block_graph.py``); on the CPU and under ``tp_group``
+  it runs eagerly. ``pipeline_blocks`` dispatches block N+1 from block N's
+  device finals before it reads block N's tokens;
 * a finished row (EOS or ``max_new_tokens``) frees its slot and its pages
   at once;
 * with ``tp_group`` (a :class:`~onebit_tpu_torch.parallel.mesh.TPGroup`,
@@ -37,6 +43,7 @@ Options of the JAX engine that this port does not have yet raise
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import itertools
@@ -47,10 +54,12 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from onebit_tpu_torch.engine.block_graph import BlockGraph, BlockOut
 from onebit_tpu_torch.engine.paged import (ENGINE_OPTIONS_WAIT,
                                            PageAllocator,
                                            init_paged_kv_cache,
                                            paged_chunked_prefill_row,
+                                           paged_decode_block,
                                            paged_decode_step,
                                            paged_prefill_rows)
 from onebit_tpu_torch.engine.sampler import SamplingConfig, sample_token
@@ -60,6 +69,7 @@ from onebit_tpu_torch.model.config import BitLlamaConfig
 from onebit_tpu_torch.model.kv_cache import (init_quant_kv_cache_kt,
                                              init_quant_kv_cache_kt4)
 from onebit_tpu_torch.model.ragged_decode import (prefill_rows,
+                                                  ragged_decode_block,
                                                   ragged_decode_step)
 from onebit_tpu_torch.model.tp_decode import shard_tp_params
 from onebit_tpu_torch.utils.device import resolve_device
@@ -115,15 +125,27 @@ def _check_quantized_kv(paged, quantized_kv, draft_params,
                 "default bucketed prefill, or int8)")
 
 
-def _reject_unported(paged, quantized_kv, block_steps, prefill_chunk_size,
-                     draft_params, pipeline_blocks):
+def _check_blocks(block_steps, pipeline_blocks, draft_params) -> None:
+    """The reference engine's exclusions of decode blocks, with its wording
+    (batching.py:138-143, 190-193)."""
+    if pipeline_blocks and block_steps > 1 and draft_params is not None:
+        raise ValueError(
+            "pipeline_blocks + speculative decoding are mutually "
+            "exclusive (a spec round's acceptance decision needs the "
+            "host every round — its RTT is already amortized over "
+            "n_draft+1 tokens)")
+    if draft_params is not None and block_steps > 1:
+        raise ValueError("block_steps and speculative decoding are "
+                         "mutually exclusive (a spec round already "
+                         "amortizes host round trips)")
+
+
+def _reject_unported(paged, quantized_kv, prefill_chunk_size, draft_params):
     later = [
         (paged and quantized_kv == "fp8", "quantized_kv='fp8' (fp8 pages)"),
         (draft_params is not None, "draft_params"),
         (prefill_chunk_size and not paged,
          "prefill_chunk_size without paged=True"),
-        (block_steps > 1, "block_steps > 1"),
-        (pipeline_blocks, "pipeline_blocks"),
     ]
     for given, name in later:
         if given:
@@ -144,8 +166,17 @@ class ContinuousBatchingEngine:
                  tp_group=None, pipeline_blocks: bool = False):
         _check_quantized_kv(paged, quantized_kv, draft_params,
                             prefill_chunk_size)
-        _reject_unported(paged, quantized_kv, block_steps, prefill_chunk_size,
-                         draft_params, pipeline_blocks)
+        _check_blocks(block_steps, pipeline_blocks, draft_params)
+        _reject_unported(paged, quantized_kv, prefill_chunk_size,
+                         draft_params)
+        self.sampling = sampling or SamplingConfig(greedy=True)
+        self.block_steps = max(block_steps, 1)
+        # depth-2 block pipelining (batching.py:126-143): block N+1 is
+        # dispatched from block N's device finals before block N's tokens
+        # are read, so that the host's bookkeeping of N overlaps N+1 on the
+        # device; only while nothing waits (admission flushes first)
+        self.pipeline_blocks = bool(pipeline_blocks) and self.block_steps > 1
+        self._pending: Optional[BlockOut] = None
         self._tp = None
         if tp_group is not None:
             # the rank's shards on its own device (batching.py:164-180)
@@ -156,7 +187,9 @@ class ContinuousBatchingEngine:
                 raise ValueError(f"device {device} is not the tp_group's "
                                  f"device {tp_group.device}")
             self._tp = TPServing(tp_group, config, impl=impl,
-                                 compute_dtype=compute_dtype)
+                                 compute_dtype=compute_dtype,
+                                 sampling=self.sampling,
+                                 block_steps=self.block_steps)
             self.device = tp_group.device
             params = shard_tp_params(params, tp_group)
         else:
@@ -168,7 +201,6 @@ class ContinuousBatchingEngine:
             None if self._tp is None else self._tp.num_kv_heads))
         self.max_batch = max_batch
         self.max_len = max_len
-        self.sampling = sampling or SamplingConfig(greedy=True)
         self.impl = impl
         self.compute_dtype = compute_dtype
         self.paged = paged
@@ -207,6 +239,18 @@ class ContinuousBatchingEngine:
                                        dtype=compute_dtype, **cache_at)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
+        # the one stream every launch of this engine runs on, prefill,
+        # eager steps and graph replays alike, whichever thread drives it:
+        # step() and warmup() make it current (_bound)
+        self.stream = (torch.cuda.current_stream(self.device)
+                       if self.device.type == "cuda" else None)
+        self._graph = None
+        if self.block_steps > 1 and self._tp is None and \
+                self.device.type == "cuda":
+            self._graph = BlockGraph(
+                self._block, self.cache, max_batch, stream=self.stream,
+                tables_shape=(self.page_tables.shape if paged else None),
+                generator=None if self.sampling.greedy else self.generator)
         self._uid = itertools.count()
         self.waiting: List[Request] = []
         self.slots: List[Optional[Request]] = [None] * max_batch
@@ -234,8 +278,37 @@ class ContinuousBatchingEngine:
         self.total_requests += 1
         return req.uid
 
+    def warmup(self, buckets=None) -> None:
+        """Make ready ahead of the first request what this engine
+        dispatches (batching.py:306-505). The port compiles no program:
+        prefill runs eagerly, whatever the prompt ``buckets``. On the card
+        with ``block_steps > 1`` this captures the decode block's graph (an
+        eager block first, every row inactive: no slot is live before the
+        first request, so it touches nothing a request reads); otherwise it
+        does nothing."""
+        if self._graph is not None:
+            with self._bound():
+                self._graph.capture(self.row_pos)
+
+    def _bound(self):
+        """A context in which the engine's device and stream are current."""
+        stack = contextlib.ExitStack()
+        if self.stream is not None:
+            stack.enter_context(torch.cuda.device(self.device))
+            stack.enter_context(torch.cuda.stream(self.stream))
+        return stack
+
     def has_work(self) -> bool:
-        return bool(self.waiting) or any(s is not None for s in self.slots)
+        return bool(self.waiting) or any(s is not None for s in self.slots) \
+            or self._pending is not None
+
+    def _flush_pending(self) -> None:
+        """Emit the in-flight pipelined block's tokens (waits for that
+        block only)."""
+        if self._pending is None:
+            return
+        out, self._pending = self._pending, None
+        self._emit_block(*out.fetch())
 
     def run(self) -> Dict[int, List[int]]:
         """Drive until all requests complete; returns uid -> generated."""
@@ -247,8 +320,9 @@ class ContinuousBatchingEngine:
 
     # -- scheduler ----------------------------------------------------------
     def step(self) -> None:
-        self._admit()
-        self._decode()
+        with self._bound():
+            self._admit()
+            self._decode()
 
     def _admit(self) -> None:
         """Admit waiting requests into free slots (batching.py:534-672).
@@ -257,6 +331,10 @@ class ContinuousBatchingEngine:
         request that can never fit; with prefix caching, hit pages are
         retained at lookup, and a request whose first page an admission of
         this round is about to prefill waits one round to share it."""
+        if self._pending is not None and self.waiting:
+            # admission needs the host's view of the slots: land the block
+            # in flight first
+            self._flush_pending()
         admitted, planned = [], []
         round_keys = set()   # first-page digests of this round's prefills
         for slot in range(self.max_batch):
@@ -447,6 +525,10 @@ class ContinuousBatchingEngine:
     def _decode(self) -> None:
         active = np.asarray([s is not None for s in self.slots])
         if not active.any():
+            self._flush_pending()
+            return
+        if self.block_steps > 1:
+            self._decode_block(active)
             return
         tokens = torch.from_numpy(self.next_token[:, None].astype(np.int64)
                                   ).to(self.device)
@@ -478,6 +560,123 @@ class ContinuousBatchingEngine:
                 continue
             self.row_pos[slot] += 1
             self._emit(slot, int(toks[slot]))
+
+    # -- decode blocks (batching.py:966-1087) -------------------------------
+    def _block(self, tok, pos, act, budget, tables):
+        """One decode block on device tensors: ``(toks, valid, finals)``."""
+        if self._tp is not None:
+            if self.paged:
+                out = self._tp.paged_block(self.params, self.cache, tok, pos,
+                                           tables, act, budget,
+                                           self.generator)
+            else:
+                out = self._tp.block(self.params, self.cache, tok, pos, act,
+                                     budget, self.generator)
+        else:
+            kw = dict(sampling=self.sampling, n_steps=self.block_steps,
+                      impl=self.impl, compute_dtype=self.compute_dtype)
+            if self.paged:
+                out = paged_decode_block(self.params, self.cache, tok, pos,
+                                         tables, act, budget, self.generator,
+                                         self.config, **kw)
+            else:
+                out = ragged_decode_block(self.params, self.cache, tok, pos,
+                                          act, budget, self.generator,
+                                          self.config, **kw)
+        toks, valid, _, finals = out
+        return toks, valid, finals
+
+    def _dispatch_block(self, active, budget, chain=None) -> BlockOut:
+        """Start one block: from the host's state, or ``chain``, the finals
+        of the block in flight. On the card a graph replay (TP excepted);
+        eager elsewhere."""
+        tables = self.page_tables if self.paged else None
+        if self._graph is not None:
+            if self.cache is not self._graph.cache:
+                raise RuntimeError("the cache was replaced after the decode "
+                                   "block's capture; the graph reads the "
+                                   "captured one")
+            return self._graph.dispatch(
+                host=(self.next_token, self.row_pos, active, budget, tables),
+                chain=chain)
+        if chain is not None:
+            tok, pos, done, budget_d = chain
+            act = ~done
+        else:
+            dev = self.device
+            tok, pos, budget_d = (torch.as_tensor(x, dtype=torch.long,
+                                                  device=dev)
+                                  for x in (self.next_token, self.row_pos,
+                                            budget))
+            act = torch.as_tensor(active, device=dev)
+        if tables is not None:
+            tables = torch.as_tensor(tables, device=self.device)
+        return BlockOut(*self._block(tok, pos, act, budget_d, tables))
+
+    def _decode_block(self, active) -> None:
+        """``block_steps`` tokens a row in one block, EOS and budgets
+        enforced on the device: a finished row is frozen inside the block
+        and its later steps come back invalid."""
+        budget = np.asarray(
+            [r.max_new_tokens - len(r.generated) if r is not None else 0
+             for r in self.slots], np.int64)
+        if not self.pipeline_blocks:
+            self._emit_block(*self._dispatch_block(active, budget).fetch())
+            return
+        # "certainly more work", on the host's view, which lags one block:
+        # a row whose remaining budget exceeds a block cannot finish in the
+        # block in flight, so the next one is worth dispatching; without
+        # this test every drain would end in an all-frozen block
+        more = any(r is not None
+                   and r.max_new_tokens - len(r.generated) > self.block_steps
+                   for r in self.slots)
+        prev = self._pending
+        if prev is not None and not more:
+            # the tail may end inside prev: land it, and finish unpipelined
+            self._flush_pending()
+            return
+        out = self._dispatch_block(
+            active, budget, chain=None if prev is None else prev.finals)
+        self._pending = None
+        if prev is not None:
+            # block N's bookkeeping while block N+1 runs on the device
+            self._emit_block(*prev.fetch())
+        if more:
+            self._pending = out
+        else:
+            self._emit_block(*out.fetch())
+
+    def _emit_block(self, toks, valid) -> None:
+        """Bookkeeping of a block's ``toks`` and ``valid`` ``[n_steps, B]``
+        a slot at a time; rows with an ``on_token`` callback keep the
+        per-token path."""
+        now = time.perf_counter()
+        emitted = 0
+        for slot in range(self.max_batch):
+            req = self.slots[slot]
+            if req is None:
+                continue
+            col = toks[:, slot][valid[:, slot]]
+            if not len(col):
+                continue
+            if req.on_token is not None:
+                for tok in col:
+                    if self.slots[slot] is None:
+                        break
+                    self.row_pos[slot] += 1
+                    self._emit(slot, int(tok))
+                continue
+            seq = [int(t) for t in col]
+            if not req.generated:
+                req.t_first_token = now
+            req.generated.extend(seq)
+            self.row_pos[slot] += len(seq)
+            self.next_token[slot] = seq[-1]
+            self.total_tokens += len(seq)
+            emitted += len(seq)
+            self._maybe_finish(slot, seq[-1])
+        if emitted:
+            self.meter.tick(emitted)
 
     def _emit(self, slot: int, tok: int) -> None:
         """Record one generated token: bookkeeping, streaming callback,

@@ -37,6 +37,7 @@ from typing import List, NamedTuple
 import numpy as np
 import torch
 
+from onebit_tpu_torch.engine.sampler import sample_token
 from onebit_tpu_torch.kernels.kv_attention import _attention_quant
 from onebit_tpu_torch.kernels.paged_attention import (_MAX_INT8,
                                                       _gather_seq_kv,
@@ -45,6 +46,7 @@ from onebit_tpu_torch.model import bitllama
 from onebit_tpu_torch.model.bitllama import (Proj, _decoder_layer, _lm_head,
                                              default_proj)
 from onebit_tpu_torch.model.config import BitLlamaConfig
+from onebit_tpu_torch.model.ragged_decode import decode_block
 from onebit_tpu_torch.model.rope import apply_rope, rope_cos_sin
 from onebit_tpu_torch.utils.device import resolve_device
 
@@ -323,6 +325,35 @@ def paged_decode_step(params, cache, input_ids, lengths, page_indices,
                      _tables(cache, page_indices), config, impl,
                      compute_dtype)
     return _lm_head(x, params, compute_dtype), cache
+
+
+def paged_decode_block(params, cache, next_token, lengths, page_indices,
+                       active, budget, generator, config: BitLlamaConfig, *,
+                       sampling, n_steps: int, impl: str = "auto",
+                       compute_dtype=torch.bfloat16):
+    """``n_steps`` paged decode+sample steps on device tensors
+    (paged.py:575-613), EOS and per-row budgets handled on the device as in
+    :func:`~onebit_tpu_torch.model.ragged_decode.ragged_decode_block`:
+    ``next_token``, ``lengths``, ``budget`` ``[B]`` long, ``active [B]``
+    bool, ``page_indices [B, max_pages]`` int32, all on the cache's device
+    (host tables are checked and copied once). Every row is written and
+    attends, as in :func:`paged_decode_step`; the page tables hold for the
+    whole block (only admission changes them, and admission flushes the
+    engine's pipeline). Returns ``(toks [n_steps, B], valid [n_steps, B],
+    cache, finals=(tok, lens, done, budget))``."""
+    proj = default_proj(params, config, impl, compute_dtype)
+    tables = _tables(cache, page_indices)
+
+    def step(tok, lens, valid):
+        x = _window_core(proj, cache, tok[:, None], lens, tables, config,
+                         impl, compute_dtype)
+        return sample_token(_lm_head(x, params, compute_dtype)[:, 0],
+                            generator, sampling)
+
+    toks, valid, finals = decode_block(step, next_token, lengths, active,
+                                       budget, n_steps=n_steps,
+                                       eos=config.eos_token_id)
+    return toks, valid, cache, finals
 
 
 def paged_prefill_rows(params, cache, ids, lengths, page_indices,

@@ -43,8 +43,14 @@ def warp_logits(logits: torch.Tensor, cfg: SamplingConfig) -> torch.Tensor:
 
 def sample_token(logits: torch.Tensor, generator: torch.Generator,
                  cfg: SamplingConfig) -> torch.Tensor:
-    """logits ``[B, V]`` -> token ids ``[B]`` (int64)."""
+    """logits ``[B, V]`` -> token ids ``[B]`` (int64).
+
+    A draw is ``argmax(p / e)`` with ``e`` exponential: what
+    ``torch.multinomial(p, 1)`` computes, the same tokens from the same
+    generator state, without its host read of the probabilities' range,
+    which a CUDA graph cannot capture."""
     if cfg.greedy or cfg.temperature == 0.0:
         return torch.argmax(logits, dim=-1)
     probs = torch.softmax(warp_logits(logits, cfg), dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    e = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / e, dim=-1)

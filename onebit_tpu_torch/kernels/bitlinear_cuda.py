@@ -69,6 +69,10 @@ class KernelInfo:
     library: str     # source file under csrc/
     route: str = "cuda"
     launches: int = 0
+    # of ``launches``, those that CUDA graph replays made: the wrapper runs
+    # once, at capture, and each replay launches what it recorded
+    # (``engine/block_graph.py``)
+    graph_launches: int = 0
 
 
 SMALL_M = KernelInfo(
@@ -95,7 +99,7 @@ KERNELS = (SMALL_M, FUSED_SMALL_M, LARGE_M, LARGE_M_F32, RAW_SMALL_M,
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
-        k.launches = 0
+        k.launches = k.graph_launches = 0
 
 
 # ---------------------------------------------------------------------------

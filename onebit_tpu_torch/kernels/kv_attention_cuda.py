@@ -70,7 +70,7 @@ _SYMBOLS = {"kv_attention_int8.cu": "onebit_kv_attention_int8",
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
-        k.launches = 0
+        k.launches = k.graph_launches = 0
 
 
 @functools.cache

@@ -41,7 +41,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
-        k.launches = 0
+        k.launches = k.graph_launches = 0
 
 
 @functools.cache

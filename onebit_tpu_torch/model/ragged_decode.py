@@ -27,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from onebit_tpu_torch.engine.sampler import sample_token
 from onebit_tpu_torch.kernels.kv_attention import (PLAIN,
                                                    kv_attention_append_kt,
                                                    kv_attention_append_kt4,
@@ -69,10 +70,11 @@ def _quant_family(cache):
     return None
 
 
-def _decode_attention(cache, pos, act, pos_np, act_np, cos, sin,
+def _decode_attention(cache, pos, act, width, cos, sin,
                       config: BitLlamaConfig, impl: str):
     """``attend_at(i)``: layer ``i``'s attention for one decode step, with
-    what every layer shares computed once."""
+    what every layer shares computed once. ``width`` bounds the window of
+    the plain branch (None: the whole cache)."""
     b = pos.shape[0]
     family = _quant_family(cache)
     if family is not None:
@@ -119,7 +121,7 @@ def _decode_attention(cache, pos, act, pos_np, act_np, cos, sin,
     max_len = cache.max_len
     kj = torch.arange(max_len, device=pos.device)
     mask = ((kj[None, :] <= pos[:, None]) & act[:, None])[:, None, None, :]
-    width = attention_width(pos_np, act_np, max_len)
+    width = max_len if width is None else width
 
     def attend_at(i):
         def attend(q, k, v):
@@ -133,6 +135,29 @@ def _decode_attention(cache, pos, act, pos_np, act_np, cos, sin,
                 num_kv_groups=config.num_kv_groups)
         return attend
     return attend_at
+
+
+def ragged_decode_core(proj: Proj, cache, input_ids, pos, act,
+                       config: BitLlamaConfig, *, impl: str = "auto",
+                       compute_dtype=torch.bfloat16, width=None
+                       ) -> torch.Tensor:
+    """One decode step on device tensors only, up to the final norm:
+    ``input_ids [B, 1]``, ``pos [B]`` long and ``act [B]`` bool on the
+    cache's device; returns the hidden ``[B, 1, d]``. Nothing is read back
+    to the host, so a decode block runs it inside a CUDA graph. ``width``
+    (a host int) bounds the plain branch's window; None reads the whole
+    cache, which masks the same positions and only regroups the
+    reduction."""
+    x = proj.embed(input_ids)
+    cos, sin = rope_cos_sin(pos[:, None], config.head_dim, config.rope_theta,
+                            config.rope_scaling,
+                            config.max_position_embeddings,
+                            seq_len=cache.max_len, dtype=compute_dtype)
+    attend_at = _decode_attention(cache, pos, act, width, cos, sin, config,
+                                  impl)
+    for i in range(config.num_hidden_layers):
+        x = _decoder_layer(x, proj, i, attend_at(i))
+    return proj.final(x)
 
 
 def ragged_decode_hidden(proj: Proj, cache, input_ids, row_pos, active,
@@ -149,17 +174,10 @@ def ragged_decode_hidden(proj: Proj, cache, input_ids, row_pos, active,
     pos_np, act_np = np.asarray(row_pos), np.asarray(active, bool)
     pos = torch.as_tensor(pos_np, dtype=torch.long).to(device)
     act = torch.as_tensor(act_np).to(device)
-
-    x = proj.embed(input_ids)
-    cos, sin = rope_cos_sin(pos[:, None], config.head_dim, config.rope_theta,
-                            config.rope_scaling,
-                            config.max_position_embeddings,
-                            seq_len=cache.max_len, dtype=compute_dtype)
-    attend_at = _decode_attention(cache, pos, act, pos_np, act_np, cos, sin,
-                                  config, impl)
-    for i in range(config.num_hidden_layers):
-        x = _decoder_layer(x, proj, i, attend_at(i))
-    return proj.final(x)
+    return ragged_decode_core(
+        proj, cache, input_ids, pos, act, config, impl=impl,
+        compute_dtype=compute_dtype,
+        width=attention_width(pos_np, act_np, cache.max_len))
 
 
 def ragged_decode_step(params, cache, input_ids, row_pos, active,
@@ -178,6 +196,57 @@ def ragged_decode_step(params, cache, input_ids, row_pos, active,
                              cache, input_ids, row_pos, active, config,
                              impl=impl, compute_dtype=compute_dtype)
     return _lm_head(x, params, compute_dtype), cache
+
+
+def decode_block(step, next_token, row_pos, active, budget, *,
+                 n_steps: int, eos: int):
+    """The body of the JAX blocks' ``lax.scan`` (ragged_decode.py:495-507)
+    as a loop over device tensors: ``step(tok [B], pos [B], valid [B])``
+    runs one decode step and returns the sampled next tokens ``[B]``. A row
+    that emits ``eos`` or spends its ``budget`` is frozen: it still runs
+    the model, and ``torch.where`` holds its token and position. Returns
+    ``(toks [n_steps, B], valid [n_steps, B], (tok, pos, done, budget))``,
+    the finals from which the next block chains."""
+    tok, pos, bud, done = next_token, row_pos, budget, ~active
+    toks, valids = [], []
+    for _ in range(n_steps):
+        valid = active & ~done
+        nxt = torch.where(valid, step(tok, pos, valid), tok)
+        pos = torch.where(valid, pos + 1, pos)
+        bud = torch.where(valid, bud - 1, bud)
+        done = done | (valid & ((nxt == eos) | (bud <= 0)))
+        tok = nxt
+        toks.append(nxt)
+        valids.append(valid)
+    return torch.stack(toks), torch.stack(valids), (tok, pos, done, bud)
+
+
+def ragged_decode_block(params, cache, next_token, row_pos, active, budget,
+                        generator, config: BitLlamaConfig, *, sampling,
+                        n_steps: int, impl: str = "auto",
+                        compute_dtype=torch.bfloat16):
+    """``n_steps`` decode+sample steps on device tensors
+    (ragged_decode.py:465-513), EOS and per-row budgets handled on the
+    device: ``next_token``, ``row_pos``, ``budget`` ``[B]`` long and
+    ``active [B]`` bool on the cache's device, ``generator`` the sampler's
+    ``torch.Generator``. ``cache`` is a ``KVCache``, ``QuantKVCacheKT`` or
+    ``QuantKVCacheKT4``, updated in place. Nothing is read back to the
+    host, so the engine captures it as one CUDA graph
+    (``engine/block_graph.py``); run eagerly it is the CPU's block and
+    what the graph is held against. Returns ``(toks [n_steps, B], valid
+    [n_steps, B], cache, finals=(tok, pos, done, budget))``."""
+    proj = default_proj(params, config, impl, compute_dtype)
+
+    def step(tok, pos, valid):
+        x = ragged_decode_core(proj, cache, tok[:, None], pos, valid, config,
+                               impl=impl, compute_dtype=compute_dtype)
+        return sample_token(_lm_head(x, params, compute_dtype)[:, 0],
+                            generator, sampling)
+
+    toks, valid, finals = decode_block(step, next_token, row_pos, active,
+                                       budget, n_steps=n_steps,
+                                       eos=config.eos_token_id)
+    return toks, valid, cache, finals
 
 
 def _prefill_write(cache, i: int, rows, k, v) -> None:

@@ -1,7 +1,7 @@
 """Where a decode step of the PyTorch port spends its time on the card.
 
     python scripts/torch_profile_decode.py [--steps 8] [--table PATH]
-        [--kv-quant none|int8|int4] [--paged]
+        [--kv-quant none|int8|int4] [--paged] [--block-steps N]
 
 Serves a llama2-7b configuration of ``chip_smoke.py`` (random packed
 weights from seed 0, the same 8 prompts): with ``--kv-quant none`` the
@@ -10,15 +10,20 @@ pools at ``max_len=2048`` and the deep-context prompts of 700-1900 tokens;
 with ``--paged`` KV pages of 16 positions at ``max_len=2048`` and the
 deep-context prompts, bf16 pages (``--kv-quant none``) or int8 pages
 (``int8``), whose decode attention runs kernel B10.
-It admits all requests, times three decode steps without the profiler
-(also the warm-up), then records ``--steps`` decode steps under
-``torch.profiler`` after one profiled warm-up step. Prints one JSON line:
-the host time per step with and without the profiler, the device time per
-step summed over kernels, the
-device's busy and idle shares of the step (device time over the
-unprofiled host time: the profiler slows the host), and the kernels by
-device time per step. ``--table`` also writes the profiler's table. Needs a
-card; imports no JAX.
+It admits all requests, times five decode steps (three blocks) without
+the profiler, each alone (the device idle before it; also the warm-up),
+then records ``--steps`` decode steps under ``torch.profiler`` after one
+profiled warm-up step. Prints one JSON line: the host time per step
+without the profiler (the median of those readings, as ``chip_smoke.py``'s
+served runs take the median step, and each reading) and with it, the device time per step
+summed over kernels, the device's busy and idle shares of the step
+(device time over the unprofiled median: the profiler slows the host),
+and the kernels by device time per step. With ``--block-steps N`` the engine decodes in
+blocks of N steps, each one replayed CUDA graph (``engine/block_graph.py``):
+an engine step is then a block, the windows hold ``ceil(--steps / N)``
+blocks, and every number is given per token-step (a block's over N), with
+the graph's capture seconds and pool bytes. ``--table`` also writes the
+profiler's table. Needs a card; imports no JAX.
 """
 
 from __future__ import annotations
@@ -56,6 +61,8 @@ def main() -> int:
     ap.add_argument("--kv-quant", choices=("none", "int8", "int4"),
                     default="none")
     ap.add_argument("--paged", action="store_true")
+    ap.add_argument("--block-steps", type=int, default=1,
+                    help="decode steps a block (one CUDA graph)")
     args = ap.parse_args()
     if args.paged and args.kv_quant == "int4":
         ap.error("--paged takes --kv-quant none or int8")
@@ -67,30 +74,38 @@ def main() -> int:
                              config)
     quantized_kv = {"none": False, "int8": True, "int4": "int4"}[args.kv_quant]
     deep = bool(quantized_kv) or args.paged
+    n = args.block_steps
+    windows = -(-args.steps // n)   # engine steps (blocks) a window
+    reads = 5 if n == 1 else 3      # unprofiled engine steps, timed alone
     eng = ContinuousBatchingEngine(
         params, config, max_batch=8, max_len=2048 if deep else 256,
-        quantized_kv=quantized_kv, paged=args.paged, page_size=16)
+        quantized_kv=quantized_kv, paged=args.paged, page_size=16,
+        block_steps=n)
     for prompt in deep_prompts() if deep else smoke_prompts():
-        eng.add_request(prompt, max_new_tokens=args.steps + 6)
+        eng.add_request(prompt, max_new_tokens=(windows + 2 + reads) * n
+                        + 1)
     eng.step()                      # admission and the first decode step
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(3):
+    plain = []
+    for _ in range(reads):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         eng.step()
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3 / 3
+        torch.cuda.synchronize()
+        plain.append((time.perf_counter() - t0) * 1e3 / n)
+    plain_ms = sorted(plain)[reads // 2]
     # one profiled warm-up step before the recorded window: without it the
     # tracer misses the kernels of the window's first step
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=args.steps,
+                 schedule=schedule(wait=0, warmup=1, active=windows,
                                    repeat=1)) as prof:
         eng.step()
         prof.step()
         t0 = time.perf_counter()
-        for _ in range(args.steps):
+        for _ in range(windows):
             eng.step()              # ends in a host read of the tokens
             prof.step()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+        wall_ms = (time.perf_counter() - t0) * 1e3 / windows / n
+    steps = windows * n
     kernels = {}
     for evt in prof.key_averages():
         # device-side events only (kernels, copies): an operator's row
@@ -98,15 +113,19 @@ def main() -> int:
         # annotation spans them all
         us = _device_us(evt) if evt.device_type == DeviceType.CUDA else 0
         if us > 0 and not evt.key.startswith("ProfilerStep"):
-            kernels[evt.key] = (us / 1e3 / args.steps,
-                                evt.count / args.steps)
+            kernels[evt.key] = (us / 1e3 / steps, evt.count / steps)
     device_ms = sum(ms for ms, _ in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "kv_quant": args.kv_quant, "paged": args.paged,
-        "steps": args.steps,
+        "steps": steps, "block_steps": n,
+        **({"capture_s": eng._graph.capture_s,
+            "instantiate_s": eng._graph.instantiate_s,
+            "graph_pool_bytes": eng._graph.pool_bytes}
+           if eng._graph is not None else {}),
         "host_ms_per_step_unprofiled": plain_ms,
+        "host_ms_per_step_unprofiled_each": plain,
         "host_ms_per_step": wall_ms,
         "device_ms_per_step": device_ms,
         "device_busy_share": device_ms / plain_ms,

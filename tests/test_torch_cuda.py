@@ -1421,3 +1421,174 @@ def test_train_step_kernel_path_matches_plain(dev, dtype, remat):
                     tt.trainable_leaves(st.params)):
         assert torch.isfinite(a).all()
         assert (a - w).norm().item() <= tol * w.norm().item()
+
+
+# ---------------------------------------------------------------------------
+# Decode blocks as CUDA graphs (engine/block_graph.py)
+# ---------------------------------------------------------------------------
+# The kernels are deterministic (the same bits twice), so a graph replay of
+# a block must equal the same block run eagerly bit for bit: tokens, valid
+# mask, finals and every byte of the cache.
+BLOCK_CACHES = {"dense": {}, "int8_kt": dict(quantized_kv=True),
+                "int4_kt": dict(quantized_kv="int4"),
+                "paged": dict(paged=True, page_size=16),
+                "paged_int8": dict(paged=True, page_size=16,
+                                   quantized_kv=True)}
+
+
+def _block_engine(dev, kind, dtype, block_steps=4, **kw):
+    """A tiny model's engine with 4 prompts admitted (rows of 150, 140, 7
+    and 3 tokens)."""
+    import numpy as np
+    from onebit_tpu_torch import (BitLlamaConfig, ContinuousBatchingEngine,
+                                  fuse_for_decode, host_random_packed_params)
+    config = BitLlamaConfig.named("tiny", max_position_embeddings=512)
+    params = fuse_for_decode(host_random_packed_params(
+        config, seed=1, dtype=dtype, device=dev), config)
+    eng = ContinuousBatchingEngine(params, config, max_batch=4, max_len=256,
+                                   compute_dtype=dtype, device=dev,
+                                   block_steps=block_steps,
+                                   **BLOCK_CACHES[kind], **kw)
+    rng = np.random.default_rng(0)
+    for n in (150, 140, 7, 3):
+        eng.add_request(rng.integers(3, 500, n).tolist(), max_new_tokens=9)
+    eng._admit()
+    return eng
+
+
+def _block_on(eng, cache):
+    """The engine's block function over ``cache``."""
+    from onebit_tpu_torch.engine.paged import paged_decode_block
+    from onebit_tpu_torch.model.ragged_decode import ragged_decode_block
+    kw = dict(sampling=eng.sampling, n_steps=eng.block_steps, impl=eng.impl,
+              compute_dtype=eng.compute_dtype)
+
+    def block(tok, pos, act, budget, tables):
+        if eng.paged:
+            out = paged_decode_block(eng.params, cache, tok, pos, tables, act,
+                                     budget, eng.generator, eng.config, **kw)
+        else:
+            out = ragged_decode_block(eng.params, cache, tok, pos, act,
+                                      budget, eng.generator, eng.config, **kw)
+        return out[0], out[1], out[3]
+    return block
+
+
+def _step_kernel(kind, dtype):
+    from onebit_tpu_torch.kernels import paged_attention_cuda as pc
+    return {"dense": kc.FLAT_KERNELS[dtype], "int8_kt": kc.APPEND_KT,
+            "int4_kt": kc.APPEND_KT4, "paged": pc.PAGED,
+            "paged_int8": pc.PAGED_INT8}[kind]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", list(BLOCK_CACHES))
+def test_block_graph_replays_equal_eager(dev, kind, dtype):
+    """Three replays of a captured block, each equal bit for bit to the
+    block run eagerly on a copy of the cache: from the host's state (row 2
+    inactive, row 1's budget ending inside the block), chained from the
+    first replay's finals, and from new host tokens. Block N's tokens
+    survive replay N+1; the ticket counters are all zero after; each
+    kernel's launches are what the capture recorded times the replays."""
+    import numpy as np
+    from onebit_tpu_torch.engine.block_graph import KERNELS, BlockGraph
+    eng = _block_engine(dev, kind, dtype)
+    clone = lambda c: type(c)(*(t.clone() for t in c))  # noqa: E731
+    graph_cache = clone(eng.cache)
+    graph = BlockGraph(_block_on(eng, graph_cache), graph_cache, 4,
+                       stream=torch.cuda.current_stream(),
+                       tables_shape=(eng.page_tables.shape if eng.paged
+                                     else None))
+    graph.capture(eng.row_pos)
+    # the eager side starts from the cache as the capture's eager block
+    # left it (its writes sit where the next step writes first)
+    eager_cache = clone(graph_cache)
+    eager = _block_on(eng, eager_cache)
+    tables = eng.page_tables if eng.paged else None
+    active = np.asarray([True, True, False, True])
+    budget = np.asarray([9, 2, 0, 9])
+    host = [(eng.next_token, eng.row_pos, active, budget, tables),
+            None, ((eng.next_token + 11) % 500, eng.row_pos + 1, active,
+                   budget, tables)]
+    as_dev = lambda x, dt=torch.long: torch.as_tensor(  # noqa: E731
+        np.asarray(x), dtype=dt, device=dev)
+    for k in KERNELS:
+        k.launches = k.graph_launches = 0
+    outs, wants, fetched = [], [], []
+    for h in host:
+        if h is None:          # chained: the last block's device finals
+            tok, pos, done, bud = wants[-1][2]
+            inputs = (tok, pos, ~done, bud)
+            outs.append(graph.dispatch(chain=outs[-1].finals))
+        else:
+            inputs = (as_dev(h[0]), as_dev(h[1]), as_dev(h[2], torch.bool),
+                      as_dev(h[3]))
+            outs.append(graph.dispatch(host=h))
+        if len(outs) > 1:      # block N, fetched after replay N+1
+            fetched.append(outs[-2].fetch())
+        tab = None if tables is None else as_dev(tables, torch.int32)
+        wants.append(eager(*inputs, tab))
+    fetched.append(outs[-1].fetch())
+    with pytest.raises(RuntimeError, match="reused"):
+        outs[0].fetch()        # two replays on, its buffers are block 3's
+    torch.cuda.synchronize()
+    for (got_toks, got_valid), (toks, valid, _) in zip(fetched, wants):
+        assert np.array_equal(got_toks, toks.cpu().numpy())
+        assert np.array_equal(got_valid, valid.cpu().numpy())
+    # the last replay's finals (the graph's outputs) and both caches
+    for got, want in zip(outs[-1].finals, wants[-1][2]):
+        assert torch.equal(got, want)
+    for got, want in zip(graph_cache, eager_cache):
+        assert torch.equal(got, want)
+    assert wants[0][1].sum(0).tolist()[1:3] == [2, 0]
+    assert all(not buf.any() for buf in bc._COUNTERS.values())
+    step = _step_kernel(kind, dtype)
+    per_replay = graph.per_replay[step.name]
+    assert per_replay == 4 * eng.config.num_hidden_layers
+    assert graph.per_replay[bc.FUSED_SMALL_M.name] > 0
+    for k in KERNELS:
+        assert k.graph_launches == 3 * graph.per_replay.get(k.name, 0)
+    # the eager blocks launched too, outside the graph
+    assert step.launches == 3 * per_replay + 3 * 4 * 2
+
+
+@pytest.mark.parametrize("pipelined", [False, True],
+                         ids=["blocks", "pipelined"])
+@pytest.mark.parametrize("kind", list(BLOCK_CACHES))
+def test_block_engine_on_the_card_matches_eager(dev, kind, pipelined):
+    """The engine with graph-replayed blocks serves the tokens of the
+    engine that runs one eager step a call, pages all returned. Pipelined,
+    ``warmup`` captures the graph; unpipelined, the first block captures it
+    with the rows live, driven from a stream that is not the engine's (the
+    engine runs on its own)."""
+    eng = _block_engine(dev, kind, torch.bfloat16,
+                        pipeline_blocks=pipelined)
+    ref = _block_engine(dev, kind, torch.bfloat16, block_steps=1)
+    if pipelined:
+        eng.warmup()
+        got = eng.run()
+    else:
+        with torch.cuda.stream(torch.cuda.Stream()):
+            got = eng.run()
+    want = ref.run()
+    assert got == want and all(len(v) == 9 for v in got.values())
+    assert eng._graph.replays > 0 and eng._pending is None
+    if eng.paged:
+        m = eng.metrics()
+        assert m["free_pages"] == m["total_pages"]
+
+
+def test_sampled_block_graph_runs(dev):
+    """A sampled block registers the engine's generator with its graph:
+    two replays from the same state draw other tokens, in the vocabulary,
+    and the engine then serves its requests."""
+    import numpy as np
+    from onebit_tpu_torch import SamplingConfig
+    eng = _block_engine(dev, "dense", torch.bfloat16,
+                        sampling=SamplingConfig(temperature=1.5, top_k=50))
+    state = (eng.next_token, eng.row_pos, np.ones(4, bool), np.full(4, 9),
+             None)
+    a, b = (eng._graph.dispatch(host=state).fetch()[0] for _ in range(2))
+    assert not np.array_equal(a, b)
+    assert ((0 <= a) & (a < 512)).all() and ((0 <= b) & (b < 512)).all()
+    assert all(len(v) == 9 for v in eng.run().values())

@@ -30,8 +30,8 @@ from onebit_tpu.engine.batching import ContinuousBatchingEngine as JaxEngine
 from onebit_tpu.model import bitllama as jb
 from onebit_tpu.model.config import BitLlamaConfig as JaxConfig
 from onebit_tpu_torch import (BitLlamaConfig, ContinuousBatchingEngine,
-                              fuse_for_decode, init_paged_kv_cache,
-                              params_from_jax)
+                              fuse_for_decode, host_random_packed_params,
+                              init_paged_kv_cache, params_from_jax)
 from onebit_tpu_torch.engine import paged as tpg
 from onebit_tpu_torch.parallel.mesh import TPGroup
 
@@ -315,18 +315,37 @@ def test_host_page_tables_are_checked(models):
 @pytest.mark.parametrize("kwargs,error", [
     (dict(paged=True, quantized_kv="int4"), ValueError),
     (dict(paged=True, quantized_kv="fp8"), NotImplementedError),
-    (dict(paged=True, block_steps=4), NotImplementedError),
-    (dict(paged=True, pipeline_blocks=True), NotImplementedError),
+    (dict(paged=True, block_steps=4), None),
+    (dict(paged=True, block_steps=4, pipeline_blocks=True), None),
     (dict(paged=True, draft_params={}), NotImplementedError),
     (dict(paged=True, block_steps=2,
-          tp_group=TPGroup(None, 0, 2, torch.device("cpu"))),
-     NotImplementedError)],
+          tp_group=TPGroup(None, 0, 2, torch.device("cpu"))), None)],
     ids=["int4", "fp8", "block_steps", "pipeline_blocks", "draft",
          "tp_group_block_steps"])
 def test_paged_exclusions(kwargs, error):
     """Paged int4 raises the JAX engine's ValueError in its wording; fp8
-    pages and the options not ported yet raise NotImplementedError."""
+    pages and the options not ported yet raise NotImplementedError. Paged
+    decode blocks (``error`` None) are ported: the engine builds and, on
+    one device, serves a request; a tensor-parallel rank's engine builds
+    its eager blocks (tests/test_torch_blocks.py runs them over two
+    ranks)."""
     c = BitLlamaConfig.named("tiny")
+    if error is None:
+        params = host_random_packed_params(c, seed=0, dtype=torch.float32,
+                                           device="cpu")
+        eng = ContinuousBatchingEngine(params, c, max_batch=2, max_len=64,
+                                       compute_dtype=torch.float32,
+                                       device="cpu", page_size=4, **kwargs)
+        assert eng.block_steps == kwargs["block_steps"] and eng.paged
+        assert eng._graph is None and eng.pipeline_blocks == kwargs.get(
+            "pipeline_blocks", False)
+        if "tp_group" in kwargs:
+            assert eng._tp.block_steps == kwargs["block_steps"]
+            return
+        uid = eng.add_request([5, 6, 7], max_new_tokens=6)
+        assert len(eng.run()[uid]) == 6
+        assert len(eng.allocator.free) == eng.total_pages
+        return
     with pytest.raises(error) as got:
         ContinuousBatchingEngine({}, c, device="cpu", **kwargs)
     if error is ValueError:

@@ -585,14 +585,27 @@ def test_fused_params_refused_under_tp(jax_tiny):
 @pytest.mark.parametrize("kwargs", [
     dict(block_steps=4), dict(prefill_chunk_size=16),
     dict(paged=True, block_steps=2), dict(draft_params={}),
-    dict(pipeline_blocks=True), dict(paged=True, quantized_kv="fp8")],
+    dict(block_steps=4, pipeline_blocks=True),
+    dict(paged=True, quantized_kv="fp8")],
     ids=["block_steps", "dense_chunked_prefill", "paged_block_steps",
          "speculative", "pipeline_blocks", "fp8_pages"])
-def test_unported_options_raise_under_tp(kwargs):
+def test_unported_options_raise_under_tp(jax_tiny, kwargs):
+    """Options not ported yet raise NotImplementedError naming ROADMAP §1
+    item 5. Decode blocks are ported: a rank's engine builds with its
+    eager blocks (tests/test_torch_blocks.py serves through them over two
+    ranks)."""
     c = BitLlamaConfig.named("tiny")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ContinuousBatchingEngine({}, c, tp_group=TPGroup(None, 0, 2, CPU),
-                                 **kwargs)
+    group = TPGroup(None, 0, 2, CPU)
+    if "block_steps" not in kwargs:
+        with pytest.raises(NotImplementedError, match="item 5"):
+            ContinuousBatchingEngine({}, c, tp_group=group, **kwargs)
+        return
+    eng = ContinuousBatchingEngine(params_from_jax(jax_tiny[2], c,
+                                                   device=CPU), c,
+                                   tp_group=group, **kwargs)
+    assert eng._tp.block_steps == eng.block_steps == kwargs["block_steps"]
+    assert eng._graph is None and eng.pipeline_blocks == kwargs.get(
+        "pipeline_blocks", False)
 
 
 def _fail_on_rank_0(group):
