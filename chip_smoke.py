@@ -125,7 +125,24 @@ toolkit and PyTorch. It imports nothing of JAX. Phases, one JSON line each:
    tokens/s, peak memory, device busy share; the trained student packed
    and one fp32 perplexity batch through K3 and B11; then
    ``build-start-ckpt``, ``train --tokens`` and ``convert`` on a 2-layer
-   checkpoint of 7B width under ``build/``.
+   checkpoint of 7B width under ``build/``;
+7. the zero-shot task harness (:func:`tasks_checks`) on phase 5's
+   weights, made again from their seed: PIQA, ARC-Easy, ARC-Challenge, BoolQ,
+   HellaSwag, Winogrande, LAMBADA and an MMLU subject, 8 synthetic docs
+   each in their published schemas, through ``evaluate_tasks`` in a byte
+   tokenizer, zero-shot and (HellaSwag) one-shot, on the kernel path and
+   with impl="torch": every request's log-likelihood within EVAL_LL_TOL x
+   (1 + |ll|), greedy flags and acc/acc_norm equal but at near-ties, K3
+   fp32 launched and B11 never; the per-task table; then one greedy-until
+   batch through the harness (K1, K2, B9 exactly 32 x 15 launches) whose
+   texts must be ``generate``'s, and whose tokens may part from
+   impl="torch"'s only at bf16 near-ties;
+8. SFT at llama2-7b width, 4 layers (:func:`sft_checks`): ``run_sft`` of
+   16 pairs (alpaca template, cutoff 512, batch 4, bf16) for 3 steps on
+   the kernel path and with impl="torch": finite losses, the first step's
+   loss and grad norm within 1e-3, ms per step, peak memory; then
+   ``save_predictions`` of the trained student, packed and fused, on 4
+   prompts (K1, K2, B9 launched; its jsonl and metrics files).
 
 Then the wall time, the ``kernels`` line (each kernel's launches from the
 run of its own path, and ``graph_launches``, those that the graph replays
@@ -2213,8 +2230,10 @@ def end_to_end(dev) -> dict:
     pages with prefix caching) at max_len 2048, batch generation
     (:func:`generate_checks`), then evaluation (:func:`eval_checks`), all
     at full llama2-7b width and depth on the same random weights; the
-    generate and eval command lines (:func:`generate_cli_checks`); and KD
-    training (:func:`train_checks`). Each served run goes again through
+    generate and eval command lines (:func:`generate_cli_checks`); KD
+    training (:func:`train_checks`); then the task harness on the
+    evaluation's weights (:func:`tasks_checks`) and SFT
+    (:func:`sft_checks`). Each served run goes again through
     graph-replayed decode blocks (:func:`block_run`), the dense one also
     with a fault captured in its graph (:func:`block_fault_check`). Returns
     each kernel's launches from the run of its own path, and those that
@@ -2272,6 +2291,11 @@ def end_to_end(dev) -> dict:
     torch.cuda.empty_cache()
     generate_cli_checks(dev)
     launches.update(train_checks(dev))
+    # the task harness on the evaluation's weights, made again from their
+    # seed, then SFT
+    tasks_checks(host_random_packed_params(config, seed=0, device=dev),
+                 config, dev)
+    sft_checks(dev)
     # B6 and B8, the read-only variants, are on no path of the port
     return ({k.name: launches.get(k.name, 0) for k in all_kernels()},
             {k.name: graph_launches.get(k.name, 0) for k in all_kernels()})
@@ -3007,6 +3031,472 @@ def train_cli_check(dev) -> None:
             raise RuntimeError(f"the train command line: {line}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the zero-shot task harness at full llama2-7b width and depth
+# ---------------------------------------------------------------------------
+
+TASK_DOCS = 8             # docs a task
+TASK_BATCH = 16           # evaluate_tasks' default
+TASK_FEWSHOT = "hellaswag"  # the task run again with one shot
+TASK_GEN_ROWS, TASK_GEN_NEW = 4, 16   # the greedy_until batch
+TASK_WORDS = ("the a cat dog river stone blue quickly jumps over under lazy "
+              "bright house tree wind seven wizards watch quietly tonight "
+              "small green paper runs sings carefully into market bread "
+              "water light north cold").split()
+
+
+def byte_tokenize(text: str) -> list:
+    """A deterministic tokenizer inside the vocabulary: utf-8 bytes + 3."""
+    return [b + 3 for b in text.encode("utf-8")]
+
+
+def byte_detokenize(tokens) -> str:
+    """The inverse of :func:`byte_tokenize` on its tokens (bytes that are
+    not utf-8 show as ``\\xNN``); any other token becomes a private-use
+    character of its own (U+F0000 + id), so that a random model's tokens
+    outside the bytes still tell texts apart."""
+    out, run = [], bytearray()
+    for t in tokens:
+        if 3 <= t < 259:
+            run.append(t - 3)
+            continue
+        out.append(run.decode("utf-8", "backslashreplace")
+                   + chr(0xF0000 + t))
+        run = bytearray()
+    return "".join(out) + run.decode("utf-8", "backslashreplace")
+
+
+def task_raw_docs(seed: int = 9) -> dict:
+    """TASK_DOCS raw rows of each task in its published schema (PIQA,
+    ARC-Easy/Challenge with some numeric answer keys, BoolQ, HellaSwag,
+    Winogrande, LAMBADA, an MMLU subject), from ``random.Random(seed)``."""
+    import random
+    rnd = random.Random(seed)
+
+    def text(lo, hi):
+        return " ".join(rnd.choice(TASK_WORDS)
+                        for _ in range(rnd.randint(lo, hi)))
+
+    def arc(i):
+        labels = "1234" if i % 3 == 0 else "ABCD"
+        return {"question": text(6, 14) + "?", "answerKey":
+                rnd.choice(labels), "choices": {
+                    "text": [text(1, 4) for _ in labels],
+                    "label": list(labels)}}
+    n = range(TASK_DOCS)
+    return {
+        "piqa": [{"goal": text(5, 12), "sol1": text(4, 10),
+                  "sol2": text(4, 10), "label": rnd.randint(0, 1)}
+                 for _ in n],
+        "arc_easy": [arc(i) for i in n],
+        "arc_challenge": [arc(i) for i in n],
+        "boolq": [{"passage": text(30, 60) + ".", "question": text(4, 8),
+                   "label": rnd.randint(0, 1)} for _ in n],
+        "hellaswag": [{"activity_label": rnd.choice(["Cooking", "Running"]),
+                       "ctx_a": text(8, 16) + " [title] then",
+                       "ctx_b": text(2, 5),
+                       "endings": [f"{text(4, 10)} [step] {j}"
+                                   for j in range(4)],
+                       "label": str(rnd.randint(0, 3))} for _ in n],
+        "winogrande": [{"sentence": f"{text(4, 8)} _ {text(4, 8)}.",
+                        "option1": text(1, 2), "option2": text(1, 2),
+                        "answer": str(rnd.randint(1, 2))} for _ in n],
+        "lambada_openai": [{"text": text(20, 40)} for _ in n],
+        "mmlu": [{"question": text(6, 14) + "?",
+                  "choices": [text(1, 3) for _ in range(4)],
+                  "answer": rnd.randint(0, 3) if i % 2 else "ABCD"[i % 4]}
+                 for i in n],
+    }
+
+
+def smoke_tasks(seed: int = 9) -> list:
+    """The six-task suite, LAMBADA and one MMLU subject on
+    :func:`task_raw_docs`."""
+    from onebit_tpu_torch.eval.tasks import mmlu, suite
+    raw = task_raw_docs(seed)
+    return [suite.PIQA(raw["piqa"]), suite.ARCEasy(raw["arc_easy"]),
+            suite.ARCChallenge(raw["arc_challenge"]),
+            suite.BoolQ(raw["boolq"]),
+            suite.HellaSwag(raw["hellaswag"]),
+            suite.Winogrande(raw["winogrande"]),
+            suite.Lambada(raw["lambada_openai"]),
+            mmlu.MMLUSubject(raw["mmlu"], "college_mathematics")]
+
+
+def _run_tasks(params, config, tasks, impl: str, shots: int) -> dict:
+    """``evaluate_tasks`` with every count set to 0 just before it,
+    recording each request with its result and each doc's results and
+    metrics (the order both paths share: the seeded shuffle)."""
+    from onebit_tpu_torch.eval.tasks import base
+    requests, docs = [], []
+    real = base._run_requests
+
+    def run(p, c, rtype, payloads, *args, **kw):
+        out = real(p, c, rtype, payloads, *args, **kw)
+        requests.extend(zip(payloads, out))
+        return out
+
+    def recorder(task):
+        real_process = task.process_results
+
+        def process(doc, results):
+            metrics = real_process(doc, results)
+            docs.append((task.name, doc, list(results), metrics))
+            return metrics
+        return process
+
+    base._run_requests = run
+    for task in tasks:
+        task.process_results = recorder(task)
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        results = base.evaluate_tasks(params, config, tasks, byte_tokenize,
+                                      batch_size=TASK_BATCH, impl=impl,
+                                      num_fewshot=shots)
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        base._run_requests = real
+        for task in tasks:
+            del task.process_results
+    return {"results": results, "requests": requests, "docs": docs,
+            "seconds": seconds, "counts": counts}
+
+
+def _choice_gap(doc, results, key: str) -> tuple:
+    """The plain path's gap between a doc's two best choices (raw
+    log-likelihoods for ``acc``, per byte of the choice for ``acc_norm``)
+    and the sum of those two log-likelihoods' EVAL_LL_TOL bounds: a gap
+    under that sum is one the two paths may order either way."""
+    lls = np.array([r[0] for r in results])
+    scores = lls
+    if key == "acc_norm":
+        scores = lls / np.array([max(len(c), 1) for c in doc.choices])
+    top = np.argsort(-scores)[:2]
+    gap = float(scores[top[0]] - scores[top[1]])
+    bound = float(sum(EVAL_LL_TOL * (1 + abs(lls[i])) for i in top))
+    if key == "acc_norm":
+        bound /= min(max(len(doc.choices[i]), 1) for i in top)
+    return gap, bound
+
+
+def _compare_task_runs(params, config, dev, auto: dict, plain: dict) -> dict:
+    """Each request's log-likelihood within EVAL_LL_TOL x (1 + |ll|) of
+    the plain run's, its greedy flag equal unless the plain path's top-2
+    gap over its continuation is at most EVAL_GAP_TOL (:func:`_top2_gap`),
+    and each doc's acc/acc_norm equal unless its two best choices lie
+    within their log-likelihoods' bounds (:func:`_choice_gap`; LAMBADA's
+    acc is its request's greedy flag)."""
+    if [q for q, _ in auto["requests"]] != [q for q, _ in plain["requests"]]:
+        raise RuntimeError("the two task runs sent different requests")
+    lls = np.array([[a[0], b[0]] for (_, a), (_, b) in
+                    zip(auto["requests"], plain["requests"])])
+    err = np.abs(lls[:, 0] - lls[:, 1])
+    ll_ok = bool((err <= EVAL_LL_TOL * (1 + np.abs(lls[:, 1]))).all())
+    flips = {}
+    for i, ((ctx, cont), a), (_, b) in zip(
+            range(len(lls)), auto["requests"], plain["requests"]):
+        if a[1] != b[1]:
+            req = (byte_tokenize(ctx), byte_tokenize(cont))
+            flips[i] = _top2_gap(params, config, dev, req)
+    metric_flips = []
+    for (name, doc, res_a, m_a), (_, _, res_p, m_p) in zip(auto["docs"],
+                                                          plain["docs"]):
+        if name == "lambada_openai":
+            continue    # its acc is its request's greedy flag, held above
+        for key in ("acc", "acc_norm"):
+            if key not in m_a or m_a[key] == m_p[key]:
+                continue
+            gap, bound = _choice_gap(doc, res_p, key)
+            metric_flips.append({"task": name, "metric": key, "gap": gap,
+                                 "bound": bound})
+    ok = (ll_ok and all(g <= EVAL_GAP_TOL for g in flips.values())
+          and all(f["gap"] <= f["bound"] for f in metric_flips))
+    return {"requests": len(lls), "max_abs_err_vs_torch": float(err.max()),
+            "max_rel_err_vs_torch": float(
+                (err / (1 + np.abs(lls[:, 1]))).max()),
+            "ll_tol": EVAL_LL_TOL, "greedy_flips": {
+                str(i): g for i, g in flips.items()},
+            "greedy_true": int(sum(a[1] for _, a in auto["requests"])),
+            "metric_flips": metric_flips, "ok": ok}
+
+
+def _divergence_gap(params, config, dev, prompt, plain, step) -> float:
+    """The plain path's top-2 logit gap, relative to its largest |logit|,
+    for the token at ``step`` after ``prompt`` (a bf16 forward with
+    impl="torch" over the prompt and the plain tokens before it)."""
+    from onebit_tpu_torch.model.bitllama import forward
+    ids = torch.tensor(prompt + plain[:step], device=dev)[None]
+    logits = forward(params, ids, config, impl="torch")[0, -1].float()
+    top2 = logits.topk(2).values
+    return ((top2[0] - top2[1]) / logits.abs().max()).item()
+
+
+def _greedy_until_check(params, config, dev, tasks) -> None:
+    """One ``greedy_until`` batch through the harness on the fused params:
+    TASK_GEN_ROWS LAMBADA contexts, stop "\\n", TASK_GEN_NEW new tokens,
+    every count set to 0 just before it: K1, K2 launched and B9 (bf16)
+    exactly 32 x (TASK_GEN_NEW - 1) times. Its texts must be those of
+    ``generate`` on the kernel path cut at the stop; against ``generate``
+    with impl="torch", each row's tokens must be the same up to where the
+    plain path's top-2 logits lie within LOGITS_REL_TOL of its largest
+    |logit| (:func:`_divergence_gap`): the bf16 limit that holds the two
+    paths' logits (:func:`_generate_first_step`), where 32 layers of bf16
+    roundings at other places may pick the other token."""
+    from onebit_tpu_torch import fuse_for_decode, generate
+    from onebit_tpu_torch.eval.tasks import base
+    from onebit_tpu_torch.kernels import bitlinear_cuda as bc
+    from onebit_tpu_torch.kernels import kv_attention_cuda as kc
+    fused = fuse_for_decode(params, config)
+    lam = next(t for t in tasks if t.name == "lambada_openai")
+    payloads = [(lam.doc_to_text(d), ("\n",))
+                for d in lam.docs()[:TASK_GEN_ROWS]]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    texts = base._run_requests(
+        fused, config, "greedy_until", payloads, byte_tokenize,
+        byte_detokenize, batch_size=8, impl="auto",
+        compute_dtype=torch.float32, max_new_tokens=TASK_GEN_NEW)
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    prompts = [byte_tokenize(ctx) for ctx, _ in payloads]
+    kernel = generate(fused, config, prompts, max_new_tokens=TASK_GEN_NEW)
+    plain = generate(fused, config, prompts, max_new_tokens=TASK_GEN_NEW,
+                     impl="torch")
+    want = [byte_detokenize(toks).split("\n")[0] for toks in kernel]
+    parted = {}
+    for r, (k, p) in enumerate(zip(kernel, plain)):
+        step = next((i for i, (a, b) in enumerate(zip(k, p)) if a != b),
+                    None)
+        if step is not None:
+            parted[r] = {"step": step, "gap": _divergence_gap(
+                fused, config, dev, prompts[r], p, step)}
+    del fused
+    steps = config.num_hidden_layers * (TASK_GEN_NEW - 1)
+    line = {"phase": "tasks_greedy_until", "rows": len(payloads),
+            "new_tokens": TASK_GEN_NEW, "stop": "\\n",
+            "prompt_lengths": [len(p) for p in prompts],
+            "texts_equal_kernel_generate": texts == want,
+            "texts_equal_plain": texts == [
+                byte_detokenize(t).split("\n")[0] for t in plain],
+            "parted_from_plain": {str(r): v for r, v in parted.items()},
+            "gap_rel_tol": LOGITS_REL_TOL, "seconds": seconds,
+            "launches": {k: v for k, v in counts.items() if v}}
+    emit(line)
+    if not (texts == want and counts[bc.SMALL_M.name]
+            and counts[bc.FUSED_SMALL_M.name]
+            and counts[kc.DECODE_BF16.name] == steps
+            and all(v["gap"] <= LOGITS_REL_TOL for v in parted.values())):
+        raise RuntimeError(f"greedy_until: texts differ from generate's, "
+                           f"K1/K2 never launched, B9 (bf16) not {steps} "
+                           f"times, or a row parts from impl='torch' away "
+                           f"from a near-tie: {line}")
+
+
+def tasks_checks(params, config, dev) -> None:
+    """The zero-shot task harness on the unfused full-depth llama2-7b
+    params of :func:`eval_checks`, the byte tokenizer, synthetic docs of
+    each suite task and an MMLU subject (:func:`smoke_tasks`):
+
+    (a) ``evaluate_tasks`` zero-shot on the kernel path and with
+        impl="torch", then TASK_FEWSHOT again with one shot, each held by
+        :func:`_compare_task_runs`; fp32 padded batches, so K3 fp32
+        launches and B11 never; impl="torch" launches nothing;
+    (b) one ``greedy_until`` batch (:func:`_greedy_until_check`).
+
+    Prints the kernel path's ``make_table``."""
+    from onebit_tpu_torch.eval.tasks.base import make_table
+    from onebit_tpu_torch.kernels import attention_cuda as fc
+    from onebit_tpu_torch.kernels import bitlinear_cuda as bc
+    t_phase = time.perf_counter()
+    tasks = smoke_tasks()
+    for shots, chosen in ((0, tasks), (1, [t for t in tasks
+                                           if t.name == TASK_FEWSHOT])):
+        runs = {impl: _run_tasks(params, config, chosen, impl, shots)
+                for impl in ("auto", "torch")}
+        cmp = _compare_task_runs(params, config, dev, runs["auto"],
+                                 runs["torch"])
+        k = runs["auto"]["counts"]
+        line = {"phase": "tasks", "num_fewshot": shots,
+                "tasks": [t.name for t in chosen], "docs_per_task":
+                TASK_DOCS, "batch_size": TASK_BATCH, "dtype": "float32",
+                **cmp, "results": runs["auto"]["results"],
+                "results_torch": runs["torch"]["results"],
+                "seconds": runs["auto"]["seconds"],
+                "seconds_torch": runs["torch"]["seconds"],
+                "launches": {n: v for n, v in k.items() if v}}
+        emit(line)
+        if shots == 0:
+            print(make_table(runs["auto"]["results"]), flush=True)
+        if not cmp["ok"] or k[bc.LARGE_M_F32.name] == 0 or \
+                any(k[f.name] for f in fc.KERNELS) or \
+                any(runs["torch"]["counts"].values()):
+            raise RuntimeError(f"the task harness disagrees with "
+                               f"impl='torch', or launched other kernels "
+                               f"than K3 fp32: {line}")
+    _greedy_until_check(params, config, dev, tasks)
+    emit({"phase": "tasks_done", "seconds": time.perf_counter() - t_phase})
+
+
+# ---------------------------------------------------------------------------
+# phase 8: SFT at llama2-7b width, TRAIN_LAYERS layers
+# ---------------------------------------------------------------------------
+
+SFT_PAIRS, SFT_CUTOFF, SFT_BATCH, SFT_STEPS = 16, 512, 4, 3
+SFT_TEMPLATE = "alpaca"
+SFT_PREDICT, SFT_NEW = 4, 16     # prompts and new tokens of save_predictions
+SFT_REL_TOL = 1e-3
+
+
+def sft_pairs(seed: int = 12) -> list:
+    """SFT_PAIRS (prompt, response) pairs of 60-420 and 30-300 bytes:
+    with the alpaca template the longest rows pass SFT_CUTOFF tokens."""
+    import random
+    rnd = random.Random(seed)
+
+    def text(lo, hi):
+        return " ".join(rnd.choice(TASK_WORDS)
+                        for _ in range(rnd.randint(lo, hi)))
+    return [(text(12, 80), text(6, 60)) for _ in range(SFT_PAIRS)]
+
+
+def sft_checks(dev) -> None:
+    """SFT at llama2-7b width, TRAIN_LAYERS layers, on the SVID start
+    student of :func:`_train_setup` (no teacher):
+
+    (a) ``run_sft`` of :func:`sft_pairs` in the byte tokenizer (alpaca
+        template, cutoff 512, batch 4, bf16, warmup 1), SFT_STEPS with
+        impl="torch", then on the kernel path: finite losses,
+        the first step's loss and grad norm within SFT_REL_TOL of
+        impl="torch"'s; each step's ms and the peak memory; B11 never
+        launches (padded batches take the plain masked attention);
+    (b) ``save_predictions`` of the trained student, packed and fused, on
+        SFT_PREDICT templated prompts, SFT_NEW new tokens, every count set
+        to 0 just before it: K1, K2 launched, B9 (bf16) exactly
+        TRAIN_LAYERS x (SFT_NEW - 1) times; 4 jsonl rows and the four
+        metrics in ``predict_results.json``.
+
+    Its files (under ``build/smoke_sft``) are removed after."""
+    import shutil
+
+    from onebit_tpu_torch import (fuse_for_decode, pack_model_params,
+                                  run_sft, save_predictions)
+    from onebit_tpu_torch.kernels import attention_cuda as fc
+    from onebit_tpu_torch.kernels import bitlinear_cuda as bc
+    from onebit_tpu_torch.kernels import kv_attention_cuda as kc
+    from onebit_tpu_torch.train import run_sft as sft_mod
+    from onebit_tpu_torch.train.data import TEMPLATES
+    from onebit_tpu_torch.train.run_kd import KDRunConfig
+    from onebit_tpu_torch.train.trainer import TrainConfig
+    t_phase = time.perf_counter()
+    config, teacher, student, _, _, _ = _train_setup(dev)
+    del teacher
+    torch.cuda.empty_cache()
+    pairs = sft_pairs()
+    root = os.path.join(ROOT, "build", "smoke_sft")
+    shutil.rmtree(root, ignore_errors=True)
+    step_s = []
+    real_make = sft_mod.make_train_step
+
+    def timed_make(*args, **kw):
+        step = real_make(*args, **kw)
+
+        def timed(state, teacher_params, batch):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(state, teacher_params, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            return out
+        return timed
+
+    logs, counts = {}, {}
+    sft_mod.make_train_step = timed_make
+    try:
+        for impl in ("torch", "auto"):
+            step_s.clear()
+            out = os.path.join(root, impl)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            state = run_sft(
+                config, student, pairs, byte_tokenize,
+                cutoff_len=SFT_CUTOFF, template=SFT_TEMPLATE,
+                train_cfg=TrainConfig(warmup_steps=1),
+                run_cfg=KDRunConfig(output_dir=out, batch_size=SFT_BATCH,
+                                    max_steps=SFT_STEPS, log_steps=1,
+                                    plot=False), impl=impl)
+            counts[impl] = read_counts()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            with open(os.path.join(out, "trainer_log.jsonl")) as f:
+                logs[impl] = [json.loads(line) for line in f]
+            if impl == "torch":
+                del state
+                torch.cuda.empty_cache()
+    finally:
+        sft_mod.make_train_step = real_make
+    first, ref = logs["auto"][0], logs["torch"][0]
+    rel = {k: abs(first[k] - ref[k]) / abs(ref[k])
+           for k in ("loss", "grad_norm")}
+    losses = [e["loss"] for e in logs["auto"]]
+    line = {"phase": "sft", "config": "llama2-7b", "layers": TRAIN_LAYERS,
+            "pairs": len(pairs), "cutoff_len": SFT_CUTOFF,
+            "template": SFT_TEMPLATE, "batch": SFT_BATCH, "dtype": "bfloat16",
+            "steps": SFT_STEPS, "losses": losses,
+            "grad_norms": [e["grad_norm"] for e in logs["auto"]],
+            "first_step_rel_err_vs_torch": rel, "rel_tol": SFT_REL_TOL,
+            "step_ms": [s * 1e3 for s in step_s], "peak_mem_gb": peak_gb,
+            "device": nvidia_smi_line(),
+            "launches": {k: v for k, v in counts["auto"].items() if v}}
+    emit(line)
+    if not (all(math.isfinite(v) for v in losses) and len(losses) == SFT_STEPS
+            and max(rel.values()) <= SFT_REL_TOL
+            and not any(counts["auto"][f.name] for f in fc.KERNELS)
+            and not any(counts["torch"].values())):
+        raise RuntimeError(f"SFT: non-finite losses, a first step off "
+                           f"impl='torch', or B11 launched: {line}")
+
+    # (b) greedy predictions of the trained student, packed and fused
+    params = fuse_for_decode(pack_model_params(state.params), config)
+    del state, student
+    torch.cuda.empty_cache()
+    prompts = [TEMPLATES[SFT_TEMPLATE](p) for p, _ in pairs[:SFT_PREDICT]]
+    labels = [r for _, r in pairs[:SFT_PREDICT]]
+    out = os.path.join(root, "predict")
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        path = save_predictions(out, params, config, prompts, labels,
+                                byte_tokenize, byte_detokenize,
+                                max_new_tokens=SFT_NEW)
+        seconds = time.perf_counter() - t0
+        k = read_counts()
+        with open(path, encoding="utf-8") as f:
+            rows = [json.loads(line) for line in f]
+        with open(os.path.join(out, "predict_results.json")) as f:
+            metrics = json.load(f)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    want = TRAIN_LAYERS * (SFT_NEW - 1)
+    line = {"phase": "sft_predictions", "prompts": len(prompts),
+            "prompt_lengths": [len(byte_tokenize(p)) for p in prompts],
+            "new_tokens": SFT_NEW, "rows": len(rows), "metrics": metrics,
+            "seconds": seconds, "launches": {n: v for n, v in k.items() if v},
+            "phase_seconds": time.perf_counter() - t_phase}
+    emit(line)
+    if not (len(rows) == len(prompts) and all(set(r) == {"label", "predict"}
+                                              for r in rows)
+            and sorted(metrics) == ["bleu-4", "rouge-1", "rouge-2", "rouge-l"]
+            and k[bc.SMALL_M.name] and k[bc.FUSED_SMALL_M.name]
+            and k[kc.DECODE_BF16.name] == want):
+        raise RuntimeError(f"save_predictions: rows, metrics, or K1/K2/B9 "
+                           f"({want}) launches: {line}")
 
 
 def main() -> int:

@@ -49,7 +49,18 @@ reference does: ``build_start_params`` makes the SVID start checkpoint,
 weights (each unpadded layer's attention in B11 and its backward kernels
 B11-dkv and B11-dq on the card), and ``pack_model_params`` packs the result
 for serving; ``python -m onebit_tpu_torch build-start-ckpt | train |
-convert`` does the same on native checkpoints.
+convert`` does the same on native checkpoints (``train --config FILE``
+takes its flags from a yaml or json file). ``run_sft`` fine-tunes on
+(prompt, response) pairs with prompt-masked CE and ``save_predictions``
+writes greedy predictions with their ROUGE/BLEU scores.
+
+The zero-shot task harness (``eval/tasks``): ``evaluate_tasks(params,
+config, tasks, tokenize)`` scores PIQA, ARC-Easy/Challenge, BoolQ,
+HellaSwag, Winogrande, LAMBADA (``eval/tasks/suite.py``) and the MMLU
+subjects (``eval/tasks/mmlu.py``) through ``loglikelihood`` and
+``greedy_until``, with bootstrap stderrs and optional 13-gram
+decontamination; ``make_table`` prints the results. Task rows come from
+local files (``DocTask.from_source``, ``eval/task_source.py``).
 """
 
 from onebit_tpu_torch.ckpt.hf_reader import load_reference_checkpoint
@@ -65,6 +76,7 @@ from onebit_tpu_torch.engine.sampler import SamplingConfig
 from onebit_tpu_torch.eval.loglikelihood import loglikelihood
 from onebit_tpu_torch.eval.ppl import perplexity
 from onebit_tpu_torch.eval.rolling import loglikelihood_rolling
+from onebit_tpu_torch.eval.tasks.base import evaluate_tasks, make_table
 from onebit_tpu_torch.kernels.linear import LinearWeights
 from onebit_tpu_torch.model.bitllama import (decode_step, decode_step_flat,
                                              forward, fuse_for_decode,
@@ -77,6 +89,7 @@ from onebit_tpu_torch.model.kv_cache import (QuantKVCache, QuantKVCacheKT,
                                              init_quant_kv_cache_kt4)
 from onebit_tpu_torch.train.losses import KDConfig
 from onebit_tpu_torch.train.run_kd import KDRunConfig, run_kd
+from onebit_tpu_torch.train.run_sft import run_sft, save_predictions
 from onebit_tpu_torch.train.trainer import (TrainConfig, init_train_state,
                                             make_train_step)
 from onebit_tpu_torch.utils.randinit import host_random_packed_params
@@ -86,12 +99,12 @@ __all__ = [
     "LinearWeights", "PagedKVCache", "QuantKVCache", "QuantKVCacheKT",
     "QuantKVCacheKT4", "QuantPagedKVCache", "SamplingConfig", "TrainConfig",
     "build_start_params", "decode_step", "decode_step_flat",
-    "export_reference_int8", "forward", "fuse_for_decode", "generate",
+    "evaluate_tasks", "export_reference_int8", "forward", "fuse_for_decode", "generate",
     "host_random_packed_params", "init_paged_kv_cache", "init_params",
     "init_quant_kv_cache", "init_quant_kv_cache_kt",
     "init_quant_kv_cache_kt4", "init_train_state", "load_native",
     "load_reference_checkpoint", "loglikelihood", "loglikelihood_rolling",
-    "make_train_step",
-    "pack_model_params", "params_from_jax", "params_to_numpy", "perplexity",
-    "run_kd", "save_native",
+    "make_table", "make_train_step", "pack_model_params", "params_from_jax",
+    "params_to_numpy", "perplexity", "run_kd", "run_sft", "save_native",
+    "save_predictions",
 ]

@@ -5,6 +5,7 @@
     python -m onebit_tpu_torch train --student DIR --teacher DIR \\
         --tokens BLOCKS.npy [--output-dir out] [--batch-size 4] \\
         [--max-steps N] [KD and optimizer flags] [--device cuda|cpu]
+    python -m onebit_tpu_torch train --config FILE.yaml|FILE.json [flags]
     python -m onebit_tpu_torch convert TRAIN_CKPT OUT_DIR \\
         [--format native|reference] [--device ...]
     python -m onebit_tpu_torch eval --ckpt DIR [--tokens FILE.npy] \\
@@ -29,8 +30,10 @@ the windowed perplexity of a pre-tokenized stream and the serving engines'
 greedy cross-check against ``generate``, printed as one JSON line and
 checked against pinned numbers with ``--expect``, generation from a
 prompt of comma-separated token ids, and serving: one request a stdin line
-of comma-separated ids, or over HTTP (``engine/server.py``). What is not
-ported yet (text datasets and tokenizers, sharded checkpoints, beam search,
+of comma-separated ids, or over HTTP (``engine/server.py``). ``train
+--config`` reads the train flags from a yaml or json file (its values
+override the command line's). What is not ported yet (text datasets and
+tokenizers, the task registry, sharded checkpoints, beam search,
 speculative decoding, ``serve --tp``, ``--dry-compile``) exits nonzero,
 naming what it waits for.
 """
@@ -47,16 +50,15 @@ from onebit_tpu_torch.parallel.mesh import PARALLEL_WAIT
 from onebit_tpu_torch.train.data import TEXT_DATASETS_WAIT_FOR
 
 # flag -> what it waits for (ROADMAP.md)
+_TOKENIZER = ("a Hugging Face tokenizer (transformers), which the "
+              "repository does not hold")
 WAITING = {
-    "corpus": "eval/datasets.py and a Hugging Face tokenizer "
-              "(transformers), which the repository does not hold",
-    "wikitext": "a Hugging Face tokenizer (transformers), which the "
-                "repository does not hold",
-    "tasks": "eval/tasks/* and a Hugging Face tokenizer (transformers), "
-             "which the repository does not hold",
-    "tokenizer": "a Hugging Face tokenizer (transformers), which the "
-                 "repository does not hold",
-    "decontaminate": "--tasks and tools/decontam/",
+    "corpus": _TOKENIZER,
+    "wikitext": _TOKENIZER,
+    "tasks": "the task registry (eval/tasks/registry.py, ROADMAP.md §1 "
+             "item 3) and " + _TOKENIZER,
+    "tokenizer": _TOKENIZER,
+    "decontaminate": "--tasks",
 }
 # the engine configurations of --check-engines (onebit_tpu/cli.py:214-220)
 ENGINE_CHECKS = {
@@ -74,7 +76,6 @@ _PARALLEL = PARALLEL_WAIT
 # train flag -> what it waits for
 WAITING_TRAIN = {
     "data": _TEXT, "dataset": _TEXT, "tokenizer": _TEXT,
-    "config": "a port of the JAX command's yaml/json argument files",
     "sharded_ckpt": "orbax sharded train states, " + _PARALLEL,
     "dry_compile": "parallel/memplan.py, " + _PARALLEL,
     "model": "--dry-compile", "mesh": "--dry-compile", "hbm_gb":
@@ -175,13 +176,9 @@ def cmd_train(args) -> None:
     from onebit_tpu_torch.train.trainer import TrainConfig
     from onebit_tpu_torch.train.validate import validate_kd
 
-    for flag, why in WAITING_TRAIN.items():
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet: "
-                             f"it waits for {why}")
-    if not (args.student and args.teacher and args.tokens):
-        raise SystemExit("train needs --student DIR, --teacher DIR and "
-                         "--tokens BLOCKS.npy (pre-tokenized [N, S] blocks)")
+    if not args.tokens:
+        raise SystemExit("train needs --tokens BLOCKS.npy (pre-tokenized "
+                         "[N, S] blocks)")
     student = _load_any_ckpt(args.student, args.device)
     teacher = _load_any_ckpt(args.teacher, args.device)
     config = student["config"]
@@ -441,8 +438,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="recompute decoder layers in the backward pass "
                    "(gradient checkpointing, reference core.py:254-263)")
     _device_flag(t)
-    for flag in ("data", "dataset", "tokenizer", "config", "model",
-                 "mesh", "hbm_gb"):
+    t.add_argument("--config", help="yaml or json file of train flags "
+                   "(its keys are the flags' names; its values override "
+                   "the command line's)")
+    for flag in ("data", "dataset", "tokenizer", "model", "mesh", "hbm_gb"):
         t.add_argument(f"--{flag.replace('_', '-')}", help="not ported yet")
     t.add_argument("--cutoff-len", type=int, default=2048,
                    help="block length of text datasets (not ported yet)")
@@ -535,8 +534,38 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _apply_config_file(args) -> None:
+    """``--config FILE`` (yaml, else json): the file's values become
+    argument values (onebit_tpu/cli.py:80-95, reference core.py:50-77); an
+    unknown key raises ``ValueError``."""
+    with open(args.config) as f:
+        if args.config.endswith((".yaml", ".yml")):
+            import yaml
+            data = yaml.safe_load(f)
+        else:
+            data = json.load(f)
+    for key, val in data.items():
+        attr = key.replace("-", "_")
+        if not hasattr(args, attr):
+            raise ValueError(f"unknown config key {key!r}")
+        setattr(args, attr, val)
+
+
 def main(argv=None) -> None:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.fn is cmd_train:
+        if args.config:
+            _apply_config_file(args)
+        # a flag that waits names its reason, from the file or the command
+        # line, before anything else is checked
+        for flag, why in WAITING_TRAIN.items():
+            if getattr(args, flag):
+                raise SystemExit(f"--{flag.replace('_', '-')} is not ported "
+                                 f"yet: it waits for {why}")
+        if not (args.student and args.teacher):
+            parser.error("train requires --student and --teacher (via "
+                         "flags or --config)")
     args.fn(args)
 
 

@@ -35,7 +35,11 @@ device, and replays the graph on the engine's stream. What it sees to:
   in place and never rebinds it);
 * sampling: a sampled block registers the engine's generator with the
   graph (``CUDAGraph.register_generator_state``), so each replay draws new
-  numbers.
+  numbers;
+* garbage: an engine and its graph hold each other, so a dropped engine's
+  graph waits for Python's cyclic collector, and freeing a graph while a
+  stream captures invalidates the capture. The capture collects first and
+  keeps the collector off until it ends.
 
 A capture that fails raises: the engine never runs a block step by step in
 its place.
@@ -44,6 +48,7 @@ its place.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from typing import Callable, Optional, Sequence
 
@@ -154,14 +159,19 @@ class BlockGraph:
                     "with block_steps=1")
             register(self.generator)
         before = [k.launches for k in KERNELS]
+        gc.collect()
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
+        collecting = gc.isenabled()
+        gc.disable()
         t0 = time.perf_counter()
         try:
             with torch.cuda.graph(graph, stream=side):
                 out = self._run()
                 t1 = time.perf_counter()
         finally:
+            if collecting:
+                gc.enable()
             for k, n in zip(KERNELS, before):
                 if k.launches != n:
                     self.per_replay[k.name] = k.launches - n

@@ -1,0 +1,55 @@
+"""Run ``chip_smoke.py``'s task-harness and SFT phases alone on one card.
+
+    python scripts/torch_smoke_phases.py [tasks] [sft]
+
+Builds the CUDA sources, then runs ``tasks_checks`` on the full-depth
+llama2-7b weights that ``chip_smoke.py``'s evaluation phase uses
+(``host_random_packed_params(seed=0)``, unfused) and ``sft_checks`` (7B
+width, ``TRAIN_LAYERS`` layers), printing their JSON lines, the card's
+name and power limit, and the wall seconds. Both phases by default. Each
+check raises as in ``chip_smoke.py``: a failure exits nonzero. Needs a
+CUDA device; a few minutes with the build.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke as cs  # noqa: E402
+
+
+def main(argv) -> int:
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 2
+    from onebit_tpu_torch import BitLlamaConfig, host_random_packed_params
+    from onebit_tpu_torch.kernels import build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phases = argv or ["tasks", "sft"]
+    dev = torch.device("cuda", 0)
+    t = time.perf_counter()
+    build.build()
+    cs.emit({"phase": "build", "seconds": time.perf_counter() - t})
+    if "tasks" in phases:
+        config = BitLlamaConfig.named("llama2-7b")
+        unfused = host_random_packed_params(config, seed=0, device=dev)
+        cs.tasks_checks(unfused, config, dev)
+        del unfused
+        torch.cuda.empty_cache()
+    if "sft" in phases:
+        cs.sft_checks(dev)
+    print(cs.nvidia_smi_line(), flush=True)
+    cs.emit({"phase": "done", "wall_s": time.perf_counter() - t})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

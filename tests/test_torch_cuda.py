@@ -1578,6 +1578,28 @@ def test_block_engine_on_the_card_matches_eager(dev, kind, pipelined):
         assert m["free_pages"] == m["total_pages"]
 
 
+def test_block_capture_keeps_the_collector_off(dev):
+    """An engine and its graph hold each other, so a dropped engine's graph
+    waits for Python's cyclic collector, and a collection inside another
+    engine's capture would free it there, which invalidates that capture
+    (cudaErrorStreamCaptureInvalidated: it failed so once in
+    test_block_engine_on_the_card_matches_eager). The eager block before
+    capture runs with the collector on, the capture with it off, and it is
+    on again after; the tokens are the eager engine's."""
+    import gc
+    eng = _block_engine(dev, "dense", torch.bfloat16)
+    real, seen = eng._graph.block, []
+
+    def block(*args):
+        seen.append((torch.cuda.is_current_stream_capturing(),
+                     gc.isenabled()))
+        return real(*args)
+    eng._graph.block = block
+    want = _block_engine(dev, "dense", torch.bfloat16, block_steps=1).run()
+    assert eng.run() == want
+    assert seen == [(False, True), (True, False)] and gc.isenabled()
+
+
 def test_sampled_block_graph_runs(dev):
     """A sampled block registers the engine's generator with its graph:
     two replays from the same state draw other tokens, in the vocabulary,
@@ -1592,3 +1614,126 @@ def test_sampled_block_graph_runs(dev):
     assert not np.array_equal(a, b)
     assert ((0 <= a) & (a < 512)).all() and ((0 <= b) & (b < 512)).all()
     assert all(len(v) == 9 for v in eng.run().values())
+
+
+# ---------------------------------------------------------------------------
+# The task harness and SFT on the card
+# ---------------------------------------------------------------------------
+
+def _byte_tokenize(text):
+    return [b + 3 for b in text.encode("utf-8")]
+
+
+def _card_tasks(n=4, seed=0):
+    """n synthetic docs of PIQA, ARC-Easy, BoolQ, HellaSwag, Winogrande,
+    LAMBADA and one MMLU subject, in their published schemas."""
+    import random
+
+    from onebit_tpu_torch.eval.tasks import mmlu, suite
+    rnd = random.Random(seed)
+    words = "the cat dog river stone blue jumps over lazy tree wind".split()
+
+    def text(lo, hi):
+        return " ".join(rnd.choice(words)
+                        for _ in range(rnd.randint(lo, hi)))
+    r = range(n)
+    return [
+        suite.PIQA([{"goal": text(4, 8), "sol1": text(3, 6),
+                     "sol2": text(3, 6), "label": i % 2} for i in r]),
+        suite.ARCEasy([{"question": text(4, 8), "answerKey": "2",
+                        "choices": {"text": [text(1, 3) for _ in "123"],
+                                    "label": list("123")}} for _ in r]),
+        suite.BoolQ([{"passage": text(10, 20), "question": text(3, 5),
+                      "label": i % 2} for i in r]),
+        suite.HellaSwag([{"activity_label": "Cooking", "ctx_a": text(4, 8),
+                          "ctx_b": text(1, 3), "label": "1",
+                          "endings": [f"{text(2, 5)} {j}" for j in range(4)]}
+                         for _ in r]),
+        suite.Winogrande([{"sentence": f"{text(3, 5)} _ {text(3, 5)}.",
+                           "option1": text(1, 2), "option2": text(1, 2),
+                           "answer": "2"} for _ in r]),
+        suite.Lambada([{"text": text(10, 16)} for _ in r]),
+        mmlu.MMLUSubject([{"question": text(4, 8), "answer": i % 4,
+                           "choices": [text(1, 2) for _ in range(4)]}
+                          for i in r], "philosophy")]
+
+
+def test_evaluate_tasks_kernel_path_matches_plain(dev, monkeypatch):
+    """``evaluate_tasks`` at 7B width, 2 layers, fp32, zero- and one-shot:
+    every request's log-likelihood within 1e-4 x (1 + |ll|) of
+    impl="torch" (chip_smoke.py's EVAL_LL_TOL), the greedy flags and every
+    metric equal; K3 fp32 launches, B11 never."""
+    from onebit_tpu_torch import BitLlamaConfig, host_random_packed_params
+    from onebit_tpu_torch.eval.tasks import base
+    from onebit_tpu_torch.kernels import attention_cuda as fc
+    config = BitLlamaConfig.named("llama2-7b", num_hidden_layers=2)
+    params = host_random_packed_params(config, seed=0, device=dev)
+    real = base._run_requests
+    for shots in (0, 1):
+        runs = {}
+        for impl in ("auto", "torch"):
+            seen = []
+
+            def run(*args, **kw):
+                out = real(*args, **kw)
+                seen.extend(out)
+                return out
+            monkeypatch.setattr(base, "_run_requests", run)
+            before = {i.name: i.launches for i in (bc.LARGE_M_F32,
+                                                   *fc.KERNELS)}
+            res = base.evaluate_tasks(params, config, _card_tasks(),
+                                      _byte_tokenize, impl=impl,
+                                      num_fewshot=shots)
+            torch.cuda.synchronize()
+            launched = {i.name: i.launches - before[i.name]
+                        for i in (bc.LARGE_M_F32, *fc.KERNELS)}
+            runs[impl] = (res, seen, launched)
+        (res, got, launched), (want_res, want, plain) = (runs["auto"],
+                                                         runs["torch"])
+        # a doc's requests in the seven tasks: 2+3+2+4+2+1+4
+        assert len(got) == len(want) == 4 * 18
+        for (ll, greedy), (ll_w, greedy_w) in zip(got, want):
+            assert abs(ll - ll_w) <= 1e-4 * (1 + abs(ll_w))
+            assert greedy == greedy_w
+        assert res.keys() == want_res.keys()
+        for task, metrics in want_res.items():
+            for key, val in metrics.items():
+                if "ppl" in key:
+                    assert abs(res[task][key] / val - 1) <= 1e-3, key
+                else:
+                    assert res[task][key] == val, (task, key)
+        assert launched[bc.LARGE_M_F32.name] > 0
+        assert not any(launched[i.name] for i in fc.KERNELS)
+        assert not any(plain.values())
+
+
+def test_run_sft_step_on_the_card(dev, tmp_path):
+    """One SFT step of a latent student at 7B width, 2 layers, bf16: a
+    finite loss, and its loss and grad norm within 1e-3 of impl="torch"
+    (padded batches: both take the plain masked attention)."""
+    import json
+
+    from onebit_tpu_torch import BitLlamaConfig, run_sft
+    from onebit_tpu_torch.model.bitllama import init_params
+    from onebit_tpu_torch.train.run_kd import KDRunConfig
+    from onebit_tpu_torch.train.trainer import TrainConfig
+    config = BitLlamaConfig.named("llama2-7b", num_hidden_layers=2)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    student = init_params(config, gen, device=dev)
+    pairs = [("say " * n, "yes " * (n + 3)) for n in range(1, 9)]
+    logs = {}
+    for impl in ("auto", "torch"):
+        out = tmp_path / impl
+        state = run_sft(config, student, pairs, _byte_tokenize,
+                        cutoff_len=64, train_cfg=TrainConfig(warmup_steps=0),
+                        run_cfg=KDRunConfig(output_dir=str(out),
+                                            batch_size=4, max_steps=1,
+                                            plot=False), impl=impl)
+        assert state.step == 1
+        logs[impl] = [json.loads(line) for line in
+                      (out / "trainer_log.jsonl").read_text().splitlines()]
+    got, want = logs["auto"][0], logs["torch"][0]
+    assert torch.isfinite(torch.tensor(got["loss"]))
+    for key in ("loss", "grad_norm"):
+        assert abs(got[key] - want[key]) <= 1e-3 * abs(want[key]), key
