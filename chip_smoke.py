@@ -136,7 +136,21 @@ toolkit and PyTorch. It imports nothing of JAX. Phases, one JSON line each:
    fp32 launched and B11 never; the per-task table; then one greedy-until
    batch through the harness (K1, K2, B9 exactly 32 x 15 launches) whose
    texts must be ``generate``'s, and whose tokens may part from
-   impl="torch"'s only at bf16 near-ties;
+   impl="torch"'s only at bf16 near-ties; then the task registry
+   (:func:`registry_checks`) on the same weights, fused: the count of
+   its names, and one task of each module whose metric needs no package
+   beyond numpy (RTE, COPA, OpenBookQA, TriviaQA, GSM8K, MATH algebra, a
+   BLiMP paradigm, a pile subset, arithmetic, LAMBADA cloze, WikiText), 4
+   synthetic docs each, zero-shot at the command line's batch of 4, on the
+   kernel path, with impl="torch" (log-likelihoods, greedy flags, rolling
+   sums and generated texts held as above) and through ``lm=NativeLM``
+   (the kernel path's results and requests exactly); K3 fp32, K1, K2 and
+   B9 launched; the janitor's C core built here and its n-grams against
+   the Python scan's; one ``{"text": ...}`` request to an
+   ``EngineServer`` holding a byte tokenizer, answered as the
+   ``{"prompt": ...}`` request of its bytes; and neither
+   ``transformers``, ``sklearn``, ``sacrebleu`` nor ``zstandard``
+   imported;
 8. SFT at llama2-7b width, 4 layers (:func:`sft_checks`): ``run_sft`` of
    16 pairs (alpaca template, cutoff 512, batch 4, bf16) for 3 steps on
    the kernel path and with impl="torch": finite losses, the first step's
@@ -2231,11 +2245,12 @@ def end_to_end(dev) -> dict:
     (:func:`generate_checks`), then evaluation (:func:`eval_checks`), all
     at full llama2-7b width and depth on the same random weights; the
     generate and eval command lines (:func:`generate_cli_checks`); KD
-    training (:func:`train_checks`); then the task harness on the
-    evaluation's weights (:func:`tasks_checks`) and SFT
-    (:func:`sft_checks`). Each served run goes again through
-    graph-replayed decode blocks (:func:`block_run`), the dense one also
-    with a fault captured in its graph (:func:`block_fault_check`). Returns
+    training (:func:`train_checks`); then the task harness and the task
+    registry on the evaluation's weights (:func:`tasks_checks`,
+    :func:`registry_checks`) and SFT (:func:`sft_checks`). Each served run
+    goes again through graph-replayed decode blocks (:func:`block_run`), the
+    dense one also with a fault captured in its graph
+    (:func:`block_fault_check`). Returns
     each kernel's launches from the run of its own path, and those that
     its block run's graph replays made."""
     from onebit_tpu_torch import (BitLlamaConfig, fuse_for_decode,
@@ -2291,10 +2306,13 @@ def end_to_end(dev) -> dict:
     torch.cuda.empty_cache()
     generate_cli_checks(dev)
     launches.update(train_checks(dev))
-    # the task harness on the evaluation's weights, made again from their
-    # seed, then SFT
-    tasks_checks(host_random_packed_params(config, seed=0, device=dev),
-                 config, dev)
+    # the task harness and the registry on the evaluation's weights, made
+    # again from their seed, then SFT
+    unfused = host_random_packed_params(config, seed=0, device=dev)
+    tasks_checks(unfused, config, dev)
+    registry_checks(unfused, config, dev)
+    del unfused
+    torch.cuda.empty_cache()
     sft_checks(dev)
     # B6 and B8, the read-only variants, are on no path of the port
     return ({k.name: launches.get(k.name, 0) for k in all_kernels()},
@@ -3041,6 +3059,9 @@ TASK_DOCS = 8             # docs a task
 TASK_BATCH = 16           # evaluate_tasks' default
 TASK_FEWSHOT = "hellaswag"  # the task run again with one shot
 TASK_GEN_ROWS, TASK_GEN_NEW = 4, 16   # the greedy_until batch
+# tasks whose acc is a request's greedy flag
+GREEDY_FLAG_TASKS = ("lambada_openai", "triviaqa", "arithmetic_2da",
+                     "lambada_standard_cloze")
 TASK_WORDS = ("the a cat dog river stone blue quickly jumps over under lazy "
               "bright house tree wind seven wizards watch quietly tonight "
               "small green paper runs sings carefully into market bread "
@@ -3125,17 +3146,23 @@ def smoke_tasks(seed: int = 9) -> list:
             mmlu.MMLUSubject(raw["mmlu"], "college_mathematics")]
 
 
-def _run_tasks(params, config, tasks, impl: str, shots: int) -> dict:
+def _run_tasks(params, config, tasks, impl: str, shots: int,
+               batch_size: int = TASK_BATCH, **kw) -> dict:
     """``evaluate_tasks`` with every count set to 0 just before it,
-    recording each request with its result and each doc's results and
-    metrics (the order both paths share: the seeded shuffle)."""
+    recording each log-likelihood request with its result, the other
+    requests as ``(type, payload, result)``, and each doc's results and
+    metrics (the order both paths share: the seeded shuffle). ``kw`` goes
+    to ``evaluate_tasks`` (``lm``, ``detokenize``, ``max_new_tokens``)."""
     from onebit_tpu_torch.eval.tasks import base
-    requests, docs = [], []
+    requests, other, docs = [], [], []
     real = base._run_requests
 
     def run(p, c, rtype, payloads, *args, **kw):
         out = real(p, c, rtype, payloads, *args, **kw)
-        requests.extend(zip(payloads, out))
+        if rtype == "loglikelihood":
+            requests.extend(zip(payloads, out))
+        else:
+            other.extend((rtype, q, r) for q, r in zip(payloads, out))
         return out
 
     def recorder(task):
@@ -3155,23 +3182,25 @@ def _run_tasks(params, config, tasks, impl: str, shots: int) -> dict:
         reset_counts()
         t0 = time.perf_counter()
         results = base.evaluate_tasks(params, config, tasks, byte_tokenize,
-                                      batch_size=TASK_BATCH, impl=impl,
-                                      num_fewshot=shots)
+                                      batch_size=batch_size, impl=impl,
+                                      num_fewshot=shots, **kw)
         seconds = time.perf_counter() - t0
         counts = read_counts()
     finally:
         base._run_requests = real
         for task in tasks:
             del task.process_results
-    return {"results": results, "requests": requests, "docs": docs,
-            "seconds": seconds, "counts": counts}
+    return {"results": results, "requests": requests, "other": other,
+            "docs": docs, "seconds": seconds, "counts": counts}
 
 
 def _choice_gap(doc, results, key: str) -> tuple:
     """The plain path's gap between a doc's two best choices (raw
-    log-likelihoods for ``acc``, per byte of the choice for ``acc_norm``)
-    and the sum of those two log-likelihoods' EVAL_LL_TOL bounds: a gap
-    under that sum is one the two paths may order either way."""
+    log-likelihoods for ``acc``, per byte of the choice for ``acc_norm``;
+    a doc that is not multiple choice compares its requests' raw
+    log-likelihoods) and the sum of those two log-likelihoods' EVAL_LL_TOL
+    bounds: a gap under that sum is one the two paths may order either
+    way."""
     lls = np.array([r[0] for r in results])
     scores = lls
     if key == "acc_norm":
@@ -3206,8 +3235,11 @@ def _compare_task_runs(params, config, dev, auto: dict, plain: dict) -> dict:
     metric_flips = []
     for (name, doc, res_a, m_a), (_, _, res_p, m_p) in zip(auto["docs"],
                                                           plain["docs"]):
-        if name == "lambada_openai":
-            continue    # its acc is its request's greedy flag, held above
+        if name in GREEDY_FLAG_TASKS or (res_p and isinstance(res_p[0],
+                                                              str)):
+            # acc is a request's greedy flag, held above; a generated
+            # text is held by _compare_generations
+            continue
         for key in ("acc", "acc_norm"):
             if key not in m_a or m_a[key] == m_p[key]:
                 continue
@@ -3341,6 +3373,320 @@ def tasks_checks(params, config, dev) -> None:
                                f"than K3 fp32: {line}")
     _greedy_until_check(params, config, dev, tasks)
     emit({"phase": "tasks_done", "seconds": time.perf_counter() - t_phase})
+
+
+# ---------------------------------------------------------------------------
+# phase 7b: the task registry, the janitor's C core and text requests
+# ---------------------------------------------------------------------------
+
+REGISTRY_DOCS = 4          # docs a task
+REGISTRY_BATCH = 4         # the eval command line's --batch-size
+REGISTRY_NEW = 16          # new tokens a greedy-until request
+REGISTRY_TASKS = ("rte", "copa", "openbookqa", "triviaqa", "gsm8k",
+                  "math_algebra", "blimp_causative", "pile_github",
+                  "arithmetic_2da", "lambada_standard_cloze", "wikitext")
+# packages the card's machine may lack, which this phase must not import
+NOT_ON_THE_CARD = ("transformers", "sklearn", "sacrebleu", "zstandard")
+
+
+class ByteTokenizer:
+    """:func:`byte_tokenize` behind a Hugging Face tokenizer's surface:
+    ``tok(text)["input_ids"]`` and ``tok.decode(ids)``."""
+
+    def __call__(self, text: str) -> dict:
+        return {"input_ids": byte_tokenize(text)}
+
+    def decode(self, tokens) -> str:
+        return byte_detokenize(tokens)
+
+
+def registry_raw_docs(seed: int = 13) -> dict:
+    """REGISTRY_DOCS raw rows of each of REGISTRY_TASKS in its published
+    schema, from ``random.Random(seed)``."""
+    import random
+    rnd = random.Random(seed)
+
+    def text(lo, hi):
+        return " ".join(rnd.choice(TASK_WORDS)
+                        for _ in range(rnd.randint(lo, hi)))
+
+    def doc(name, i):
+        a, b = rnd.randint(2, 40), rnd.randint(2, 40)
+        if name == "rte":
+            return {"sentence1": text(8, 16) + ".",
+                    "sentence2": text(4, 8), "label": rnd.randint(0, 1)}
+        if name == "copa":
+            return {"premise": text(6, 12) + ".",
+                    "question": ("cause", "effect")[i % 2],
+                    "choice1": "The " + text(3, 6) + ".",
+                    "choice2": "A " + text(3, 6) + ".",
+                    "label": rnd.randint(0, 1)}
+        if name == "openbookqa":
+            return {"question_stem": text(6, 12),
+                    "choices": {"text": [text(1, 4) for _ in range(4)]},
+                    "answerKey": rnd.choice("ABCD")}
+        if name == "triviaqa":
+            w = rnd.choice(TASK_WORDS)
+            return {"question": text(6, 12) + "?", "answer": {
+                "value": w, "aliases": [w, w + " " + rnd.choice(TASK_WORDS),
+                                        text(1, 2)]}}
+        if name == "gsm8k":
+            return {"question": f"{text(4, 8)} has {a} and gets {b} more. "
+                                "How many now?",
+                    "answer": f"{a} + {b} = {a + b}\n#### {a + b}"}
+        if name == "math_algebra":
+            return {"problem": f"Solve for x: x - {a} = {b}.",
+                    "solution": f"So $x = \\boxed{{{a + b}}}$."}
+        if name == "blimp_causative":
+            return {"sentence_good": text(5, 10) + ".",
+                    "sentence_bad": text(5, 10) + "."}
+        if name == "arithmetic_2da":
+            return {"context": f"Question: What is {a} plus {b}?\nAnswer:",
+                    "completion": f" {a + b}"}
+        if name == "lambada_standard_cloze":
+            return {"text": text(20, 40)}
+        if name == "wikitext":
+            return (f" = {text(1, 3)} = \n {text(30, 60)} @-@ "
+                    f"{text(10, 20)} . \n")
+        return text(40, 80)            # pile_github: a raw document
+    return {name: [doc(name, i) for i in range(REGISTRY_DOCS)]
+            for name in REGISTRY_TASKS}
+
+
+def registry_tasks(seed: int = 13) -> list:
+    """REGISTRY_TASKS, each built by its registry name on
+    :func:`registry_raw_docs`."""
+    from onebit_tpu_torch.eval.tasks.registry import TASK_REGISTRY
+    raw = registry_raw_docs(seed)
+    return [TASK_REGISTRY[name](raw[name]) for name in REGISTRY_TASKS]
+
+
+def _compare_generations(params, config, dev, auto: dict, plain: dict) -> dict:
+    """The generated texts of two task runs: for each task's batch of
+    greedy-until requests, the kernel run's texts must be ``generate``'s
+    on the kernel path cut at the stops, the plain run's those of
+    ``generate`` with impl="torch", and where the two parted, the plain
+    path's top-2 logits must lie within LOGITS_REL_TOL of its largest
+    |logit| at the first parting token (:func:`_divergence_gap`)."""
+    from onebit_tpu_torch import generate
+
+    def cut(tokens, stops):
+        text = byte_detokenize(tokens)
+        for stop in stops:
+            idx = text.find(stop)
+            if idx >= 0:
+                text = text[:idx]
+        return text
+
+    def batches(run):
+        reqs = [(q, r) for t, q, r in run["other"] if t == "greedy_until"]
+        return [reqs[i:i + REGISTRY_BATCH]
+                for i in range(0, len(reqs), REGISTRY_BATCH)]
+    out = {"requests": 0, "texts_equal_generate": True, "parted": []}
+    for got_a, got_p in zip(batches(auto), batches(plain)):
+        prompts = [byte_tokenize(ctx) for (ctx, _), _ in got_a]
+        if [q for q, _ in got_a] != [q for q, _ in got_p]:
+            raise RuntimeError("the two task runs generated for different "
+                               "requests")
+        kernel = generate(params, config, prompts,
+                          max_new_tokens=REGISTRY_NEW)
+        ref = generate(params, config, prompts, max_new_tokens=REGISTRY_NEW,
+                       impl="torch")
+        out["requests"] += len(prompts)
+        out["texts_equal_generate"] &= (
+            [r for _, r in got_a] == [cut(k, q[1])
+                                      for k, (q, _) in zip(kernel, got_a)]
+            and [r for _, r in got_p] == [cut(k, q[1]) for k, (q, _)
+                                          in zip(ref, got_p)])
+        for r, (k, p) in enumerate(zip(kernel, ref)):
+            step = next((i for i, (a, b) in enumerate(zip(k, p)) if a != b),
+                        None)
+            if step is not None:
+                out["parted"].append({"prompt_len": len(prompts[r]),
+                                      "step": step, "gap": _divergence_gap(
+                                          params, config, dev, prompts[r], p,
+                                          step)})
+    out["ok"] = (out["texts_equal_generate"] and out["requests"] > 0
+                 and all(v["gap"] <= LOGITS_REL_TOL for v in out["parted"]))
+    return out
+
+
+def _compare_rolling(auto: dict, plain: dict) -> dict:
+    """Each rolling log-likelihood within EVAL_LL_TOL x (1 + |ll|) of the
+    plain run's."""
+    a = [(q, r) for t, q, r in auto["other"] if t == "loglikelihood_rolling"]
+    p = [(q, r) for t, q, r in plain["other"]
+         if t == "loglikelihood_rolling"]
+    if [q for q, _ in a] != [q for q, _ in p] or not a:
+        raise RuntimeError("the two task runs scored different documents")
+    lls = np.array([[x, y] for (_, x), (_, y) in zip(a, p)])
+    err = np.abs(lls[:, 0] - lls[:, 1])
+    return {"documents": len(lls), "max_abs_err_vs_torch": float(err.max()),
+            "ok": bool((err <= EVAL_LL_TOL * (1 + np.abs(lls[:, 1]))).all())}
+
+
+def _janitor_core_check() -> dict:
+    """The janitor's C core built on this machine (``build/decontam/``):
+    its n-grams and spans against the Python scan's on the registry docs'
+    texts and the 13-gram contamination of a training text holding two of
+    them."""
+    from onebit_tpu_torch.tools.decontam import janitor
+    t0 = time.perf_counter()
+    native = janitor.Janitor()
+    build_s = time.perf_counter() - t0
+    python = janitor.Janitor(use_native=False)
+    texts = [json.dumps(d) for docs in registry_raw_docs().values()
+             for d in docs]
+    same = all(native._ngrams_with_indices(t) == python._ngrams_with_indices(t)
+               for t in texts)
+    for j in (native, python):
+        j.register_contaminant(" ".join(texts[:2]))
+    counts = [[j.contamination_count(t) for t in texts]
+              for j in (native, python)]
+    line = {"phase": "janitor_core", "native": native.native,
+            "library": str(janitor.core_path().relative_to(ROOT)),
+            "build_s": build_s, "texts": len(texts),
+            "ngrams_equal_python": same,
+            "contaminated": sum(c > 0 for c in counts[0]),
+            "counts_equal_python": counts[0] == counts[1]}
+    emit(line)
+    if not (native.native and same and counts[0] == counts[1]
+            and line["contaminated"] >= 2):
+        raise RuntimeError(f"the janitor's C core disagrees with the "
+                           f"Python scan: {line}")
+    return line
+
+
+def _server_text_check(params, config, dev) -> dict:
+    """One ``{"text": ...}`` request, sync and streamed, to an
+    ``EngineServer`` holding :class:`ByteTokenizer` on a dense engine of
+    the fused weights: the tokens of the ``{"prompt": ...}`` request of
+    the text's bytes, and their decoding beside them."""
+    import urllib.request
+    from onebit_tpu_torch import ContinuousBatchingEngine
+    from onebit_tpu_torch.engine.sampler import SamplingConfig
+    from onebit_tpu_torch.engine.server import EngineServer
+    from onebit_tpu_torch.kernels import kv_attention_cuda as kc
+    eng = ContinuousBatchingEngine(
+        params, config, max_batch=2, max_len=256,
+        sampling=SamplingConfig(greedy=True), device=dev)
+    server = EngineServer(eng, tokenizer=ByteTokenizer())
+    port = server.start(port=0)
+    text = "the quick brown fox jumps over the lazy dog tonight"
+
+    def post(body):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/generate",
+            data=json.dumps(dict(body, max_new_tokens=SERVE_NEW)).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.read().decode()
+    try:
+        by_ids = json.loads(post({"prompt": byte_tokenize(text)}))
+        reset_counts()
+        t0 = time.perf_counter()
+        by_text = json.loads(post({"text": text}))
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        streamed = [json.loads(x) for x in post({"text": text,
+                                                 "stream": True}).split("\n")
+                    if x]
+    finally:
+        server.stop()
+    line = {"phase": "server_text", "prompt_bytes": len(text),
+            "new_tokens": len(by_text["tokens"]), "seconds": seconds,
+            "equal_prompt_request": by_text == by_ids,
+            "text_is_decoding": by_text.get("text") == byte_detokenize(
+                by_text["tokens"]),
+            "stream_equal": streamed[-1] == {"done": True, **by_text}
+            and [x["token"] for x in streamed[:-1]] == by_text["tokens"],
+            "launches": {k: v for k, v in counts.items() if v}}
+    emit(line)
+    if not (line["equal_prompt_request"] and line["text_is_decoding"]
+            and line["stream_equal"] and by_text["tokens"]
+            and counts[kc.DECODE_BF16.name]):
+        raise RuntimeError(f"a text request to EngineServer: {line}")
+    return line
+
+
+def registry_checks(params, config, dev) -> None:
+    """The task registry on the full-depth llama2-7b weights of
+    :func:`tasks_checks`, fused for decode, in the byte tokenizer:
+
+    (a) the registry's names, and REGISTRY_TASKS (one task of each new
+        module whose metric needs no package beyond numpy) on
+        :func:`registry_raw_docs`, zero-shot at batch REGISTRY_BATCH with
+        REGISTRY_NEW new tokens a greedy request, on the kernel path and
+        with impl="torch": log-likelihoods and greedy flags
+        (:func:`_compare_task_runs`), rolling sums
+        (:func:`_compare_rolling`) and texts (:func:`_compare_generations`);
+        K3 fp32, K1, K2 and B9 (bf16) launched on the kernel path, nothing
+        with impl="torch";
+    (b) the same through ``lm=NativeLM(...)``: the kernel path's results,
+        requests and per-doc metrics exactly;
+    (c) the janitor's C core (:func:`_janitor_core_check`);
+    (d) a text request to ``EngineServer`` (:func:`_server_text_check`);
+
+    and none of NOT_ON_THE_CARD imported by this process."""
+    from onebit_tpu_torch import fuse_for_decode
+    from onebit_tpu_torch.eval.adapters import NativeLM
+    from onebit_tpu_torch.eval.tasks.base import make_table
+    from onebit_tpu_torch.eval.tasks.registry import ALL_TASKS
+    from onebit_tpu_torch.kernels import bitlinear_cuda as bc
+    from onebit_tpu_torch.kernels import kv_attention_cuda as kc
+    t_phase = time.perf_counter()
+    fused = fuse_for_decode(params, config)
+    kw = dict(batch_size=REGISTRY_BATCH, detokenize=byte_detokenize,
+              max_new_tokens=REGISTRY_NEW)
+    runs = {impl: _run_tasks(fused, config, registry_tasks(), impl, 0, **kw)
+            for impl in ("auto", "torch")}
+    runs["native_lm"] = _run_tasks(
+        None, None, registry_tasks(), "auto", 0,
+        lm=NativeLM(fused, config, batch_size=REGISTRY_BATCH), **kw)
+    cmp = _compare_task_runs(fused, config, dev, runs["auto"], runs["torch"])
+    rolling = _compare_rolling(runs["auto"], runs["torch"])
+    texts = _compare_generations(fused, config, dev, runs["auto"],
+                                 runs["torch"])
+    auto, native = runs["auto"], runs["native_lm"]
+    native_equal = (native["results"] == auto["results"]
+                    and native["requests"] == auto["requests"]
+                    and native["other"] == auto["other"]
+                    and [m for *_, m in native["docs"]]
+                    == [m for *_, m in auto["docs"]])
+    k = auto["counts"]
+    need = (bc.LARGE_M_F32, bc.SMALL_M, bc.FUSED_SMALL_M, kc.DECODE_BF16)
+    line = {"phase": "registry", "registry_names": len(ALL_TASKS),
+            "tasks": list(REGISTRY_TASKS), "docs_per_task": REGISTRY_DOCS,
+            "batch_size": REGISTRY_BATCH, "new_tokens": REGISTRY_NEW,
+            "loglikelihood": cmp, "rolling": rolling, "greedy_until": texts,
+            "native_lm_equal": native_equal,
+            "results": auto["results"],
+            "results_torch": runs["torch"]["results"],
+            "seconds": auto["seconds"],
+            "seconds_torch": runs["torch"]["seconds"],
+            "seconds_native_lm": native["seconds"],
+            "launches": {n: v for n, v in k.items() if v},
+            "launches_native_lm": {n: v for n, v in native["counts"].items()
+                                   if v}}
+    emit(line)
+    print(make_table(auto["results"]), flush=True)
+    if not (len(ALL_TASKS) == 297 and cmp["ok"] and rolling["ok"]
+            and texts["ok"] and native_equal
+            and all(k[n.name] for n in need)
+            and not any(runs["torch"]["counts"].values())):
+        raise RuntimeError(f"the task registry disagrees with "
+                           f"impl='torch' or with NativeLM, or K3 fp32, K1, "
+                           f"K2 or B9 never launched: {line}")
+    _janitor_core_check()
+    _server_text_check(fused, config, dev)
+    del fused
+    torch.cuda.empty_cache()
+    imported = [m for m in NOT_ON_THE_CARD if m in sys.modules]
+    emit({"phase": "registry_done", "seconds": time.perf_counter() - t_phase,
+          "not_to_import": NOT_ON_THE_CARD, "imported": imported,
+          "device": nvidia_smi_line()})
+    if imported:
+        raise RuntimeError(f"the registry phase imported {imported}")
 
 
 # ---------------------------------------------------------------------------

@@ -3,19 +3,25 @@
     python -m onebit_tpu_torch build-start-ckpt TEACHER_DIR OUT_DIR \\
         [--method power|nmf] [--num-iters 50] [--device cuda|cpu]
     python -m onebit_tpu_torch train --student DIR --teacher DIR \\
-        --tokens BLOCKS.npy [--output-dir out] [--batch-size 4] \\
+        (--tokens BLOCKS.npy | --data DIR --dataset NAME [--tokenizer TOK] \\
+        [--cutoff-len 2048]) [--output-dir out] [--batch-size 4] \\
         [--max-steps N] [KD and optimizer flags] [--device cuda|cpu]
     python -m onebit_tpu_torch train --config FILE.yaml|FILE.json [flags]
     python -m onebit_tpu_torch convert TRAIN_CKPT OUT_DIR \\
         [--format native|reference] [--device ...]
     python -m onebit_tpu_torch eval --ckpt DIR [--tokens FILE.npy] \\
+        [--corpus wikitext2,c4 [--corpus-source PATH]] [--wikitext FILE] \\
+        [--tasks piqa,arc_*,hendrycksTest [--task-source DIR] \\
+        [--num-fewshot K] [--decontaminate TRAIN.txt]] [--tokenizer TOK] \\
         [--seqlen 2048] [--batch-size 4] [--limit N] [--vocab-chunk N] \\
         [--check-engines dense,kvq,int4,paged] [--expect FILE.json] \\
         [--device cuda|cpu]
     python -m onebit_tpu_torch generate --ckpt DIR --prompt 1,2,3 \\
+        [--tokenizer TOK (--prompt then is text)] \\
         [--max-new-tokens 64] [--greedy] [--temperature 0.95] \\
         [--top-k 50] [--top-p 0.7] [--device cuda|cpu]
-    python -m onebit_tpu_torch serve --ckpt DIR [--max-batch 8] \\
+    python -m onebit_tpu_torch serve --ckpt DIR [--tokenizer TOK] \\
+        [--max-batch 8] \\
         [--max-len 2048] [--max-new-tokens 128] [--block-steps N] \\
         [--pipeline-blocks] [--paged] [--page-size 16] \\
         [--kv-quant int8|int4] [--prefix-cache] [--fuse-decode] \\
@@ -25,17 +31,21 @@ Port of ``onebit_tpu/cli.py``'s pipeline. A checkpoint is a native
 directory (``config.json`` + ``params.npz``) or a reference Hugging Face
 directory (``ckpt/hf_reader.py``). The commands: the SVID start checkpoint
 from a plain teacher, KD training on pre-tokenized blocks (``[N, S]``
-``.npy``), packing for inference (native, or the reference's int8 format),
-the windowed perplexity of a pre-tokenized stream and the serving engines'
-greedy cross-check against ``generate``, printed as one JSON line and
-checked against pinned numbers with ``--expect``, generation from a
-prompt of comma-separated token ids, and serving: one request a stdin line
-of comma-separated ids, or over HTTP (``engine/server.py``). ``train
---config`` reads the train flags from a yaml or json file (its values
-override the command line's). What is not ported yet (text datasets and
-tokenizers, the task registry, sharded checkpoints, beam search,
-speculative decoding, ``serve --tp``, ``--dry-compile``) exits nonzero,
-naming what it waits for.
+``.npy``) or on a registered text dataset, packing for inference (native,
+or the reference's int8 format), evaluation (the windowed perplexity of a
+pre-tokenized stream or of named corpora, rolling WikiText perplexity,
+the zero-shot task registry, and the serving engines' greedy cross-check
+against ``generate``), printed as one JSON line and checked against
+pinned numbers with ``--expect``, generation from a prompt, and serving:
+one request a stdin line, or over HTTP (``engine/server.py``). Without
+``--tokenizer`` prompts and completions are comma-separated token ids.
+A tokenizer is ``AutoTokenizer.from_pretrained(--tokenizer)`` (for eval
+and train, the checkpoint's own directory by default), imported only
+where a command needs one. ``train --config`` reads the train flags from
+a yaml or json file (its values override the command line's). What is
+not ported yet (sharded checkpoints, beam search, speculative decoding,
+``serve --tp``, ``--dry-compile``) exits nonzero, naming what it waits
+for.
 """
 
 from __future__ import annotations
@@ -47,19 +57,7 @@ import sys
 
 from onebit_tpu_torch.engine.paged import ENGINE_OPTIONS_WAIT
 from onebit_tpu_torch.parallel.mesh import PARALLEL_WAIT
-from onebit_tpu_torch.train.data import TEXT_DATASETS_WAIT_FOR
 
-# flag -> what it waits for (ROADMAP.md)
-_TOKENIZER = ("a Hugging Face tokenizer (transformers), which the "
-              "repository does not hold")
-WAITING = {
-    "corpus": _TOKENIZER,
-    "wikitext": _TOKENIZER,
-    "tasks": "the task registry (eval/tasks/registry.py, ROADMAP.md §1 "
-             "item 3) and " + _TOKENIZER,
-    "tokenizer": _TOKENIZER,
-    "decontaminate": "--tasks",
-}
 # the engine configurations of --check-engines (onebit_tpu/cli.py:214-220)
 ENGINE_CHECKS = {
     "dense": {},
@@ -70,12 +68,9 @@ ENGINE_CHECKS = {
 }
 BEAM_WAITS_FOR = "engine/beam.py (ROADMAP.md §1 item 4)"
 
-
-_TEXT = TEXT_DATASETS_WAIT_FOR
 _PARALLEL = PARALLEL_WAIT
-# train flag -> what it waits for
+# train flag -> what it waits for (ROADMAP.md)
 WAITING_TRAIN = {
-    "data": _TEXT, "dataset": _TEXT, "tokenizer": _TEXT,
     "sharded_ckpt": "orbax sharded train states, " + _PARALLEL,
     "dry_compile": "parallel/memplan.py, " + _PARALLEL,
     "model": "--dry-compile", "mesh": "--dry-compile", "hbm_gb":
@@ -85,7 +80,6 @@ WAITING_CONVERT = {"sharded": "sharded checkpoints, " + _PARALLEL}
 # serve flag -> what it waits for
 WAITING_SERVE = {
     "dry_compile": "parallel/memplan.py, " + _PARALLEL,
-    "tokenizer": WAITING["tokenizer"],
     "draft": "speculative decoding, " + ENGINE_OPTIONS_WAIT,
     "tp": "a launcher of the tensor-parallel ranks behind one front end "
           "(ROADMAP.md §1 item 4)",
@@ -143,6 +137,16 @@ def _load_any_ckpt(path: str, device):
     return load_reference_checkpoint(path, device=device)
 
 
+def _load_tokenizer(path: str):
+    """``AutoTokenizer.from_pretrained(path)`` (onebit_tpu/cli.py:159-160);
+    exits nonzero, naming the path, when no tokenizer loads from it."""
+    from transformers import AutoTokenizer
+    try:
+        return AutoTokenizer.from_pretrained(path)
+    except Exception as e:   # noqa: BLE001 - any failure: say where
+        raise SystemExit(f"no tokenizer could be loaded from {path}: {e}")
+
+
 def cmd_build_start(args) -> None:
     from onebit_tpu_torch.ckpt.native import save_native
     from onebit_tpu_torch.core.build_start import build_start_params
@@ -171,18 +175,28 @@ def cmd_convert(args) -> None:
 def cmd_train(args) -> None:
     import numpy as np
 
+    from onebit_tpu_torch.train.data import load_texts, prepare_kd_dataset
     from onebit_tpu_torch.train.losses import KDConfig
     from onebit_tpu_torch.train.run_kd import KDRunConfig, run_kd
     from onebit_tpu_torch.train.trainer import TrainConfig
     from onebit_tpu_torch.train.validate import validate_kd
 
-    if not args.tokens:
+    if not (args.tokens or (args.data and args.dataset)):
         raise SystemExit("train needs --tokens BLOCKS.npy (pre-tokenized "
-                         "[N, S] blocks)")
+                         "[N, S] blocks) or --data DIR --dataset NAME (a "
+                         "registered text dataset)")
     student = _load_any_ckpt(args.student, args.device)
     teacher = _load_any_ckpt(args.teacher, args.device)
     config = student["config"]
-    blocks = np.load(args.tokens)
+    if args.tokens:
+        blocks = np.load(args.tokens)
+    else:
+        # onebit_tpu/cli.py:156-163: the teacher's tokenizer by default
+        tok = _load_tokenizer(args.tokenizer or args.teacher)
+        texts = load_texts(args.data, args.dataset)
+        blocks = prepare_kd_dataset(
+            texts, lambda s: tok(s)["input_ids"], cutoff_len=args.cutoff_len,
+            eos_id=config.eos_token_id)
     print(f"dataset: {blocks.shape[0]} blocks x {blocks.shape[1]}")
     kd_cfg = KDConfig(kd_alpha=args.kd_alpha, kd_beta=args.kd_beta,
                       kd_gamma=args.kd_gamma,
@@ -260,30 +274,113 @@ def _engine_configs(spec: str):
     return names
 
 
+def _eval_tasks(args, loaded, tokenizer) -> dict:
+    """``--tasks`` (onebit_tpu/cli.py:300-355): comma-separated names and
+    fnmatch patterns over the registry; ``hendrycksTest`` is every MMLU
+    subject. Docs come from ``--task-source DIR`` (local files,
+    ``DocTask.from_source``; with a training split when ``--num-fewshot``
+    > 0) or else from the Hugging Face hub. Prints ``make_table``; returns
+    the results, with ``mmlu`` aggregated over the subjects run."""
+    from onebit_tpu_torch.eval.tasks.base import evaluate_tasks, make_table
+    from onebit_tpu_torch.eval.tasks.mmlu import (SUBJECTS, MMLUSubject,
+                                                  aggregate_mmlu)
+    from onebit_tpu_torch.eval.tasks.registry import (TASK_REGISTRY,
+                                                      pattern_match)
+
+    names = []
+    for pat in (n.strip() for n in args.tasks.split(",")):
+        if any(c in pat for c in "*?["):
+            names.extend(n for n in pattern_match([pat]) if n not in names)
+        elif pat not in names:
+            names.append(pat)
+    tasks = []
+    for name in names:
+        if name == "hendrycksTest":
+            for subject in SUBJECTS:
+                if args.task_source:
+                    from onebit_tpu_torch.eval.task_source import load_split
+                    rows = load_split(args.task_source,
+                                      f"hendrycksTest-{subject}", "test")
+                else:
+                    import datasets
+                    rows = list(datasets.load_dataset(
+                        "cais/mmlu", subject, split="test"))
+                tasks.append(MMLUSubject(rows, subject))
+        elif args.task_source:
+            tasks.append(TASK_REGISTRY[name].from_source(
+                args.task_source, name, with_train=args.num_fewshot > 0))
+        else:
+            tasks.append(TASK_REGISTRY[name].from_datasets())
+    decontam = None
+    if args.decontaminate:
+        # training text to 13-gram-scan against each task's
+        # decontamination queries (reference evaluator.py:215-221)
+        with open(args.decontaminate) as f:
+            decontam = f.read()
+    results = evaluate_tasks(
+        loaded["params"], loaded["config"], tasks,
+        lambda s: tokenizer(s, add_special_tokens=False)["input_ids"],
+        batch_size=args.batch_size, limit=args.limit,
+        num_fewshot=args.num_fewshot, detokenize=tokenizer.decode,
+        decontamination_ngrams=decontam)
+    print(make_table(results), flush=True)
+    mmlu = aggregate_mmlu(results)
+    if mmlu:
+        results["mmlu"] = mmlu
+    return results
+
+
 def cmd_eval(args) -> None:
     import numpy as np
 
     from onebit_tpu_torch.eval.ppl import perplexity
 
-    for flag, why in WAITING.items():
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet: "
-                             f"it waits for {why}")
     configs = _engine_configs(args.check_engines) if args.check_engines \
         else None
-    if not (args.tokens or configs):
+    if not (args.tokens or configs or args.corpus or args.wikitext
+            or args.tasks):
         raise SystemExit("eval needs --tokens FILE.npy (a pre-tokenized "
-                         "stream) or --check-engines")
+                         "stream), --corpus, --wikitext, --tasks or "
+                         "--check-engines")
     loaded = _load_any_ckpt(args.ckpt, args.device)
+    params, config = loaded["params"], loaded["config"]
     results = {}
     if configs:
         results["engine_check"] = _engine_consistency_check(
             loaded, configs, args.device)
     if args.tokens:
         results["ppl"] = perplexity(
-            loaded["params"], loaded["config"], np.load(args.tokens),
-            seqlen=args.seqlen, batch_size=args.batch_size, limit=args.limit,
-            progress=True, vocab_chunk=args.vocab_chunk)
+            params, config, np.load(args.tokens), seqlen=args.seqlen,
+            batch_size=args.batch_size, limit=args.limit, progress=True,
+            vocab_chunk=args.vocab_chunk)
+    tok = None
+    if args.corpus or args.wikitext or args.tasks:
+        tok = _load_tokenizer(args.tokenizer or args.ckpt)
+
+        def tokenize(s):
+            return tok(s, add_special_tokens=False)["input_ids"]
+    if args.corpus:
+        # the real-checkpoint parity path (onebit_tpu/cli.py:261-285)
+        from onebit_tpu_torch.eval.datasets import get_eval_tokens
+        for name in (n.strip() for n in args.corpus.split(",")):
+            stream = get_eval_tokens(name, tokenize,
+                                     source=args.corpus_source,
+                                     seqlen=args.seqlen)
+            if stream is None:
+                print(f"{name}: no eval stream defined (reference parity)")
+                continue
+            results[f"ppl_{name}"] = perplexity(
+                params, config, stream, seqlen=args.seqlen,
+                batch_size=args.batch_size, limit=args.limit, progress=True,
+                vocab_chunk=args.vocab_chunk)
+    if args.wikitext:
+        from onebit_tpu_torch.eval.tasks.wikitext import evaluate_wikitext
+        with open(args.wikitext) as f:
+            pages = f.read().split("\n\n")
+        results["wikitext"] = evaluate_wikitext(
+            params, config, pages, tokenize, batch_size=args.batch_size)
+    if args.tasks:
+        results.update(_eval_tasks(args, loaded, tok))
     print(json.dumps(results, default=float), flush=True)
     if args.expect:
         _check_expect(results, args.expect, bool(configs))
@@ -293,27 +390,30 @@ def cmd_generate(args) -> None:
     from onebit_tpu_torch.engine.generate import generate
     from onebit_tpu_torch.engine.sampler import SamplingConfig
 
-    if args.tokenizer:
-        raise SystemExit("--tokenizer is not ported yet: it waits for "
-                         f"{WAITING['tokenizer']}")
     if args.num_beams > 1:
         raise SystemExit("--num-beams > 1 is not ported yet: it waits for "
                          f"{BEAM_WAITS_FOR}")
-    prompt = [int(t) for t in args.prompt.split(",")]
     loaded = _load_any_ckpt(args.ckpt, args.device)
+    if args.tokenizer:
+        # onebit_tpu/cli.py:400-420: the prompt is text, the output too
+        tok = _load_tokenizer(args.tokenizer)
+        prompt = tok(args.prompt)["input_ids"]
+    else:
+        prompt = [int(t) for t in args.prompt.split(",")]
     sampling = SamplingConfig(greedy=args.greedy,
                               temperature=args.temperature,
                               top_k=args.top_k, top_p=args.top_p)
     out = generate(loaded["params"], loaded["config"], [prompt],
                    max_new_tokens=args.max_new_tokens, sampling=sampling)[0]
-    print(",".join(map(str, out)))
+    print(tok.decode(out) if args.tokenizer else ",".join(map(str, out)))
 
 
 def cmd_serve(args) -> None:
     """Serving over the continuous-batching engine (onebit_tpu/cli.py:
-    425-518): one prompt of comma-separated ids a stdin line, completions
-    printed when all are done; ``--http PORT``: an HTTP server with POST
-    /generate (sync and ndjson streaming), GET /metrics and GET /health
+    425-518): one prompt a stdin line (comma-separated ids, or text with
+    ``--tokenizer``), completions printed when all are done; ``--http
+    PORT``: an HTTP server with POST /generate (sync and ndjson streaming;
+    ``text`` bodies with ``--tokenizer``), GET /metrics and GET /health
     (``engine/server.py``)."""
     import time
 
@@ -326,8 +426,6 @@ def cmd_serve(args) -> None:
 
     if args.dry_compile:
         wait("dry-compile", WAITING_SERVE["dry_compile"])
-    if args.tokenizer:
-        wait("tokenizer", WAITING_SERVE["tokenizer"])
     if not args.paged and args.prefix_cache:
         raise SystemExit("--prefix-cache requires --paged")
     if not args.paged and args.kv_quant == "fp8":
@@ -350,6 +448,7 @@ def cmd_serve(args) -> None:
         raise SystemExit("serve needs --ckpt DIR")
     loaded = _load_any_ckpt(args.ckpt, args.device)
     config, params = loaded["config"], loaded["params"]
+    tok = _load_tokenizer(args.tokenizer) if args.tokenizer else None
     if args.fuse_decode:
         from onebit_tpu_torch.model.bitllama import fuse_for_decode
         params = fuse_for_decode(params, config)
@@ -364,7 +463,7 @@ def cmd_serve(args) -> None:
         prefill_chunk_size=args.prefill_chunk,
         pipeline_blocks=args.pipeline_blocks, device=args.device)
     if args.http is not None:
-        server = EngineServer(eng)
+        server = EngineServer(eng, tokenizer=tok)
         port = server.start(host=args.host, port=args.http)
         print(f"serving on http://{args.host}:{port} "
               "(POST /generate, GET /metrics)", flush=True)
@@ -379,13 +478,15 @@ def cmd_serve(args) -> None:
         line = line.strip()
         if not line:
             continue
-        uid = eng.add_request([int(t) for t in line.split(",")],
-                              max_new_tokens=args.max_new_tokens)
+        toks = (tok(line)["input_ids"] if tok
+                else [int(t) for t in line.split(",")])
+        uid = eng.add_request(toks, max_new_tokens=args.max_new_tokens)
         prompts[uid] = line
     out = eng.run()
     for uid in sorted(out):
-        print(json.dumps({"prompt": prompts[uid],
-                          "completion": ",".join(map(str, out[uid]))}))
+        text = (tok.decode(out[uid]) if tok
+                else ",".join(map(str, out[uid])))
+        print(json.dumps({"prompt": prompts[uid], "completion": text}))
 
 
 def _device_flag(parser) -> None:
@@ -418,6 +519,14 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--student", help="native start checkpoint (latent)")
     t.add_argument("--teacher", help="native teacher checkpoint")
     t.add_argument("--tokens", help="pre-tokenized blocks .npy [N, S]")
+    t.add_argument("--data", help="dataset directory (with "
+                   "dataset_info.json) of --dataset")
+    t.add_argument("--dataset", help="registered text dataset name, "
+                   "tokenized into --cutoff-len blocks (without --tokens)")
+    t.add_argument("--tokenizer", help="tokenizer directory for --data "
+                   "(default: the teacher's)")
+    t.add_argument("--cutoff-len", type=int, default=2048,
+                   help="block length of --data datasets")
     t.add_argument("--output-dir", default="out")
     t.add_argument("--batch-size", type=int, default=4)
     t.add_argument("--num-epochs", type=int, default=50)
@@ -441,18 +550,34 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--config", help="yaml or json file of train flags "
                    "(its keys are the flags' names; its values override "
                    "the command line's)")
-    for flag in ("data", "dataset", "tokenizer", "model", "mesh", "hbm_gb"):
+    for flag in ("model", "mesh", "hbm_gb"):
         t.add_argument(f"--{flag.replace('_', '-')}", help="not ported yet")
-    t.add_argument("--cutoff-len", type=int, default=2048,
-                   help="block length of text datasets (not ported yet)")
     for flag in ("sharded_ckpt", "dry_compile"):
         t.add_argument(f"--{flag.replace('_', '-')}", action="store_true",
                        help="not ported yet")
     t.set_defaults(fn=cmd_train)
-    e = sub.add_parser("eval", help="perplexity of a token stream")
+    e = sub.add_parser("eval", help="perplexity and zero-shot eval")
     e.add_argument("--ckpt", required=True, help="native or reference "
                    "checkpoint dir")
     e.add_argument("--tokens", help="pre-tokenized stream .npy for ppl")
+    e.add_argument("--wikitext", help="raw wikitext pages file (rolling "
+                   "word/byte perplexity)")
+    e.add_argument("--tasks", help="comma list of registry names and "
+                   "fnmatch patterns (piqa,arc_*,...); hendrycksTest: every "
+                   "MMLU subject")
+    e.add_argument("--tokenizer", help="tokenizer directory for --corpus, "
+                   "--wikitext and --tasks (default: --ckpt)")
+    e.add_argument("--corpus", help="comma list of ppl corpora (wikitext2,"
+                   "c4,c4_new,ptb,ptb_new) loaded by protocol")
+    e.add_argument("--corpus-source", help="local corpus path (text/jsonl/"
+                   "load_from_disk dir) for --corpus")
+    e.add_argument("--num-fewshot", type=int, default=0)
+    e.add_argument("--task-source", help="directory of local task data "
+                   "(DIR/NAME/<split>.jsonl|.json|.csv|.parquet or an HF "
+                   "save_to_disk dir): --tasks offline")
+    e.add_argument("--decontaminate", help="training text file to 13-gram-"
+                   "scan task docs against; adds <metric>_decontaminate "
+                   "columns computed over clean docs only")
     e.add_argument("--seqlen", type=int, default=2048)
     e.add_argument("--batch-size", type=int, default=4)
     e.add_argument("--limit", type=int)
@@ -462,9 +587,6 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--expect", help="pinned expected-numbers JSON; exits "
                    "nonzero when any metric misses its tolerance")
     _device_flag(e)
-    for flag in ("corpus", "wikitext", "tasks", "tokenizer",
-                 "decontaminate"):
-        e.add_argument(f"--{flag}", help="not ported yet")
     e.add_argument("--check-engines", nargs="?", const="all", default=None,
                    help="greedy cross-check of the serving engines against "
                    "generate: a comma list of dense, pipelined, kvq, int4, "
@@ -476,8 +598,10 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--ckpt", required=True, help="native or reference "
                    "checkpoint dir")
     g.add_argument("--prompt", required=True,
-                   help="comma-separated token ids")
-    g.add_argument("--tokenizer", help="not ported yet")
+                   help="comma-separated token ids, or text with "
+                   "--tokenizer")
+    g.add_argument("--tokenizer", help="tokenizer directory: the prompt is "
+                   "text, and the output is printed as text")
     g.add_argument("--max-new-tokens", type=int, default=64)
     g.add_argument("--greedy", action="store_true")
     g.add_argument("--num-beams", type=int, default=1,
@@ -489,9 +613,10 @@ def build_parser() -> argparse.ArgumentParser:
     g.set_defaults(fn=cmd_generate)
 
     sv = sub.add_parser("serve", help="continuous-batching serving loop "
-                        "(prompts of token ids on stdin, or --http)")
+                        "(prompts on stdin, or --http)")
     sv.add_argument("--ckpt", help="native or reference checkpoint dir")
-    sv.add_argument("--tokenizer", help="not ported yet")
+    sv.add_argument("--tokenizer", help="tokenizer directory: stdin lines "
+                    "are text, and HTTP bodies may send 'text'")
     sv.add_argument("--max-batch", type=int, default=8)
     sv.add_argument("--max-len", type=int, default=2048)
     sv.add_argument("--max-new-tokens", type=int, default=128)

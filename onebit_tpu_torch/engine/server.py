@@ -2,12 +2,16 @@
 
 Port of ``onebit_tpu/engine/server.py``:
 
-* ``POST /generate``: body ``{"prompt": [ids...], "max_new_tokens": int,
-  "stream": bool}``. Without ``stream`` the answer is one JSON object
-  ``{"tokens": [...]}``; with ``stream: true`` newline-delimited JSON
-  chunks, ``{"token": id}`` as each token lands, then ``{"done": true,
-  "tokens": [...]}``. The port has no tokenizer (ROADMAP.md): a ``text``
-  body answers 400, naming it.
+* ``POST /generate``: body ``{"prompt": [ids...] | "text": str,
+  "max_new_tokens": int, "stream": bool}``. Without ``stream`` the answer
+  is one JSON object ``{"tokens": [...]}``; with ``stream: true``
+  newline-delimited JSON chunks, ``{"token": id}`` as each token lands,
+  then ``{"done": true, "tokens": [...]}``. A server given a ``tokenizer``
+  (a callable whose result holds ``"input_ids"``, with a ``decode``, as a
+  Hugging Face tokenizer is) takes ``text``, encoded as
+  ``tokenizer(text)["input_ids"]``, and adds ``"text"``, the decoded
+  tokens, to both final replies; one built without a tokenizer answers a
+  ``text`` body 400, naming it.
 * ``GET /metrics``: the engine's counters as JSON.
 * ``GET /health``: liveness.
 
@@ -29,16 +33,17 @@ import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Optional
 
-NO_TOKENIZER = ("'text' needs a tokenizer, which the port does not have "
-                "yet (a Hugging Face tokenizer, which the repository does "
-                "not hold): send 'prompt' as token ids")
+NO_TOKENIZER = ("'text' needs a tokenizer, and this server was started "
+                "without one (serve --tokenizer DIR): send 'prompt' as "
+                "token ids")
 
 
 class EngineServer:
     """Drives a ContinuousBatchingEngine from an HTTP front end."""
 
-    def __init__(self, engine):
+    def __init__(self, engine, tokenizer=None):
         self.engine = engine
+        self.tokenizer = tokenizer
         self.error: Optional[str] = None
         self._lock = threading.Lock()
         self._wake = threading.Event()
@@ -77,6 +82,15 @@ class EngineServer:
                                           on_done=on_done)
         self._wake.set()
         return uid
+
+    def final(self, toks, done: bool = True) -> dict:
+        """A request's last reply: its tokens, and their text where the
+        server has a tokenizer."""
+        out = {"done": True} if done else {}
+        out["tokens"] = toks
+        if self.tokenizer is not None:
+            out["text"] = self.tokenizer.decode(toks)
+        return out
 
     def metrics(self) -> dict:
         with self._lock:
@@ -132,10 +146,13 @@ class EngineServer:
                     body = json.loads(self.rfile.read(length) or b"{}")
                     if "prompt" in body:
                         prompt = [int(t) for t in body["prompt"]]
+                    elif "text" in body and server.tokenizer is not None:
+                        prompt = server.tokenizer(body["text"])["input_ids"]
                     elif "text" in body:
                         raise ValueError(NO_TOKENIZER)
                     else:
-                        raise ValueError("need 'prompt' (token ids)")
+                        raise ValueError("need 'prompt' (token ids) or "
+                                         "'text'")
                     max_new = int(body.get("max_new_tokens", 64))
                     stream = bool(body.get("stream", False))
                     if server.error is not None:
@@ -166,7 +183,7 @@ class EngineServer:
                     while True:
                         got = self._next(q)
                         if got is None or got[0] == "done":
-                            chunk({"done": True, "tokens": toks}
+                            chunk(server.final(toks)
                                   if got else {"error": server.error})
                             self.wfile.write(b"0\r\n\r\n")
                             return
@@ -180,7 +197,7 @@ class EngineServer:
                     if got[0] == "done":
                         break
                     toks.append(got[1])
-                self._json(200, {"tokens": toks})
+                self._json(200, server.final(toks, done=False))
 
         self._httpd = ThreadingHTTPServer((host, port), Handler)
         threading.Thread(target=self._httpd.serve_forever,

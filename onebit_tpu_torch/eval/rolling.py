@@ -52,8 +52,10 @@ def loglikelihood_rolling(params, config: BitLlamaConfig,
                           max_length: Optional[int] = None,
                           batch_size: int = 8,
                           prefix_token: int = 0,
-                          compute_dtype=None) -> List[float]:
-    """Per-document total loglikelihood (each token scored exactly once)."""
+                          compute_dtype=None,
+                          impl: str = "auto") -> List[float]:
+    """Per-document total loglikelihood (each token scored exactly once).
+    ``impl="torch"`` scores on the plain path, as ``loglikelihood`` does."""
     compute_dtype = compute_dtype or torch.float32
     max_length = max_length or config.max_position_embeddings
 
@@ -70,23 +72,24 @@ def loglikelihood_rolling(params, config: BitLlamaConfig,
     results = loglikelihood(params, config, all_pairs,
                             batch_size=batch_size,
                             compute_dtype=compute_dtype,
-                            max_length=max_length + 1)
+                            max_length=max_length + 1, impl=impl)
     return [sum(results[i][0] for i in range(s, e)) for s, e in spans]
 
 
 def greedy_until(params, config: BitLlamaConfig,
                  requests: Sequence[Tuple[Sequence[int], Sequence[str]]],
                  detokenize: Callable, *, max_new_tokens: int = 256,
-                 batch_size: int = 8) -> List[str]:
+                 batch_size: int = 8, impl: str = "auto") -> List[str]:
     """Generate greedily until any stop string appears (the reference's
     ``greedy_until`` request type). ``requests``: (prompt tokens, stops);
-    each text is cut before the first occurrence of each stop in turn."""
+    each text is cut before the first occurrence of each stop in turn.
+    ``impl="torch"`` generates on the plain path, as ``generate`` does."""
     outs: List[str] = []
     for start in range(0, len(requests), batch_size):
         chunk = requests[start:start + batch_size]
         gen = generate(params, config, [list(p) for p, _ in chunk],
                        max_new_tokens=max_new_tokens,
-                       sampling=SamplingConfig(greedy=True))
+                       sampling=SamplingConfig(greedy=True), impl=impl)
         for (_, stops), toks in zip(chunk, gen):
             text = detokenize(toks)
             for stop in stops:

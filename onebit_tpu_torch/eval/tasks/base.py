@@ -378,7 +378,7 @@ def _run_requests(params, config, request_type: str, payloads: List,
         return loglikelihood_rolling(
             params, config, docs_toks, batch_size=batch_size,
             compute_dtype=compute_dtype,
-            max_length=config.max_position_embeddings)
+            max_length=config.max_position_embeddings, impl=impl)
     if request_type == "greedy_until":
         reqs = [(tokenize(ctx), stops) for ctx, stops in payloads]
         if lm is not None:
@@ -388,7 +388,7 @@ def _run_requests(params, config, request_type: str, payloads: List,
             raise ValueError("greedy_until tasks need a detokenize fn")
         return greedy_until(params, config, reqs, detokenize,
                             max_new_tokens=max_new_tokens,
-                            batch_size=batch_size)
+                            batch_size=batch_size, impl=impl)
     raise ValueError(f"unknown request type {request_type!r}")
 
 

@@ -37,7 +37,7 @@ import torch.distributed as dist
 BACKENDS = ("gloo", "nccl")
 # what the port's parallelism has yet to bring beyond tensor-parallel
 # serving: data/model-parallel training, sharded checkpoints, memory plans
-PARALLEL_WAIT = "the rest of parallelism (ROADMAP.md §1 item 8)"
+PARALLEL_WAIT = "the rest of parallelism (ROADMAP.md §1 item 6)"
 
 
 @dataclasses.dataclass(frozen=True)

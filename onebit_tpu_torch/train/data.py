@@ -15,8 +15,8 @@ port's own ``train/templates.py``. It mirrors the reference's data path
   random streams, so both packages draw the same batches for a seed.
   Labels equal the input ids (HF CLM collator semantics, kd.py:207).
 
-Every function takes a ``tokenize`` callable. The CLI's text flags wait
-for :data:`TEXT_DATASETS_WAIT_FOR`.
+Every function takes a ``tokenize`` callable; ``train --data --dataset``
+passes a Hugging Face tokenizer's.
 """
 
 from __future__ import annotations
@@ -30,11 +30,6 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence
 import numpy as np
 
 from onebit_tpu_torch.train import templates as _templates
-
-TEXT_DATASETS_WAIT_FOR = ("a Hugging Face tokenizer (transformers) in the "
-                          "repository, which it does not hold; pass "
-                          "pre-tokenized blocks (--tokens BLOCKS.npy)")
-
 
 # ---------------------------------------------------------------------------
 # Registry (data/dataset_info.json equivalent)

@@ -9,7 +9,7 @@ loss plots. The resume state is the port's own file, ``train_state.pt``
 step): optax's state pytree has no torch counterpart, so the JAX package's
 ``train_state.npz`` does not load here, nor the port's there. Meshes of
 more than one device and orbax sharded states wait for the rest of
-parallelism (ROADMAP.md §1 item 8).
+parallelism (ROADMAP.md §1 item 6).
 """
 
 from __future__ import annotations
@@ -76,7 +76,7 @@ class KDRunConfig:
     max_steps: Optional[int] = None
     log_steps: int = 10
     save_steps: int = 5000          # reference llama_7b.sh:46
-    mesh_shape: Optional[tuple] = None   # one device; more wait (item 8)
+    mesh_shape: Optional[tuple] = None   # one device; more wait (item 6)
     compute_dtype: Any = torch.bfloat16
     resume_from: Optional[str] = None
     plot: bool = True
@@ -87,7 +87,7 @@ class KDRunConfig:
     val_split: float = 0.0
     eval_steps: Optional[int] = None   # default: evaluate at save points
     eval_batches: int = 16             # eval subset size cap (batches)
-    sharded_ckpt: bool = False         # orbax sharded states: item 8
+    sharded_ckpt: bool = False         # orbax sharded states: item 6
     # keep only the newest N checkpoint-* dirs (HF Trainer save_total_limit,
     # training_args save_total_limit semantics); None = keep all
     save_total_limit: Optional[int] = None

@@ -1,14 +1,16 @@
-"""Run ``chip_smoke.py``'s task-harness and SFT phases alone on one card.
+"""Run ``chip_smoke.py``'s task-harness, task-registry and SFT phases
+alone on one card.
 
-    python scripts/torch_smoke_phases.py [tasks] [sft]
+    python scripts/torch_smoke_phases.py [tasks] [registry] [sft]
 
-Builds the CUDA sources, then runs ``tasks_checks`` on the full-depth
-llama2-7b weights that ``chip_smoke.py``'s evaluation phase uses
+Builds the CUDA sources, then runs ``tasks_checks`` and
+``registry_checks`` on the full-depth llama2-7b weights that
+``chip_smoke.py``'s evaluation phase uses
 (``host_random_packed_params(seed=0)``, unfused) and ``sft_checks`` (7B
 width, ``TRAIN_LAYERS`` layers), printing their JSON lines, the card's
-name and power limit, and the wall seconds. Both phases by default. Each
-check raises as in ``chip_smoke.py``: a failure exits nonzero. Needs a
-CUDA device; a few minutes with the build.
+name and power limit, and the wall seconds. All three phases by default.
+Each check raises as in ``chip_smoke.py``: a failure exits nonzero. Needs
+a CUDA device; a few minutes with the build.
 """
 
 from __future__ import annotations
@@ -33,15 +35,18 @@ def main(argv) -> int:
     from onebit_tpu_torch.kernels import build
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phases = argv or ["tasks", "sft"]
+    phases = argv or ["tasks", "registry", "sft"]
     dev = torch.device("cuda", 0)
     t = time.perf_counter()
     build.build()
     cs.emit({"phase": "build", "seconds": time.perf_counter() - t})
-    if "tasks" in phases:
+    if "tasks" in phases or "registry" in phases:
         config = BitLlamaConfig.named("llama2-7b")
         unfused = host_random_packed_params(config, seed=0, device=dev)
-        cs.tasks_checks(unfused, config, dev)
+        if "tasks" in phases:
+            cs.tasks_checks(unfused, config, dev)
+        if "registry" in phases:
+            cs.registry_checks(unfused, config, dev)
         del unfused
         torch.cuda.empty_cache()
     if "sft" in phases:

@@ -491,7 +491,7 @@ def test_serve_stdin_ids(tiny, tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flags,says", [
-    (["--tokenizer", "tok"], "not ported yet"),
+    (["--tokenizer", "tok"], None),
     (["--draft", "d"], "not ported yet"), (["--tp", "2"], "item 4"),
     (["--prefill-chunk", "16"], "item 5"),
     (["--paged", "--kv-quant", "fp8"], "item 5"),
@@ -503,7 +503,14 @@ def test_serve_stdin_ids(tiny, tmp_path, monkeypatch, capsys):
          "dry_compile", "prefix_cache", "fp8_dense", "int4_paged"])
 def test_serve_refusals(flags, says):
     """``serve`` exits nonzero before it loads anything: the JAX command's
-    exclusions in its wording, and what waits, named."""
+    exclusions in its wording, and what waits, named. ``--tokenizer`` is
+    ported: it gets as far as the checkpoint, which it loads first, as the
+    JAX command does."""
     from onebit_tpu_torch import cli
+    if flags[0] == "--tokenizer":
+        with pytest.raises(FileNotFoundError, match="/nonexistent"):
+            cli.main(["serve", "--ckpt", "/nonexistent", *flags, "--device",
+                      "cpu"])
+        return
     with pytest.raises(SystemExit, match=says):
         cli.main(["serve", "--ckpt", "/nonexistent", *flags])

@@ -203,22 +203,44 @@ def test_cli_eval_matches_the_jax_cli(jax_ckpt, capsys, tmp_path):
                                   ["--tasks", "piqa"], ["--tokenizer", "t"],
                                   ["--check-engines"],
                                   ["--decontaminate", "train.txt"]])
-def test_cli_unported_flags_exit_nonzero(jax_ckpt, flag):
-    """Flags not ported yet exit nonzero, saying so. The bare
-    ``--check-engines`` (all five engines, pipelined blocks among them) is
-    ported: it runs every engine check beside the ppl."""
+def test_cli_unported_flags_exit_nonzero(jax_ckpt, flag, capsys,
+                                         monkeypatch):
+    """Every one of these flags is ported now. The bare
+    ``--check-engines`` (all five engines, pipelined blocks among them)
+    runs every engine check beside the ppl. ``--corpus``, ``--wikitext``
+    and ``--tasks`` ask for a tokenizer, by default from the checkpoint's
+    directory, before they read anything else; this one holds none, so
+    they exit nonzero there (tests/test_torch_text_cli.py runs them with a
+    tokenizer, and the loader on a directory without one).
+    ``--tokenizer`` and ``--decontaminate`` alone change nothing, as in
+    the JAX command line: the ppl of ``--tokens`` and nothing else."""
+    from onebit_tpu_torch import cli
     d, _, _ = jax_ckpt
-    out = _port_cli("eval", "--ckpt", str(d / "native"), "--tokens",
-                    str(d / "tokens.npy"), "--device", "cpu", *flag,
-                    *(["--seqlen", "32"] if flag == ["--check-engines"]
-                      else []))
+    args = ["eval", "--ckpt", str(d / "native"), "--tokens",
+            str(d / "tokens.npy"), "--seqlen", "32", "--device", "cpu"]
+    asked = []
+
+    def no_tokenizer(path):
+        # what cli._load_tokenizer does with a directory that holds none
+        # (tests/test_torch_text_cli.py), without importing transformers
+        asked.append(path)
+        raise SystemExit(f"no tokenizer could be loaded from {path}")
+    monkeypatch.setattr(cli, "_load_tokenizer", no_tokenizer)
     if flag == ["--check-engines"]:
+        out = _port_cli(*args, *flag)
         assert out.returncode == 0, out.stderr
         for name in ("dense", "pipelined", "kvq", "int4", "paged"):
             assert f"engine check [{name}]: OK" in out.stdout
         return
-    assert out.returncode != 0
-    assert "not ported yet" in out.stderr
+    if flag[0] in ("--corpus", "--wikitext", "--tasks"):
+        with pytest.raises(SystemExit, match="no tokenizer could be loaded"):
+            cli.main(args + flag)
+        assert asked == [str(d / "native")]
+        return
+    cli.main(args + flag)
+    assert asked == []
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert list(out) == ["ppl"] and np.isfinite(out["ppl"])
 
 
 def test_cli_fails_a_pinned_engine_check(jax_ckpt, tmp_path, capsys):

@@ -258,6 +258,6 @@ def test_cli_sharded_checkpoint_exits_nonzero(tmp_path, capsys):
     waits for, before it reads anything else."""
     (tmp_path / "metadata.json").write_text(json.dumps(
         {"format": "onebit-sharded"}))
-    with pytest.raises(SystemExit, match="item 8"):
+    with pytest.raises(SystemExit, match="item 6"):
         _port_cli(capsys, "generate", "--ckpt", str(tmp_path), "--prompt",
                   "1")

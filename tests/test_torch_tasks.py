@@ -487,17 +487,19 @@ def test_from_source_matches_jax(tmp_path):
 
 
 def test_janitor_matches_jax_python_path(tmp_path):
-    """The port's ``Janitor`` (the Python scan, also under
-    ``use_native=True``) against JAX's Python scan: n-grams with their
-    spans, contamination counts, cleaned chunks, too-dirty documents, and
-    the pickled n-gram set read back."""
+    """The port's ``Janitor`` with ``use_native=False`` (the Python scan;
+    ``use_native=True``, the default, scans in the C core, held by
+    tests/test_torch_decontam.py) against JAX's Python scan: n-grams with
+    their spans, contamination counts, cleaned chunks, too-dirty
+    documents, and the pickled n-gram set read back."""
     rnd = random.Random(9)
     dirt = _text(rnd, 30, 30)
     clean_doc = _text(rnd, 300, 300)
     doc = clean_doc[:900] + " " + dirt.upper() + "! " + clean_doc[900:]
     kw = dict(ngram_n=5, window_to_remove=20, minimum_slice_length=30)
-    tj, jj = tjan.Janitor(**kw), jjan.Janitor(use_native=False, **kw)
-    assert not tj.native and not tjan.Janitor().native
+    tj = tjan.Janitor(use_native=False, **kw)
+    jj = jjan.Janitor(use_native=False, **kw)
+    assert not tj.native and tjan.Janitor().native
     for j in (tj, jj):
         j.register_contaminant(dirt)
     assert tj.dirt_ngrams == jj.dirt_ngrams
