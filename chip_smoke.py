@@ -79,7 +79,17 @@ toolkit and PyTorch. It imports nothing of JAX. Phases, one JSON line each:
    count of the port's kernels in that block must be what the graph
    recorded a replay). A dense block captured with one kv head of B9
    zeroed in layer 0 must give other tokens (:func:`block_fault_check`).
-   Then
+   Then the serving surface (:func:`serve_surface_checks`, phase
+   ``serve_surface``): dense chunked prefill (chunks of 64 at max_len
+   256, K1/K2; chunks of 256 on int8 pools at 2048, K3 bf16), tokens equal
+   to the served runs' off near-ties, first-chunk logits against
+   ``impl="torch"``; speculative decoding with ``build_draft``'s 2-layer
+   spread draft, 4 proposals a round, on the dense, int8 and paged bf16
+   targets (tokens equal to the served runs' off near-ties, launches
+   exactly 84 K1, 84 K2 and 10 B9 a round, rounds, tokens a round and ms
+   a token beside the plain engine's), a request that fills max_len and a
+   sampled engine; ``beam_generate`` against ``impl="torch"`` (B9
+   exactly 32 x 15). Then
    batch generation (:func:`generate_checks`): ``generate`` of the dense
    run's 8 prompts, left-padded, 32 greedy tokens in bf16 (B9 exactly
    32 x 31 times; its first decode step's logits against ``impl="torch"``,
@@ -90,15 +100,16 @@ toolkit and PyTorch. It imports nothing of JAX. Phases, one JSON line each:
    instance exactly 256 times); then
    tensor-parallel serving (:func:`tp_checks`): two ranks sharing the card
    over ``gloo`` (NCCL refuses two ranks on one device), each an 8-slot
-   engine with ``tp_group`` on the unfused weights at full width and
-   depth; the first decode step's logits against the single-device
+   engine with ``tp_group`` on the unfused weights at full width; the
+   first decode step's logits at full depth against the single-device
    engine's and ``impl="torch"``, with a planted fault (rank 1's share of
    layer 0's o_proj all-reduce dropped) that must break their limit; then
-   served runs (dense at ``max_len=256``, the same in eager decode blocks
-   of 8, whose tokens must be the dense run's, int8 KV pools, paged int8
-   pages with the prefix cache) in which both ranks emit the same tokens,
-   B4 launches exactly 7 x 32 times per forward pass, B9, B5 or B10 exactly
-   32 times per decode step and K1-K3 never;
+   served runs on the first 16 of the 32 layers (to keep the script near
+   10 minutes: dense at ``max_len=256``, the same in eager
+   decode blocks of 8, whose tokens must be the dense run's, int8 KV
+   pools, paged int8 pages with the prefix cache) in which both ranks emit
+   the same tokens, B4 launches exactly 7 x 16 times per forward pass, B9,
+   B5 or B10 exactly 16 times per decode step and K1-K3 never;
 5. evaluation at full llama2-7b width and depth on the same weights,
    unfused (:func:`eval_checks`): perplexity of 8 windows of 2048 at batch
    4 in fp32, direct and vocab-chunked, against ``impl="torch"`` per window
@@ -113,7 +124,8 @@ toolkit and PyTorch. It imports nothing of JAX. Phases, one JSON line each:
    ``eval --check-engines all`` (``engine_check.ok`` 1), ``serve
    --block-steps 8 --pipeline-blocks`` on stdin lines of ids and ``serve
    --http 0`` (one POST /generate, one GET /metrics), each with the tokens
-   of an engine in this process;
+   of an engine in this process; and ``build-draft``, ``serve --draft``
+   and ``generate --num-beams`` (:func:`serve_surface_cli`);
 6. KD training at llama2-7b width, depth cut to 4 layers
    (:func:`train_checks`): a random plain teacher and its SVID start
    student; the first KD step's loss and gradients on the kernel path
@@ -1428,7 +1440,7 @@ def served_run(params, config, dev, prompts, new_tokens, opts,
         if m["prefix_pages_reused"] != 7 * 64:
             raise RuntimeError(f"prefix pages reused "
                                f"{m['prefix_pages_reused']}, not 448")
-    return launches, got
+    return launches, got, line
 
 
 BLOCK_STEPS = 8       # decode steps a block (one CUDA graph) in block runs
@@ -1642,6 +1654,488 @@ def block_fault_check(params, config, dev, prompts, new_tokens,
                            f"every token equal: {line}")
     del eng
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 4, continued: the serving surface at llama2-7b width and depth
+# (dense chunked prefill, speculative decoding, beam search)
+# ---------------------------------------------------------------------------
+
+SURFACE_NEW = 32          # new tokens a request, as the served runs
+# (name, engine options, chunk size, prompts): 64-token chunks run K1/K2
+# (M = 64), 256-token chunks K3 bf16 (M = 256)
+CHUNK_RUNS = (("dense", dict(max_len=256), 64, smoke_prompts),
+              ("int8", dict(max_len=2048, quantized_kv=True), 256,
+               deep_prompts))
+# the draft: build_draft's spread slice (layers 0 and 31), 4 proposals a
+# round; the targets of the served runs
+SPEC_DRAFT_LAYERS, SPEC_N_DRAFT = 2, 4
+SPEC_RUNS = (("dense", dict(max_len=256), smoke_prompts),
+             ("int8", dict(max_len=2048, quantized_kv=True), deep_prompts),
+             ("paged", dict(max_len=2048, paged=True, page_size=16),
+              deep_prompts))
+SPEC_TEMPERATURE = 0.9
+BEAM_K, BEAM_NEW = 4, 16
+# a beam's score (its mean log-probability) on the kernel path against
+# impl="torch": each log-probability moves with the logits, whose bf16
+# error is held to LOGITS_REL_TOL of their largest |logit|. Two searches
+# part where two hypotheses' scores lie that close: the near-tie rule of
+# a beam is that the kernel path's best, scored by impl="torch", is
+# within this of impl="torch"'s best
+BEAM_SCORE_REL_TOL = LOGITS_REL_TOL
+SURFACE_CLI_NEW = 16
+
+
+def _drive(eng, prompts, new_tokens) -> tuple:
+    """Serve ``prompts`` through ``eng`` an iteration at a time: its
+    tokens, and of its decode calls (steps or speculative rounds) the
+    count, the wall seconds (each call ends in the device's read of its
+    tokens), the tokens they emitted and the launches they made."""
+    uids = [eng.add_request(p, max_new_tokens=n)
+            for p, n in zip(prompts, new_tokens)]
+    calls, wall, emitted = 0, 0.0, 0
+    launched = {k.name: 0 for k in all_kernels()}
+    while eng.has_work():
+        eng._admit()
+        if not any(s is not None for s in eng.slots):
+            continue
+        torch.cuda.synchronize()
+        before = {k.name: k.launches for k in all_kernels()}
+        tokens0, t = eng.total_tokens, time.perf_counter()
+        eng._decode()
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t
+        calls += 1
+        emitted += eng.total_tokens - tokens0
+        for k in all_kernels():
+            launched[k.name] += k.launches - before[k.name]
+    out = eng.run()
+    return [out[u] for u in uids], {
+        "calls": calls, "wall_s": wall, "emitted": emitted,
+        "launches": {k: v for k, v in launched.items() if v}}
+
+
+def _partings(params, config, dev, prompts, got, want) -> dict:
+    """Where each request's tokens part from ``want``'s (a plain run's),
+    with the plain path's top-2 gap there (:func:`_divergence_gap`):
+    {row: {"step", "gap"}}. A parting is allowed only at a near-tie, a gap
+    under LOGITS_REL_TOL."""
+    parted = {}
+    for r, (g, w) in enumerate(zip(got, want)):
+        step = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
+                    None)
+        if step is not None:
+            parted[r] = {"step": step, "gap": _divergence_gap(
+                params, config, dev, prompts[r], w, step)}
+        elif len(g) != len(w):
+            parted[r] = {"step": min(len(g), len(w)), "gap": float("inf")}
+    return parted
+
+
+def _parted_badly(parted) -> bool:
+    return any(v["gap"] > LOGITS_REL_TOL for v in parted.values())
+
+
+def _first_chunk_check(params, config, dev, opts, chunk, prompt) -> dict:
+    """The first chunk of ``prompt`` through ``chunk_append_row`` on an
+    empty one-row cache of the run's kind, impl="auto" (K1/K2 or K3)
+    against impl="torch": logits within LOGITS_REL_TOL of the largest
+    |logit|."""
+    from onebit_tpu_torch.model.bitllama import init_kv_cache
+    from onebit_tpu_torch.model.kv_cache import init_quant_kv_cache_kt
+    from onebit_tpu_torch.model.ragged_decode import chunk_append_row
+    init = (init_quant_kv_cache_kt if opts.get("quantized_kv")
+            else init_kv_cache)
+    ids = np.zeros(chunk, np.int64)
+    n = min(chunk, len(prompt))
+    ids[:n] = prompt[:n]
+    out = {}
+    for impl in ("auto", "torch"):
+        cache = init(config, 1, opts["max_len"], device=dev)
+        out[impl], _ = chunk_append_row(params, cache, ids, 0, n, 0, config,
+                                        impl=impl)
+        del cache
+    scale = out["torch"].abs().max().item()
+    err = (out["auto"] - out["torch"]).abs().max().item()
+    return {"max_abs_err": err, "max_abs_logit": scale,
+            "rel_err": err / scale, "rel_tol": LOGITS_REL_TOL,
+            "finite": bool(torch.isfinite(out["auto"]).all())}
+
+
+def _chunked_run(params, config, dev, card, name, opts, chunk, prompts,
+                 want) -> None:
+    """The run's prompts through an engine with ``prefill_chunk_size``
+    and no pages, every count set to 0 just before it: tokens equal to the
+    bucketed run's ``want`` off near-ties, the per-step kernel (B9 or B5)
+    exactly 32 times a decode step, and the chunks through K1/K2 (64) or
+    K3 (256) only."""
+    from onebit_tpu_torch.kernels import bitlinear_cuda as bc
+    from onebit_tpu_torch.kernels import kv_attention_cuda as kc
+    first = _first_chunk_check(params, config, dev, opts, chunk, prompts[0])
+    eng = _engine(params, config, dev, dict(opts, prefill_chunk_size=chunk))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    got, dec = _drive(eng, prompts, [SURFACE_NEW] * len(prompts))
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    del eng
+    torch.cuda.empty_cache()
+    parted = _partings(params, config, dev, prompts, got, want)
+    per_step = kc.APPEND_KT if opts.get("quantized_kv") else kc.DECODE_BF16
+    chunks = sum(-(-len(p) // chunk) for p in prompts)
+    large = chunk > bc.SMALL_M_MAX
+    line = {"phase": "serve_surface", "part": "chunked_prefill",
+            "cache": name, **opts, "prefill_chunk_size": chunk,
+            "requests": len(prompts), "chunks": chunks,
+            "new_tokens": SURFACE_NEW, "decode_steps": dec["calls"],
+            "wall_s": wall, "first_chunk_logits": first,
+            "tokens_equal_bucketed": got == want,
+            "parted_from_bucketed": {str(r): v for r, v in parted.items()},
+            "gap_rel_tol": LOGITS_REL_TOL,
+            "launches": {k: v for k, v in launches.items() if v},
+            "card": card}
+    emit(line)
+    want_step = config.num_hidden_layers * dec["calls"]
+    chunk_kernels = [bc.LARGE_M] if large else [bc.SMALL_M,
+                                                 bc.FUSED_SMALL_M]
+    if not first["finite"] or first["rel_err"] > LOGITS_REL_TOL or \
+            _parted_badly(parted) or \
+            launches[per_step.name] != want_step or \
+            not all(launches[k.name] for k in chunk_kernels) or \
+            (not large and launches[bc.LARGE_M.name]):
+        raise RuntimeError(f"chunked prefill ({name}): {line}")
+
+
+def _spec_per_round(config, d_config) -> dict:
+    """The launches of one greedy round: n_draft + 1 draft steps of the
+    draft's layers (each layer K2 twice, fused q/k/v and gate/up, K1
+    twice, o and down, B9 once), then the target's window (K1 and K2
+    twice a layer at M = 8 x 5)."""
+    from onebit_tpu_torch.kernels import bitlinear_cuda as bc
+    from onebit_tpu_torch.kernels import kv_attention_cuda as kc
+    steps = (SPEC_N_DRAFT + 1) * d_config.num_hidden_layers
+    proj = 2 * steps + 2 * config.num_hidden_layers
+    return {bc.SMALL_M.name: proj, bc.FUSED_SMALL_M.name: proj,
+            kc.DECODE_BF16.name: steps}
+
+
+def _spec_run(params, draft, config, dev, card, name, opts, prompts, want,
+              plain_ms_per_token) -> None:
+    """The run's prompts through a greedy engine with the draft, every
+    count set to 0 just before it: tokens equal to the plain engine's
+    ``want`` off near-ties; each round's launches exactly
+    :func:`_spec_per_round` (no other kernel in a round); rounds, tokens a
+    round and wall ms per emitted token beside the plain engine's."""
+    d_config, d_params = draft
+    eng = _engine(params, config, dev, dict(
+        opts, draft_params=d_params, draft_config=d_config,
+        n_draft=SPEC_N_DRAFT))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    got, dec = _drive(eng, prompts, [SURFACE_NEW] * len(prompts))
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    m = eng.metrics()
+    del eng
+    torch.cuda.empty_cache()
+    parted = _partings(params, config, dev, prompts, got, want)
+    rounds = dec["calls"]
+    per_round = _spec_per_round(config, d_config)
+    want_round = {k: v * rounds for k, v in per_round.items()}
+    line = {"phase": "serve_surface", "part": "speculative", "target": name,
+            **opts, "draft_layers": d_config.num_hidden_layers,
+            "n_draft": SPEC_N_DRAFT, "requests": len(prompts),
+            "new_tokens": SURFACE_NEW, "rounds": rounds,
+            "round_tokens": dec["emitted"],
+            "tokens_per_round": dec["emitted"] / rounds,
+            "tokens_per_row_round": dec["emitted"] / rounds / len(prompts),
+            "wall_ms_per_token": dec["wall_s"] * 1e3 / dec["emitted"],
+            "plain_wall_ms_per_token": plain_ms_per_token,
+            "wall_s": wall, "tokens_equal_plain": got == want,
+            "parted_from_plain": {str(r): v for r, v in parted.items()},
+            "gap_rel_tol": LOGITS_REL_TOL,
+            "launches_per_round": per_round,
+            "round_launches": dec["launches"],
+            "launches": {k: v for k, v in launches.items() if v},
+            "card": card}
+    line.update({k: m[k] for k in ("free_pages", "total_pages") if k in m})
+    emit(line)
+    if _parted_badly(parted) or dec["launches"] != want_round or \
+            m.get("free_pages") != m.get("total_pages"):
+        raise RuntimeError(f"speculative decoding ({name}): {line}")
+
+
+def _spec_edges(params, draft, config, dev, card) -> None:
+    """A request that fills max_len exactly (224 + 32 = 256 on the dense
+    target; its last rounds propose past the cache, whose writes are
+    dropped), against the plain engine; then a sampled engine
+    (temperature 0.9) over the dense run's prompts, whose rows end at
+    their budget or at EOS."""
+    from onebit_tpu_torch import SamplingConfig
+    d_config, d_params = draft
+    spec = dict(draft_params=d_params, draft_config=d_config,
+                n_draft=SPEC_N_DRAFT)
+    prompt = np.random.default_rng(5).integers(3, 32000, 256 - SURFACE_NEW
+                                               ).tolist()
+    want, _ = _drive(_engine(params, config, dev, dict(max_len=256)),
+                     [prompt], [SURFACE_NEW])
+    reset_counts()
+    got, dec = _drive(_engine(params, config, dev, dict(max_len=256, **spec)),
+                      [prompt], [SURFACE_NEW])
+    full = read_counts()
+    parted = _partings(params, config, dev, [prompt], got, want)
+    prompts = smoke_prompts()
+    reset_counts()
+    sampled, sdec = _drive(_engine(params, config, dev, dict(
+        max_len=256, sampling=SamplingConfig(temperature=SPEC_TEMPERATURE),
+        seed=3, **spec)), prompts, [SURFACE_NEW] * len(prompts))
+    s_launch = read_counts()
+    eos = config.eos_token_id
+    ended = [0 < len(t) and eos not in t[:-1]
+             and (len(t) == SURFACE_NEW or t[-1] == eos) for t in sampled]
+    line = {"phase": "serve_surface", "part": "speculative_edges",
+            "full_row": {"prompt": len(prompt), "new_tokens": SURFACE_NEW,
+                         "max_len": 256, "rounds": dec["calls"],
+                         "tokens": len(got[0]),
+                         "tokens_equal_plain": got == want,
+                         "parted_from_plain": {str(r): v for r, v in
+                                               parted.items()},
+                         "launches": {k: v for k, v in full.items() if v}},
+            "sampled": {"temperature": SPEC_TEMPERATURE,
+                        "requests": len(prompts), "rounds": sdec["calls"],
+                        "tokens_per_round": sdec["emitted"] / sdec["calls"],
+                        "lengths": [len(t) for t in sampled],
+                        "ended_at_budget_or_eos": ended,
+                        "launches": {k: v for k, v in s_launch.items()
+                                     if v}},
+            "card": card}
+    emit(line)
+    if _parted_badly(parted) or len(got[0]) != SURFACE_NEW or \
+            not all(ended) or not all(0 <= t < config.vocab_size
+                                      for r in sampled for t in r):
+        raise RuntimeError(f"speculative edges: {line}")
+    torch.cuda.empty_cache()
+
+
+def _plain_score(params, config, dev, prompt, seq) -> float:
+    """The mean log-probability of ``seq`` after ``prompt`` on the plain
+    path (a bf16 forward with impl="torch"): a beam's score at length
+    penalty 1."""
+    from onebit_tpu_torch.model.bitllama import forward
+    ids = torch.tensor(prompt + seq, device=dev)[None]
+    logits = forward(params, ids, config, impl="torch")[0].float()
+    logp = torch.log_softmax(logits[len(prompt) - 1:-1], dim=-1)
+    return logp.gather(1, ids[0, len(prompt):, None]).mean().item()
+
+
+def _beam_check(params, config, dev, card) -> None:
+    """``beam_generate`` of two short prompts, 4 beams, 16 new tokens,
+    every count set to 0 just before it: B9 exactly 32 x 15 times, K1 and
+    K2 launched; against impl="torch", each prompt's best sequence and
+    its score. Where the two bests part, the kernel path's best, scored
+    by the plain path (:func:`_plain_score`), must be within
+    BEAM_SCORE_REL_TOL of the plain best's score: the two searches parted
+    at a near-tie of hypotheses. Where they are equal, the kernel path's
+    score must be within BEAM_SCORE_REL_TOL of the plain one."""
+    from onebit_tpu_torch import beam_generate
+    from onebit_tpu_torch.kernels import bitlinear_cuda as bc
+    from onebit_tpu_torch.kernels import kv_attention_cuda as kc
+    prompts = smoke_prompts()[4:6]
+    kw = dict(num_beams=BEAM_K, max_new_tokens=BEAM_NEW,
+              num_return_sequences=BEAM_K)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    got = beam_generate(params, config, prompts, **kw)
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    plain = beam_generate(params, config, prompts, impl="torch", **kw)
+    best, want = [r[0][0] for r in got], [r[0][0] for r in plain]
+    parted = {}
+    for r, (g, w) in enumerate(zip(best, want)):
+        if g != w:
+            rescored = _plain_score(params, config, dev, prompts[r], g)
+            parted[r] = {"step": next(i for i, (a, b) in enumerate(zip(g, w))
+                                      if a != b),
+                         "plain_score_of_best": rescored,
+                         "plain_best_score": plain[r][0][1],
+                         "gap": abs(rescored - plain[r][0][1])
+                         / abs(plain[r][0][1])}
+    score_err = [abs(g[0][1] - p[0][1]) / abs(p[0][1])
+                 for r, (g, p) in enumerate(zip(got, plain))
+                 if r not in parted]
+    steps = config.num_hidden_layers * (BEAM_NEW - 1)
+    line = {"phase": "serve_surface", "part": "beam", "prompts": len(prompts),
+            "prompt_lengths": [len(p) for p in prompts], "num_beams": BEAM_K,
+            "new_tokens": BEAM_NEW, "seconds": seconds,
+            "best_equal_plain": best == want,
+            "sequences_equal_plain": [[s for s, _ in r] for r in got] ==
+            [[s for s, _ in r] for r in plain],
+            "parted_from_plain": {str(r): v for r, v in parted.items()},
+            "parting_rel_tol": BEAM_SCORE_REL_TOL,
+            "scores": [[x for _, x in r] for r in got],
+            "plain_scores": [[x for _, x in r] for r in plain],
+            "best_score_rel_err": score_err,
+            "score_rel_tol": BEAM_SCORE_REL_TOL,
+            "launches": {k: v for k, v in launches.items() if v},
+            "card": card}
+    emit(line)
+    if any(v["gap"] > BEAM_SCORE_REL_TOL for v in parted.values()) or \
+            any(e > BEAM_SCORE_REL_TOL for e in score_err) or \
+            launches[kc.DECODE_BF16.name] != steps or \
+            not launches[bc.SMALL_M.name] or \
+            not launches[bc.FUSED_SMALL_M.name]:
+        raise RuntimeError(f"beam search: {line}")
+
+
+def serve_surface_checks(params, config, dev, served=None) -> None:
+    """Phase ``serve_surface`` at full llama2-7b width and depth on the
+    serving runs' fused weights and prompts, 8-slot greedy engines:
+    dense chunked prefill (:func:`_chunked_run`), speculative decoding
+    with a 2-layer spread draft on dense, int8 KT and paged targets
+    (:func:`_spec_run`), a full row and a sampled engine
+    (:func:`_spec_edges`), and beam search (:func:`_beam_check`).
+    ``served``: the served runs' ``(tokens, line)`` by cache name (dense,
+    int8, paged); a missing one is run here. Each run prints its launches
+    on its line."""
+    from onebit_tpu_torch.kernels import kv_attention_cuda as kc
+    from onebit_tpu_torch.kernels import paged_attention_cuda as pc
+    from onebit_tpu_torch.train.draft import build_draft
+    served = dict(served or {})
+    card = nvidia_smi_line()
+    t0 = time.perf_counter()
+    per_step = {"dense": kc.DECODE_BF16, "int8": kc.APPEND_KT,
+                "paged": pc.PAGED}
+    for name, opts, prompts in SPEC_RUNS:
+        if name not in served:
+            _, tokens, line = served_run(params, config, dev, prompts(),
+                                         SURFACE_NEW, opts, per_step[name])
+            served[name] = tokens, line
+    for name, opts, chunk, prompts in CHUNK_RUNS:
+        _chunked_run(params, config, dev, card, name, opts, chunk, prompts(),
+                     served[name][0])
+    draft = build_draft(params, config, SPEC_DRAFT_LAYERS)
+    for name, opts, prompts in SPEC_RUNS:
+        tokens, line = served[name]
+        _spec_run(params, draft, config, dev, card, name, opts, prompts(),
+                  tokens, line["decode_ms_per_step_median"] / len(tokens))
+    _spec_edges(params, draft, config, dev, card)
+    del draft
+    _beam_check(params, config, dev, card)
+    emit({"phase": "serve_surface", "part": "done",
+          "seconds": time.perf_counter() - t0, "card": card})
+
+
+def run_cli(seconds: dict, *args, stdin=None) -> list:
+    """``python -m onebit_tpu_torch ARGS`` in a process of its own: its
+    stdout lines; its wall seconds go to ``seconds`` under the command's
+    name. A failed command raises with the ends of its output."""
+    t = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "onebit_tpu_torch", *args],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=600, input=stdin)
+    seconds[args[0]] = time.perf_counter() - t
+    if run.returncode != 0:
+        raise RuntimeError(f"{args[0]} failed:\n{run.stdout[-2000:]}\n"
+                           f"{run.stderr[-3000:]}")
+    return run.stdout.strip().splitlines()
+
+
+def small_ckpt(dev) -> str:
+    """The 2-layer native checkpoint of 7B width under ``build/smoke_ckpt``
+    (random packed weights of seed 1), which :func:`eval_checks` writes;
+    written here when it is not there."""
+    from onebit_tpu_torch import (BitLlamaConfig, host_random_packed_params,
+                                  save_native)
+    ckpt = os.path.join(ROOT, "build", "smoke_ckpt")
+    if not os.path.exists(os.path.join(ckpt, "params.npz")):
+        small = BitLlamaConfig.named("llama2-7b", num_hidden_layers=2)
+        save_native(ckpt, small, host_random_packed_params(small, seed=1,
+                                                           device=dev))
+    return ckpt
+
+
+def serve_surface_cli(dev) -> None:
+    """The serving surface's command lines on :func:`small_ckpt`:
+    ``build-draft --num-layers 1`` (its checkpoint holds ``build_draft``'s
+    slice), ``serve --draft --n-draft 3`` over stdin lines of ids (the
+    tokens of the engine with that draft in this process, which are the
+    plain engine's off near-ties) and ``generate --num-beams 2`` (the best
+    beam of ``beam_generate`` in this process). The draft is removed
+    after."""
+    import shutil
+
+    from onebit_tpu_torch import (ContinuousBatchingEngine, SamplingConfig,
+                                  beam_generate, load_native)
+    from onebit_tpu_torch.train.draft import build_draft
+    ckpt = small_ckpt(dev)
+    out = os.path.join(ROOT, "build", "smoke_draft")
+    seconds = {}
+    flags = ("--max-batch", "2", "--max-len", "256", "--max-new-tokens",
+             str(SURFACE_CLI_NEW), "--greedy")
+    try:
+        run_cli(seconds, "build-draft", ckpt, out, "--num-layers", "1")
+        served = run_cli(seconds, "serve", "--ckpt", ckpt, "--draft", out,
+                         "--n-draft", "3", *flags, stdin="\n".join(
+                             ",".join(map(str, p)) for p in SERVE_PROMPTS)
+                         + "\n")
+        served = [[int(t) for t in json.loads(ln)["completion"].split(",")]
+                  for ln in served if ln.startswith("{")]
+        beams = run_cli(seconds, "generate", "--ckpt", ckpt, "--prompt",
+                        "1,2,3", "--num-beams", "2", "--max-new-tokens",
+                        str(SURFACE_CLI_NEW))[-1]
+        loaded, draft = load_native(ckpt, device=dev), load_native(out,
+                                                                   device=dev)
+        config = loaded["config"]
+        d_config, d_params = build_draft(loaded["params"], config, 1)
+        same_draft = draft["config"] == d_config and all(
+            torch.equal(a, b) for a, b in zip(
+                _tensors(draft["params"]), _tensors(d_params)))
+        want = {}
+        for name, spec in (("spec", dict(draft_params=draft["params"],
+                                         draft_config=draft["config"],
+                                         n_draft=3)), ("plain", {})):
+            eng = ContinuousBatchingEngine(
+                loaded["params"], config, max_batch=2, max_len=256,
+                sampling=SamplingConfig(greedy=True), device=dev, **spec)
+            uids = [eng.add_request(p, max_new_tokens=SURFACE_CLI_NEW)
+                    for p in SERVE_PROMPTS]
+            res = eng.run()
+            want[name] = [res[u] for u in uids]
+        parted = _partings(loaded["params"], config, dev, SERVE_PROMPTS,
+                           want["spec"], want["plain"])
+        beam_want = beam_generate(loaded["params"], config, [[1, 2, 3]],
+                                  num_beams=2,
+                                  max_new_tokens=SURFACE_CLI_NEW)[0][0][0]
+        line = {"phase": "serve_surface", "part": "cli", "ckpt_layers": 2,
+                "draft_layers": draft["config"].num_hidden_layers,
+                "draft_is_build_draft": same_draft,
+                "serve_draft": served, "serve_in_process": want["spec"],
+                "in_process_plain": want["plain"],
+                "spec_parted_from_plain": {str(r): v
+                                           for r, v in parted.items()},
+                "generate_beams": beams,
+                "beam_in_process": ",".join(map(str, beam_want)),
+                "seconds": seconds}
+        emit(line)
+        if not same_draft or served != want["spec"] or \
+                _parted_badly(parted) or beams != line["beam_in_process"]:
+            raise RuntimeError(f"build-draft, serve --draft, generate "
+                               f"--num-beams: {line}")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def _tensors(params) -> list:
+    """Every tensor of a params tree, in a fixed order."""
+    out = [params[k] for k in ("embed_tokens", "lm_head", "final_norm")]
+    for name in sorted(params["layers"]):
+        w = params["layers"][name]
+        out += [a for a in w if a is not None] if isinstance(w, tuple) \
+            else [w]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1863,8 +2357,12 @@ TP_MP = 2
 TP_BACKEND = "gloo"
 TP_TIMEOUT = 600          # seconds for the whole phase, every rank
 TP_NEW = 32
+# the served runs' depth: the first 16 layers of the 7B weights (full
+# width); each decode step makes 130 host all-reduces over gloo at 32
+# layers, which made the TP phase the script's longest
+TP_RUN_LAYERS = 16
 # (run, engine options, prompts, the attention kernel of every decode
-# layer), each at full width and depth
+# layer), each at full width and TP_RUN_LAYERS deep
 TP_RUNS = (
     ("dense", dict(max_len=256), "smoke", "kv_attention_decode_bf16"),
     # the same in decode blocks, eager over gloo (no CUDA graph captures
@@ -1981,8 +2479,10 @@ def _tp_served_run(group, params, config, prompts, opts) -> dict:
 
 def _tp_rank(group, next_token):
     """One rank of the TP phase: random llama2-7b weights from seed 0
-    (unfused), the first-step checks, then the runs of TP_RUNS."""
+    (unfused), the first-step checks, then the runs of TP_RUNS on their
+    first TP_RUN_LAYERS layers."""
     from onebit_tpu_torch import BitLlamaConfig, host_random_packed_params
+    from onebit_tpu_torch.train.draft import draft_config, slice_draft_params
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
@@ -1990,6 +2490,8 @@ def _tp_rank(group, next_token):
     params = host_random_packed_params(config, seed=0, device=group.device)
     out = {"weights_s": time.perf_counter() - t0,
            "first_step": _tp_first_step(group, params, config, next_token)}
+    params = slice_draft_params(params, range(TP_RUN_LAYERS))
+    config = draft_config(config, TP_RUN_LAYERS)
     torch.cuda.empty_cache()
     for name, opts, prompts, _ in TP_RUNS:
         out[name] = _tp_served_run(group, params, config,
@@ -2009,11 +2511,12 @@ def tp_checks(unfused, config, dev) -> dict:
         same weights) and of the TP run with impl="torch"; a planted fault
         (rank 1's share of layer 0's o_proj all-reduce dropped) must break
         that limit.
-    (b) The runs of TP_RUNS, 8 greedy requests of 32 new tokens each, every
-        count set to 0 before each: both ranks emit the same tokens and
-        launch the same kernels; B4 (both instances) exactly 7 x L per
-        forward pass, the run's attention kernel exactly L per decode step,
-        K1-K3 never; pages all returned, and the prefix run reuses 448.
+    (b) The runs of TP_RUNS on the first L = TP_RUN_LAYERS layers, 8
+        greedy requests of 32 new tokens each, every count set to 0 before
+        each: both ranks emit the same tokens and launch the same kernels;
+        B4 (both instances) exactly 7 x L per forward pass, the run's
+        attention kernel exactly L per decode step, K1-K3 never; pages all
+        returned, and the prefix run reuses 448.
 
     Returns rank 0's B4 launches from the dense run, the main path."""
     from onebit_tpu_torch.kernels import bitlinear_cuda as bc
@@ -2059,7 +2562,7 @@ def tp_checks(unfused, config, dev) -> dict:
         raise RuntimeError(f"TP first-step logits disagree, or the planted "
                            f"fault passes: {line}")
     raw = (bc.RAW_SMALL_M.name, bc.RAW_LARGE_M.name)
-    layers = config.num_hidden_layers
+    layers = TP_RUN_LAYERS
     for name, opts, _, per_step in TP_RUNS:
         r0, r1 = ranks[0][name], ranks[1][name]
         counts = r0["launches"]
@@ -2183,15 +2686,7 @@ def generate_cli_checks(dev) -> None:
     seconds = {}
 
     def cli(*args, stdin=None):
-        t = time.perf_counter()
-        run = subprocess.run([sys.executable, "-m", "onebit_tpu_torch",
-                              *args], cwd=ROOT, capture_output=True,
-                             text=True, timeout=600, input=stdin)
-        seconds[args[0]] = time.perf_counter() - t
-        if run.returncode != 0:
-            raise RuntimeError(f"{args[0]} failed:\n{run.stdout[-2000:]}\n"
-                               f"{run.stderr[-3000:]}")
-        return run.stdout.strip().splitlines()
+        return run_cli(seconds, *args, stdin=stdin)
 
     try:
         cli("convert", ckpt, ref, "--format", "reference")
@@ -2267,25 +2762,26 @@ def end_to_end(dev) -> dict:
           config.num_hidden_layers, "seconds": time.perf_counter() - t0,
           "layers_keys": sorted(params["layers"])})
     paged = dict(max_len=2048, paged=True, page_size=16)
-    launches, graph_launches = {}, {}
-    # (prompts, engine options, per-step kernel, kernels of this path,
+    launches, graph_launches, served = {}, {}, {}
+    # (name, prompts, engine options, per-step kernel, kernels of this path,
     # first-step check); each served run again in graph-replayed blocks
-    for prompts, opts, per_step, path_kernels, check in (
-            (smoke_prompts(), dict(max_len=256), kc.DECODE_BF16,
+    for name, prompts, opts, per_step, path_kernels, check in (
+            ("dense", smoke_prompts(), dict(max_len=256), kc.DECODE_BF16,
              all_kernels()[:3], True),
-            (deep_prompts(), dict(max_len=2048, quantized_kv=True),
+            ("int8", deep_prompts(), dict(max_len=2048, quantized_kv=True),
              kc.APPEND_KT, [kc.APPEND_KT], True),
-            (deep_prompts(), dict(max_len=2048, quantized_kv="int4"),
+            ("int4", deep_prompts(), dict(max_len=2048, quantized_kv="int4"),
              kc.APPEND_KT4, [kc.APPEND_KT4], True),
-            (deep_prompts(), paged, pc.PAGED, [pc.PAGED], True),
-            (deep_prompts(), dict(paged, quantized_kv=True), pc.PAGED_INT8,
-             [pc.PAGED_INT8], True),
-            (prefix_prompts(), dict(paged, prefix_cache=True), pc.PAGED, [],
-             False)):
+            ("paged", deep_prompts(), paged, pc.PAGED, [pc.PAGED], True),
+            ("paged_int8", deep_prompts(), dict(paged, quantized_kv=True),
+             pc.PAGED_INT8, [pc.PAGED_INT8], True),
+            ("prefix", prefix_prompts(), dict(paged, prefix_cache=True),
+             pc.PAGED, [], False)):
         if check:
             check_first_step(params, config, dev, prompts, 32, opts)
-        run, tokens = served_run(params, config, dev, prompts, 32, opts,
-                                 per_step)
+        run, tokens, line = served_run(params, config, dev, prompts, 32,
+                                       opts, per_step)
+        served[name] = tokens, line
         launches.update({k.name: run[k.name] for k in path_kernels})
         torch.cuda.empty_cache()
         _, in_graph = block_run(params, config, dev, prompts, 32, opts,
@@ -2294,6 +2790,7 @@ def end_to_end(dev) -> dict:
             graph_launches.setdefault(k.name, in_graph[k.name])
         if per_step is kc.DECODE_BF16:
             block_fault_check(params, config, dev, prompts, 32, tokens)
+    serve_surface_checks(params, config, dev, served)
     launches.update(generate_checks(params, config, dev))
     # the serving runs' memory goes before tensor-parallel serving and
     # evaluation, which read the projections unfused, as a checkpoint loads
@@ -2305,6 +2802,7 @@ def end_to_end(dev) -> dict:
     del unfused
     torch.cuda.empty_cache()
     generate_cli_checks(dev)
+    serve_surface_cli(dev)
     launches.update(train_checks(dev))
     # the task harness and the registry on the evaluation's weights, made
     # again from their seed, then SFT
@@ -2993,13 +3491,7 @@ def train_cli_check(dev) -> None:
     seconds = {}
 
     def cli(*args):
-        t = time.perf_counter()
-        run = subprocess.run([sys.executable, "-m", "onebit_tpu_torch",
-                              *args], cwd=ROOT, capture_output=True,
-                             text=True, timeout=600)
-        seconds[args[0]] = time.perf_counter() - t
-        if run.returncode != 0:
-            raise RuntimeError(f"{args[0]} failed:\n{run.stderr[-3000:]}")
+        run_cli(seconds, *args)
 
     try:
         cli("build-start-ckpt", os.path.join(root, "teacher"),

@@ -25,8 +25,13 @@ each row's pages through its page table (kernel B10); ``prefix_cache=True``
 shares full prompt pages between requests with the same prefix.
 ``block_steps=N`` decodes N steps a block, on the card one replayed CUDA
 graph, and ``pipeline_blocks=True`` overlaps a block's bookkeeping with
-the next block; ``python -m onebit_tpu_torch serve`` serves from stdin or
-over HTTP (``engine/server.py``).
+the next block; ``prefill_chunk_size=N`` prefills in fixed-size chunks
+(dense, int8 or paged caches); ``draft_params=, draft_config=, n_draft=``
+decode speculatively, a draft model proposing and the target verifying a
+window in one call (``engine/speculative.py``; greedy output is the plain
+engine's); ``python -m onebit_tpu_torch serve`` serves from stdin or over
+HTTP (``engine/server.py``), with ``--draft`` a draft made by
+``build-draft`` (``train/draft.py``).
 
 Evaluation runs the full-sequence ``forward`` (each unpadded layer's causal
 attention in kernel B11 on the card) under ``perplexity`` (windowed, the
@@ -39,7 +44,8 @@ Batch generation (``generate``) prefills left-padded prompts and decodes
 every row at a shared cache index (``decode_step``, ``decode_step_flat``;
 on the card each step's attention over the dense cache runs kernel B9);
 ``python -m onebit_tpu_torch generate --ckpt DIR --prompt 1,2,3`` prints
-the new token ids. ``load_reference_checkpoint`` reads the reference's
+the new token ids. ``beam_generate`` searches beams over the same cache,
+reordered by parent each step (``generate --num-beams K``). ``load_reference_checkpoint`` reads the reference's
 Hugging Face checkpoints (latent, int8-packed, plain LLaMA) and
 ``export_reference_int8`` writes its int8 format.
 
@@ -69,6 +75,7 @@ from onebit_tpu_torch.ckpt.native import (export_reference_int8, load_native,
 from onebit_tpu_torch.convert import params_from_jax, params_to_numpy
 from onebit_tpu_torch.core.build_start import build_start_params
 from onebit_tpu_torch.engine.batching import ContinuousBatchingEngine
+from onebit_tpu_torch.engine.beam import beam_generate
 from onebit_tpu_torch.engine.generate import generate
 from onebit_tpu_torch.engine.paged import (PagedKVCache, QuantPagedKVCache,
                                            init_paged_kv_cache)
@@ -98,7 +105,7 @@ __all__ = [
     "BitLlamaConfig", "ContinuousBatchingEngine", "KDConfig", "KDRunConfig",
     "LinearWeights", "PagedKVCache", "QuantKVCache", "QuantKVCacheKT",
     "QuantKVCacheKT4", "QuantPagedKVCache", "SamplingConfig", "TrainConfig",
-    "build_start_params", "decode_step", "decode_step_flat",
+    "beam_generate", "build_start_params", "decode_step", "decode_step_flat",
     "evaluate_tasks", "export_reference_int8", "forward", "fuse_for_decode", "generate",
     "host_random_packed_params", "init_paged_kv_cache", "init_params",
     "init_quant_kv_cache", "init_quant_kv_cache_kt",

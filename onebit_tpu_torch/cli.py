@@ -9,6 +9,9 @@
     python -m onebit_tpu_torch train --config FILE.yaml|FILE.json [flags]
     python -m onebit_tpu_torch convert TRAIN_CKPT OUT_DIR \\
         [--format native|reference] [--device ...]
+    python -m onebit_tpu_torch build-draft STUDENT_DIR OUT_DIR \\
+        [--num-layers 2] [--strategy spread|first] [--for-training] \\
+        [--device ...]
     python -m onebit_tpu_torch eval --ckpt DIR [--tokens FILE.npy] \\
         [--corpus wikitext2,c4 [--corpus-source PATH]] [--wikitext FILE] \\
         [--tasks piqa,arc_*,hendrycksTest [--task-source DIR] \\
@@ -19,12 +22,14 @@
     python -m onebit_tpu_torch generate --ckpt DIR --prompt 1,2,3 \\
         [--tokenizer TOK (--prompt then is text)] \\
         [--max-new-tokens 64] [--greedy] [--temperature 0.95] \\
-        [--top-k 50] [--top-p 0.7] [--device cuda|cpu]
+        [--top-k 50] [--top-p 0.7] [--num-beams K [--length-penalty 1.0]] \\
+        [--device cuda|cpu]
     python -m onebit_tpu_torch serve --ckpt DIR [--tokenizer TOK] \\
         [--max-batch 8] \\
         [--max-len 2048] [--max-new-tokens 128] [--block-steps N] \\
         [--pipeline-blocks] [--paged] [--page-size 16] \\
-        [--kv-quant int8|int4] [--prefix-cache] [--fuse-decode] \\
+        [--kv-quant int8|int4] [--prefix-cache] [--prefill-chunk N] \\
+        [--fuse-decode] [--draft DIR [--n-draft 4]] \\
         [sampling flags] [--http [PORT]] [--host H] [--device cuda|cpu]
 
 Port of ``onebit_tpu/cli.py``'s pipeline. A checkpoint is a native
@@ -36,16 +41,17 @@ or the reference's int8 format), evaluation (the windowed perplexity of a
 pre-tokenized stream or of named corpora, rolling WikiText perplexity,
 the zero-shot task registry, and the serving engines' greedy cross-check
 against ``generate``), printed as one JSON line and checked against
-pinned numbers with ``--expect``, generation from a prompt, and serving:
-one request a stdin line, or over HTTP (``engine/server.py``). Without
+pinned numbers with ``--expect``, generation from a prompt (sampled,
+greedy or by beam search), the draft model of speculative decoding sliced
+from a student, and serving: one request a stdin line, or over HTTP
+(``engine/server.py``), with a draft model if asked. Without
 ``--tokenizer`` prompts and completions are comma-separated token ids.
 A tokenizer is ``AutoTokenizer.from_pretrained(--tokenizer)`` (for eval
 and train, the checkpoint's own directory by default), imported only
 where a command needs one. ``train --config`` reads the train flags from
 a yaml or json file (its values override the command line's). What is
-not ported yet (sharded checkpoints, beam search, speculative decoding,
-``serve --tp``, ``--dry-compile``) exits nonzero, naming what it waits
-for.
+not ported yet (sharded checkpoints, ``serve --tp``, ``--dry-compile``)
+exits nonzero, naming what it waits for.
 """
 
 from __future__ import annotations
@@ -66,8 +72,6 @@ ENGINE_CHECKS = {
     "paged": dict(paged=True, quantized_kv=True, page_size=16),
     "pipelined": dict(block_steps=4, pipeline_blocks=True),
 }
-BEAM_WAITS_FOR = "engine/beam.py (ROADMAP.md §1 item 4)"
-
 _PARALLEL = PARALLEL_WAIT
 # train flag -> what it waits for (ROADMAP.md)
 WAITING_TRAIN = {
@@ -80,7 +84,7 @@ WAITING_CONVERT = {"sharded": "sharded checkpoints, " + _PARALLEL}
 # serve flag -> what it waits for
 WAITING_SERVE = {
     "dry_compile": "parallel/memplan.py, " + _PARALLEL,
-    "draft": "speculative decoding, " + ENGINE_OPTIONS_WAIT,
+    "draft": "the tensor-parallel speculative round, " + ENGINE_OPTIONS_WAIT,
     "tp": "a launcher of the tensor-parallel ranks behind one front end "
           "(ROADMAP.md §1 item 4)",
 }
@@ -170,6 +174,21 @@ def cmd_convert(args) -> None:
     write = save_native if args.format == "native" else export_reference_int8
     write(args.out, loaded["config"], pack_model_params(loaded["params"]))
     print(f"packed inference checkpoint ({args.format}) -> {args.out}")
+
+
+def cmd_build_draft(args) -> None:
+    """Slice a shallow draft for speculative decoding from a student
+    checkpoint (onebit_tpu/cli.py:65-77, ``train/draft.py``); distill it
+    with ``train --student OUT --teacher STUDENT`` before serving it."""
+    from onebit_tpu_torch.ckpt.native import save_native
+    from onebit_tpu_torch.train.draft import build_draft
+
+    loaded = _load_any_ckpt(args.student, args.device)
+    d_config, d_params = build_draft(
+        loaded["params"], loaded["config"], args.num_layers,
+        strategy=args.strategy, for_training=args.for_training)
+    save_native(args.out, d_config, d_params)
+    print(f"{args.num_layers}-layer draft ({args.strategy}) -> {args.out}")
 
 
 def cmd_train(args) -> None:
@@ -387,12 +406,10 @@ def cmd_eval(args) -> None:
 
 
 def cmd_generate(args) -> None:
+    from onebit_tpu_torch.engine.beam import beam_generate
     from onebit_tpu_torch.engine.generate import generate
     from onebit_tpu_torch.engine.sampler import SamplingConfig
 
-    if args.num_beams > 1:
-        raise SystemExit("--num-beams > 1 is not ported yet: it waits for "
-                         f"{BEAM_WAITS_FOR}")
     loaded = _load_any_ckpt(args.ckpt, args.device)
     if args.tokenizer:
         # onebit_tpu/cli.py:400-420: the prompt is text, the output too
@@ -400,11 +417,19 @@ def cmd_generate(args) -> None:
         prompt = tok(args.prompt)["input_ids"]
     else:
         prompt = [int(t) for t in args.prompt.split(",")]
-    sampling = SamplingConfig(greedy=args.greedy,
-                              temperature=args.temperature,
-                              top_k=args.top_k, top_p=args.top_p)
-    out = generate(loaded["params"], loaded["config"], [prompt],
-                   max_new_tokens=args.max_new_tokens, sampling=sampling)[0]
+    if args.num_beams > 1:
+        # the best hypothesis (onebit_tpu/cli.py:406-410)
+        out = beam_generate(loaded["params"], loaded["config"], [prompt],
+                            num_beams=args.num_beams,
+                            max_new_tokens=args.max_new_tokens,
+                            length_penalty=args.length_penalty)[0][0][0]
+    else:
+        sampling = SamplingConfig(greedy=args.greedy,
+                                  temperature=args.temperature,
+                                  top_k=args.top_k, top_p=args.top_p)
+        out = generate(loaded["params"], loaded["config"], [prompt],
+                       max_new_tokens=args.max_new_tokens,
+                       sampling=sampling)[0]
     print(tok.decode(out) if args.tokenizer else ",".join(map(str, out)))
 
 
@@ -438,12 +463,10 @@ def cmd_serve(args) -> None:
     if args.kv_quant == "fp8":
         raise SystemExit("--kv-quant fp8 is not ported yet: fp8 pages wait "
                          f"for {ENGINE_OPTIONS_WAIT}")
-    if args.draft:
-        wait("draft", WAITING_SERVE["draft"])
+    if args.draft and args.tp > 1:
+        wait("draft with --tp", WAITING_SERVE["draft"])
     if args.tp > 1:
         wait("tp", WAITING_SERVE["tp"])
-    if args.prefill_chunk and not args.paged:
-        wait("prefill-chunk without --paged", ENGINE_OPTIONS_WAIT)
     if not args.ckpt:
         raise SystemExit("serve needs --ckpt DIR")
     loaded = _load_any_ckpt(args.ckpt, args.device)
@@ -455,13 +478,17 @@ def cmd_serve(args) -> None:
     sampling = SamplingConfig(greedy=args.greedy,
                               temperature=args.temperature,
                               top_k=args.top_k, top_p=args.top_p)
+    draft = (_load_any_ckpt(args.draft, args.device) if args.draft
+             else {"params": None, "config": None})
     eng = ContinuousBatchingEngine(
         params, config, max_batch=args.max_batch, max_len=args.max_len,
         sampling=sampling, block_steps=args.block_steps, paged=args.paged,
         quantized_kv=args.kv_quant or False, page_size=args.page_size,
         prefix_cache=args.prefix_cache,
         prefill_chunk_size=args.prefill_chunk,
-        pipeline_blocks=args.pipeline_blocks, device=args.device)
+        draft_params=draft["params"], draft_config=draft["config"],
+        n_draft=args.n_draft, pipeline_blocks=args.pipeline_blocks,
+        device=args.device)
     if args.http is not None:
         server = EngineServer(eng, tokenizer=tok)
         port = server.start(host=args.host, port=args.http)
@@ -514,6 +541,19 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["native", "reference", "sharded"])
     _device_flag(c)
     c.set_defaults(fn=cmd_convert)
+
+    bd = sub.add_parser("build-draft", help="slice a shallow speculative-"
+                        "decoding draft from a student checkpoint")
+    bd.add_argument("student")
+    bd.add_argument("out")
+    bd.add_argument("--num-layers", type=int, default=2)
+    bd.add_argument("--strategy", default="spread",
+                    choices=["first", "spread"])
+    bd.add_argument("--for-training", action="store_true",
+                    help="latentize packed slices into a trainable start "
+                    "point for `train --student OUT --teacher STUDENT`")
+    _device_flag(bd)
+    bd.set_defaults(fn=cmd_build_draft)
 
     t = sub.add_parser("train", help="KD training")
     t.add_argument("--student", help="native start checkpoint (latent)")
@@ -605,7 +645,9 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--max-new-tokens", type=int, default=64)
     g.add_argument("--greedy", action="store_true")
     g.add_argument("--num-beams", type=int, default=1,
-                   help="beam search above 1 (not ported yet)")
+                   help="beam search above 1 (prints the best beam)")
+    g.add_argument("--length-penalty", type=float, default=1.0,
+                   help="beam scores: sum logp / length ** this")
     g.add_argument("--temperature", type=float, default=0.95)
     g.add_argument("--top-k", type=int, default=50)
     g.add_argument("--top-p", type=float, default=0.7)
@@ -649,8 +691,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="share full prompt pages between requests "
                     "(requires --paged)")
     sv.add_argument("--prefill-chunk", type=int, default=None,
-                    help="chunked prefill size (with --paged)")
-    sv.add_argument("--draft", help="not ported yet")
+                    help="fixed-size chunked prefill (dense, int8 or paged "
+                    "cache)")
+    sv.add_argument("--draft", help="draft-model checkpoint for speculative "
+                    "decoding (see build-draft)")
+    sv.add_argument("--n-draft", type=int, default=4,
+                    help="proposals a speculative round")
     sv.add_argument("--tp", type=int, default=1, help="not ported yet")
     sv.add_argument("--dry-compile", action="store_true",
                     help="not ported yet")

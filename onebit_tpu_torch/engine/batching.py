@@ -16,8 +16,9 @@ Port of the dense and dense-quantized paths of
 * waiting requests are admitted into free slots; admissions of one round
   are prefilled together, one ``prefill_rows`` (``paged_prefill_rows``)
   call per prompt bucket (prompts padded to a power of two, at least 32, at
-  most ``max_len``); a paged admission with prefix hits, or with
-  ``prefill_chunk_size``, is prefilled alone in chunks;
+  most ``max_len``); a paged admission with prefix hits, or any admission
+  with ``prefill_chunk_size``, is prefilled alone in chunks
+  (``paged_chunked_prefill_row``, ``chunked_prefill_row``);
 * every ``step()`` runs one ``ragged_decode_step`` (``paged_decode_step``)
   for all slots, each row at its own cache position; with ``block_steps >
   1`` it runs ``block_steps`` of them as one decode block
@@ -26,6 +27,13 @@ Port of the dense and dense-quantized paths of
   replayed (``engine/block_graph.py``); on the CPU and under ``tp_group``
   it runs eagerly. ``pipeline_blocks`` dispatches block N+1 from block N's
   device finals before it reads block N's tokens;
+* with ``draft_params`` (and ``draft_config``) every ``step()`` is one
+  speculative round (``engine/speculative.py``): the draft, on a dense
+  cache of its own whose slots mirror the engine's, proposes ``n_draft``
+  tokens a row and the target verifies them in one window, on any target
+  cache but int4; greedy output is the plain engine's, sampled output
+  follows the target's distribution. The draft's prompt is prefilled at
+  admission, as the target's is;
 * a finished row (EOS or ``max_new_tokens``) frees its slot and its pages
   at once;
 * with ``tp_group`` (a :class:`~onebit_tpu_torch.parallel.mesh.TPGroup`,
@@ -63,12 +71,15 @@ from onebit_tpu_torch.engine.paged import (ENGINE_OPTIONS_WAIT,
                                            paged_decode_step,
                                            paged_prefill_rows)
 from onebit_tpu_torch.engine.sampler import SamplingConfig, sample_token
+from onebit_tpu_torch.engine.speculative import (spec_decode_round,
+                                                 spec_decode_round_sampled)
 from onebit_tpu_torch.engine.tp_backend import TPServing
 from onebit_tpu_torch.model.bitllama import init_kv_cache
 from onebit_tpu_torch.model.config import BitLlamaConfig
 from onebit_tpu_torch.model.kv_cache import (init_quant_kv_cache_kt,
                                              init_quant_kv_cache_kt4)
-from onebit_tpu_torch.model.ragged_decode import (prefill_rows,
+from onebit_tpu_torch.model.ragged_decode import (chunked_prefill_row,
+                                                  prefill_rows,
                                                   ragged_decode_block,
                                                   ragged_decode_step)
 from onebit_tpu_torch.model.tp_decode import shard_tp_params
@@ -140,12 +151,12 @@ def _check_blocks(block_steps, pipeline_blocks, draft_params) -> None:
                          "amortizes host round trips)")
 
 
-def _reject_unported(paged, quantized_kv, prefill_chunk_size, draft_params):
+def _reject_unported(paged, quantized_kv, tp_group, draft_params):
     later = [
         (paged and quantized_kv == "fp8", "quantized_kv='fp8' (fp8 pages)"),
-        (draft_params is not None, "draft_params"),
-        (prefill_chunk_size and not paged,
-         "prefill_chunk_size without paged=True"),
+        (tp_group is not None and draft_params is not None,
+         "draft_params with tp_group (the tensor-parallel speculative "
+         "round)"),
     ]
     for given, name in later:
         if given:
@@ -163,12 +174,15 @@ class ContinuousBatchingEngine:
                  quantized_kv=False, block_steps: int = 1,
                  prefill_chunk_size: Optional[int] = None,
                  prefix_cache: bool = False, draft_params=None,
-                 tp_group=None, pipeline_blocks: bool = False):
+                 draft_config: Optional[BitLlamaConfig] = None,
+                 n_draft: int = 4, tp_group=None,
+                 pipeline_blocks: bool = False):
         _check_quantized_kv(paged, quantized_kv, draft_params,
                             prefill_chunk_size)
         _check_blocks(block_steps, pipeline_blocks, draft_params)
-        _reject_unported(paged, quantized_kv, prefill_chunk_size,
-                         draft_params)
+        _reject_unported(paged, quantized_kv, tp_group, draft_params)
+        if draft_params is not None and draft_config is None:
+            raise ValueError("draft_params requires draft_config")
         self.sampling = sampling or SamplingConfig(greedy=True)
         self.block_steps = max(block_steps, 1)
         # depth-2 block pipelining (batching.py:126-143): block N+1 is
@@ -237,6 +251,15 @@ class ContinuousBatchingEngine:
         else:
             self.cache = init_kv_cache(config, max_batch, max_len,
                                        dtype=compute_dtype, **cache_at)
+        # speculative decoding: the draft's dense cache, slot for slot
+        self.draft_params = draft_params
+        self.draft_config = draft_config
+        self.n_draft = n_draft
+        self.spec_rounds = 0
+        if draft_params is not None:
+            self.draft_cache = init_kv_cache(draft_config, max_batch, max_len,
+                                             dtype=compute_dtype,
+                                             device=self.device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         # the one stream every launch of this engine runs on, prefill,
@@ -345,7 +368,10 @@ class ContinuousBatchingEngine:
             bucket = min(_bucket(plen), self.max_len)
             if not self.paged:
                 self.waiting.pop(0)
-                planned.append((slot, req, plen, bucket, None))
+                if self.prefill_chunk_size:
+                    admitted.append((slot, self._chunked_admit(slot, req)))
+                else:
+                    planned.append((slot, req, plen, bucket, None))
                 continue
             total_need = -(-max(bucket, plen + req.max_new_tokens)
                            // self.page_size)
@@ -382,20 +408,8 @@ class ContinuousBatchingEngine:
                     round_keys.add(self._page_keys(req.prompt, 1)[0])
                 planned.append((slot, req, plen, bucket, table))
                 continue
-            # chunked prefill; prefix hits already hold the K/V of the
-            # first hits * page_size tokens, so only the suffix runs
-            logits, self.cache = paged_chunked_prefill_row(
-                self.params, self.cache, req.prompt, table, self.config,
-                chunk_size=min(self.prefill_chunk_size or 64, self.max_len),
-                impl=self.impl, compute_dtype=self.compute_dtype,
-                start=hits * self.page_size,
-                step_fn=(None if self._tp is None
-                         else self._tp.paged_chunk_append))
-            if self.prefix_cache:
-                self._register_prefix(req.prompt, table)
-            self.slots[slot] = req
-            self.row_pos[slot] = plen
-            admitted.append((slot, logits))
+            admitted.append((slot, self._chunked_admit(slot, req, table,
+                                                       hits)))
         admitted += self._batched_prefill(planned)
         if admitted:
             # one batched sample and one host read for the whole round
@@ -403,6 +417,39 @@ class ContinuousBatchingEngine:
                                 self.generator, self.sampling).cpu().numpy()
             for (slot, _), tok in zip(admitted, toks):
                 self._emit(slot, int(tok))
+
+    def _chunked_admit(self, slot: int, req, table=None,
+                       hits: int = 0) -> torch.Tensor:
+        """Prefill an admitted request alone, in chunks, into its slot
+        (batching.py:595-660): its dense row, or with ``table`` its pages,
+        where ``hits`` prefix pages already hold the K/V of the first
+        ``hits * page_size`` tokens, so only the suffix runs. Returns the
+        logits of its last prompt token."""
+        kw = dict(impl=self.impl, compute_dtype=self.compute_dtype)
+        if table is None:
+            chunk = self.prefill_chunk_size
+            logits, self.cache = chunked_prefill_row(
+                self.params, self.cache, req.prompt, slot, self.config,
+                chunk_size=chunk, step_fn=(None if self._tp is None
+                                           else self._tp.chunk_append), **kw)
+        else:
+            chunk = min(self.prefill_chunk_size or 64, self.max_len)
+            logits, self.cache = paged_chunked_prefill_row(
+                self.params, self.cache, req.prompt, table, self.config,
+                chunk_size=chunk, start=hits * self.page_size,
+                step_fn=(None if self._tp is None
+                         else self._tp.paged_chunk_append), **kw)
+            if self.prefix_cache:
+                self._register_prefix(req.prompt, table)
+        if self.draft_params is not None:
+            # the draft replays the whole prompt into its own slot: prefix
+            # sharing is the target's pages' alone
+            chunked_prefill_row(self.draft_params, self.draft_cache,
+                                req.prompt, slot, self.draft_config,
+                                chunk_size=chunk, **kw)
+        self.slots[slot] = req
+        self.row_pos[slot] = len(req.prompt)
+        return logits
 
     def _batched_prefill(self, planned):
         """One ``prefill_rows`` (``paged_prefill_rows``) call per prompt
@@ -449,6 +496,11 @@ class ContinuousBatchingEngine:
                     logits, self.cache = prefill_rows(
                         self.params, self.cache, ids_t, lens_t, rows_t,
                         self.config, **kw)
+            if self.draft_params is not None:
+                # the draft's slots mirror the engine's (batching.py:723-758)
+                prefill_rows(self.draft_params, self.draft_cache, ids_t,
+                             lens_t, torch.from_numpy(rows).to(dev),
+                             self.draft_config, **kw)
             for j, (slot, req, plen, _, table) in enumerate(group):
                 if self.prefix_cache:
                     self._register_prefix(req.prompt, table)
@@ -527,6 +579,9 @@ class ContinuousBatchingEngine:
         if not active.any():
             self._flush_pending()
             return
+        if self.draft_params is not None:
+            self._decode_spec(active)
+            return
         if self.block_steps > 1:
             self._decode_block(active)
             return
@@ -560,6 +615,37 @@ class ContinuousBatchingEngine:
                 continue
             self.row_pos[slot] += 1
             self._emit(slot, int(toks[slot]))
+
+    def _decode_spec(self, active) -> None:
+        """One speculative round (batching.py:897-964): up to n_draft+1
+        tokens a row, EOS and budgets clamped on the device, and one read
+        of the device for the emitted tokens, counts and new positions."""
+        budget = np.asarray(
+            [r.max_new_tokens - len(r.generated) if r is not None else 0
+             for r in self.slots], np.int64)
+        args = (self.params, self.draft_params, self.cache, self.draft_cache,
+                self.next_token, self.row_pos, active, budget)
+        kw = dict(n_draft=self.n_draft, impl=self.impl,
+                  compute_dtype=self.compute_dtype)
+        tables = self.page_tables if self.paged else None
+        if self.sampling.greedy:
+            out = spec_decode_round(*args, self.config, self.draft_config,
+                                    tables, **kw)
+        else:
+            out = spec_decode_round_sampled(
+                *args, self.generator, self.config, self.draft_config, tables,
+                sampling=self.sampling, **kw)
+        emitted, n_emit, _, new_pos = out[:4]
+        host = torch.cat([emitted, n_emit[:, None], new_pos[:, None]],
+                         dim=1).cpu().numpy()
+        self.spec_rounds += 1
+        emitted, n_emit = host[:, :-2], host[:, -2]
+        self.row_pos = host[:, -1].astype(np.int32)
+        for slot in range(self.max_batch):
+            for j in range(int(n_emit[slot])):
+                if self.slots[slot] is None:
+                    break   # finished inside the round (EOS clamped)
+                self._emit(slot, int(emitted[slot, j]))
 
     # -- decode blocks (batching.py:966-1087) -------------------------------
     def _block(self, tok, pos, act, budget, tables):

@@ -50,6 +50,8 @@ from onebit_tpu_torch.model.ragged_decode import decode_block
 from onebit_tpu_torch.model.rope import apply_rope, rope_cos_sin
 from onebit_tpu_torch.utils.device import resolve_device
 
+# what still waits of the JAX engine's options: fp8 pages and the
+# tensor-parallel speculative round
 ENGINE_OPTIONS_WAIT = "the engine options of ROADMAP.md §1 item 5"
 
 
@@ -215,15 +217,17 @@ def _use_kernel(cache, impl: str) -> bool:
 # ---------------------------------------------------------------------------
 
 def _window_core(proj: Proj, cache, tokens, lengths, page_indices,
-                 config: BitLlamaConfig, impl: str, compute_dtype):
+                 config: BitLlamaConfig, impl: str, compute_dtype,
+                 kernel: bool = True):
     """W tokens per row written at ``lengths .. lengths+W-1``, attending to
     each row's pages as just updated. ``tokens [B, W]``, ``lengths [B]``
     write-start positions, ``page_indices [B, max_pages]`` int32, all on
     the cache's device. Returns the final-normed hidden ``[B, W, d]``.
 
-    W = 1 is the decode step (B10 on the card); W > 1 a chunk append. The
-    projections are ``proj``'s: one device's, or a tensor-parallel rank's
-    over the pool's ``nkv / mp`` heads."""
+    W = 1 is the decode step (B10 on the card unless ``kernel`` is False);
+    W > 1 a chunk append or a verify window. The projections are
+    ``proj``'s: one device's, or a tensor-parallel rank's over the pool's
+    ``nkv / mp`` heads."""
     w = tokens.shape[1]
     ps, mp = cache.page_size, page_indices.shape[1]
     positions = lengths[:, None] + torch.arange(w, device=tokens.device)
@@ -236,7 +240,7 @@ def _window_core(proj: Proj, cache, tokens, lengths, page_indices,
     x = proj.embed(tokens)
     cos, sin = _cos_sin(positions, config, compute_dtype)
     quant = isinstance(cache, QuantPagedKVCache)
-    use_kernel = w == 1 and _use_kernel(cache, impl)
+    use_kernel = kernel and w == 1 and _use_kernel(cache, impl)
     if use_kernel:
         attn_lengths = (lengths + 1).to(torch.int32)
     else:
@@ -354,6 +358,23 @@ def paged_decode_block(params, cache, next_token, lengths, page_indices,
                                        budget, n_steps=n_steps,
                                        eos=config.eos_token_id)
     return toks, valid, cache, finals
+
+
+def paged_verify_window(params, cache, tokens, lengths, page_indices,
+                        config: BitLlamaConfig, *, impl: str = "auto",
+                        compute_dtype=torch.bfloat16):
+    """W tokens a row at per-row positions, logits at every position: the
+    speculative round's verify step on a paged target (paged.py:537-550).
+    ``tokens [B, W]`` are consumed at ``lengths[b] .. lengths[b] + W - 1``
+    into the rows' pages (positions past a row's table onto the null page
+    0), each query attending its row's pages through the gather, as JAX's
+    window does. Returns ``(logits [B, W, V] fp32, cache)``."""
+    x = _window_core(default_proj(params, config, impl, compute_dtype), cache,
+                     _on(cache, tokens, torch.long),
+                     _on(cache, lengths, torch.long),
+                     _tables(cache, page_indices), config, impl,
+                     compute_dtype, kernel=False)
+    return _lm_head(x, params, compute_dtype), cache
 
 
 def paged_prefill_rows(params, cache, ids, lengths, page_indices,

@@ -10,8 +10,9 @@ strategy (``model/tp_decode.py`` ``tp_proj``):
 
 * dense caches (bf16 ``KVCache``, int8 ``QuantKVCacheKT``, int4
   ``QuantKVCacheKT4``), head-sharded: :meth:`TPServing.step`,
-  :meth:`~TPServing.greedy_step`, :meth:`~TPServing.prefill_rows`
-  (``model/ragged_decode.py``);
+  :meth:`~TPServing.greedy_step`, :meth:`~TPServing.prefill_rows`, and
+  :meth:`~TPServing.chunk_append`, the dense chunked prefill's chunk
+  (bf16 and int8 caches; ``model/ragged_decode.py``);
 * paged pools (bf16 or int8 pages), head-sharded:
   :meth:`~TPServing.paged_step`, :meth:`~TPServing.paged_greedy_step`,
   :meth:`~TPServing.paged_prefill_rows`, and
@@ -39,7 +40,8 @@ import torch
 from onebit_tpu_torch.engine import paged as pg
 from onebit_tpu_torch.engine.sampler import SamplingConfig, sample_token
 from onebit_tpu_torch.model.config import BitLlamaConfig
-from onebit_tpu_torch.model.ragged_decode import (decode_block,
+from onebit_tpu_torch.model.ragged_decode import (chunk_append_hidden,
+                                                  decode_block,
                                                   prefill_rows_hidden,
                                                   ragged_decode_core,
                                                   ragged_decode_hidden)
@@ -100,6 +102,16 @@ class TPServing:
                                    rows, self.config, **self._kw())
         return (_gathered_logits(last, params, self.compute_dtype,
                                  self.group), cache)
+
+    def chunk_append(self, params, cache, ids, start: int, length: int,
+                     row: int):
+        """``chunk_append_row`` (``tp_backend.py:635-660``): ``(logits [V]
+        fp32, cache)`` at the chunk's last valid token."""
+        x = chunk_append_hidden(self._proj(params), cache, ids, start, length,
+                                row, self.config,
+                                compute_dtype=self.compute_dtype)
+        return (_gathered_logits(x, params, self.compute_dtype, self.group),
+                cache)
 
     def _next_token(self, params, x, generator):
         """The block's sampled tokens ``[B]`` from the hidden ``[B, 1, d]``:

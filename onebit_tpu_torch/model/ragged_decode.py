@@ -17,9 +17,18 @@ the card each decode layer writes its row positions, then attends the whole
 pool in kernel B9 over each row's length; on the CPU and with
 ``impl="torch"`` it attends the length-aware window of the reference.
 
-``ragged_decode_hidden`` and ``prefill_rows_hidden`` run the same steps
-through a projection strategy up to the final norm: a tensor-parallel
-rank's, on its shards and head-sharded cache (``engine/tp_backend.py``).
+Several tokens a row at once take the plain masked attention over the
+row's whole cache, as JAX's XLA computes them: ``chunk_append_row`` (the
+chunked prefill's chunk, driven by ``chunked_prefill_row``) and
+``ragged_verify_window`` (speculative decoding's verify step), on the
+dense and the int8 KT cache. Writes at ``max_len`` or past it are dropped,
+as JAX's scatter drops them (a speculative round near a full row), and
+such a position attends every key.
+
+``ragged_decode_hidden``, ``prefill_rows_hidden`` and
+``chunk_append_hidden`` run the same steps through a projection strategy
+up to the final norm: a tensor-parallel rank's, on its shards and
+head-sharded cache (``engine/tp_backend.py``).
 """
 
 from __future__ import annotations
@@ -28,7 +37,7 @@ import numpy as np
 import torch
 
 from onebit_tpu_torch.engine.sampler import sample_token
-from onebit_tpu_torch.kernels.kv_attention import (PLAIN,
+from onebit_tpu_torch.kernels.kv_attention import (PLAIN, _attention_quant,
                                                    kv_attention_append_kt,
                                                    kv_attention_append_kt4,
                                                    kv_attention_decode)
@@ -71,10 +80,13 @@ def _quant_family(cache):
 
 
 def _decode_attention(cache, pos, act, width, cos, sin,
-                      config: BitLlamaConfig, impl: str):
+                      config: BitLlamaConfig, impl: str,
+                      overflow: bool = False):
     """``attend_at(i)``: layer ``i``'s attention for one decode step, with
     what every layer shares computed once. ``width`` bounds the window of
-    the plain branch (None: the whole cache)."""
+    the plain branch (None: the whole cache). ``overflow`` (a dense cache
+    only): some position may be ``max_len`` or past it; its write is
+    dropped and it attends every key."""
     b = pos.shape[0]
     family = _quant_family(cache)
     if family is not None:
@@ -99,10 +111,20 @@ def _decode_attention(cache, pos, act, width, cos, sin,
         return attend_at
 
     rows = torch.arange(b, device=pos.device)
+    max_len = cache.max_len
+    if overflow:
+        # a speculative round's positions may pass the cache: JAX's scatter
+        # drops those writes and its mask then covers every key, so the
+        # write at a clamped slot keeps the slot's old value
+        keep = (pos < max_len)[:, None, None]
+        pos = pos.clamp(max=max_len - 1)
 
     def write(i, k, v):
-        cache.k[i, rows, pos] = k[:, 0].to(cache.k.dtype)
-        cache.v[i, rows, pos] = v[:, 0].to(cache.v.dtype)
+        for pool, new in ((cache.k, k), (cache.v, v)):
+            new = new[:, 0].to(pool.dtype)
+            if overflow:
+                new = torch.where(keep, new, pool[i, rows, pos])
+            pool[i, rows, pos] = new
 
     if cache.k.device.type == "cuda" and impl != "torch":
         # B9 over the whole pool: each row's positions [0, length) only
@@ -118,7 +140,6 @@ def _decode_attention(cache, pos, act, width, cos, sin,
             return attend
         return attend_at
 
-    max_len = cache.max_len
     kj = torch.arange(max_len, device=pos.device)
     mask = ((kj[None, :] <= pos[:, None]) & act[:, None])[:, None, None, :]
     width = max_len if width is None else width
@@ -139,22 +160,23 @@ def _decode_attention(cache, pos, act, width, cos, sin,
 
 def ragged_decode_core(proj: Proj, cache, input_ids, pos, act,
                        config: BitLlamaConfig, *, impl: str = "auto",
-                       compute_dtype=torch.bfloat16, width=None
-                       ) -> torch.Tensor:
+                       compute_dtype=torch.bfloat16, width=None,
+                       overflow: bool = False) -> torch.Tensor:
     """One decode step on device tensors only, up to the final norm:
     ``input_ids [B, 1]``, ``pos [B]`` long and ``act [B]`` bool on the
     cache's device; returns the hidden ``[B, 1, d]``. Nothing is read back
     to the host, so a decode block runs it inside a CUDA graph. ``width``
     (a host int) bounds the plain branch's window; None reads the whole
     cache, which masks the same positions and only regroups the
-    reduction."""
+    reduction. ``overflow``: some row's position may reach ``max_len``
+    (a speculative round's draft near a full row)."""
     x = proj.embed(input_ids)
     cos, sin = rope_cos_sin(pos[:, None], config.head_dim, config.rope_theta,
                             config.rope_scaling,
                             config.max_position_embeddings,
                             seq_len=cache.max_len, dtype=compute_dtype)
     attend_at = _decode_attention(cache, pos, act, width, cos, sin, config,
-                                  impl)
+                                  impl, overflow)
     for i in range(config.num_hidden_layers):
         x = _decoder_layer(x, proj, i, attend_at(i))
     return proj.final(x)
@@ -172,12 +194,17 @@ def ragged_decode_hidden(proj: Proj, cache, input_ids, row_pos, active,
         raise ValueError(f"ragged_decode_step takes one token per row, got {s}")
     device = cache[0].device
     pos_np, act_np = np.asarray(row_pos), np.asarray(active, bool)
+    overflow = bool((pos_np >= cache.max_len).any())
+    if overflow and not isinstance(cache, KVCache):
+        raise ValueError(f"positions past max_len {cache.max_len} are "
+                         "served by the dense cache only (a draft's)")
     pos = torch.as_tensor(pos_np, dtype=torch.long).to(device)
     act = torch.as_tensor(act_np).to(device)
     return ragged_decode_core(
         proj, cache, input_ids, pos, act, config, impl=impl,
         compute_dtype=compute_dtype,
-        width=attention_width(pos_np, act_np, cache.max_len))
+        width=attention_width(pos_np, act_np, cache.max_len),
+        overflow=overflow)
 
 
 def ragged_decode_step(params, cache, input_ids, row_pos, active,
@@ -346,3 +373,170 @@ def prefill_row(params, cache, ids, length, row, config: BitLlamaConfig, *,
                                  as_row(length), as_row(row), config,
                                  impl=impl, compute_dtype=compute_dtype)
     return logits[0], cache
+
+
+# ---- chunked prefill and the verify window (several tokens a row) ----------
+
+def _window_write(cache, i: int, rows, positions, k, v) -> None:
+    """Write the window K/V ``[R, W, nkv, hd]`` of layer ``i`` at
+    ``(rows [R, W], positions [R, W])`` into a dense or int8 KT cache, the
+    values JAX's scatters write (ragged_decode.py:736-756). Index tensors
+    on the cache's device; positions are in range (the caller drops the
+    others)."""
+    if isinstance(cache, KVCache):
+        cache.k[i, rows, positions] = k.to(cache.k.dtype)
+        cache.v[i, rows, positions] = v.to(cache.v.dtype)
+        return
+    nkq, nks = quantize_kv(k)
+    nvq, nvs = quantize_kv(v)
+    # mixed advanced indexing: the indexed dimensions go first, so the
+    # values keep the window's [R, W, ...] shape, as in JAX
+    cache.k_qt[i, rows, :, :, positions] = nkq
+    cache.k_st[i, rows, :, positions] = nks
+    cache.v_q[i, rows, positions] = nvq
+    cache.v_s[i, rows, positions] = nvs
+
+
+def _window_attend(cache, i: int, rows: slice, q, mask,
+                   config: BitLlamaConfig):
+    """The window's queries ``[R, W, nh, hd]`` over the whole of their
+    rows (the slice ``rows``), under ``mask [R, 1, W, T]``: the plain masked
+    attention, on the int8 pools with their scales folded in for a KT
+    cache, as JAX computes it (XLA, not a kernel)."""
+    g = config.num_kv_groups
+    if isinstance(cache, KVCache):
+        return bitllama._attention(q, cache.k[i, rows].to(q.dtype),
+                                   cache.v[i, rows].to(q.dtype), mask,
+                                   num_kv_groups=g)
+    return _attention_quant(q, cache.k_qt[i, rows].permute(0, 3, 1, 2),
+                            cache.k_st[i, rows].transpose(1, 2),
+                            cache.v_q[i, rows], cache.v_s[i, rows], mask,
+                            num_kv_groups=g)
+
+
+def _window_hidden(proj: Proj, cache, tokens, row_pos, rows: slice,
+                   config: BitLlamaConfig, *, compute_dtype, active=None):
+    """``tokens [R, W]`` of the cache rows ``rows`` (a slice) at positions
+    ``row_pos[r] .. row_pos[r] + W - 1`` (host ints), each query attending
+    its row's keys ``j <= position`` (none for a row whose ``active [R]``
+    is False); returns the final-normed hidden ``[R, W, d]``.
+    Writes at ``max_len`` or past it are dropped, as JAX's scatter drops
+    them; the mask then covers every key. A dense or int8 KT cache,
+    written in place."""
+    r, w = tokens.shape
+    device = cache[0].device
+    max_len = cache.max_len
+    pos_np = np.asarray(row_pos, np.int64)[:, None] + np.arange(w)
+    positions = torch.from_numpy(pos_np).to(device)
+    cos, sin = rope_cos_sin(positions, config.head_dim, config.rope_theta,
+                            config.rope_scaling,
+                            config.max_position_embeddings, seq_len=max_len,
+                            dtype=compute_dtype)
+    kj = torch.arange(max_len, device=device)
+    mask = (kj <= positions[:, :, None])[:, None]             # [R, 1, W, T]
+    if active is not None:
+        mask = mask & active[:, None, None, None]
+    rows_np = np.arange(cache[0].shape[1])[rows]
+    keep = pos_np < max_len
+    # the in-range (row, position) pairs, chosen on the host
+    w_rows = torch.from_numpy(np.broadcast_to(rows_np[:, None], pos_np.shape)
+                              [keep]).to(device)
+    w_pos = torch.from_numpy(pos_np[keep]).to(device)
+    w_keep = None if keep.all() else torch.from_numpy(keep).to(device)
+    x = proj.embed(tokens)
+    for i in range(config.num_hidden_layers):
+        def attend(q, k, v, i=i):
+            q, k = apply_rope(q, k, cos, sin)
+            if w_keep is None:
+                _window_write(cache, i, w_rows.view(r, w),
+                              w_pos.view(r, w), k, v)
+            else:
+                _window_write(cache, i, w_rows, w_pos, k[w_keep], v[w_keep])
+            return _window_attend(cache, i, rows, q, mask, config)
+        x = _decoder_layer(x, proj, i, attend)
+    return proj.final(x)
+
+
+def _check_window_cache(cache, what: str) -> None:
+    if not isinstance(cache, (KVCache, QuantKVCacheKT)):
+        raise TypeError(f"{what} takes a KVCache or a QuantKVCacheKT, got "
+                        f"{type(cache).__name__}")
+
+
+def chunk_append_hidden(proj: Proj, cache, ids, start: int, length: int,
+                        row: int, config: BitLlamaConfig, *,
+                        compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """:func:`chunk_append_row` through the projection strategy ``proj``
+    (a tensor-parallel rank's over its head-sharded cache): returns the
+    final-normed hidden ``[d]`` of the chunk's last valid token."""
+    _check_window_cache(cache, "chunk_append_row")
+    ids = torch.as_tensor(np.asarray(ids) if not torch.is_tensor(ids)
+                          else ids).to(cache[0].device, torch.long)
+    row = int(row)
+    x = _window_hidden(proj, cache, ids.reshape(1, -1), [int(start)],
+                       slice(row, row + 1), config,
+                       compute_dtype=compute_dtype)
+    return x[0, int(length) - 1]
+
+
+def chunk_append_row(params, cache, ids, start: int, length: int, row: int,
+                     config: BitLlamaConfig, *, impl: str = "auto",
+                     compute_dtype=torch.bfloat16):
+    """Append a fixed-size chunk of prompt tokens to ONE cache row
+    (ragged_decode.py:514-672): ``ids [C]`` right-padded, written from
+    position ``start`` (a host int), ``length`` of them valid, into slot
+    ``row``. The chunk attends to the row's earlier cache and to itself
+    (causal), over the plain masked attention; a ``QuantKVCacheKT`` takes
+    the chunk's K/V quantized at insertion and attends its int8 pools.
+    Pad positions past ``max_len`` are dropped; JAX's
+    ``dynamic_update_slice`` instead moves the whole chunk back over
+    earlier prompt positions (ROADMAP.md §3). Returns
+    ``(last_valid_logits [V] fp32, cache)``, the cache written in place."""
+    x = chunk_append_hidden(default_proj(params, config, impl, compute_dtype),
+                            cache, ids, start, length, row, config,
+                            compute_dtype=compute_dtype)
+    return _lm_head(x, params, compute_dtype), cache
+
+
+def chunked_prefill_row(params, cache, prompt, row: int,
+                        config: BitLlamaConfig, *, chunk_size: int = 64,
+                        impl: str = "auto", compute_dtype=torch.bfloat16,
+                        step_fn=None):
+    """Prefill one slot in fixed-size chunks, a host loop of
+    :func:`chunk_append_row` (ragged_decode.py:782-817). ``step_fn(params,
+    cache, ids, start, length, row) -> (logits, cache)`` replaces the chunk
+    program (the tensor-parallel engine passes ``TPServing.chunk_append``).
+    Returns ``(logits [V] of the last prompt token, cache)``."""
+    if step_fn is None:
+        def step_fn(params, cache, ids, ci, length, row_):
+            return chunk_append_row(params, cache, ids, ci, length, row_,
+                                    config, impl=impl,
+                                    compute_dtype=compute_dtype)
+    prompt = list(prompt)
+    logits = None
+    for ci in range(0, len(prompt), chunk_size):
+        chunk = prompt[ci:ci + chunk_size]
+        padded = np.zeros(chunk_size, np.int64)
+        padded[:len(chunk)] = chunk
+        logits, cache = step_fn(params, cache, padded, ci, len(chunk), row)
+    return logits, cache
+
+
+def ragged_verify_window(params, cache, tokens, row_pos, active,
+                         config: BitLlamaConfig, *, impl: str = "auto",
+                         compute_dtype=torch.bfloat16):
+    """W tokens a row at per-row positions, logits at every position
+    (ragged_decode.py:673-779): the speculative round's verify step.
+    ``tokens [B, W]`` on the cache's device are consumed at ``row_pos[b]
+    .. row_pos[b] + W - 1`` (``row_pos``, ``active`` host arrays); their
+    K/V go into the cache (quantized at insertion into a
+    ``QuantKVCacheKT``), writes at ``max_len`` or past it dropped. Each
+    query attends its row's keys up to its position through the plain
+    masked attention, as JAX's XLA does; inactive rows are masked whole.
+    Returns ``(logits [B, W, V] fp32, cache)``."""
+    _check_window_cache(cache, "ragged_verify_window")
+    act = torch.as_tensor(np.asarray(active, bool)).to(cache[0].device)
+    x = _window_hidden(default_proj(params, config, impl, compute_dtype),
+                       cache, tokens, row_pos, slice(None), config,
+                       compute_dtype=compute_dtype, active=act)
+    return _lm_head(x, params, compute_dtype), cache

@@ -1,14 +1,18 @@
-"""Run ``chip_smoke.py``'s task-harness, task-registry and SFT phases
-alone on one card.
+"""Run ``chip_smoke.py``'s serving-surface, task-harness, task-registry
+and SFT phases alone on one card.
 
-    python scripts/torch_smoke_phases.py [tasks] [registry] [sft]
+    python scripts/torch_smoke_phases.py [serve_surface] [tasks] [registry]
+        [sft]
 
-Builds the CUDA sources, then runs ``tasks_checks`` and
-``registry_checks`` on the full-depth llama2-7b weights that
-``chip_smoke.py``'s evaluation phase uses
-(``host_random_packed_params(seed=0)``, unfused) and ``sft_checks`` (7B
-width, ``TRAIN_LAYERS`` layers), printing their JSON lines, the card's
-name and power limit, and the wall seconds. All three phases by default.
+Builds the CUDA sources, then runs ``serve_surface_checks`` on the fused
+full-depth llama2-7b weights of ``chip_smoke.py``'s serving runs (with the
+plain served runs it compares against, run here first) and
+``serve_surface_cli`` on the 2-layer checkpoint under
+``build/smoke_ckpt`` (written when missing); ``tasks_checks`` and
+``registry_checks`` on the same weights unfused, as the evaluation phase
+loads them (``host_random_packed_params(seed=0)``); and ``sft_checks``
+(7B width, ``TRAIN_LAYERS`` layers), printing their JSON lines, the card's
+name and power limit, and the wall seconds. All four phases by default.
 Each check raises as in ``chip_smoke.py``: a failure exits nonzero. Needs
 a CUDA device; a few minutes with the build.
 """
@@ -31,18 +35,24 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
-    from onebit_tpu_torch import BitLlamaConfig, host_random_packed_params
+    from onebit_tpu_torch import (BitLlamaConfig, fuse_for_decode,
+                                  host_random_packed_params)
     from onebit_tpu_torch.kernels import build
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phases = argv or ["tasks", "registry", "sft"]
+    phases = argv or ["serve_surface", "tasks", "registry", "sft"]
     dev = torch.device("cuda", 0)
     t = time.perf_counter()
     build.build()
     cs.emit({"phase": "build", "seconds": time.perf_counter() - t})
-    if "tasks" in phases or "registry" in phases:
+    if {"serve_surface", "tasks", "registry"} & set(phases):
         config = BitLlamaConfig.named("llama2-7b")
         unfused = host_random_packed_params(config, seed=0, device=dev)
+        if "serve_surface" in phases:
+            cs.serve_surface_checks(fuse_for_decode(unfused, config), config,
+                                    dev)
+            torch.cuda.empty_cache()
+            cs.serve_surface_cli(dev)
         if "tasks" in phases:
             cs.tasks_checks(unfused, config, dev)
         if "registry" in phases:

@@ -492,8 +492,8 @@ def test_serve_stdin_ids(tiny, tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("flags,says", [
     (["--tokenizer", "tok"], None),
-    (["--draft", "d"], "not ported yet"), (["--tp", "2"], "item 4"),
-    (["--prefill-chunk", "16"], "item 5"),
+    (["--draft", "d"], None), (["--tp", "2"], "item 4"),
+    (["--prefill-chunk", "16"], None),
     (["--paged", "--kv-quant", "fp8"], "item 5"),
     (["--dry-compile"], "not ported yet"),
     (["--prefix-cache"], "--prefix-cache requires --paged"),
@@ -503,11 +503,13 @@ def test_serve_stdin_ids(tiny, tmp_path, monkeypatch, capsys):
          "dry_compile", "prefix_cache", "fp8_dense", "int4_paged"])
 def test_serve_refusals(flags, says):
     """``serve`` exits nonzero before it loads anything: the JAX command's
-    exclusions in its wording, and what waits, named. ``--tokenizer`` is
-    ported: it gets as far as the checkpoint, which it loads first, as the
-    JAX command does."""
+    exclusions in its wording, and what waits, named. ``--tokenizer``,
+    ``--draft`` and ``--prefill-chunk`` without ``--paged`` are ported
+    (``says`` None): they get as far as the checkpoint, which is loaded
+    first, as the JAX command does (tests/test_torch_draft.py serves
+    through both)."""
     from onebit_tpu_torch import cli
-    if flags[0] == "--tokenizer":
+    if says is None:
         with pytest.raises(FileNotFoundError, match="/nonexistent"):
             cli.main(["serve", "--ckpt", "/nonexistent", *flags, "--device",
                       "cpu"])

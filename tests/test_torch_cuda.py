@@ -275,9 +275,9 @@ def test_b4_matches_plain_at_tp_shards(dev, k, n, m):
     assert (top >= 8 * tol).all()
 
 
-def _tp_engine_rank(group, seed):
-    """A rank of a 2-rank tensor-parallel engine on the card (fp32, tiny):
-    its greedy tokens and launch counts."""
+def _tp_engine_rank(group, seed, opts=None):
+    """A rank of a 2-rank tensor-parallel engine on the card (fp32, tiny,
+    engine options ``opts``): its greedy tokens and launch counts."""
     import numpy as np
 
     from onebit_tpu_torch import (BitLlamaConfig, ContinuousBatchingEngine,
@@ -288,7 +288,7 @@ def _tp_engine_rank(group, seed):
                                        device=group.device)
     eng = ContinuousBatchingEngine(params, config, max_batch=4, max_len=256,
                                    compute_dtype=torch.float32,
-                                   tp_group=group)
+                                   tp_group=group, **(opts or {}))
     rng = np.random.default_rng(0)
     infos = bc.KERNELS + kc.KERNELS
     for i in infos:
@@ -1737,3 +1737,172 @@ def test_run_sft_step_on_the_card(dev, tmp_path):
     assert torch.isfinite(torch.tensor(got["loss"]))
     for key in ("loss", "grad_norm"):
         assert abs(got[key] - want[key]) <= 1e-3 * abs(want[key]), key
+
+
+# ---------------------------------------------------------------------------
+# The serving surface: chunked prefill, verify windows, speculative
+# decoding, beam search
+# ---------------------------------------------------------------------------
+
+def _surface_model(dev):
+    from onebit_tpu_torch import (BitLlamaConfig, fuse_for_decode,
+                                  host_random_packed_params)
+    config = BitLlamaConfig.named("tiny", num_key_value_heads=4,
+                                  max_position_embeddings=512)
+    return config, fuse_for_decode(host_random_packed_params(
+        config, seed=1, dtype=torch.float32, device=dev), config)
+
+
+@pytest.mark.parametrize("kind", ["dense", "int8", "paged"])
+def test_windows_on_the_card_match_plain(dev, kind):
+    """A 64-token chunk (K1/K2) and a 200-token one (K3) through
+    chunk_append_row, then a 5-token verify window of 4 rows (K1/K2), one
+    of them past max_len: logits of the kernel path within 1e-3 of
+    impl="torch" in fp32, each on its own copy of the cache."""
+    import numpy as np
+
+    from onebit_tpu_torch import init_paged_kv_cache
+    from onebit_tpu_torch.engine.paged import paged_verify_window
+    from onebit_tpu_torch.model.bitllama import init_kv_cache
+    from onebit_tpu_torch.model.kv_cache import init_quant_kv_cache_kt
+    from onebit_tpu_torch.model.ragged_decode import (chunk_append_row,
+                                                      ragged_verify_window)
+    config, params = _surface_model(dev)
+    rng = np.random.default_rng(2)
+    kw = dict(compute_dtype=torch.float32)
+    tokens = torch.from_numpy(rng.integers(3, 500, (4, 5))).to(dev)
+    row_pos = np.array([300, 254, 10, 0])
+    active = np.array([True, True, True, False])
+    if kind == "paged":
+        cache = init_paged_kv_cache(config, 65, 16, dtype=torch.float32,
+                                    device=dev)
+        tables = np.arange(1, 65, dtype=np.int32).reshape(4, 16)
+        lengths = np.array([200, 254, 10, 0])
+
+        def window(c, impl):
+            return paged_verify_window(params, c, tokens, lengths, tables,
+                                       config, impl=impl, **kw)[0]
+        calls = [window]
+    else:
+        init = init_quant_kv_cache_kt if kind == "int8" else init_kv_cache
+        cache = init(config, 4, 256, device=dev) if kind == "int8" else \
+            init(config, 4, 256, dtype=torch.float32, device=dev)
+        cache = type(cache)(*(torch.randn_like(x.float()).to(x.dtype)
+                              if x.dtype != torch.int8 else x for x in cache))
+        row_pos = np.minimum(row_pos, 254)
+
+        def chunk(n):
+            ids = rng.integers(3, 500, 256)
+
+            def run(c, impl):
+                return chunk_append_row(params, c, ids[:n], 0, n, 1, config,
+                                        impl=impl, **kw)[0]
+            return run
+
+        def window(c, impl):
+            return ragged_verify_window(params, c, tokens, row_pos, active,
+                                        config, impl=impl, **kw)[0]
+        calls = [chunk(64), chunk(200), window]
+    for call in calls:
+        before = [i.launches for i in bc.KERNELS]
+        out = {impl: call(type(cache)(*(x.clone() for x in cache)), impl)
+               for impl in ("auto", "torch")}
+        torch.cuda.synchronize()
+        assert torch.isfinite(out["auto"]).all()
+        assert (out["auto"] - out["torch"]).abs().max().item() < 1e-3
+        assert sum(i.launches - b for i, b in zip(bc.KERNELS, before)) > 0
+
+
+@pytest.mark.parametrize("opts", [{}, dict(quantized_kv=True),
+                                  dict(paged=True, page_size=16),
+                                  dict(prefill_chunk_size=64)],
+                         ids=["dense", "int8", "paged", "dense_chunked"])
+def test_spec_engine_on_the_card_matches_plain(dev, opts):
+    """A greedy engine with a 2-layer draft (the target itself, so every
+    proposal is accepted) gives the plain engine's tokens on the card in
+    fp32, one request filling max_len exactly; each round launches K1 and
+    K2 2 x 5 x 2 + 2 x 2 times and B9 (fp32) 5 x 2 times."""
+    import numpy as np
+
+    from onebit_tpu_torch import ContinuousBatchingEngine
+    config, params = _surface_model(dev)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(3, 500, n).tolist() for n in (200, 7, 31, 3)]
+    news = [56, 9, 12, 20]
+    kw = dict(max_batch=4, max_len=256, compute_dtype=torch.float32,
+              device=dev, **opts)
+
+    def run(eng):
+        uids = [eng.add_request(p, max_new_tokens=n)
+                for p, n in zip(prompts, news)]
+        eng._admit()
+        torch.cuda.synchronize()
+        before = {i.name: i.launches for i in bc.KERNELS + kc.KERNELS}
+        out = eng.run()
+        torch.cuda.synchronize()
+        return [out[u] for u in uids], {
+            i.name: i.launches - before[i.name] for i in bc.KERNELS
+            + kc.KERNELS}
+    want, _ = run(ContinuousBatchingEngine(params, config, **kw))
+    eng = ContinuousBatchingEngine(params, config, draft_params=params,
+                                   draft_config=config, n_draft=4, **kw)
+    got, launched = run(eng)
+    assert got == want and len(got[0]) == 56
+    rounds = eng.spec_rounds
+    assert launched[bc.SMALL_M.name] == launched[bc.FUSED_SMALL_M.name] == \
+        rounds * (2 * 5 * 2 + 2 * 2)
+    assert launched[kc.DECODE_F32.name] == rounds * 5 * 2
+    assert rounds < sum(news) // 4
+
+
+def test_beam_on_the_card_matches_plain(dev):
+    """beam_generate through K1/K2 and B9 (fp32) against impl="torch":
+    every hypothesis's tokens equal, scores within 1e-4; B9 once a layer
+    a step."""
+    from onebit_tpu_torch import beam_generate
+    config, params = _surface_model(dev)
+    prompts = [[5, 9, 3, 17], [7, 2, 11, 4, 6, 8]]
+    kw = dict(num_beams=4, max_new_tokens=8, num_return_sequences=4,
+              compute_dtype=torch.float32)
+    kc.DECODE_F32.launches = 0
+    got = beam_generate(params, config, prompts, **kw)
+    assert kc.DECODE_F32.launches == 2 * 7
+    want = beam_generate(params, config, prompts, impl="torch", **kw)
+    for g, w in zip(got, want):
+        assert [s for s, _ in g] == [s for s, _ in w]
+        assert max(abs(a - b) for (_, a), (_, b) in zip(g, w)) < 1e-4
+
+
+def test_tp_chunked_engine_on_the_card_matches_single_device(dev):
+    """Two gloo ranks sharing the card with prefill_chunk_size=64: both
+    emit the single-device chunked engine's greedy tokens; the chunks and
+    the decode steps run B4 (raw small-M: every chunk is 64 rows), never
+    K1-K3."""
+    import numpy as np
+
+    from onebit_tpu_torch import (BitLlamaConfig, ContinuousBatchingEngine,
+                                  host_random_packed_params)
+    from onebit_tpu_torch.parallel.mesh import spawn_tp
+    config = BitLlamaConfig.named("tiny", max_position_embeddings=512)
+    params = host_random_packed_params(config, seed=1, dtype=torch.float32,
+                                       device=dev)
+    opts = dict(prefill_chunk_size=64)
+    eng = ContinuousBatchingEngine(params, config, max_batch=4, max_len=256,
+                                   compute_dtype=torch.float32, device=dev,
+                                   **opts)
+    rng = np.random.default_rng(0)
+    uids = [eng.add_request(rng.integers(3, 500, n).tolist(),
+                            max_new_tokens=8) for n in (150, 140, 7, 3)]
+    out = eng.run()
+    want = [out[u] for u in uids]
+    ranks = spawn_tp(_tp_engine_rank, 2, backend="gloo", device="cuda",
+                     timeout=300, args=(1, opts))
+    for tokens, launches in ranks:
+        assert tokens == want
+        # 3 + 3 + 1 + 1 chunks and 7 decode steps, 7 projections a layer
+        assert launches[bc.RAW_SMALL_M.name] == 7 * 2 * (8 + 7)
+        assert launches[bc.RAW_LARGE_M.name] == 0
+        assert launches[kc.DECODE_F32.name] == 2 * 7
+        assert not any(launches[i.name] for i in (
+            bc.SMALL_M, bc.FUSED_SMALL_M, bc.LARGE_M, bc.LARGE_M_F32))
+

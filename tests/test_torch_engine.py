@@ -87,17 +87,25 @@ def test_bucket_and_streaming_callbacks():
 
 
 @pytest.mark.parametrize("kwargs,waits_for", [
-    (dict(paged=True, quantized_kv="fp8"), "item 5"),
-    (dict(draft_params={}), "item 5"),
-    (dict(tp_group=TPGroup(None, 0, 2, torch.device("cpu")),
-          prefill_chunk_size=64), "item 5"),
-    (dict(prefill_chunk_size=64), "item 5"), (dict(block_steps=4), None),
-    (dict(block_steps=4, pipeline_blocks=True), None),
-    (dict(paged=True, prefix_cache=True, draft_params={}), "item 5")])
+    pytest.param(dict(paged=True, quantized_kv="fp8"), "item 5",
+                 id="kwargs0-item 5"),
+    pytest.param(dict(draft_params="self"), None, id="kwargs1-item 5"),
+    pytest.param(dict(tp_group=TPGroup(None, 0, 2, torch.device("cpu")),
+                      prefill_chunk_size=64), None, id="kwargs2-item 5"),
+    pytest.param(dict(prefill_chunk_size=64), None, id="kwargs3-item 5"),
+    pytest.param(dict(block_steps=4), None, id="kwargs4-None"),
+    pytest.param(dict(block_steps=4, pipeline_blocks=True), None,
+                 id="kwargs5-None"),
+    pytest.param(dict(paged=True, prefix_cache=True, draft_params="self"),
+                 None, id="kwargs6-item 5")])
 def test_unported_options_raise(kwargs, waits_for):
-    """Options not ported yet raise NotImplementedError naming the ROADMAP
-    item they wait for; decode blocks (``waits_for`` None) are ported:
-    the engine builds and serves a request."""
+    """Options not ported yet (fp8 pages) raise NotImplementedError naming
+    the ROADMAP item they wait for. The others (``waits_for`` None) are
+    ported: decode blocks, dense chunked prefill and a draft (the target
+    itself, ``draft_params="self"``) build and serve a request; a
+    tensor-parallel rank's engine with chunked prefill builds
+    (tests/test_torch_tp.py serves through it over two ranks). The ids
+    are those of the cases when they all waited."""
     c = BitLlamaConfig.named("tiny")
     if waits_for is not None:
         with pytest.raises(NotImplementedError, match=waits_for):
@@ -105,12 +113,22 @@ def test_unported_options_raise(kwargs, waits_for):
         return
     params = host_random_packed_params(c, seed=0, dtype=torch.float32,
                                        device="cpu")
+    if kwargs.get("draft_params") == "self":
+        kwargs = dict(kwargs, draft_params=params, draft_config=c)
     eng = ContinuousBatchingEngine(params, c, max_batch=2, max_len=64,
                                    compute_dtype=torch.float32, device="cpu",
                                    **kwargs)
-    uid = eng.add_request([5, 6, 7], max_new_tokens=6)
-    assert len(eng.run()[uid]) == 6 and eng.block_steps == 4
+    assert eng.block_steps == kwargs.get("block_steps", 1)
+    assert eng.prefill_chunk_size == kwargs.get("prefill_chunk_size")
     assert eng.pipeline_blocks == kwargs.get("pipeline_blocks", False)
+    if "tp_group" in kwargs:
+        assert eng._tp is not None
+        return
+    uid = eng.add_request([5, 6, 7], max_new_tokens=6)
+    assert len(eng.run()[uid]) == 6
+    # the first token comes from the prefill; a draft that is the target
+    # has every proposal accepted, so one round of 4 gives the other 5
+    assert eng.spec_rounds == (1 if "draft_params" in kwargs else 0)
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

@@ -34,6 +34,7 @@ from onebit_tpu_torch import (export_reference_int8, forward,
 from onebit_tpu_torch.ckpt.hf_reader import (detect_ckpt_kind,
                                              load_hf_state_dict)
 from onebit_tpu_torch.cli import main as port_main
+from onebit_tpu_torch.engine.beam import beam_generate
 from onebit_tpu_torch.kernels.bitlinear import BitLinearWeights
 from onebit_tpu_torch.kernels.linear import LinearWeights
 from onebit_tpu_torch.model.config import BitLlamaConfig
@@ -247,9 +248,13 @@ def test_cli_check_engines(packed, tmp_path, capsys):
     out = _port_cli(capsys, "eval", "--ckpt", ref, "--check-engines",
                     "dense,pipelined")
     assert "engine check [pipelined]: OK" in out
-    with pytest.raises(SystemExit, match="engine/beam.py"):
-        _port_cli(capsys, "generate", "--ckpt", ref, "--prompt", "1,2",
-                  "--num-beams", "2")
+    # beam search is ported: --num-beams prints beam_generate's best beam
+    got = _port_cli(capsys, "generate", "--ckpt", ref, "--prompt", "1,2",
+                    "--num-beams", "2", "--max-new-tokens", "4")
+    loaded = load_reference_checkpoint(ref, device="cpu")
+    want = beam_generate(loaded["params"], loaded["config"], [[1, 2]],
+                         num_beams=2, max_new_tokens=4)[0][0][0]
+    assert got.strip().splitlines()[-1] == ",".join(map(str, want))
 
 
 def test_cli_sharded_checkpoint_exits_nonzero(tmp_path, capsys):

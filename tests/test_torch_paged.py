@@ -317,14 +317,16 @@ def test_host_page_tables_are_checked(models):
     (dict(paged=True, quantized_kv="fp8"), NotImplementedError),
     (dict(paged=True, block_steps=4), None),
     (dict(paged=True, block_steps=4, pipeline_blocks=True), None),
-    (dict(paged=True, draft_params={}), NotImplementedError),
+    (dict(paged=True, draft_params={}), ValueError),
     (dict(paged=True, block_steps=2,
           tp_group=TPGroup(None, 0, 2, torch.device("cpu"))), None)],
     ids=["int4", "fp8", "block_steps", "pipeline_blocks", "draft",
          "tp_group_block_steps"])
 def test_paged_exclusions(kwargs, error):
-    """Paged int4 raises the JAX engine's ValueError in its wording; fp8
-    pages and the options not ported yet raise NotImplementedError. Paged
+    """Paged int4, and a draft without its config, raise the JAX engine's
+    ValueError in its wording; fp8 pages, not ported yet, raise
+    NotImplementedError (tests/test_torch_speculative.py serves paged
+    targets with a draft). Paged
     decode blocks (``error`` None) are ported: the engine builds and, on
     one device, serves a request; a tensor-parallel rank's engine builds
     its eager blocks (tests/test_torch_blocks.py runs them over two

@@ -46,6 +46,12 @@ ENGINES = {
     "paged_int8_prefix": dict(paged=True, page_size=4, quantized_kv=True,
                               prefix_cache=True),
 }
+# dense chunked prefill through TPServing.chunk_append, held to the
+# single-device chunked engine (chunks of 4: the prompts take one or two)
+CHUNKED = {
+    "dense_chunked": dict(prefill_chunk_size=4),
+    "int8_kt_chunked": dict(quantized_kv=True, prefill_chunk_size=4),
+}
 DECODE_B, DECODE_S, DECODE_T = 2, 6, 16
 CPU = torch.device("cpu")
 
@@ -146,7 +152,7 @@ def _rank_main(group, tree, bitlinear_case, decode_ids, tie_tree):
            "decode": _rank_decode(group, ttd.shard_tp_params(params, group),
                                   config, decode_ids, tie_params),
            "engine": {}}
-    for name, opts in ENGINES.items():
+    for name, opts in {**ENGINES, **CHUNKED}.items():
         eng = _engine(params, config, tp_group=group, **opts)
         out["engine"][name] = _run_engine(eng, _prompts(name))
         if eng.paged:
@@ -488,7 +494,8 @@ def _single_device_run(params, config, name, monkeypatch):
     row of each sample is emitted in the order of the sample's rows at
     admission, and at the slot's row in a decode step)."""
     from onebit_tpu_torch.engine import batching
-    eng = _engine(params, config, device="cpu", **ENGINES[name])
+    eng = _engine(params, config, device="cpu",
+                  **{**ENGINES, **CHUNKED}[name])
     gaps, state = {}, {"decoding": False, "gaps": None, "next": 0}
     sample, emit, decode = batching.sample_token, eng._emit, eng._decode
 
@@ -549,6 +556,21 @@ def test_tp_engine_matches_jax_and_single_device(ranks, jax_engines,
         assert hits[0] == hits[1] == jax_engines[name + "_hits"] > 0
 
 
+@pytest.mark.parametrize("name", sorted(CHUNKED))
+def test_tp_chunked_engine_matches_single_device(ranks, jax_tiny, name,
+                                                 monkeypatch):
+    """Dense chunked prefill under TP (``TPServing.chunk_append``, bf16
+    and int8 KT caches): both ranks' greedy tokens equal the port's
+    single-device chunked engine's, off near-ties as above."""
+    c = BitLlamaConfig.named("tiny")
+    params = params_from_jax(jax_tiny[2], c, device=CPU)
+    single, gaps = _single_device_run(params, c, name, monkeypatch)
+    tie = 2 * (1e-2 if CHUNKED[name].get("quantized_kv") else 2e-4)
+    got = ranks[0]["engine"][name]
+    assert got == ranks[1]["engine"][name]
+    _equal_off_near_ties(got, single, gaps, tie)
+
+
 def test_tp_engine_sampled_ranks_agree(ranks):
     got = [r["sampled"] for r in ranks]
     assert got[0] == got[1]
@@ -590,20 +612,24 @@ def test_fused_params_refused_under_tp(jax_tiny):
     ids=["block_steps", "dense_chunked_prefill", "paged_block_steps",
          "speculative", "pipeline_blocks", "fp8_pages"])
 def test_unported_options_raise_under_tp(jax_tiny, kwargs):
-    """Options not ported yet raise NotImplementedError naming ROADMAP §1
-    item 5. Decode blocks are ported: a rank's engine builds with its
+    """Options not ported yet (the speculative round under TP, fp8 pages)
+    raise NotImplementedError naming ROADMAP §1 item 5. Decode blocks and
+    dense chunked prefill are ported: a rank's engine builds, with its
     eager blocks (tests/test_torch_blocks.py serves through them over two
-    ranks)."""
+    ranks) or its chunk program (``test_tp_engines_match_single_device``
+    serves through it)."""
     c = BitLlamaConfig.named("tiny")
     group = TPGroup(None, 0, 2, CPU)
-    if "block_steps" not in kwargs:
+    if not {"block_steps", "prefill_chunk_size"} & set(kwargs):
         with pytest.raises(NotImplementedError, match="item 5"):
             ContinuousBatchingEngine({}, c, tp_group=group, **kwargs)
         return
     eng = ContinuousBatchingEngine(params_from_jax(jax_tiny[2], c,
                                                    device=CPU), c,
                                    tp_group=group, **kwargs)
-    assert eng._tp.block_steps == eng.block_steps == kwargs["block_steps"]
+    assert eng._tp.block_steps == eng.block_steps == kwargs.get(
+        "block_steps", 1)
+    assert eng.prefill_chunk_size == kwargs.get("prefill_chunk_size")
     assert eng._graph is None and eng.pipeline_blocks == kwargs.get(
         "pipeline_blocks", False)
 
