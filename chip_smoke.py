@@ -27,8 +27,10 @@ toolkit and PyTorch. It imports nothing of JAX. Phases, one JSON line each:
    bound, its plain version and one ``scaled_dot_product_attention`` on
    K/V dequantized beforehand, with ``ptxas`` registers and spills and
    shared bytes a CTA; then B10
-   (paged attention) on a full-size llama2-7b page pool, bf16 and int8
-   pages, the same way, and the same bits from a second call; then B11
+   (paged attention) on a full-size llama2-7b page pool, bf16, int8 and
+   fp8 e4m3 pages, the same way, and the same bits from a second call (fp8
+   with a planted fault, kv head 0's context zeroed, that must fail); then
+   B11
    (causal flash attention) at the llama2-7b eval shape [4, 2048, 32, 128]
    and a GQA case (nkv 8) in fp32 and bf16, beside
    ``scaled_dot_product_attention(is_causal=True)``; B10 and B11 fp32 with
@@ -39,9 +41,11 @@ toolkit and PyTorch. It imports nothing of JAX. Phases, one JSON line each:
    with its bound share, ``ptxas`` registers and spills, and shared bytes a
    CTA; then B9 (decode
    attention over the flat pools) at layer 31 of full llama2-7b pools
-   [32, 8, 2048, 32, 128], int8 with scales, bf16 (and a GQA case, nkv 8)
-   and fp32, rows of 1-2048 positions with starts and one empty row, beside
-   ``scaled_dot_product_attention`` with a boolean mask; last, each
+   [32, 8, 2048, 32, 128], int8 with scales, bf16 (and a GQA case, nkv 8),
+   fp32 and fp8 e4m3 (bf16 q; with the planted fault of B10 fp8), rows of
+   1-2048 positions with starts and one empty row, beside
+   ``scaled_dot_product_attention`` with a boolean mask (on K/V made in
+   bf16 before the timed window); last, each
    kernel's share of its bound (bound_ms / ms; K3's fp32 instance bounded
    by three bf16 tensor-core passes, B11's by twelve bf16 products and
    B11-dkv's and B11-dq's by six bf16 products an fp32 product, the
@@ -54,9 +58,10 @@ toolkit and PyTorch. It imports nothing of JAX. Phases, one JSON line each:
      (prefill through K3) and four under 32;
    * ``quantized_kv=True`` (int8 pools) and ``quantized_kv="int4"`` at
      ``max_len=2048``, prompts of 700-1900 tokens (buckets 1024 and 2048).
-   * ``paged=True`` (page_size 16, max_len 2048) with bf16 pages and with
-     int8 pages (``quantized_kv=True``), the same deep prompts: decode
-     attention through the page tables in B10;
+   * ``paged=True`` (page_size 16, max_len 2048) with bf16 pages, with
+     int8 pages (``quantized_kv=True``) and with fp8 e4m3 pages
+     (``quantized_kv="fp8"``), the same deep prompts: decode attention
+     through the page tables in B10;
    * ``paged=True, prefix_cache=True``: eight prompts of one shared
      1024-token prefix and distinct suffixes of 100-450 tokens.
    Each but the prefix run first holds the first decode step's logits on
@@ -104,12 +109,16 @@ toolkit and PyTorch. It imports nothing of JAX. Phases, one JSON line each:
    first decode step's logits at full depth against the single-device
    engine's and ``impl="torch"``, with a planted fault (rank 1's share of
    layer 0's o_proj all-reduce dropped) that must break their limit; then
-   served runs on the first 16 of the 32 layers (to keep the script near
-   10 minutes: dense at ``max_len=256``, the same in eager
-   decode blocks of 8, whose tokens must be the dense run's, int8 KV
-   pools, paged int8 pages with the prefix cache) in which both ranks emit
-   the same tokens, B4 launches exactly 7 x 16 times per forward pass, B9,
-   B5 or B10 exactly 16 times per decode step and K1-K3 never;
+   served runs on the first 8 of the 32 layers (``TP_RUN_LAYERS``, to
+   keep the script under 11 minutes: dense at ``max_len=256``, the same in
+   eager decode blocks of 8, whose tokens must be the dense run's, int8 KV
+   pools, paged int8 pages with the prefix cache, paged fp8 pages (16 new
+   tokens)) in which both ranks emit the same tokens, B4 launches exactly
+   7 x 8 times per forward pass, B9, B5 or B10 exactly 8 times per decode
+   step and K1-K3 never; then the greedy speculative round under TP (16
+   new tokens) on the dense and int8 targets with the 2-layer spread draft
+   whole on each rank: the ranks' tokens equal, each round exactly B4
+   7 x 8, K1 and K2 20 and B9 10, nothing else;
 5. evaluation at full llama2-7b width and depth on the same weights,
    unfused (:func:`eval_checks`): perplexity of 8 windows of 2048 at batch
    4 in fp32, direct and vocab-chunked, against ``impl="torch"`` per window
@@ -124,8 +133,9 @@ toolkit and PyTorch. It imports nothing of JAX. Phases, one JSON line each:
    ``eval --check-engines all`` (``engine_check.ok`` 1), ``serve
    --block-steps 8 --pipeline-blocks`` on stdin lines of ids and ``serve
    --http 0`` (one POST /generate, one GET /metrics), each with the tokens
-   of an engine in this process; and ``build-draft``, ``serve --draft``
-   and ``generate --num-beams`` (:func:`serve_surface_cli`);
+   of an engine in this process; and ``build-draft``, ``serve --draft``,
+   ``generate --num-beams``, then ``serve --tp 2 --tp-backend gloo`` with
+   the draft on stdin and with ``--http 0`` (:func:`serve_surface_cli`);
 6. KD training at llama2-7b width, depth cut to 4 layers
    (:func:`train_checks`): a random plain teacher and its SVID start
    student; the first KD step's loss and gradients on the kernel path
@@ -174,9 +184,9 @@ Then the wall time, the ``kernels`` line (each kernel's launches from the
 run of its own path, and ``graph_launches``, those that the graph replays
 of its path's block run made; B6 and B8 are on none; B4's from rank 0 of
 the dense tensor-parallel run; B9's from the bf16 and fp32
-``generate`` runs and the flat int8 run; B10's from the paged bf16 and
-int8 runs; K3's fp32 instance's and B11's from the fp32 perplexity run,
-B11 bf16's from the bf16 forward, B11-dkv's and B11-dq's fp32 instances'
+``generate`` runs and the flat int8 run, B9 fp8's none (on no path);
+B10's from the paged bf16, int8 and fp8 runs; K3's fp32 instance's and
+B11's from the fp32 perplexity run, B11 bf16's from the bf16 forward, B11-dkv's and B11-dq's fp32 instances'
 from the fp32 gradient check of phase 6 and their bf16 instances' from
 its three KD steps), the
 card's name and power
@@ -687,16 +697,18 @@ PAGED_TOL = {False: 1 / 32, True: 1 / 128}      # by quant
 
 def _paged_bound(lengths, nkv, g, hd, ps, quant) -> tuple:
     """Least time for one call: each row's K and V of its positions below
-    its length (int8: with their scales), the page-table entries of its
-    pages under the length and its length read once, q read, the float32
-    output written; or its products (4 per K/V element per query head) at
-    the bf16 peak."""
+    its length (int8, ``quant`` True: with their scales; int8 and fp8 one
+    byte an element, bf16 two), the page-table entries of its pages under
+    the length and its length read once, q read, the float32 output
+    written; or its products (4 per K/V element per query head) at the
+    bf16 peak."""
     b = len(lengths)
     elem = 1 if quant else 2
+    scales = 4 if quant is True else 0
     bytes_ = b * nkv * g * hd * (2 + 4) + 4 * b
     flops = 0
     for n in lengths:
-        bytes_ += 2 * nkv * n * (hd * elem + (4 if quant else 0))
+        bytes_ += 2 * nkv * n * (hd * elem + scales)
         bytes_ += 4 * -(-n // ps)
         flops += 4 * nkv * g * hd * n
     t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
@@ -706,13 +718,17 @@ def _paged_bound(lengths, nkv, g, hd, ps, quant) -> tuple:
 
 def paged_kernel_checks(dev) -> dict:
     """B10 at layer 31 of the full pool, each row's table a random
-    permutation of pages 1-1024, rows of KV_LENGTHS: the pool untouched,
-    the context within PAGED_TOL of the plain version on the live
-    rows (each with a largest |ctx| of at least 8 times it), zeros on the
-    length-0 row, the same bits from a second call; its row with its
-    bound share, ``ptxas`` registers and spills and shared bytes a CTA.
-    Timed cycling over the 32 layers, so that each launch finds its
-    layer's pages out of the L2 cache, as the decode step does."""
+    permutation of pages 1-1024, rows of KV_LENGTHS, bf16, int8 and fp8
+    e4m3 pages: the pool untouched, the context within PAGED_TOL of the
+    plain version on the live rows (each with a largest |ctx| of at least
+    8 times it), zeros on the length-0 row, the same bits from a second
+    call; for fp8 pages a planted fault (kv head 0's context zeroed) that
+    must break the tolerance; its row with its bound share, ``ptxas``
+    registers and spills and shared bytes a CTA. Timed cycling over the 32
+    layers, so that each launch finds its layer's pages out of the L2
+    cache, as the decode step does. The yardstick is SDPA over the layer's
+    pages gathered and cast to bf16 before the timed window (int8:
+    dequantized there)."""
     import itertools
     import torch.nn.functional as F
     from onebit_tpu_torch.kernels import paged_attention as pa
@@ -732,8 +748,9 @@ def paged_kernel_checks(dev) -> dict:
     mask = (torch.arange(t, device=dev)[None, :] < lengths[:, None]
             )[:, None, None, :]
     results = {}
-    for quant, info in ((False, pc.PAGED), (True, pc.PAGED_INT8)):
-        if quant:
+    for quant, info in ((False, pc.PAGED), (True, pc.PAGED_INT8),
+                        ("fp8", pc.PAGED_FP8)):
+        if quant is True:
             def ints():
                 return torch.randint(-127, 128, PAGED_SHAPE, generator=gen,
                                      device=dev, dtype=torch.int8)
@@ -744,18 +761,28 @@ def paged_kernel_checks(dev) -> dict:
                                      ).float() / 127.5
             pool = [ints(), scales(), ints(), scales()]
         else:
+            page = torch.float8_e4m3fn if quant else torch.bfloat16
             pool = [torch.empty(PAGED_SHAPE, dtype=torch.bfloat16,
-                                device=dev).normal_(generator=gen)
+                                device=dev).normal_(generator=gen).to(page)
                     for _ in range(2)]
-        kw = dict(lengths=lengths, page_indices=tables, quant=quant)
+        kw = dict(lengths=lengths, page_indices=tables, quant=quant is True)
         before = [x.clone() for x in pool]
         want = pa.paged_attention_flat_torch(q, *pool, layer=KV_LAYER, **kw)
         got = pa.paged_attention_flat(q, *pool, layer=KV_LAYER, **kw)
         same_bits = torch.equal(got, pa.paged_attention_flat(
             q, *pool, layer=KV_LAYER, **kw))
         torch.cuda.synchronize()
-        untouched = all(torch.equal(x, y) for x, y in zip(pool, before))
+        untouched = all(_same_bits(x, y) for x, y in zip(pool, before))
         del before
+        fault = None
+        if quant == "fp8":
+            remove = _head_fault(pc, "launch", KV_LAYER, 4,
+                                 lambda a: a[1][0].shape[2])
+            try:
+                bad = pa.paged_attention_flat(q, *pool, layer=KV_LAYER, **kw)
+            finally:
+                remove()
+            fault = (bad[live] - want[live]).abs().max().item()
         finite = bool(torch.isfinite(got).all())
         zero_row = bool((got[~live] == 0).all())
         err = (got[live] - want[live]).abs().max().item()
@@ -768,7 +795,7 @@ def paged_kernel_checks(dev) -> dict:
         # the yardstick's input: layer 31's pages gathered and dequantized
         # to bf16 beforehand, [B, nkv, T, hd]
         kv = [pa._gather_seq_kv(x[KV_LAYER], tables) for x in pool]
-        if quant:
+        if quant is True:
             kv = [(kv[0].float() * (kv[1] / 127.5)),
                   (kv[2].float() * (kv[3] / 127.5))]
         k_deq, v_deq = (x.to(torch.bfloat16).transpose(1, 2).contiguous()
@@ -782,16 +809,20 @@ def paged_kernel_checks(dev) -> dict:
         results[info.name] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by, library_ms=lib_ms)
-        # the bf16-q instance's mangled name: its page type (int8 'a', or
-        # bf16 by substitution '..._'), then HD and G
+        # the bf16-q instance's mangled name: its page type (int8 'a', fp8
+        # '13__nv_fp8_e4m3', or bf16 by substitution '..._'), then HD and G
+        page_name = {True: "a", "fp8": "13__nv_fp8_e4m3"}.get(quant, "_")
         resources = {
             "ptxas_regs_spill_stores_loads": _ptxas_of(
                 "paged_attention.cu", "15paged_attentionI13__nv_bfloat16",
-                ("a" if quant else "_") + f"Li{hd}ELi1E"),
-            "smem_bytes": _smem_bytes(pc, torch.bfloat16, quant, hd, 1)}
-        tol = PAGED_TOL[quant]
+                page_name + f"Li{hd}ELi1E"),
+            "smem_bytes": _smem_bytes(pc, torch.bfloat16,
+                                      {True: 1, "fp8": 2}.get(quant, 0),
+                                      hd, 1)}
+        tol = PAGED_TOL[quant is True]
         ok = (untouched and finite and zero_row and same_bits
-              and err <= tol and ctx_scale >= 8 * tol)
+              and err <= tol and ctx_scale >= 8 * tol
+              and (fault is None or fault > tol))
         emit({"phase": "kernel", "name": info.name, "tol": tol,
               "ok": ok, "pool_untouched": untouched, "ctx_finite": finite,
               "length0_row_zero": zero_row,
@@ -799,13 +830,17 @@ def paged_kernel_checks(dev) -> dict:
               "pool_shape": list(PAGED_SHAPE), "page_indices": [b, PAGED_MP],
               "lengths": KV_LENGTHS, "bound_share": bound_ms / ms,
               "same_bits_twice": same_bits, **resources,
+              **({"fault": "kv head 0's context zeroed",
+                  "fault_max_abs_err": fault} if fault is not None else {}),
+              "library_input": "pages gathered and cast to bf16 (int8: "
+                               "dequantized) before the timed window",
               **results[info.name]})
         if not ok:
             raise RuntimeError(f"{info.name}: pool untouched {untouched}, "
                                f"finite {finite}, zero row {zero_row}, "
                                f"same bits twice {same_bits}, "
                                f"max_abs_err {err}, smallest row max |ctx| "
-                               f"{ctx_scale}")
+                               f"{ctx_scale}, planted fault's error {fault}")
     return results
 
 
@@ -856,12 +891,14 @@ def _flat_bound(nkv, g, hd, pool_elem, quant, q_elem, fp32) -> tuple:
 
 def flat_kernel_checks(dev) -> dict:
     """B9 at layer 31 of full llama2-7b flat pools: int8 with scales and
-    bf16 q, bf16 (also at nkv 8, GQA g 4), fp32. The pools untouched, ctx
-    within FLAT_TOL of the plain version on the live rows, zeros on the
-    empty one; timed cycling over the 32 layers, beside its bound, its plain
-    version and one ``scaled_dot_product_attention`` with a boolean mask on
-    the layer's K/V (int8: dequantized to bf16; GQA: repeated) made
-    beforehand. The ``kernels`` line carries the MHA cases."""
+    bf16 q, bf16 (also at nkv 8, GQA g 4), fp32, fp8 e4m3 with bf16 q. The
+    pools untouched, ctx within FLAT_TOL of the plain version on the live
+    rows, zeros on the empty one; for fp8 pools a planted fault (kv head
+    0's context zeroed) that must break the tolerance; timed cycling over
+    the 32 layers, beside its bound, its plain version and one
+    ``scaled_dot_product_attention`` with a boolean mask on the layer's K/V
+    (int8: dequantized to bf16; fp8: cast to bf16; GQA: repeated) made
+    before the timed window. The ``kernels`` line carries the MHA cases."""
     import itertools
     import torch.nn.functional as F
     from onebit_tpu_torch.kernels import kv_attention as ka
@@ -885,9 +922,11 @@ def flat_kernel_checks(dev) -> dict:
     for info, q_dtype, nkv in ((kc.DECODE_INT8, torch.bfloat16, nh),
                                (kc.DECODE_BF16, torch.bfloat16, nh),
                                (kc.DECODE_BF16, torch.bfloat16, FLASH_GQA_NKV),
-                               (kc.DECODE_F32, torch.float32, nh)):
+                               (kc.DECODE_F32, torch.float32, nh),
+                               (kc.DECODE_FP8, torch.bfloat16, nh)):
         g = nh // nkv
         quant = info is kc.DECODE_INT8
+        fp8 = info is kc.DECODE_FP8
         q = (torch.randn(b, nh, hd, generator=gen, device=dev) * 80).round_(
             ).div_(16).clamp_(-15.9375, 15.9375).to(q_dtype)
         shape = (n_layers, b, t, nkv, hd)
@@ -901,17 +940,28 @@ def flat_kernel_checks(dev) -> dict:
                       (torch.rand(shape[:-1], generator=gen, device=dev)
                        + 0.5) / 127]
         else:
-            pools = [grid_pool(shape, q_dtype), None,
-                     grid_pool(shape, q_dtype), None]
+            pool_dtype = torch.float8_e4m3fn if fp8 else q_dtype
+            pools = [grid_pool(shape, pool_dtype), None,
+                     grid_pool(shape, pool_dtype), None]
         before = [x.clone() for x in pools if x is not None]
         want = ka.kv_attention_decode_torch(q, *pools, lengths, KV_LAYER,
                                             starts=starts)
         got = ka.kv_attention_decode(q, *pools, lengths, KV_LAYER,
                                      starts=starts)
         torch.cuda.synchronize()
-        untouched = all(torch.equal(x, y) for x, y in
+        untouched = all(_same_bits(x, y) for x, y in
                         zip([x for x in pools if x is not None], before))
         del before
+        fault = None
+        if fp8:
+            remove = _zero_kv_head_fault(kc, KV_LAYER)
+            try:
+                bad = ka.kv_attention_decode(q, *pools, lengths, KV_LAYER,
+                                             starts=starts)
+            finally:
+                remove()
+            fault = (bad[live].float() - want[live].float()).abs().max(
+                ).item()
         finite = bool(torch.isfinite(got).all())
         zero_row = bool((got[~live] == 0).all())
         err = (got[live].float() - want[live].float()).abs().max().item()
@@ -922,12 +972,12 @@ def flat_kernel_checks(dev) -> dict:
         plain_ms = cuda_ms(lambda: ka.kv_attention_decode_torch(
             q, *pools, lengths, KV_LAYER, starts=starts), 3, warmup=1)
         # the yardstick's input: layer 31's K/V as [B, nh, T, hd]
-        lib_dtype = torch.bfloat16 if quant else q_dtype
+        lib_dtype = torch.bfloat16 if quant or fp8 else q_dtype
         if quant:
             kv = [(pools[i][KV_LAYER].float() * pools[i + 1][KV_LAYER][
                 ..., None]).to(lib_dtype) for i in (0, 2)]
         else:
-            kv = [pools[i][KV_LAYER] for i in (0, 2)]
+            kv = [pools[i][KV_LAYER].to(lib_dtype) for i in (0, 2)]
         k_lib, v_lib = (x.repeat_interleave(g, dim=2).transpose(1, 2)
                         .contiguous() for x in kv)
         del kv
@@ -937,7 +987,7 @@ def flat_kernel_checks(dev) -> dict:
         del pools, k_lib, v_lib
         torch.cuda.empty_cache()
         bound_ms, bound_by = _flat_bound(
-            nkv, g, hd, 1 if quant else q.element_size(), quant,
+            nkv, g, hd, 1 if quant or fp8 else q.element_size(), quant,
             q.element_size(), q_dtype == torch.float32)
         line = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
@@ -945,18 +995,26 @@ def flat_kernel_checks(dev) -> dict:
             results[info.name] = line
         tol = FLAT_TOL[q_dtype]
         ok = (untouched and finite and zero_row and err <= tol
-              and ctx_scale >= 8 * KV_TOL_BF16)
+              and ctx_scale >= 8 * KV_TOL_BF16
+              and (fault is None or fault > tol))
         emit({"phase": "kernel", "name": info.name, "tol": tol, "ok": ok,
               "pools_untouched": untouched, "ctx_finite": finite,
               "empty_row_zero": zero_row, "min_row_max_abs_ctx": ctx_scale,
               "layer": KV_LAYER, "pool_shape": [n_layers, b, t, nkv, hd],
               "nkv": nkv, "q_dtype": str(q_dtype)[6:],
+              "pool_dtype": "float8_e4m3fn" if fp8 else (
+                  "int8" if quant else str(q_dtype)[6:]),
+              **({"fault": "kv head 0's context zeroed",
+                  "fault_max_abs_err": fault} if fault is not None else {}),
+              "library_input": "the layer's K/V in bf16 (or q's dtype), "
+                               "made before the timed window",
               "lengths": FLAT_LENGTHS, "starts": FLAT_STARTS, **line})
         if not ok:
             raise RuntimeError(f"{info.name} (nkv {nkv}): pools untouched "
                                f"{untouched}, finite {finite}, empty row "
                                f"zero {zero_row}, max_abs_err {err}, "
-                               f"smallest row max |ctx| {ctx_scale}")
+                               f"smallest row max |ctx| {ctx_scale}, "
+                               f"planted fault's error {fault}")
     return results
 
 
@@ -2028,19 +2086,48 @@ def serve_surface_checks(params, config, dev, served=None) -> None:
           "seconds": time.perf_counter() - t0, "card": card})
 
 
-def run_cli(seconds: dict, *args, stdin=None) -> list:
-    """``python -m onebit_tpu_torch ARGS`` in a process of its own: its
-    stdout lines; its wall seconds go to ``seconds`` under the command's
-    name. A failed command raises with the ends of its output."""
-    t = time.perf_counter()
-    run = subprocess.run([sys.executable, "-m", "onebit_tpu_torch", *args],
-                         cwd=ROOT, capture_output=True, text=True,
-                         timeout=600, input=stdin)
-    seconds[args[0]] = time.perf_counter() - t
-    if run.returncode != 0:
-        raise RuntimeError(f"{args[0]} failed:\n{run.stdout[-2000:]}\n"
-                           f"{run.stderr[-3000:]}")
-    return run.stdout.strip().splitlines()
+def start_cli(*args, stdin=None) -> tuple:
+    """Start ``python -m onebit_tpu_torch ARGS`` in a process of its own,
+    its standard input (``stdin``) written and closed at once, so that
+    several commands run together; :func:`finish_cli` collects it."""
+    proc = subprocess.Popen([sys.executable, "-m", "onebit_tpu_torch", *args],
+                            cwd=ROOT, stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    proc.stdin.write(stdin or "")
+    proc.stdin.close()
+    proc.stdin = None           # communicate() must not flush it again
+    return proc, time.perf_counter(), args[0]
+
+
+def finish_cli(seconds: dict, started: tuple, name=None) -> list:
+    """A started command's stdout lines; its wall seconds go to
+    ``seconds`` under ``name`` (the command's by default). A failed
+    command raises with the ends of its output."""
+    proc, t, command = started
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        _end([started])
+    seconds[name or command] = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise RuntimeError(f"{command} failed:\n{out[-2000:]}\n"
+                           f"{err[-3000:]}")
+    return out.strip().splitlines()
+
+
+def _end(started) -> None:
+    """Kill the started commands still running (after a failure)."""
+    for proc, _, _ in started:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def run_cli(seconds: dict, *args, stdin=None, name=None) -> list:
+    """``python -m onebit_tpu_torch ARGS`` in a process of its own, to its
+    end: :func:`finish_cli` of :func:`start_cli`."""
+    return finish_cli(seconds, start_cli(*args, stdin=stdin), name)
 
 
 def small_ckpt(dev) -> str:
@@ -2063,8 +2150,14 @@ def serve_surface_cli(dev) -> None:
     slice), ``serve --draft --n-draft 3`` over stdin lines of ids (the
     tokens of the engine with that draft in this process, which are the
     plain engine's off near-ties) and ``generate --num-beams 2`` (the best
-    beam of ``beam_generate`` in this process). The draft is removed
-    after."""
+    beam of ``beam_generate`` in this process); then ``serve --tp 2
+    --tp-backend gloo`` (two ranks sharing the card behind rank 0): with
+    the draft on stdin lines (the single-device ``serve --draft``'s tokens
+    off near-ties), and ``--http 0`` with one POST /generate (the tokens of
+    an engine serving that prompt alone in this process, off near-ties),
+    stopped by SIGINT with exit code 0. After ``build-draft`` the commands
+    run together, ``serve --tp --http`` driven while the others run, so
+    their seconds overlap. The draft is removed after."""
     import shutil
 
     from onebit_tpu_torch import (ContinuousBatchingEngine, SamplingConfig,
@@ -2075,17 +2168,34 @@ def serve_surface_cli(dev) -> None:
     seconds = {}
     flags = ("--max-batch", "2", "--max-len", "256", "--max-new-tokens",
              str(SURFACE_CLI_NEW), "--greedy")
+    lines = "\n".join(",".join(map(str, p)) for p in SERVE_PROMPTS) + "\n"
+    tp = ("--tp", "2", "--tp-backend", "gloo")
+    started = []
     try:
         run_cli(seconds, "build-draft", ckpt, out, "--num-layers", "1")
-        served = run_cli(seconds, "serve", "--ckpt", ckpt, "--draft", out,
-                         "--n-draft", "3", *flags, stdin="\n".join(
-                             ",".join(map(str, p)) for p in SERVE_PROMPTS)
-                         + "\n")
-        served = [[int(t) for t in json.loads(ln)["completion"].split(",")]
-                  for ln in served if ln.startswith("{")]
-        beams = run_cli(seconds, "generate", "--ckpt", ckpt, "--prompt",
-                        "1,2,3", "--num-beams", "2", "--max-new-tokens",
-                        str(SURFACE_CLI_NEW))[-1]
+        # the other commands together (their seconds overlap): serve
+        # --draft, generate --num-beams, serve --tp with the draft, while
+        # this process drives serve --tp --http
+        started = [
+            start_cli("serve", "--ckpt", ckpt, "--draft", out, "--n-draft",
+                      "3", *flags, stdin=lines),
+            start_cli("generate", "--ckpt", ckpt, "--prompt", "1,2,3",
+                      "--num-beams", "2", "--max-new-tokens",
+                      str(SURFACE_CLI_NEW)),
+            start_cli("serve", "--ckpt", ckpt, "--draft", out, "--n-draft",
+                      "3", *flags, *tp, stdin=lines)]
+        t = time.perf_counter()
+        http_tp = _serve_http(ckpt, SERVE_PROMPTS[1], (*flags, *tp),
+                              SURFACE_CLI_NEW)
+        seconds["serve --tp --http"] = time.perf_counter() - t
+
+        def completions(got):
+            return [[int(x) for x in json.loads(ln)["completion"].split(",")]
+                    for ln in got if ln.startswith("{")]
+        served = completions(finish_cli(seconds, started[0]))
+        beams = finish_cli(seconds, started[1])[-1]
+        served_tp = completions(finish_cli(seconds, started[2],
+                                           "serve --tp"))
         loaded, draft = load_native(ckpt, device=dev), load_native(out,
                                                                    device=dev)
         config = loaded["config"]
@@ -2106,6 +2216,18 @@ def serve_surface_cli(dev) -> None:
             want[name] = [res[u] for u in uids]
         parted = _partings(loaded["params"], config, dev, SERVE_PROMPTS,
                            want["spec"], want["plain"])
+        parted_tp = _partings(loaded["params"], config, dev, SERVE_PROMPTS,
+                              served_tp, served)
+        eng = ContinuousBatchingEngine(
+            loaded["params"], config, max_batch=2, max_len=256,
+            sampling=SamplingConfig(greedy=True), device=dev)
+        uid = eng.add_request(SERVE_PROMPTS[1],
+                              max_new_tokens=SURFACE_CLI_NEW)
+        http_want = eng.run()[uid]
+        del eng
+        parted_http = _partings(loaded["params"], config, dev,
+                                SERVE_PROMPTS[1:2], [http_tp["tokens"]],
+                                [http_want])
         beam_want = beam_generate(loaded["params"], config, [[1, 2, 3]],
                                   num_beams=2,
                                   max_new_tokens=SURFACE_CLI_NEW)[0][0][0]
@@ -2118,13 +2240,28 @@ def serve_surface_cli(dev) -> None:
                                            for r, v in parted.items()},
                 "generate_beams": beams,
                 "beam_in_process": ",".join(map(str, beam_want)),
+                "serve_tp_draft": served_tp,
+                "serve_tp_parted_from_serve_draft": {
+                    str(r): v for r, v in parted_tp.items()},
+                "serve_tp_http_tokens": http_tp["tokens"],
+                "serve_tp_http_in_process": http_want,
+                "serve_tp_http_parted": {str(r): v for r, v in
+                                         parted_http.items()},
+                "serve_tp_http_request_s": http_tp["request_s"],
+                "serve_tp_http_exit_code": http_tp["exit_code"],
+                "serve_tp_http_metrics": http_tp["metrics"],
                 "seconds": seconds}
         emit(line)
         if not same_draft or served != want["spec"] or \
-                _parted_badly(parted) or beams != line["beam_in_process"]:
+                _parted_badly(parted) or beams != line["beam_in_process"] \
+                or _parted_badly(parted_tp) or _parted_badly(parted_http) \
+                or len(served_tp) != len(SERVE_PROMPTS) \
+                or http_tp["exit_code"] != 0 \
+                or http_tp["metrics"]["completed_requests"] != 1:
             raise RuntimeError(f"build-draft, serve --draft, generate "
-                               f"--num-beams: {line}")
+                               f"--num-beams, serve --tp: {line}")
     finally:
+        _end(started)
         shutil.rmtree(out, ignore_errors=True)
 
 
@@ -2147,25 +2284,37 @@ GEN_NEW_F32 = 8       # and of the fp32 run
 FLAT_STEPS = 8        # one-token steps on the flat int8 cache
 
 
-def _zero_kv_head_fault(kc):
-    """Install a planted fault in B9's launch wrapper: the context of kv
-    head 0 (query heads 0 .. g-1) zeroed in layer 0. Returns the function
-    that removes it."""
-    real = kc.launch_flat
+def _head_fault(module, attr: str, layer: int, layer_arg: int, nkv_of):
+    """Install a planted fault in the launch wrapper ``module.attr``: the
+    context of kv head 0 (query heads 0 .. g-1) zeroed in ``layer``, the
+    call's ``layer_arg``-th argument; ``nkv_of(args)`` gives its kv heads.
+    Returns the function that removes it."""
+    real = getattr(module, attr)
 
-    def faulty(q, k_pool, k_scale, v_pool, v_scale, lengths, layer, *,
-               starts):
-        out = real(q, k_pool, k_scale, v_pool, v_scale, lengths, layer,
-                   starts=starts)
-        if layer == 0:
-            out[:, :q.shape[1] // k_pool.shape[3]] = 0
+    def faulty(*args, **kw):
+        out = real(*args, **kw)
+        if args[layer_arg] == layer:
+            out[:, :args[0].shape[1] // nkv_of(args)] = 0
         return out
 
-    kc.launch_flat = faulty
+    setattr(module, attr, faulty)
 
     def remove():
-        kc.launch_flat = real
+        setattr(module, attr, real)
     return remove
+
+
+def _zero_kv_head_fault(kc, layer: int = 0):
+    """:func:`_head_fault` in B9's launch wrapper (``launch_flat``)."""
+    return _head_fault(kc, "launch_flat", layer, 6, lambda a: a[1].shape[3])
+
+
+def _same_bits(a, b) -> bool:
+    """``a`` and ``b`` equal bit for bit (fp8 through ``uint8`` views:
+    few operators take fp8)."""
+    if a.dtype == torch.float8_e4m3fn:
+        a, b = a.view(torch.uint8), b.view(torch.uint8)
+    return torch.equal(a, b)
 
 
 def _rel(a, ref) -> float:
@@ -2357,10 +2506,14 @@ TP_MP = 2
 TP_BACKEND = "gloo"
 TP_TIMEOUT = 600          # seconds for the whole phase, every rank
 TP_NEW = 32
-# the served runs' depth: the first 16 layers of the 7B weights (full
+# the new tokens a request of the paged fp8 and speculative runs: their
+# checks are per step and per round
+TP_NEW_SHORT = 16
+# the served runs' depth: the first 8 layers of the 7B weights (full
 # width); each decode step makes 130 host all-reduces over gloo at 32
-# layers, which made the TP phase the script's longest
-TP_RUN_LAYERS = 16
+# layers, which made the TP phase the script's longest (at 16 layers the
+# fp8 and speculative runs took the script past its time)
+TP_RUN_LAYERS = 8
 # (run, engine options, prompts, the attention kernel of every decode
 # layer), each at full width and TP_RUN_LAYERS deep
 TP_RUNS = (
@@ -2373,12 +2526,27 @@ TP_RUNS = (
      "kv_attention_append_kt"),
     ("paged_int8_prefix", dict(max_len=2048, paged=True, page_size=16,
                                quantized_kv=True, prefix_cache=True),
-     "prefix", "paged_attention_flat_int8"))
+     "prefix", "paged_attention_flat_int8"),
+    ("paged_fp8", dict(max_len=2048, paged=True, page_size=16,
+                       quantized_kv="fp8"), "deep",
+     "paged_attention_flat_fp8"))
 TP_PROMPTS = {"smoke": smoke_prompts, "deep": deep_prompts,
               "prefix": prefix_prompts}
+# the greedy speculative round under TP (TPServing.spec_round): the
+# serving surface's 2-layer spread draft of the TP_RUN_LAYERS target, fused
+# and whole on each rank, SPEC_N_DRAFT proposals a round; (run, engine
+# options, prompts, the TP run whose tokens it should give)
+TP_SPEC_RUNS = (("dense_spec", dict(max_len=256), "smoke", "dense"),
+                ("int8_kt_spec", dict(max_len=2048, quantized_kv=True),
+                 "deep", "int8_kt"))
 # what the TP path must never launch: K1-K3 (B4 serves every projection)
 TP_ZERO = ("bitlinear_small_m", "bitlinear_fused_small_m",
            "bitlinear_large_m", "bitlinear_large_m_f32")
+
+
+def _tp_new(run: str) -> int:
+    """The new tokens a request of a TP_RUNS run."""
+    return TP_NEW_SHORT if run == "paged_fp8" else TP_NEW
 
 
 def _drop_rank1_o_proj(td):
@@ -2430,7 +2598,8 @@ def _tp_first_step(group, params, config, next_token):
     return out
 
 
-def _tp_served_run(group, params, config, prompts, opts) -> dict:
+def _tp_served_run(group, params, config, prompts, opts,
+                   new_tokens: int) -> dict:
     """Rank side: one served run of the TP engine, every launch count set
     to 0 just before it and read just after; forward passes counted (each
     decode step, a block's ``block_steps``, and each admission's prefill or
@@ -2454,7 +2623,7 @@ def _tp_served_run(group, params, config, prompts, opts) -> dict:
     torch.cuda.synchronize()
     reset_counts()
     t_start = time.perf_counter()
-    uids = [eng.add_request(p, max_new_tokens=TP_NEW) for p in prompts]
+    uids = [eng.add_request(p, max_new_tokens=new_tokens) for p in prompts]
     step_s = []
     while eng.has_work():
         t = time.perf_counter()
@@ -2477,12 +2646,32 @@ def _tp_served_run(group, params, config, prompts, opts) -> dict:
                                  "prefix_pages_reused") if k in m}}
 
 
+def _tp_spec_run(group, params, config, draft, prompts, opts) -> dict:
+    """Rank side: one greedy speculative run of the TP engine with
+    ``draft`` whole on the rank, every count set to 0 just before it; the
+    launches of its rounds (:func:`_drive`), apart from admission's."""
+    d_config, d_params = draft
+    eng = _engine(params, config, None, dict(
+        opts, tp_group=group, draft_params=d_params, draft_config=d_config,
+        n_draft=SPEC_N_DRAFT))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    tokens, dec = _drive(eng, prompts, [TP_NEW_SHORT] * len(prompts))
+    return {"tokens": tokens, "rounds": dec["calls"],
+            "round_tokens": dec["emitted"], "round_launches": dec["launches"],
+            "wall_ms_per_token": dec["wall_s"] * 1e3 / dec["emitted"],
+            "wall_s": time.perf_counter() - t0, "launches": read_counts()}
+
+
 def _tp_rank(group, next_token):
     """One rank of the TP phase: random llama2-7b weights from seed 0
-    (unfused), the first-step checks, then the runs of TP_RUNS on their
-    first TP_RUN_LAYERS layers."""
-    from onebit_tpu_torch import BitLlamaConfig, host_random_packed_params
-    from onebit_tpu_torch.train.draft import draft_config, slice_draft_params
+    (unfused), the first-step checks, then the runs of TP_RUNS and
+    TP_SPEC_RUNS on their first TP_RUN_LAYERS layers."""
+    from onebit_tpu_torch import (BitLlamaConfig, fuse_for_decode,
+                                  host_random_packed_params)
+    from onebit_tpu_torch.train.draft import (build_draft, draft_config,
+                                              slice_draft_params)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
@@ -2495,7 +2684,14 @@ def _tp_rank(group, next_token):
     torch.cuda.empty_cache()
     for name, opts, prompts, _ in TP_RUNS:
         out[name] = _tp_served_run(group, params, config,
-                                   TP_PROMPTS[prompts](), opts)
+                                   TP_PROMPTS[prompts](), opts,
+                                   _tp_new(name))
+        torch.cuda.empty_cache()
+    d_config, d_params = build_draft(params, config, SPEC_DRAFT_LAYERS)
+    draft = d_config, fuse_for_decode(d_params, d_config)
+    for name, opts, prompts, _ in TP_SPEC_RUNS:
+        out[name] = _tp_spec_run(group, params, config, draft,
+                                 TP_PROMPTS[prompts](), opts)
         torch.cuda.empty_cache()
     return out
 
@@ -2516,10 +2712,17 @@ def tp_checks(unfused, config, dev) -> dict:
         each: both ranks emit the same tokens and launch the same kernels;
         B4 (both instances) exactly 7 x L per forward pass, the run's
         attention kernel exactly L per decode step, K1-K3 never; pages all
-        returned, and the prefix run reuses 448.
+        returned, and the prefix run reuses 448. The runs include fp8 pages
+        (B10 fp8 L a step).
+    (c) The runs of TP_SPEC_RUNS, the greedy speculative round with the
+        2-layer spread draft (fused) whole on each rank: both ranks emit
+        the same tokens and launch the same kernels; each round launches
+        exactly B4 7 x L (the window), K1 and K2 2 x 5 x 2 and B9 bf16
+        5 x 2 (the draft's steps), and nothing else (K3 never).
 
     Returns rank 0's B4 launches from the dense run, the main path."""
     from onebit_tpu_torch.kernels import bitlinear_cuda as bc
+    from onebit_tpu_torch.kernels import kv_attention_cuda as kc
     from onebit_tpu_torch.model.ragged_decode import ragged_decode_step
     from onebit_tpu_torch.parallel.mesh import spawn_tp
     t_phase = time.perf_counter()
@@ -2569,7 +2772,7 @@ def tp_checks(unfused, config, dev) -> dict:
         b4 = sum(counts[k] for k in raw)
         line = {"phase": "tp_serve", "run": name, **opts, "mp": TP_MP,
                 "backend": TP_BACKEND, "layers": layers,
-                "requests": len(r0["tokens"]), "new_tokens": TP_NEW,
+                "requests": len(r0["tokens"]), "new_tokens": _tp_new(name),
                 "ranks_tokens_equal": r0["tokens"] == r1["tokens"],
                 "ranks_launches_equal": counts == r1["launches"],
                 "launches_rank0": {k: v for k, v in counts.items() if v},
@@ -2584,8 +2787,8 @@ def tp_checks(unfused, config, dev) -> dict:
               and b4 == line["b4_want"] and r0["decode_steps"] > 0
               and counts[per_step] == layers * r0["decode_steps"]
               and not any(counts[k] for k in TP_ZERO)
-              and all(len(t) == TP_NEW and all(0 <= x < config.vocab_size
-                                               for x in t)
+              and all(len(t) == _tp_new(name)
+                      and all(0 <= x < config.vocab_size for x in t)
                       for t in r0["tokens"]))
         if "free_pages" in r0:
             ok = ok and r0["free_pages"] == r0["total_pages"] - r0.get(
@@ -2597,6 +2800,46 @@ def tp_checks(unfused, config, dev) -> dict:
         if not ok:
             raise RuntimeError(f"TP run {name}: ranks disagree, a launch "
                                f"count is off, or bad tokens: {line}")
+    # the speculative runs: per round the target's window (B4, 7 a layer)
+    # and the draft's n + 1 steps (K1, K2 twice a layer, B9 once), no other
+    # kernel
+    steps = (SPEC_N_DRAFT + 1) * SPEC_DRAFT_LAYERS
+    per_round = {bc.RAW_SMALL_M.name: 7 * layers, bc.SMALL_M.name: 2 * steps,
+                 bc.FUSED_SMALL_M.name: 2 * steps,
+                 kc.DECODE_BF16.name: steps}
+    for name, opts, _, plain in TP_SPEC_RUNS:
+        r0, r1 = ranks[0][name], ranks[1][name]
+        rounds = r0["rounds"]
+        want = {k: v * rounds for k, v in per_round.items()}
+        plain_tokens = ranks[0][plain]["tokens"]
+        line = {"phase": "tp_serve", "run": name, **opts, "mp": TP_MP,
+                "backend": TP_BACKEND, "layers": layers,
+                "draft_layers": SPEC_DRAFT_LAYERS, "n_draft": SPEC_N_DRAFT,
+                "requests": len(r0["tokens"]), "new_tokens": TP_NEW_SHORT,
+                "rounds": rounds, "round_tokens": r0["round_tokens"],
+                "tokens_per_round": r0["round_tokens"] / max(rounds, 1),
+                "wall_ms_per_token": r0["wall_ms_per_token"],
+                "wall_s": r0["wall_s"],
+                "ranks_tokens_equal": r0["tokens"] == r1["tokens"],
+                "ranks_round_launches_equal":
+                    r0["round_launches"] == r1["round_launches"],
+                "launches_per_round": per_round,
+                "round_launches_rank0": r0["round_launches"],
+                "launches_rank0": {k: v for k, v in r0["launches"].items()
+                                   if v},
+                "rows_equal_tp_plain_run": sum(
+                    a == b[:len(a)] for a, b in zip(r0["tokens"],
+                                                    plain_tokens))}
+        emit(line)
+        ok = (line["ranks_tokens_equal"]
+              and line["ranks_round_launches_equal"] and rounds > 0
+              and r0["round_launches"] == want
+              and all(len(t) == TP_NEW_SHORT
+                      and all(0 <= x < config.vocab_size for x in t)
+                      for t in r0["tokens"]))
+        if not ok:
+            raise RuntimeError(f"TP speculative run {name}: ranks disagree "
+                               f"or a round's launches are off: {line}")
     emit({"phase": "tp", "wall_s": time.perf_counter() - t_phase,
           "launches_reported": "rank 0 of the dense TP run"})
     dense = ranks[0]["dense"]["launches"]
@@ -2623,17 +2866,20 @@ def _in_process_serve(loaded, dev, prompts) -> list:
     return [out[u] for u in uids]
 
 
-def _serve_http(ref, prompt) -> dict:
-    """``serve --http 0`` in a process of its own: the port from its first
-    line, one POST /generate of ``prompt`` and one GET /metrics; the
-    process is interrupted, and killed if it lingers."""
+def _serve_http(ref, prompt, flags=SERVE_FLAGS,
+                new_tokens: int = SERVE_NEW) -> dict:
+    """``serve --http 0`` with ``flags`` in a process of its own: the port
+    from its first line, one POST /generate of ``prompt`` and one GET
+    /metrics; the process is interrupted (its exit code kept), and killed
+    if it lingers."""
     import select
     import signal
     import urllib.request
     proc = subprocess.Popen(
         [sys.executable, "-m", "onebit_tpu_torch", "serve", "--ckpt", ref,
-         "--http", "0", *SERVE_FLAGS], cwd=ROOT, stdout=subprocess.PIPE,
+         "--http", "0", *flags], cwd=ROOT, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
+    rc = None
     try:
         deadline, line = time.monotonic() + 300, ""
         while "serving on" not in line:
@@ -2649,21 +2895,22 @@ def _serve_http(ref, prompt) -> dict:
         req = urllib.request.Request(
             url + "/generate", headers={"Content-Type": "application/json"},
             data=json.dumps({"prompt": prompt,
-                             "max_new_tokens": SERVE_NEW}).encode())
+                             "max_new_tokens": new_tokens}).encode())
         t = time.perf_counter()
         with urllib.request.urlopen(req, timeout=300) as r:
             tokens = json.loads(r.read())["tokens"]
         request_s = time.perf_counter() - t
         with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
             metrics = json.loads(r.read())
-        return {"tokens": tokens, "metrics": metrics, "request_s": request_s}
     finally:
         proc.send_signal(signal.SIGINT)
         try:
-            proc.wait(timeout=30)
+            rc = proc.wait(timeout=30)
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.wait()
+    return {"tokens": tokens, "metrics": metrics, "request_s": request_s,
+            "exit_code": rc}
 
 
 def generate_cli_checks(dev) -> None:
@@ -2675,8 +2922,9 @@ def generate_cli_checks(dev) -> None:
     with a pinned ``engine_check.ok`` of 1; ``serve --block-steps 8
     --pipeline-blocks`` on stdin lines of ids, and ``serve --http 0`` with
     one POST /generate and one GET /metrics, each with the tokens of an
-    eager engine in this process. The reference directory is removed
-    after."""
+    eager engine in this process. After ``convert`` the commands run
+    together, ``serve --http`` driven while the others run, so their
+    seconds overlap. The reference directory is removed after."""
     import shutil
 
     from onebit_tpu_torch import generate, load_reference_checkpoint
@@ -2684,32 +2932,33 @@ def generate_cli_checks(dev) -> None:
     ckpt = os.path.join(ROOT, "build", "smoke_ckpt")
     ref = os.path.join(ROOT, "build", "smoke_ref")
     seconds = {}
-
-    def cli(*args, stdin=None):
-        return run_cli(seconds, *args, stdin=stdin)
-
+    started = []
     try:
-        cli("convert", ckpt, ref, "--format", "reference")
-        tokens = cli("generate", "--ckpt", ref, "--prompt", "1,2,3",
-                     "--greedy", "--device", "cuda")[-1]
+        run_cli(seconds, "convert", ckpt, ref, "--format", "reference")
+        spec = os.path.join(ref, "expect.json")
+        with open(spec, "w") as f:
+            json.dump({"engine_check.ok": {"value": 1.0, "atol": 0.0}}, f)
+        started = [
+            start_cli("generate", "--ckpt", ref, "--prompt", "1,2,3",
+                      "--greedy", "--device", "cuda"),
+            start_cli("eval", "--ckpt", ref, "--check-engines", "all",
+                      "--expect", spec),
+            start_cli("serve", "--ckpt", ref, *SERVE_FLAGS, stdin="\n".join(
+                ",".join(map(str, p)) for p in SERVE_PROMPTS) + "\n")]
         loaded = load_reference_checkpoint(ref, device=dev)
         want = generate(loaded["params"], loaded["config"], [[1, 2, 3]],
                         sampling=SamplingConfig(greedy=True))[0]
         serve_want = _in_process_serve(loaded, dev, SERVE_PROMPTS)
         http_want = _in_process_serve(loaded, dev, SERVE_PROMPTS[1:2])[0]
         del loaded
-        spec = os.path.join(ref, "expect.json")
-        with open(spec, "w") as f:
-            json.dump({"engine_check.ok": {"value": 1.0, "atol": 0.0}}, f)
-        out = cli("eval", "--ckpt", ref, "--check-engines", "all",
-                  "--expect", spec)
-        result = json.loads([ln for ln in out if ln.startswith("{")][-1])
-        served = cli("serve", "--ckpt", ref, *SERVE_FLAGS, stdin="\n".join(
-            ",".join(map(str, p)) for p in SERVE_PROMPTS) + "\n")
-        served = [json.loads(ln) for ln in served if ln.startswith("{")]
         t = time.perf_counter()
         http = _serve_http(ref, SERVE_PROMPTS[1])
         seconds["serve --http"] = time.perf_counter() - t
+        tokens = finish_cli(seconds, started[0])[-1]
+        out = finish_cli(seconds, started[1])
+        result = json.loads([ln for ln in out if ln.startswith("{")][-1])
+        served = [json.loads(ln) for ln in finish_cli(seconds, started[2])
+                  if ln.startswith("{")]
         line = {"phase": "generate_cli", "ckpt_layers": 2,
                 "cli_tokens": tokens,
                 "in_process_tokens": ",".join(map(str, want)),
@@ -2730,6 +2979,7 @@ def generate_cli_checks(dev) -> None:
             raise RuntimeError(f"the generate, eval and serve command "
                                f"lines: {line}")
     finally:
+        _end(started)
         shutil.rmtree(ref, ignore_errors=True)
 
 
@@ -2775,6 +3025,8 @@ def end_to_end(dev) -> dict:
             ("paged", deep_prompts(), paged, pc.PAGED, [pc.PAGED], True),
             ("paged_int8", deep_prompts(), dict(paged, quantized_kv=True),
              pc.PAGED_INT8, [pc.PAGED_INT8], True),
+            ("paged_fp8", deep_prompts(), dict(paged, quantized_kv="fp8"),
+             pc.PAGED_FP8, [pc.PAGED_FP8], True),
             ("prefix", prefix_prompts(), dict(paged, prefix_cache=True),
              pc.PAGED, [], False)):
         if check:

@@ -20,8 +20,9 @@ Entry points run on the card unless the caller passes ``device="cpu"``::
 from nibble-packed int4 pools (half and a quarter of the bf16 cache's
 bytes), each decode layer in one fused append+attend kernel.
 ``paged=True`` (with ``page_size``, ``num_pages``) serves from a pool of KV
-pages, bf16 or int8 (``quantized_kv=True``), whose decode attention reads
-each row's pages through its page table (kernel B10); ``prefix_cache=True``
+pages, bf16, int8 (``quantized_kv=True``) or fp8 e4m3
+(``quantized_kv="fp8"``), whose decode attention reads each row's pages
+through its page table (kernel B10); ``prefix_cache=True``
 shares full prompt pages between requests with the same prefix.
 ``block_steps=N`` decodes N steps a block, on the card one replayed CUDA
 graph, and ``pipeline_blocks=True`` overlaps a block's bookkeeping with
@@ -29,9 +30,11 @@ the next block; ``prefill_chunk_size=N`` prefills in fixed-size chunks
 (dense, int8 or paged caches); ``draft_params=, draft_config=, n_draft=``
 decode speculatively, a draft model proposing and the target verifying a
 window in one call (``engine/speculative.py``; greedy output is the plain
-engine's); ``python -m onebit_tpu_torch serve`` serves from stdin or over
-HTTP (``engine/server.py``), with ``--draft`` a draft made by
-``build-draft`` (``train/draft.py``).
+engine's; under ``tp_group`` too, greedy); ``python -m onebit_tpu_torch
+serve`` serves from stdin or over HTTP (``engine/server.py``), with
+``--draft`` a draft made by ``build-draft`` (``train/draft.py``), and with
+``--tp N`` from N tensor-parallel rank processes behind rank 0
+(``engine/tp_serve.py``).
 
 Evaluation runs the full-sequence ``forward`` (each unpadded layer's causal
 attention in kernel B11 on the card) under ``perplexity`` (windowed, the

@@ -28,8 +28,9 @@
         [--max-batch 8] \\
         [--max-len 2048] [--max-new-tokens 128] [--block-steps N] \\
         [--pipeline-blocks] [--paged] [--page-size 16] \\
-        [--kv-quant int8|int4] [--prefix-cache] [--prefill-chunk N] \\
+        [--kv-quant int8|fp8|int4] [--prefix-cache] [--prefill-chunk N] \\
         [--fuse-decode] [--draft DIR [--n-draft 4]] \\
+        [--tp N [--tp-backend nccl|gloo]] \\
         [sampling flags] [--http [PORT]] [--host H] [--device cuda|cpu]
 
 Port of ``onebit_tpu/cli.py``'s pipeline. A checkpoint is a native
@@ -44,14 +45,15 @@ against ``generate``), printed as one JSON line and checked against
 pinned numbers with ``--expect``, generation from a prompt (sampled,
 greedy or by beam search), the draft model of speculative decoding sliced
 from a student, and serving: one request a stdin line, or over HTTP
-(``engine/server.py``), with a draft model if asked. Without
+(``engine/server.py``), with a draft model if asked, on one device or on
+tensor-parallel ranks behind one front end (``engine/tp_serve.py``). Without
 ``--tokenizer`` prompts and completions are comma-separated token ids.
 A tokenizer is ``AutoTokenizer.from_pretrained(--tokenizer)`` (for eval
 and train, the checkpoint's own directory by default), imported only
 where a command needs one. ``train --config`` reads the train flags from
 a yaml or json file (its values override the command line's). What is
-not ported yet (sharded checkpoints, ``serve --tp``, ``--dry-compile``)
-exits nonzero, naming what it waits for.
+not ported yet (sharded checkpoints, ``--dry-compile``) exits nonzero,
+naming what it waits for.
 """
 
 from __future__ import annotations
@@ -61,7 +63,6 @@ import json
 import os
 import sys
 
-from onebit_tpu_torch.engine.paged import ENGINE_OPTIONS_WAIT
 from onebit_tpu_torch.parallel.mesh import PARALLEL_WAIT
 
 # the engine configurations of --check-engines (onebit_tpu/cli.py:214-220)
@@ -82,12 +83,7 @@ WAITING_TRAIN = {
 }
 WAITING_CONVERT = {"sharded": "sharded checkpoints, " + _PARALLEL}
 # serve flag -> what it waits for
-WAITING_SERVE = {
-    "dry_compile": "parallel/memplan.py, " + _PARALLEL,
-    "draft": "the tensor-parallel speculative round, " + ENGINE_OPTIONS_WAIT,
-    "tp": "a launcher of the tensor-parallel ranks behind one front end "
-          "(ROADMAP.md §1 item 4)",
-}
+WAITING_SERVE = {"dry_compile": "parallel/memplan.py, " + _PARALLEL}
 
 
 def _check_expect(results, path: str, check_engines: bool) -> None:
@@ -439,18 +435,11 @@ def cmd_serve(args) -> None:
     ``--tokenizer``), completions printed when all are done; ``--http
     PORT``: an HTTP server with POST /generate (sync and ndjson streaming;
     ``text`` bodies with ``--tokenizer``), GET /metrics and GET /health
-    (``engine/server.py``)."""
-    import time
-
-    from onebit_tpu_torch.engine.batching import ContinuousBatchingEngine
-    from onebit_tpu_torch.engine.sampler import SamplingConfig
-    from onebit_tpu_torch.engine.server import EngineServer
-
-    def wait(flag, why):
-        raise SystemExit(f"--{flag} is not ported yet: it waits for {why}")
-
+    (``engine/server.py``). ``--tp N``: N rank processes on this host
+    behind one front end, rank 0 (``engine/tp_serve.py``)."""
     if args.dry_compile:
-        wait("dry-compile", WAITING_SERVE["dry_compile"])
+        raise SystemExit("--dry-compile is not ported yet: it waits for "
+                         + WAITING_SERVE["dry_compile"])
     if not args.paged and args.prefix_cache:
         raise SystemExit("--prefix-cache requires --paged")
     if not args.paged and args.kv_quant == "fp8":
@@ -460,27 +449,55 @@ def cmd_serve(args) -> None:
     if args.paged and args.kv_quant == "int4":
         raise SystemExit("--kv-quant int4 is dense-engine only (no int4 "
                          "paged pools); drop --paged")
-    if args.kv_quant == "fp8":
-        raise SystemExit("--kv-quant fp8 is not ported yet: fp8 pages wait "
-                         f"for {ENGINE_OPTIONS_WAIT}")
-    if args.draft and args.tp > 1:
-        wait("draft with --tp", WAITING_SERVE["draft"])
-    if args.tp > 1:
-        wait("tp", WAITING_SERVE["tp"])
+    if args.tp > 1 and args.fuse_decode:
+        raise SystemExit("--tp uses per-projection TP kernels; "
+                         "drop --fuse-decode")
     if not args.ckpt:
         raise SystemExit("serve needs --ckpt DIR")
-    loaded = _load_any_ckpt(args.ckpt, args.device)
-    config, params = loaded["config"], loaded["params"]
+    if args.tp > 1:
+        from onebit_tpu_torch.engine.tp_serve import serve_tp
+        serve_tp(args)
+        return
+    eng = serve_engine(args, args.device)
     tok = _load_tokenizer(args.tokenizer) if args.tokenizer else None
+    if args.http is not None:
+        import time
+
+        from onebit_tpu_torch.engine.server import EngineServer
+        server = EngineServer(eng, tokenizer=tok)
+        port = server.start(host=args.host, port=args.http)
+        print(serving_line(args.host, port), flush=True)
+        try:
+            while True:
+                time.sleep(3600)
+        except KeyboardInterrupt:
+            server.stop()
+        return
+    prompts = read_prompts(sys.stdin, tok)
+    uids = [eng.add_request(ids, max_new_tokens=args.max_new_tokens)
+            for _, ids in prompts]
+    out = eng.run()
+    print_completions(prompts, [out[u] for u in uids], tok)
+
+
+def serve_engine(args, device, tp_group=None):
+    """The ``serve`` flags' engine on ``device``: the checkpoint, and the
+    draft's, loaded there; with ``tp_group`` one rank's engine over its
+    shards."""
+    from onebit_tpu_torch.engine.batching import ContinuousBatchingEngine
+    from onebit_tpu_torch.engine.sampler import SamplingConfig
+
+    loaded = _load_any_ckpt(args.ckpt, device)
+    config, params = loaded["config"], loaded["params"]
     if args.fuse_decode:
         from onebit_tpu_torch.model.bitllama import fuse_for_decode
         params = fuse_for_decode(params, config)
     sampling = SamplingConfig(greedy=args.greedy,
                               temperature=args.temperature,
                               top_k=args.top_k, top_p=args.top_p)
-    draft = (_load_any_ckpt(args.draft, args.device) if args.draft
+    draft = (_load_any_ckpt(args.draft, device) if args.draft
              else {"params": None, "config": None})
-    eng = ContinuousBatchingEngine(
+    return ContinuousBatchingEngine(
         params, config, max_batch=args.max_batch, max_len=args.max_len,
         sampling=sampling, block_steps=args.block_steps, paged=args.paged,
         quantized_kv=args.kv_quant or False, page_size=args.page_size,
@@ -488,32 +505,31 @@ def cmd_serve(args) -> None:
         prefill_chunk_size=args.prefill_chunk,
         draft_params=draft["params"], draft_config=draft["config"],
         n_draft=args.n_draft, pipeline_blocks=args.pipeline_blocks,
-        device=args.device)
-    if args.http is not None:
-        server = EngineServer(eng, tokenizer=tok)
-        port = server.start(host=args.host, port=args.http)
-        print(f"serving on http://{args.host}:{port} "
-              "(POST /generate, GET /metrics)", flush=True)
-        try:
-            while True:
-                time.sleep(3600)
-        except KeyboardInterrupt:
-            server.stop()
-        return
-    prompts = {}
-    for line in sys.stdin:
+        device=device, tp_group=tp_group)
+
+
+def serving_line(host: str, port: int) -> str:
+    return f"serving on http://{host}:{port} (POST /generate, GET /metrics)"
+
+
+def read_prompts(lines, tok) -> list:
+    """``(line, token ids)`` of every non-empty line, ids comma-separated
+    or, with a tokenizer ``tok``, the line's text encoded."""
+    prompts = []
+    for line in lines:
         line = line.strip()
-        if not line:
-            continue
-        toks = (tok(line)["input_ids"] if tok
-                else [int(t) for t in line.split(",")])
-        uid = eng.add_request(toks, max_new_tokens=args.max_new_tokens)
-        prompts[uid] = line
-    out = eng.run()
-    for uid in sorted(out):
-        text = (tok.decode(out[uid]) if tok
-                else ",".join(map(str, out[uid])))
-        print(json.dumps({"prompt": prompts[uid], "completion": text}))
+        if line:
+            prompts.append((line, tok(line)["input_ids"] if tok
+                            else [int(t) for t in line.split(",")]))
+    return prompts
+
+
+def print_completions(prompts, outputs, tok) -> None:
+    """One JSON line a request, in the order of its line (its uid's,
+    onebit_tpu/cli.py:506-518): ``outputs`` are the requests' tokens."""
+    for (line, _), toks in zip(prompts, outputs):
+        text = tok.decode(toks) if tok else ",".join(map(str, toks))
+        print(json.dumps({"prompt": line, "completion": text}))
 
 
 def _device_flag(parser) -> None:
@@ -683,9 +699,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="paged KV cache (page tables over a page pool)")
     sv.add_argument("--kv-quant", choices=["int8", "fp8", "int4"],
                     default=None,
-                    help="quantized KV cache: with --paged int8 pages (fp8 "
-                    "not ported yet); without, the int8 or int4 "
-                    "transposed-K pools of the fused append+attend kernels")
+                    help="quantized KV cache: with --paged int8 or fp8 "
+                    "pages; without, the int8 or int4 transposed-K pools "
+                    "of the fused append+attend kernels")
     sv.add_argument("--page-size", type=int, default=16)
     sv.add_argument("--prefix-cache", action="store_true",
                     help="share full prompt pages between requests "
@@ -697,7 +713,13 @@ def build_parser() -> argparse.ArgumentParser:
                     "decoding (see build-draft)")
     sv.add_argument("--n-draft", type=int, default=4,
                     help="proposals a speculative round")
-    sv.add_argument("--tp", type=int, default=1, help="not ported yet")
+    sv.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel ranks: one process each on this "
+                    "host, rank 0 the front end (stdin or --http)")
+    sv.add_argument("--tp-backend", choices=["nccl", "gloo"], default=None,
+                    help="the ranks' collectives: nccl (the default under "
+                    "--device cuda; a card a rank) or gloo (the default "
+                    "under --device cpu; ranks may share a card)")
     sv.add_argument("--dry-compile", action="store_true",
                     help="not ported yet")
     _device_flag(sv)

@@ -2,11 +2,16 @@
 // quantized KT pools (kv_attention_kt.cuh, built from kv_attention_int8.cu
 // and kv_attention_int4.cu), B9 over the flat pools (kv_attention_decode.cu)
 // and B10 through page tables (paged_attention.cu): q's dtype to and from
-// fp32, warp reductions, element loads from shared memory (load_elems) and
-// the int4 nibble merge of an append.
+// fp32, warp reductions, element loads from shared memory (load_elems, of
+// f32, bf16, int8 or fp8 e4m3 elements) and the int4 nibble merge of an
+// append.
 #pragma once
 
+#include <type_traits>
+
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -53,6 +58,14 @@ __device__ __forceinline__ float elem_f32(__nv_bfloat16 v) {
 }
 __device__ __forceinline__ float elem_f32(int8_t v) { return (float)v; }
 
+// Two e4m3 bytes (the first in the low byte) as two floats, exactly, in
+// one cvt.rn.f16x2.e4m3x2 (sm_89 on): every e4m3 value is exact in f16.
+__device__ __forceinline__ float2 fp8x2_to_float2(uint16_t x) {
+  uint32_t h2;
+  asm("cvt.rn.f16x2.e4m3x2 %0, %1;" : "=r"(h2) : "h"(x));
+  return __half22float2(*reinterpret_cast<const __half2*>(&h2));
+}
+
 template <int BYTES>
 struct Vec;
 template <>
@@ -76,9 +89,21 @@ __device__ __forceinline__ void load_elems(const P* p, float (&v)[N]) {
 #pragma unroll
   for (int i = 0; i < kBytes / kLoad; ++i) {
     const V raw = *reinterpret_cast<const V*>(p + i * kPer);
-    const P* e = reinterpret_cast<const P*>(&raw);
+    if constexpr (std::is_same<P, __nv_fp8_e4m3>::value) {
+      // fp8: two elements an instruction
+      static_assert(kPer % 2 == 0, "fp8 elements come in pairs");
+      const uint16_t* e = reinterpret_cast<const uint16_t*>(&raw);
 #pragma unroll
-    for (int j = 0; j < kPer; ++j) v[i * kPer + j] = elem_f32(e[j]);
+      for (int j = 0; j < kPer / 2; ++j) {
+        const float2 f = fp8x2_to_float2(e[j]);
+        v[i * kPer + 2 * j] = f.x;
+        v[i * kPer + 2 * j + 1] = f.y;
+      }
+    } else {
+      const P* e = reinterpret_cast<const P*>(&raw);
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) v[i * kPer + j] = elem_f32(e[j]);
+    }
   }
 }
 

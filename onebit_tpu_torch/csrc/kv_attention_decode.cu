@@ -4,15 +4,19 @@
 // _kernel): one query token per row against layer `layer` of the pools
 // [L, B, T, nkv, HD] that batch generation decodes from (the dense KVCache,
 // and the flat int8 QuantKVCache), read only; the caller writes the cache.
-// Three instances share this body, each counted apart by the wrapper: int8
-// pools with pre-divided fp32 scales (absmax / 127), and pools of q's dtype
-// (bf16 or f32) with no scales.
+// Four instances share this body, each counted apart by the wrapper: int8
+// pools with pre-divided fp32 scales (absmax / 127), pools of q's dtype
+// (bf16 or f32) with no scales, and fp8 e4m3 pools with no scales, each
+// element converted exactly to q's dtype as JAX's `k.astype(q.dtype)` does
+// (kv_attention.py:68,79; every e4m3 value is exact in bf16), one byte an
+// element moved.
 //
 // Layouts of one layer (the wrapper passes the layer slice's base pointers;
 // every offset below is 64-bit: a llama2-7b pool at batch 8 and T 2048 holds
 // 2**31 elements, and its byte offsets pass 2**32 at layer 31):
-//   K, V  [B, T, nkv, HD]   position t of head n: HD contiguous elements,
-//                           nkv * HD elements after position t - 1
+//   K, V  [B, T, nkv, HD]   position t of head n: HD contiguous elements
+//                           (int8 and fp8: HD bytes), nkv * HD elements
+//                           after position t - 1
 //   Ks, Vs [B, T, nkv] f32  int8 pools only
 //   q, out [B, nkv * G, HD] (T)
 //   lengths, starts [B] int32; row b attends positions [starts[b], lengths[b])
@@ -403,17 +407,21 @@ int by_head_dim(int hd, int g, const Call& a) {
   return (int)cudaErrorInvalidValue;
 }
 
+// pool: 0 = q's dtype, 1 = int8 with scales, 2 = fp8 e4m3
 template <typename T>
-int by_pool(int quant, int hd, int g, const Call& a) {
-  return quant ? by_head_dim<T, int8_t>(hd, g, a)
-               : by_head_dim<T, T>(hd, g, a);
+int by_pool(int pool, int hd, int g, const Call& a) {
+  if (pool == 1) return by_head_dim<T, int8_t>(hd, g, a);
+  if (pool == 2) return by_head_dim<T, __nv_fp8_e4m3>(hd, g, a);
+  if (pool == 0) return by_head_dim<T, T>(hd, g, a);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace onebit_kv_decode
 
 // q/out [B, nkv * g, hd] (dtype 0 = float32, 1 = bfloat16); the layer's
-// pools k/v [B, T, nkv, hd] in q's dtype (quant = 0) or int8 with scales
-// k_s/v_s [B, T, nkv] f32 (quant = 1; null otherwise); lengths and starts
+// pools k/v [B, T, nkv, hd] in q's dtype (pool = 0), int8 with scales
+// k_s/v_s [B, T, nkv] f32 (pool = 1), or fp8 e4m3 (pool = 2); the scales
+// are null but for int8; lengths and starts
 // (or null) [B] int32 on the device. `chunk` must be the kernel's chunk of
 // positions (kv_attention_cuda.DECODE_CHUNK); `part` holds part_floats
 // floats, at least B * nkv * ceil(T / chunk) * g * (hd + 2); `counters`
@@ -424,7 +432,7 @@ extern "C" int onebit_kv_attention_decode(
     const void* q, void* out, const void* k, const void* k_s, const void* v,
     const void* v_s, const void* lengths, const void* starts, void* part,
     void* counters, int B, int nkv, int g, int hd, int T, int dtype,
-    int quant, int chunk, long long part_floats, float hd_scale,
+    int pool, int chunk, long long part_floats, float hd_scale,
     void* stream) {
   using namespace onebit_kv_decode;
   const long long need = (long long)B * nkv * ((T + kChunk - 1) / kChunk) *
@@ -433,6 +441,6 @@ extern "C" int onebit_kv_attention_decode(
     return (int)cudaErrorInvalidValue;
   const Call a{q, k, k_s, v, v_s, lengths, starts, out, part, counters,
                B, nkv, T, hd_scale, static_cast<cudaStream_t>(stream)};
-  if (dtype == 1) return by_pool<__nv_bfloat16>(quant, hd, g, a);
-  return by_pool<float>(quant, hd, g, a);
+  if (dtype == 1) return by_pool<__nv_bfloat16>(pool, hd, g, a);
+  return by_pool<float>(pool, hd, g, a);
 }

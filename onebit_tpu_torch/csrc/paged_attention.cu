@@ -2,13 +2,19 @@
 //
 // Replaces onebit_tpu/kernels/paged_attention.py paged_attention_flat (body
 // _kernel): one query token per row against a flat multi-layer page pool.
-// Two instances share this body, each counted apart by the wrapper: float
-// pages (bf16 or f32, the dtype of q) and int8 pages with raw absmax scales.
+// Three instances share this body, each counted apart by the wrapper: float
+// pages (bf16 or f32, the dtype of q), int8 pages with raw absmax scales,
+// and fp8 e4m3 pages with no scales. The fp8 instance computes the function
+// of JAX's gather path for such pages (onebit_tpu/engine/paged.py:262-270:
+// the pages cast to q's dtype, then _jnp_paged_attention), since the Pallas
+// kernel has no fp8 page path: each element converts exactly to q's dtype
+// (every e4m3 value is exact in bf16), one byte an element moved.
 //
 // Layouts of one layer (the wrapper passes the layer slice's base pointers;
 // every offset below is 64-bit, since a llama2-7b pool at the engine's
 // defaults holds 32 x 1025 x 32 x 16 x 128 > 2**31 elements):
-//   K, V  [P, nkv, ps, HD]   page p, head n: one contiguous [ps, HD] slab;
+//   K, V  [P, nkv, ps, HD]   page p, head n: one contiguous [ps, HD] slab
+//                            (HD bytes a position for int8 and fp8);
 //                            position t of row b is row
 //                            (tbl[t / ps] * nkv + n) * ps + t % ps
 //   Ks, Vs [P, nkv, ps] f32  raw absmax of (page, head, slot), int8 only
@@ -424,23 +430,26 @@ int by_head_dim(int hd, int g, const Call& a) {
   return kNoInstance;
 }
 
+// pages: 0 = q's dtype, 1 = int8 with scales, 2 = fp8 e4m3
 template <typename T>
-int by_pages(int quant, int hd, int g, const Call& a) {
-  return quant ? by_head_dim<T, int8_t>(hd, g, a)
-               : by_head_dim<T, T>(hd, g, a);
+int by_pages(int pages, int hd, int g, const Call& a) {
+  if (pages == 1) return by_head_dim<T, int8_t>(hd, g, a);
+  if (pages == 2) return by_head_dim<T, __nv_fp8_e4m3>(hd, g, a);
+  if (pages == 0) return by_head_dim<T, T>(hd, g, a);
+  return kNoInstance;
 }
 
-int dispatch(int dtype, int quant, int hd, int g, const Call& a) {
-  if (dtype == 1) return by_pages<__nv_bfloat16>(quant, hd, g, a);
-  return by_pages<float>(quant, hd, g, a);
+int dispatch(int dtype, int pages, int hd, int g, const Call& a) {
+  if (dtype == 1) return by_pages<__nv_bfloat16>(pages, hd, g, a);
+  return by_pages<float>(pages, hd, g, a);
 }
 
 }  // namespace onebit_paged
 
 // q [B, nkv * g, hd] (dtype 0 = float32, 1 = bfloat16), out [B, nkv * g, hd]
-// f32; the layer's pages k/v [P, nkv, ps, hd] in q's dtype (quant = 0) or
-// int8 with scales k_scales/v_scales [P, nkv, ps] f32 (quant = 1; null
-// otherwise); lengths [B] and page_indices [B, mp] int32 on the device.
+// f32; the layer's pages k/v [P, nkv, ps, hd] in q's dtype (pages = 0),
+// int8 with scales k_scales/v_scales [P, nkv, ps] f32 (pages = 1), or fp8
+// e4m3 (pages = 2); the scales are null but for int8; lengths [B] and page_indices [B, mp] int32 on the device.
 // `chunk` must be the kernel's chunk of positions
 // (paged_attention_cuda.PAGED_CHUNK); `part` holds part_floats floats, at
 // least B * nkv * ceil(mp * ps / chunk) * g * (hd + 2); `counters` B * nkv
@@ -450,7 +459,7 @@ extern "C" int onebit_paged_attention(
     const void* q, void* out, const void* k_pages, const void* k_scales,
     const void* v_pages, const void* v_scales, const void* lengths,
     const void* page_indices, void* part, void* counters, int B, int nkv,
-    int g, int hd, int ps, int mp, int dtype, int quant, int chunk,
+    int g, int hd, int ps, int mp, int dtype, int pages, int chunk,
     long long part_floats, float hd_scale, void* stream) {
   using namespace onebit_paged;
   const long long need = (long long)B * nkv *
@@ -462,15 +471,15 @@ extern "C" int onebit_paged_attention(
   const Call a{q, k_pages, k_scales, v_pages, v_scales, lengths,
                page_indices, out, part, counters, B, nkv, ps, mp, hd_scale,
                static_cast<cudaStream_t>(stream), false};
-  const int r = dispatch(dtype, quant, hd, g, a);
+  const int r = dispatch(dtype, pages, hd, g, a);
   return r == kNoInstance ? (int)cudaErrorInvalidValue : r;
 }
 
 // The dynamic shared bytes a CTA of the instance asks for (-1: no such
 // instance).
-extern "C" int onebit_paged_attention_smem_bytes(int dtype, int quant,
+extern "C" int onebit_paged_attention_smem_bytes(int dtype, int pages,
                                                  int hd, int g) {
   onebit_paged::Call a{};
   a.smem_only = true;
-  return onebit_paged::dispatch(dtype, quant, hd, g, a);
+  return onebit_paged::dispatch(dtype, pages, hd, g, a);
 }

@@ -9,7 +9,8 @@ Port of the dense and dense-quantized paths of
   int4 pools (``model/kv_cache.py``), whose decode attention runs the fused
   append+attend kernels;
 * with ``paged=True`` the cache is a pool of ``page_size``-position pages
-  (``engine/paged.py``; int8 pages with ``quantized_kv=True``) handed out
+  (``engine/paged.py``; int8 pages with ``quantized_kv=True``, fp8 e4m3
+  pages with ``quantized_kv="fp8"``) handed out
   by a refcounting allocator: admission reserves the pages a request can
   ever need and waits while the pool is short, and ``prefix_cache=True``
   shares full prompt pages between requests with the same prefix;
@@ -40,13 +41,13 @@ Port of the dense and dense-quantized paths of
   the counterpart of the JAX engine's ``tp_mesh``) the engine serves one
   rank of a tensor-parallel group: it keeps the rank's shards of the
   (unfused) params and a head-sharded cache of any of the kinds above, and
-  dispatches the programs of ``engine/tp_backend.py``. Every rank runs the
-  same engine on the same requests; nothing the scheduler decides depends
-  on the rank or the clock, and every rank seeds the same sampling
+  dispatches the programs of ``engine/tp_backend.py``, the greedy
+  speculative round among them (the draft whole on every rank). Every rank
+  runs the same engine on the same requests; nothing the scheduler decides
+  depends on the rank or the clock, and every rank seeds the same sampling
   generator, so all ranks emit the same tokens.
 
-Options of the JAX engine that this port does not have yet raise
-``NotImplementedError`` naming the slice that brings them (ROADMAP.md).
+The JAX engine's exclusions raise its ``ValueError`` in its wording.
 """
 
 from __future__ import annotations
@@ -63,8 +64,7 @@ import numpy as np
 import torch
 
 from onebit_tpu_torch.engine.block_graph import BlockGraph, BlockOut
-from onebit_tpu_torch.engine.paged import (ENGINE_OPTIONS_WAIT,
-                                           PageAllocator,
+from onebit_tpu_torch.engine.paged import (PageAllocator,
                                            init_paged_kv_cache,
                                            paged_chunked_prefill_row,
                                            paged_decode_block,
@@ -73,7 +73,7 @@ from onebit_tpu_torch.engine.paged import (ENGINE_OPTIONS_WAIT,
 from onebit_tpu_torch.engine.sampler import SamplingConfig, sample_token
 from onebit_tpu_torch.engine.speculative import (spec_decode_round,
                                                  spec_decode_round_sampled)
-from onebit_tpu_torch.engine.tp_backend import TPServing
+from onebit_tpu_torch.engine.tp_backend import TPServing, tree_to
 from onebit_tpu_torch.model.bitllama import init_kv_cache
 from onebit_tpu_torch.model.config import BitLlamaConfig
 from onebit_tpu_torch.model.kv_cache import (init_quant_kv_cache_kt,
@@ -151,18 +151,17 @@ def _check_blocks(block_steps, pipeline_blocks, draft_params) -> None:
                          "amortizes host round trips)")
 
 
-def _reject_unported(paged, quantized_kv, tp_group, draft_params):
-    later = [
-        (paged and quantized_kv == "fp8", "quantized_kv='fp8' (fp8 pages)"),
-        (tp_group is not None and draft_params is not None,
-         "draft_params with tp_group (the tensor-parallel speculative "
-         "round)"),
-    ]
-    for given, name in later:
-        if given:
-            raise NotImplementedError(
-                f"{name} is not ported yet: it waits for "
-                f"{ENGINE_OPTIONS_WAIT}")
+def _check_tp_spec(tp_group, draft_params, sampling) -> None:
+    """The reference engine's exclusion of a sampled speculative round
+    under tensor parallelism, with its wording (batching.py:164-169)."""
+    if tp_group is not None and draft_params is not None and \
+            not sampling.greedy:
+        raise ValueError(
+            "tp_mesh + speculative decoding supports greedy "
+            "sampling only (TPServing runs the draft replicated "
+            "and combines per-shard argmaxes; the rejection-"
+            "sampling round would need full target distributions "
+            "gathered every round)")
 
 
 class ContinuousBatchingEngine:
@@ -180,10 +179,10 @@ class ContinuousBatchingEngine:
         _check_quantized_kv(paged, quantized_kv, draft_params,
                             prefill_chunk_size)
         _check_blocks(block_steps, pipeline_blocks, draft_params)
-        _reject_unported(paged, quantized_kv, tp_group, draft_params)
+        self.sampling = sampling or SamplingConfig(greedy=True)
+        _check_tp_spec(tp_group, draft_params, self.sampling)
         if draft_params is not None and draft_config is None:
             raise ValueError("draft_params requires draft_config")
-        self.sampling = sampling or SamplingConfig(greedy=True)
         self.block_steps = max(block_steps, 1)
         # depth-2 block pipelining (batching.py:126-143): block N+1 is
         # dispatched from block N's device finals before block N's tokens
@@ -203,9 +202,13 @@ class ContinuousBatchingEngine:
             self._tp = TPServing(tp_group, config, impl=impl,
                                  compute_dtype=compute_dtype,
                                  sampling=self.sampling,
-                                 block_steps=self.block_steps)
+                                 block_steps=self.block_steps,
+                                 draft_config=draft_config, n_draft=n_draft)
             self.device = tp_group.device
             params = shard_tp_params(params, tp_group)
+            if draft_params is not None:
+                # the draft runs whole on every rank (batching.py:196-205)
+                draft_params = tree_to(draft_params, self.device)
         else:
             self.device = resolve_device(device)
         self.params = params
@@ -628,7 +631,16 @@ class ContinuousBatchingEngine:
         kw = dict(n_draft=self.n_draft, impl=self.impl,
                   compute_dtype=self.compute_dtype)
         tables = self.page_tables if self.paged else None
-        if self.sampling.greedy:
+        if self._tp is not None:
+            # greedy only: the acceptance reads the per-shard argmaxes
+            tp_args = (self.params, self.cache, self.draft_params,
+                       self.draft_cache, self.next_token, self.row_pos)
+            if self.paged:
+                out = self._tp.paged_spec_round(*tp_args, tables, active,
+                                                budget)
+            else:
+                out = self._tp.spec_round(*tp_args, active, budget)
+        elif self.sampling.greedy:
             out = spec_decode_round(*args, self.config, self.draft_config,
                                     tables, **kw)
         else:

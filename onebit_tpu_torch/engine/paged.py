@@ -18,8 +18,9 @@ Decode attention (one query position per row) runs kernel B10
 ``"torch"``: a CTA reads its row's page table and loads the pages itself.
 With ``impl="torch"`` and on the CPU it gathers the rows' pages from the
 layer and attends over them, the JAX package's default; int8 pages attend
-on the gathered integers with the scales folded in (``_attention_quant``).
-Windows of W > 1 positions (chunk appends) always take the gather.
+on the gathered integers with the scales folded in (``_attention_quant``),
+fp8 pages cast to q's dtype. Windows of W > 1 positions (chunk appends and
+verify windows) always take the gather.
 
 PyTorch runs eagerly: the layer loop is a Python loop, and the pools are
 updated **in place**, one bulk index write per leaf and layer (the JAX
@@ -27,7 +28,9 @@ functions return a new cache; these return the same cache, mutated).
 
 Int8 pages use the third KV scale convention of the JAX package: the raw
 absmax ``h = max(|x|, 1e-6)`` is stored, values are ``rint(x * 127.5 / h)``
-(saturated to int8), and dequantization is ``q * h / 127.5``.
+(saturated to int8), and dequantization is ``q * h / 127.5``. fp8 pages
+(``float8_e4m3fn``, no scales) hold the bytes of JAX's ``astype``
+(:func:`_to_fp8`), written through ``uint8`` views.
 """
 
 from __future__ import annotations
@@ -50,13 +53,15 @@ from onebit_tpu_torch.model.ragged_decode import decode_block
 from onebit_tpu_torch.model.rope import apply_rope, rope_cos_sin
 from onebit_tpu_torch.utils.device import resolve_device
 
-# what still waits of the JAX engine's options: fp8 pages and the
-# tensor-parallel speculative round
-ENGINE_OPTIONS_WAIT = "the engine options of ROADMAP.md §1 item 5"
+FP8 = torch.float8_e4m3fn
+# |x| past this rounds beyond 448, e4m3's largest finite value: JAX's
+# convert gives NaN there, torch's saturates
+_FP8_ROUNDS_TO_MAX = 464.0
 
 
 class PagedKVCache(NamedTuple):
-    """Pages in one float dtype, layers stacked on axis 0."""
+    """Pages in one float dtype (fp8 e4m3 included), layers stacked on
+    axis 0."""
     k_pages: torch.Tensor  # [L, num_pages, n_kv, page_size, head_dim]
     v_pages: torch.Tensor
 
@@ -89,15 +94,13 @@ class QuantPagedKVCache(NamedTuple):
 def init_paged_kv_cache(config: BitLlamaConfig, num_pages: int,
                         page_size: int = 16, dtype=torch.bfloat16,
                         quantized=False, device=None, num_kv_heads=None):
-    """``quantized``: False (pages in ``dtype``) or True / "int8" (int8
-    pages + raw absmax scales). fp8 pages are not ported yet.
-    ``num_kv_heads`` overrides the config's head count (a tensor-parallel
-    rank holds ``nkv / mp`` heads)."""
-    if quantized == "fp8":
-        raise NotImplementedError(
-            f"fp8 pages are not ported yet: they wait for "
-            f"{ENGINE_OPTIONS_WAIT}")
+    """``quantized``: False (pages in ``dtype``), True / "int8" (int8
+    pages + raw absmax scales) or "fp8" (``float8_e4m3fn`` pages, no
+    scales). ``num_kv_heads`` overrides the config's head count (a
+    tensor-parallel rank holds ``nkv / mp`` heads)."""
     device = resolve_device(device)
+    if quantized == "fp8":
+        dtype, quantized = FP8, False
     shape = (config.num_hidden_layers, num_pages,
              num_kv_heads or config.num_key_value_heads, page_size,
              config.head_dim)
@@ -126,6 +129,19 @@ def _quantize_kv_int8(x):
 
 def _dequantize_kv_int8(q, scales, dtype=torch.float32):
     return (q.float() * (scales / _MAX_INT8)).to(dtype)
+
+
+def _to_fp8(x) -> torch.Tensor:
+    """``x`` as ``float8_e4m3fn`` with the bytes of JAX's
+    ``x.astype(float8_e4m3fn)``: rounded to nearest, ties to even (through
+    fp32, exact for bf16 and f32 inputs), and NaN, its sign kept, for NaN
+    and for every |x| past 464, where torch's conversion saturates to
+    +-448 instead (and gives NaN one sign)."""
+    xf = x.float()
+    out = xf.to(FP8).view(torch.uint8)
+    nan = torch.isnan(xf) | (xf.abs() > _FP8_ROUNDS_TO_MAX)
+    sign = torch.signbit(xf).to(torch.uint8) << 7
+    return torch.where(nan, sign | 0x7F, out).view(FP8)
 
 
 class PageAllocator:
@@ -195,6 +211,12 @@ def _write_pages(cache, i: int, pages, slots, k, v) -> None:
         v_i8, v_sc = _quantize_kv_int8(v)
         for leaf, val in zip(cache, (k_i8, k_sc, v_i8, v_sc)):
             leaf[i][pages, :, slots] = val
+        return
+    if cache.k_pages.dtype == FP8:
+        # fp8 has few indexing kernels: the same bytes through uint8 views
+        for leaf, val in zip(cache, (k, v)):
+            leaf[i].view(torch.uint8)[pages, :, slots] = \
+                _to_fp8(val).view(torch.uint8)
         return
     cache.k_pages[i][pages, :, slots] = k.to(cache.k_pages.dtype)
     cache.v_pages[i][pages, :, slots] = v.to(cache.v_pages.dtype)

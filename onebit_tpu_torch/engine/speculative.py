@@ -53,8 +53,8 @@ def _verify(t_params, t_cache, window, row_pos, active, t_config,
                                t_page_tables, t_config, **kw)
 
 
-def _draft(d_params, d_cache, tok, row_pos, active, d_config, n_draft: int,
-           impl, compute_dtype, pick):
+def draft_proposals(d_params, d_cache, tok, row_pos, active, d_config,
+                    n_draft: int, impl, compute_dtype, pick):
     """``n_draft`` draft steps from ``tok [B]`` at the host positions
     ``row_pos + j``; ``pick(logits [B, V]) -> tokens [B]``. Then the last
     proposal is consumed too (its lm_head is not needed). Returns the
@@ -71,7 +71,9 @@ def _draft(d_params, d_cache, tok, row_pos, active, d_config, n_draft: int,
     return torch.stack(props, dim=1)
 
 
-def _device_state(cache, next_token, row_pos, active, budget):
+def device_state(cache, next_token, row_pos, active, budget):
+    """The round's host state as tensors on the cache's device: ``(device,
+    next_token, row_pos, active, budget)``."""
     dev = cache[0].device
     as_t = lambda x, dt: torch.as_tensor(np.asarray(x)).to(dev, dt)  # noqa
     return (dev, as_t(next_token, torch.long), as_t(row_pos, torch.long),
@@ -94,23 +96,34 @@ def spec_decode_round(t_params, d_params, t_cache, d_cache, next_token,
     new_next [B], new_row_pos [B], t_cache, d_cache)`` as device tensors:
     row ``b`` emitted ``emitted[b, :n_emit[b]]``; inactive rows emit
     nothing and keep their position."""
-    dev, tok0, pos0, act, bud = _device_state(t_cache, next_token, row_pos,
+    dev, tok0, pos0, act, bud = device_state(t_cache, next_token, row_pos,
                                               active, budget)
     row_pos = np.asarray(row_pos, np.int64)
-    props = _draft(d_params, d_cache, tok0.to(d_cache[0].device), row_pos,
-                   active, d_config, n_draft, impl, compute_dtype,
-                   lambda logits: logits.argmax(-1)).to(dev)
+    props = draft_proposals(d_params, d_cache, tok0.to(d_cache[0].device),
+                            row_pos, active, d_config, n_draft, impl,
+                            compute_dtype,
+                            lambda logits: logits.argmax(-1)).to(dev)
     window = torch.cat([tok0[:, None], props], dim=1)
     t_logits, t_cache = _verify(t_params, t_cache, window, row_pos, active,
                                 t_config, t_page_tables, impl, compute_dtype)
-    greedy = t_logits.argmax(-1)                          # [B, n_draft+1]
+    return (*accept_greedy(props, t_logits.argmax(-1), tok0, pos0, act, bud,
+                           t_config.eos_token_id), t_cache, d_cache)
+
+
+def accept_greedy(props, greedy, next_token, row_pos, active, budget,
+                  eos: int):
+    """The greedy acceptance (speculative.py:85-108): the longest prefix of
+    the proposals ``props [B, n]`` equal to the target's greedy tokens
+    ``greedy [B, n + 1]`` is kept and the target's next token added, then
+    :func:`_finalize`. Device tensors; returns ``(emitted, n_emit,
+    new_next, new_row_pos)``."""
     match = (props == greedy[:, :-1]).long()
     a = torch.cumprod(match, dim=1).sum(1)                # [B] in [0, n]
-    rows = torch.arange(window.shape[0], device=dev)
+    rows = torch.arange(props.shape[0], device=props.device)
     emitted = torch.cat([props, torch.zeros_like(props[:, :1])], dim=1)
     emitted[rows, a] = greedy[rows, a]
-    return (*_finalize(emitted, a + 1, tok0, pos0, act, bud,
-                       t_config.eos_token_id), t_cache, d_cache)
+    return _finalize(emitted, a + 1, next_token, row_pos, active, budget,
+                     eos)
 
 
 def _finalize(emitted, n_emit, next_token, row_pos, active, budget,
@@ -158,7 +171,7 @@ def spec_decode_round_sampled(t_params, d_params, t_cache, d_cache,
     (``warp_logits``). Randomness comes from ``generator``, drawn in turn:
     the draft's proposals, the acceptance uniforms, the replacement. Same
     arguments and returns as :func:`spec_decode_round`."""
-    dev, tok0, pos0, act, bud = _device_state(t_cache, next_token, row_pos,
+    dev, tok0, pos0, act, bud = device_state(t_cache, next_token, row_pos,
                                               active, budget)
     row_pos = np.asarray(row_pos, np.int64)
     q_steps = []
@@ -168,9 +181,9 @@ def spec_decode_round_sampled(t_params, d_params, t_cache, d_cache,
         q_steps.append(q)
         return _categorical(q, generator)
 
-    props = _draft(d_params, d_cache, tok0.to(d_cache[0].device), row_pos,
-                   active, d_config, n_draft, impl, compute_dtype,
-                   pick).to(dev)
+    props = draft_proposals(d_params, d_cache, tok0.to(d_cache[0].device),
+                            row_pos, active, d_config, n_draft, impl,
+                            compute_dtype, pick).to(dev)
     q_all = torch.stack(q_steps, dim=1).to(dev)            # [B, n, V]
     window = torch.cat([tok0[:, None], props], dim=1)
     t_logits, t_cache = _verify(t_params, t_cache, window, row_pos, active,

@@ -13,11 +13,16 @@ strategy (``model/tp_decode.py`` ``tp_proj``):
   :meth:`~TPServing.greedy_step`, :meth:`~TPServing.prefill_rows`, and
   :meth:`~TPServing.chunk_append`, the dense chunked prefill's chunk
   (bf16 and int8 caches; ``model/ragged_decode.py``);
-* paged pools (bf16 or int8 pages), head-sharded:
+* paged pools (bf16, int8 or fp8 pages), head-sharded:
   :meth:`~TPServing.paged_step`, :meth:`~TPServing.paged_greedy_step`,
   :meth:`~TPServing.paged_prefill_rows`, and
   :meth:`~TPServing.paged_chunk_append`, which admits a prefix-cache hit's
   suffix (``engine/paged.py``);
+* the greedy speculative round, :meth:`~TPServing.spec_round` (dense bf16
+  and int8 KT targets) and :meth:`~TPServing.paged_spec_round`
+  (``tp_backend.py:744-885``): the draft runs whole on every rank, each
+  rank proposing the same tokens, and the target's verify window runs
+  through the rank's projections over its head-sharded cache;
 * decode blocks, :meth:`~TPServing.block` and :meth:`~TPServing.paged_block`
   (``tp_backend.py:661-685``, ``:727``): ``block_steps`` steps with EOS
   and budgets handled on the device (``model/ragged_decode.py``
@@ -27,41 +32,61 @@ strategy (``model/tp_decode.py`` ``tp_proj``):
   parallelism are gloo ranks sharing one card; a graph over NCCL waits for
   a machine with a card a rank (ROADMAP.md §1 item 6).
 
-Greedy decode gathers no logits: each rank takes the argmax of its vocab
-shard and only ``mp`` (max, index) pairs per row cross the ranks
-(``_greedy_token``); sampling and admission take the gathered fp32 logits
-(``_gathered_logits``).
+Greedy decode and the speculative round's acceptance gather no logits:
+each rank takes the argmax of its vocab shard and only ``mp`` (max, index)
+pairs per row cross the ranks (``_greedy_token``); sampling and admission
+take the gathered fp32 logits (``_gathered_logits``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from onebit_tpu_torch.engine import paged as pg
 from onebit_tpu_torch.engine.sampler import SamplingConfig, sample_token
+from onebit_tpu_torch.engine.speculative import (accept_greedy,
+                                                 device_state,
+                                                 draft_proposals)
 from onebit_tpu_torch.model.config import BitLlamaConfig
 from onebit_tpu_torch.model.ragged_decode import (chunk_append_hidden,
                                                   decode_block,
                                                   prefill_rows_hidden,
                                                   ragged_decode_core,
-                                                  ragged_decode_hidden)
+                                                  ragged_decode_hidden,
+                                                  verify_window_hidden)
 from onebit_tpu_torch.model.tp_decode import (_gathered_logits,
                                               _greedy_token, check_heads,
                                               tp_proj)
 
-__all__ = ["TPServing", "tp_proj"]
+__all__ = ["TPServing", "tp_proj", "tree_to"]
+
+
+def tree_to(tree, device):
+    """A params tree (dicts, NamedTuples of tensors or None) with every
+    tensor on ``device``: the draft that each rank holds whole."""
+    if torch.is_tensor(tree):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_to(v, device) for v in tree))
+    return tree
 
 
 class TPServing:
     """One rank's serving programs over its shards (``shard_tp_params``)
     and its head-sharded cache, with the single-device programs'
     signatures (``tp_backend.py:534``). The cache initialisers take the
-    rank's head count, ``num_kv_heads`` (``tp_backend.py:1000-1037``)."""
+    rank's head count, ``num_kv_heads`` (``tp_backend.py:1000-1037``).
+    ``draft_config`` and ``n_draft``: the speculative round's draft, whose
+    params and dense cache each rank holds whole."""
 
     def __init__(self, group, config: BitLlamaConfig, *, impl: str = "auto",
                  compute_dtype=torch.bfloat16,
                  sampling: SamplingConfig = SamplingConfig(greedy=True),
-                 block_steps: int = 1):
+                 block_steps: int = 1,
+                 draft_config: BitLlamaConfig = None, n_draft: int = 4):
         check_heads(config, group.size)
         self.group = group
         self.config = config
@@ -69,6 +94,8 @@ class TPServing:
         self.compute_dtype = compute_dtype
         self.sampling = sampling
         self.block_steps = block_steps
+        self.draft_config = draft_config
+        self.n_draft = n_draft
         self.num_kv_heads = config.num_key_value_heads // group.size
 
     def _proj(self, params):
@@ -199,3 +226,51 @@ class TPServing:
                                [start], pg._tables(cache, table_row)[None, :])
         return (_gathered_logits(x[0, length - 1], params,
                                  self.compute_dtype, self.group), cache)
+
+    # -- the greedy speculative round (tp_backend.py:744-885) -----------------
+    def _spec(self, params, cache, d_params, d_cache, next_token, row_pos,
+              active, budget, target):
+        """Propose with the whole draft on this rank, verify through
+        ``target(proj, window, positions) -> hidden [B, W, d]``, accept on
+        the per-shard (max, index) pairs: ``(emitted, n_emit, new_next,
+        new_row_pos, cache, d_cache)`` as device tensors, the same on every
+        rank."""
+        dev, tok0, pos0, act, bud = device_state(cache, next_token, row_pos,
+                                                 active, budget)
+        row_pos = np.asarray(row_pos, np.int64)
+        props = draft_proposals(
+            d_params, d_cache, tok0.to(d_cache[0].device), row_pos, active,
+            self.draft_config, self.n_draft, self.impl, self.compute_dtype,
+            lambda logits: logits.argmax(-1)).to(dev)
+        window = torch.cat([tok0[:, None], props], dim=1)
+        x = target(self._proj(params), window, row_pos, pos0)
+        b, w, d = x.shape
+        greedy = _greedy_token(x.reshape(b * w, d), params,
+                               self.compute_dtype, self.group).reshape(b, w)
+        return (*accept_greedy(props, greedy, tok0, pos0, act, bud,
+                               self.config.eos_token_id), cache, d_cache)
+
+    def spec_round(self, params, cache, d_params, d_cache, next_token,
+                   row_pos, active, budget):
+        """``spec_decode_round`` on a dense bf16 or int8 KT target (the
+        window through ``verify_window_hidden``, JAX's
+        ``_dense_core(attend_cache=True)`` and ``_kt_window_core``)."""
+        def target(proj, window, pos_host, _):
+            return verify_window_hidden(proj, cache, window, pos_host, active,
+                                        self.config,
+                                        compute_dtype=self.compute_dtype)
+        return self._spec(params, cache, d_params, d_cache, next_token,
+                          row_pos, active, budget, target)
+
+    def paged_spec_round(self, params, cache, d_params, d_cache, next_token,
+                         row_pos, page_indices, active, budget):
+        """``spec_decode_round`` on a paged target (bf16, int8 or fp8
+        pages): the window through ``_window_core``'s gather."""
+        tables = pg._tables(cache, page_indices)
+
+        def target(proj, window, _, pos_dev):
+            return pg._window_core(proj, cache, window, pos_dev, tables,
+                                   self.config, self.impl,
+                                   self.compute_dtype, kernel=False)
+        return self._spec(params, cache, d_params, d_cache, next_token,
+                          row_pos, active, budget, target)

@@ -11,7 +11,7 @@ Port of ``onebit_tpu/kernels/kv_attention.py``:
   JAX ``_planar`` form exists only for XLA buffer forwarding);
 * B9 :func:`kv_attention_decode` over the flat pools ``[L,B,T,nkv,hd]``:
   int8 with scales ``[L,B,T,nkv]`` (``QuantKVCache``), or bf16/f32 with no
-  scales (the dense ``KVCache``), read only.
+  scales (the dense ``KVCache``), or fp8 e4m3 with no scales, read only.
 
 Each attends layer ``layer`` of the pools for query ``q [B, nh, hd]`` over
 positions ``[starts[b], lengths[b])`` of each row: scores
@@ -399,15 +399,13 @@ def kv_attention_decode(q, k_q, k_s, v_q, v_s, lengths, layer: int, *,
                         starts=None):
     """B9: attention over layer ``layer`` of the flat pools ``k_q/v_q
     [L,B,T,nkv,hd]``, int8 with pre-divided scales ``k_s/v_s [L,B,T,nkv]``
-    f32, or bf16/f32 with ``k_s = v_s = None`` (on the card: of q's dtype),
-    read only -> ``ctx [B, nh, hd]`` in q's dtype. Row ``b`` attends
-    positions ``[starts[b], lengths[b])``. The plain version: the
-    scale-folded ``_attention_quant`` on int8 pools, ``_attention`` over the
-    pool cast to q's dtype otherwise."""
-    if k_q.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
-        raise NotImplementedError("fp8 KV pools are not ported yet: they "
-                                  "come with the engine options of "
-                                  "ROADMAP.md §1 item 5")
+    f32, or bf16/f32/fp8 e4m3 with ``k_s = v_s = None`` (on the card: of
+    q's dtype, or fp8 e4m3), read only -> ``ctx [B, nh, hd]`` in q's dtype.
+    Row ``b`` attends positions ``[starts[b], lengths[b])``. The plain
+    version: the scale-folded ``_attention_quant`` on int8 pools,
+    ``_attention`` over the pool cast to q's dtype otherwise (an fp8
+    element is exact in bf16 and f32: JAX's ``k.astype(q.dtype)``,
+    ``onebit_tpu/kernels/kv_attention.py:68,79``)."""
     if q.device.type == "cpu":
         return kv_attention_decode_torch(q, k_q, k_s, v_q, v_s, lengths,
                                          layer, starts=starts)

@@ -3,11 +3,12 @@
 Sources ``onebit_tpu_torch/csrc/kv_attention_int8.cu`` (B5, B6) and
 ``kv_attention_int4.cu`` (B7, B8), both instances of the kernel in
 ``kv_attention_kt.cuh``, and ``kv_attention_decode.cu`` (B9, over the
-flat pools, with three instances counted apart: int8 pools with scales,
-bf16 pools, f32 pools). :func:`launch` and :func:`launch_flat` check their
-tensors, launch one kernel on PyTorch's current stream and count the launch
-in the kernel's ``KernelInfo``. The public wrappers and the plain PyTorch
-versions live in ``kernels/kv_attention.py``.
+flat pools, with four instances counted apart: int8 pools with scales,
+bf16 pools, f32 pools, fp8 e4m3 pools). :func:`launch` and
+:func:`launch_flat` check their tensors, launch one kernel on PyTorch's
+current stream and count the launch in the kernel's ``KernelInfo``. The
+public wrappers and the plain PyTorch versions live in
+``kernels/kv_attention.py``.
 
 B9 splits each row into chunks of ``DECODE_CHUNK`` positions from its start
 (``kv_attention.kv_attention_decode_chunked`` mirrors its arithmetic), B5-B8
@@ -51,10 +52,16 @@ DECODE_BF16 = KernelInfo("kv_attention_decode_bf16", _SRC + _FLAT,
                          _JAX + "1069", _FLAT)
 DECODE_F32 = KernelInfo("kv_attention_decode_f32", _SRC + _FLAT,
                         _JAX + "1069", _FLAT)
+DECODE_FP8 = KernelInfo("kv_attention_decode_fp8", _SRC + _FLAT,
+                        _JAX + "1069", _FLAT)
 FLAT_KERNELS = {torch.int8: DECODE_INT8, torch.bfloat16: DECODE_BF16,
-                torch.float32: DECODE_F32}            # by pool dtype
+                torch.float32: DECODE_F32,
+                torch.float8_e4m3fn: DECODE_FP8}      # by pool dtype
+# the kernel's pool codes by pool dtype: 0 (q's dtype), int8 with scales,
+# fp8 e4m3
+_POOL_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2}
 KERNELS = (APPEND_KT, DECODE_KT, APPEND_KT4, DECODE_KT4, DECODE_INT8,
-           DECODE_BF16, DECODE_F32)
+           DECODE_BF16, DECODE_F32, DECODE_FP8)
 
 DECODE_CHUNK = 256   # positions a B9 CTA attends (the kernel's kChunk)
 KT_CHUNK = 256       # byte columns a B5/B6 CTA attends (int8.cu's kChunk)
@@ -191,9 +198,9 @@ def launch(info: KernelInfo, q, k_pool, k_scale, v_pool, v_scale, lengths,
 def launch_flat(q, k_pool, k_scale, v_pool, v_scale, lengths, layer: int, *,
                 starts: Optional[torch.Tensor]) -> torch.Tensor:
     """One launch of B9 on the CUDA tensors given: pools ``[L, B, T, nkv,
-    hd]``, int8 with scales ``[L, B, T, nkv]`` f32, or of q's dtype with
-    ``k_scale = v_scale = None``. Returns ``ctx [B, nh, hd]`` in q's
-    dtype."""
+    hd]``, int8 with scales ``[L, B, T, nkv]`` f32, or of q's dtype or fp8
+    e4m3 with ``k_scale = v_scale = None``. Returns ``ctx [B, nh, hd]`` in
+    q's dtype."""
     quant = k_scale is not None
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
@@ -203,7 +210,9 @@ def launch_flat(q, k_pool, k_scale, v_pool, v_scale, lengths, layer: int, *,
         raise ValueError("give both scales (int8 pools) or neither")
     b, nh, hd = q.shape
     n_layers, _, t, nkv = k_pool.shape[:4]
-    pool_dtype = torch.int8 if quant else q.dtype
+    fp8 = k_pool.dtype == torch.float8_e4m3fn and not quant
+    pool_dtype = (torch.int8 if quant else torch.float8_e4m3fn if fp8
+                  else q.dtype)
     shapes = {"k_pool": (n_layers, b, t, nkv, hd),
               "v_pool": (n_layers, b, t, nkv, hd),
               "k_scale": (n_layers, b, t, nkv),
@@ -236,8 +245,9 @@ def launch_flat(q, k_pool, k_scale, v_pool, v_scale, lengths, layer: int, *,
         q.data_ptr(), out.data_ptr(), k_ptr, ks_ptr, v_ptr, vs_ptr,
         lengths.data_ptr(), None if starts is None else starts.data_ptr(),
         part.data_ptr(), counters(q.device, b * nkv).data_ptr(), b, nkv,
-        nh // nkv, hd, t, _DTYPE_CODES[q.dtype], int(quant), DECODE_CHUNK,
-        part_floats, hd ** -0.5, _stream(q))
+        nh // nkv, hd, t, _DTYPE_CODES[q.dtype],
+        _POOL_CODES.get(pool_dtype, 0),
+        DECODE_CHUNK, part_floats, hd ** -0.5, _stream(q))
     _raise_on(err, info)
     info.launches += 1
     return out

@@ -7,10 +7,12 @@ layer ``layer`` of a flat multi-layer pool ``[L, P, nkv, ps, hd]`` through
 each row's page table ``page_indices [B, mp]`` over positions
 ``[0, lengths[b])``. Pages are in q's dtype, or int8 with raw absmax scales
 ``[L, P, nkv, ps, 1]`` that dequantize to q's dtype as
-``(k_q * (k_s * (1 / 127.5)))``; page ids must lie in ``[0, P)``. Scores
-are fp32 dots of q-dtype operands times ``hd**-0.5``, the softmax is fp32,
-``P = exp(s - m)`` is rounded to q's dtype before the PV sum, and the
-output is ``acc / max(l, 1e-30)`` in float32.
+``(k_q * (k_s * (1 / 127.5)))``, or fp8 e4m3 with no scales, cast to q's
+dtype (exactly: the function of JAX's gather path for fp8 pages,
+``onebit_tpu/engine/paged.py:262-270``); page ids must lie in ``[0, P)``.
+Scores are fp32 dots of q-dtype operands times ``hd**-0.5``, the softmax
+is fp32, ``P = exp(s - m)`` is rounded to q's dtype before the PV sum,
+and the output is ``acc / max(l, 1e-30)`` in float32.
 
 Given CPU tensors the wrapper returns its plain version; given CUDA tensors
 it launches its kernel (``kernels/paged_attention_cuda.py``) or raises. On
@@ -33,7 +35,12 @@ _MAX_INT8 = 127.5    # the paged pools' quantization convention
 
 def _gather_seq_kv(pages_l, page_indices) -> torch.Tensor:
     """Rows' positions from ONE layer's pages: ``pages_l [P, nkv, ps, X]``
-    gathered through the tables ``[B, mp]`` -> ``[B, mp * ps, nkv, X]``."""
+    gathered through the tables ``[B, mp]`` -> ``[B, mp * ps, nkv, X]``
+    (fp8 pages through a ``uint8`` view: the same bytes, and an indexing
+    kernel every device has)."""
+    if pages_l.dtype == torch.float8_e4m3fn:
+        return _gather_seq_kv(pages_l.view(torch.uint8),
+                              page_indices).view(pages_l.dtype)
     g = pages_l[page_indices.long()]                    # [B, mp, nkv, ps, X]
     b, mp, nkv, ps, last = g.shape
     return g.transpose(2, 3).reshape(b, mp * ps, nkv, last)
@@ -134,8 +141,9 @@ def paged_attention_flat_chunked(q, *pool, lengths, page_indices, layer: int,
 def paged_attention_flat(q, *pool, lengths, page_indices, layer: int,
                          quant: bool = False) -> torch.Tensor:
     """B10: ``pool`` is ``(k_pages, v_pages)`` each ``[L, P, nkv, ps, hd]``
-    in q's dtype, or with ``quant`` the four ``QuantPagedKVCache`` leaves
-    (int8 pages, f32 scales ``[L, P, nkv, ps, 1]``); ``lengths [B]`` valid
+    in q's dtype or fp8 e4m3, or with ``quant`` the four
+    ``QuantPagedKVCache`` leaves (int8 pages, f32 scales ``[L, P, nkv, ps,
+    1]``); ``lengths [B]`` valid
     positions per row (this step's token included), ``page_indices
     [B, mp]``; ``layer`` a Python int. The pools are read only. Returns
     ``[B, nh, hd]`` float32."""

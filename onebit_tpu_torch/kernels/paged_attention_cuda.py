@@ -1,8 +1,9 @@
 """The paged decode attention kernel B10, bound with ctypes.
 
-Source ``onebit_tpu_torch/csrc/paged_attention.cu``, one kernel body with two
-instances, each counted in its own ``KernelInfo``: float pages (the dtype of
-q) and int8 pages with raw absmax scales. :func:`launch` checks its tensors,
+Source ``onebit_tpu_torch/csrc/paged_attention.cu``, one kernel body with
+three instances, each counted in its own ``KernelInfo``: float pages (the
+dtype of q), int8 pages with raw absmax scales, and fp8 e4m3 pages with no
+scales. :func:`launch` checks its tensors,
 launches the kernel on PyTorch's current stream and counts the launch. The
 public wrapper and the plain PyTorch version live in
 ``kernels/paged_attention.py``.
@@ -32,7 +33,12 @@ PAGED = KernelInfo("paged_attention_flat", "onebit_tpu_torch/csrc/" + _SOURCE,
                    _JAX, _SOURCE)
 PAGED_INT8 = KernelInfo("paged_attention_flat_int8",
                         "onebit_tpu_torch/csrc/" + _SOURCE, _JAX, _SOURCE)
-KERNELS = (PAGED, PAGED_INT8)
+PAGED_FP8 = KernelInfo("paged_attention_flat_fp8",
+                       "onebit_tpu_torch/csrc/" + _SOURCE, _JAX, _SOURCE)
+KERNELS = (PAGED, PAGED_INT8, PAGED_FP8)
+# the kernel's page codes by page dtype: 0 (q's dtype), int8 with scales,
+# fp8 e4m3
+_PAGE_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2}
 
 PAGED_CHUNK = 256    # positions a B10 CTA attends (the kernel's kChunk)
 
@@ -53,20 +59,22 @@ def _fn():
     return fn
 
 
-def smem_bytes(dtype: torch.dtype, quant: bool, hd: int, g: int) -> int:
-    """The dynamic shared bytes a CTA of B10's instance asks for."""
+def smem_bytes(dtype: torch.dtype, pages: int, hd: int, g: int) -> int:
+    """The dynamic shared bytes a CTA of B10's instance asks for: ``pages``
+    0 (q's dtype, or False), 1 (int8, or True) or 2 (fp8 e4m3)."""
     fn = build.load(_SOURCE).onebit_paged_attention_smem_bytes
     fn.argtypes = [ctypes.c_int] * 4
     fn.restype = ctypes.c_int
-    return fn(_DTYPE_CODES[dtype], int(quant), hd, g)
+    return fn(_DTYPE_CODES[dtype], int(pages), hd, g)
 
 
 def launch(q, pool, lengths, page_indices, layer: int, quant: bool
            ) -> torch.Tensor:
     """One launch of B10 on the CUDA tensors given: ``pool`` is
-    ``(k_pages, v_pages)`` or, with ``quant``, ``(k_q, k_s, v_q, v_s)``.
-    Returns ``out [B, nh, hd]`` float32."""
-    info = PAGED_INT8 if quant else PAGED
+    ``(k_pages, v_pages)`` in q's dtype or fp8 e4m3 or, with ``quant``,
+    ``(k_q, k_s, v_q, v_s)``. Returns ``out [B, nh, hd]`` float32."""
+    fp8 = not quant and pool[0].dtype == torch.float8_e4m3fn
+    info = PAGED_INT8 if quant else PAGED_FP8 if fp8 else PAGED
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     if len(pool) != (4 if quant else 2):
@@ -79,7 +87,8 @@ def launch(q, pool, lengths, page_indices, layer: int, quant: bool
     b, nh, hd = q.shape
     n_layers, n_pages, nkv, ps = k_pages.shape[:4]
     mp = page_indices.shape[1]
-    page_dtype = torch.int8 if quant else q.dtype
+    page_dtype = (torch.int8 if quant else torch.float8_e4m3fn if fp8
+                  else q.dtype)
     shapes = {"k_pages": (n_layers, n_pages, nkv, ps, hd),
               "v_pages": (n_layers, n_pages, nkv, ps, hd),
               "k_scales": (n_layers, n_pages, nkv, ps, 1),
@@ -107,8 +116,9 @@ def launch(q, pool, lengths, page_indices, layer: int, quant: bool
     err = _fn()(q.data_ptr(), out.data_ptr(), k_ptr, ks_ptr, v_ptr, vs_ptr,
                 lengths.data_ptr(), page_indices.data_ptr(), part.data_ptr(),
                 counters(q.device, b * nkv).data_ptr(), b, nkv, nh // nkv,
-                hd, ps, mp, _DTYPE_CODES[q.dtype], int(quant), PAGED_CHUNK,
-                part_floats, hd ** -0.5, _stream(q))
+                hd, ps, mp, _DTYPE_CODES[q.dtype],
+                _PAGE_CODES.get(page_dtype, 0),
+                PAGED_CHUNK, part_floats, hd ** -0.5, _stream(q))
     _raise_on(err, info)
     info.launches += 1
     return out

@@ -534,9 +534,22 @@ def ragged_verify_window(params, cache, tokens, row_pos, active,
     query attends its row's keys up to its position through the plain
     masked attention, as JAX's XLA does; inactive rows are masked whole.
     Returns ``(logits [B, W, V] fp32, cache)``."""
+    x = verify_window_hidden(default_proj(params, config, impl,
+                                          compute_dtype),
+                             cache, tokens, row_pos, active, config,
+                             compute_dtype=compute_dtype)
+    return _lm_head(x, params, compute_dtype), cache
+
+
+def verify_window_hidden(proj: Proj, cache, tokens, row_pos, active,
+                         config: BitLlamaConfig, *,
+                         compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """:func:`ragged_verify_window` through the projection strategy
+    ``proj`` (a tensor-parallel rank's over its head-sharded cache, the
+    counterpart of JAX's ``_dense_core(attend_cache=True)`` and
+    ``_kt_window_core``, ``tp_backend.py:248-300``): returns the
+    final-normed hidden ``[B, W, d]``."""
     _check_window_cache(cache, "ragged_verify_window")
     act = torch.as_tensor(np.asarray(active, bool)).to(cache[0].device)
-    x = _window_hidden(default_proj(params, config, impl, compute_dtype),
-                       cache, tokens, row_pos, slice(None), config,
-                       compute_dtype=compute_dtype, active=act)
-    return _lm_head(x, params, compute_dtype), cache
+    return _window_hidden(proj, cache, tokens, row_pos, slice(None), config,
+                          compute_dtype=compute_dtype, active=act)

@@ -17,7 +17,11 @@ nothing here switches either on its own:
 
 :func:`spawn_tp` starts the ranks on this host with the ``spawn`` start
 method; they meet at a ``file://`` store in a fresh temporary directory,
-not at a TCP port, so concurrent launches never collide.
+not at a TCP port, so concurrent launches never collide. Where a rank
+joins is a :class:`RankAddress` (its rank, the group's size, the
+rendezvous), all of them from :func:`local_addresses`, the one source that
+both launchers here (``spawn_tp`` and ``serve --tp``,
+``engine/tp_serve.py``) read; :func:`join_group` joins one.
 """
 
 from __future__ import annotations
@@ -104,25 +108,50 @@ def create_tp_group(mp: int, *, backend: str, device: str) -> TPGroup:
     return TPGroup(dist.group.WORLD, rank, mp, dev)
 
 
-def _rank_main(rank: int, fn: Callable, mp: int, backend: str, device: str,
-               store: str, timeout: float, args: Sequence,
-               results) -> None:
+@dataclasses.dataclass(frozen=True)
+class RankAddress:
+    """Where one rank joins its group: its rank, the group's size and the
+    rendezvous (``torch.distributed``'s ``init_method``)."""
+    rank: int
+    world: int
+    init_method: str
+
+
+def local_addresses(world: int, store_dir: str) -> list:
+    """The addresses of ``world`` ranks on this host, meeting at a file
+    store in ``store_dir`` (a fresh directory a launch)."""
+    store = "file://" + os.path.join(store_dir, "store")
+    return [RankAddress(r, world, store) for r in range(world)]
+
+
+def join_group(addr: RankAddress, *, backend: str, device: str,
+               timeout: float) -> TPGroup:
+    """Join the default process group at ``addr`` and return this rank's
+    :class:`TPGroup`; collectives wait ``timeout`` seconds at most."""
+    if addr.init_method.startswith("file://"):
+        # a file store: every rank runs on this host
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    dist.init_process_group(
+        backend, init_method=addr.init_method, world_size=addr.world,
+        rank=addr.rank, timeout=datetime.timedelta(seconds=timeout))
+    return create_tp_group(addr.world, backend=backend, device=device)
+
+
+def _rank_main(addr: RankAddress, fn: Callable, backend: str, device: str,
+               timeout: float, args: Sequence, results) -> None:
     """One spawned rank: join the group, run ``fn(group, *args)``, report
     ``(rank, ok, result or traceback)``."""
     try:
-        # every rank of a spawn_tp group runs on this host
-        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
-        dist.init_process_group(
-            backend, init_method=f"file://{store}", world_size=mp, rank=rank,
-            timeout=datetime.timedelta(seconds=timeout))
         try:
-            group = create_tp_group(mp, backend=backend, device=device)
+            group = join_group(addr, backend=backend, device=device,
+                               timeout=timeout)
             out = fn(group, *args)
         finally:
-            dist.destroy_process_group()
-        results.put((rank, True, out))
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        results.put((addr.rank, True, out))
     except BaseException:  # noqa: BLE001 - the parent raises it
-        results.put((rank, False, traceback.format_exc()))
+        results.put((addr.rank, False, traceback.format_exc()))
 
 
 def spawn_tp(fn: Callable, mp: int, *, backend: str, device: str,
@@ -143,10 +172,9 @@ def spawn_tp(fn: Callable, mp: int, *, backend: str, device: str,
     results = ctx.Queue()
     with tempfile.TemporaryDirectory(prefix="onebit_tp_") as tmp:
         procs = [ctx.Process(target=_rank_main,
-                             args=(rank, fn, mp, backend, device,
-                                   os.path.join(tmp, "store"), timeout, args,
+                             args=(addr, fn, backend, device, timeout, args,
                                    results), daemon=True)
-                 for rank in range(mp)]
+                 for addr in local_addresses(mp, tmp)]
         for p in procs:
             p.start()
         out: dict = {}

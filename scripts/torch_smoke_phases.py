@@ -1,8 +1,9 @@
 """Run ``chip_smoke.py``'s serving-surface, task-harness, task-registry
-and SFT phases alone on one card.
+and SFT phases alone on one card, and on request its decode-attention
+kernel checks, its paged fp8 served runs and its tensor-parallel phase.
 
     python scripts/torch_smoke_phases.py [serve_surface] [tasks] [registry]
-        [sft]
+        [sft] [attention_kernels] [paged_fp8] [tp] [serve_cli]
 
 Builds the CUDA sources, then runs ``serve_surface_checks`` on the fused
 full-depth llama2-7b weights of ``chip_smoke.py``'s serving runs (with the
@@ -13,6 +14,11 @@ plain served runs it compares against, run here first) and
 loads them (``host_random_packed_params(seed=0)``); and ``sft_checks``
 (7B width, ``TRAIN_LAYERS`` layers), printing their JSON lines, the card's
 name and power limit, and the wall seconds. All four phases by default.
+``attention_kernels``: B10's and B9's checks (``paged_kernel_checks``,
+``flat_kernel_checks``); ``paged_fp8``: the full-depth served run on fp8
+pages and its block run (``served_run``, ``block_run``); ``tp``:
+``tp_checks`` on the unfused weights; ``serve_cli``: ``serve_surface_cli``
+alone (``serve_surface`` runs it too).
 Each check raises as in ``chip_smoke.py``: a failure exits nonzero. Needs
 a CUDA device; a few minutes with the build.
 """
@@ -45,13 +51,36 @@ def main(argv) -> int:
     t = time.perf_counter()
     build.build()
     cs.emit({"phase": "build", "seconds": time.perf_counter() - t})
-    if {"serve_surface", "tasks", "registry"} & set(phases):
+    if "attention_kernels" in phases:
+        cs.paged_kernel_checks(dev)
+        cs.flat_kernel_checks(dev)
+    if {"serve_surface", "tasks", "registry", "paged_fp8", "tp",
+            "serve_cli"} & set(phases):
         config = BitLlamaConfig.named("llama2-7b")
         unfused = host_random_packed_params(config, seed=0, device=dev)
+        if "paged_fp8" in phases:
+            from onebit_tpu_torch.kernels import paged_attention_cuda as pc
+            params = fuse_for_decode(unfused, config)
+            opts = dict(max_len=2048, paged=True, page_size=16,
+                        quantized_kv="fp8")
+            cs.check_first_step(params, config, dev, cs.deep_prompts(), 32,
+                                opts)
+            _, tokens, _ = cs.served_run(params, config, dev,
+                                         cs.deep_prompts(), 32, opts,
+                                         pc.PAGED_FP8)
+            cs.block_run(params, config, dev, cs.deep_prompts(), 32, opts,
+                         pc.PAGED_FP8, tokens)
+            del params
+            torch.cuda.empty_cache()
+        if "tp" in phases:
+            cs.tp_checks(unfused, config, dev)
+            torch.cuda.empty_cache()
         if "serve_surface" in phases:
             cs.serve_surface_checks(fuse_for_decode(unfused, config), config,
                                     dev)
             torch.cuda.empty_cache()
+            cs.serve_surface_cli(dev)
+        elif "serve_cli" in phases:
             cs.serve_surface_cli(dev)
         if "tasks" in phases:
             cs.tasks_checks(unfused, config, dev)

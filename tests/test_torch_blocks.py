@@ -492,22 +492,30 @@ def test_serve_stdin_ids(tiny, tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("flags,says", [
     (["--tokenizer", "tok"], None),
-    (["--draft", "d"], None), (["--tp", "2"], "item 4"),
+    (["--draft", "d"], None), (["--tp", "2"], None),
     (["--prefill-chunk", "16"], None),
-    (["--paged", "--kv-quant", "fp8"], "item 5"),
+    (["--paged", "--kv-quant", "fp8"], None),
     (["--dry-compile"], "not ported yet"),
     (["--prefix-cache"], "--prefix-cache requires --paged"),
     (["--kv-quant", "fp8"], "--kv-quant fp8 requires --paged"),
-    (["--paged", "--kv-quant", "int4"], "dense-engine only")],
+    (["--paged", "--kv-quant", "int4"], "dense-engine only"),
+    (["--tp", "2", "--fuse-decode"], "drop --fuse-decode"),
+    (["--tp", "2"], "nccl needs a card a rank"),
+    (["--tp", "2", "--tp-backend", "nccl", "--device", "cpu"],
+     "nccl runs on cards")],
     ids=["tokenizer", "draft", "tp", "prefill_chunk", "fp8_pages",
-         "dry_compile", "prefix_cache", "fp8_dense", "int4_paged"])
+         "dry_compile", "prefix_cache", "fp8_dense", "int4_paged",
+         "tp_fuse_decode", "tp_nccl_without_cards", "tp_nccl_on_cpu"])
 def test_serve_refusals(flags, says):
     """``serve`` exits nonzero before it loads anything: the JAX command's
-    exclusions in its wording, and what waits, named. ``--tokenizer``,
-    ``--draft`` and ``--prefill-chunk`` without ``--paged`` are ported
+    exclusions in its wording (``--tp`` with ``--fuse-decode`` among
+    them), NCCL asked of ranks that have no card each (this machine has
+    none: ``--tp 2`` under the default ``--device cuda`` takes nccl), and
+    what waits, named. ``--tokenizer``, ``--draft``, ``--prefill-chunk``
+    without ``--paged``, ``--tp`` on the CPU (gloo) and fp8 pages are ported
     (``says`` None): they get as far as the checkpoint, which is loaded
     first, as the JAX command does (tests/test_torch_draft.py serves
-    through both)."""
+    through a draft, tests/test_torch_tp_serve.py through ``--tp``)."""
     from onebit_tpu_torch import cli
     if says is None:
         with pytest.raises(FileNotFoundError, match="/nonexistent"):

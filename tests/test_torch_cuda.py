@@ -615,6 +615,12 @@ def test_quant_engine_kernel_path_matches_plain(dev, quantized_kv):
 FLAT_TOL = {torch.float32: 1e-5, torch.bfloat16: 1 / 32}
 
 
+def _bits(t):
+    """``t`` to compare bit for bit: fp8 through a ``uint8`` view (few
+    operators take fp8)."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
 def _on_grid(x):
     return torch.round(x * 16) / 16
 
@@ -638,7 +644,8 @@ def _flat_case(dev, q_dtype, pool, shape, seed=0):
                     + 0.5) / 127
         pools = [ints(), scales(), ints(), scales()]
     else:
-        dt = torch.bfloat16 if pool == "bf16" else torch.float32
+        dt = {"bf16": torch.bfloat16, "fp8": torch.float8_e4m3fn}.get(
+            pool, torch.float32)
         pools = [_on_grid(3 * torch.rand(pshape, generator=gen, device=dev)
                           - 1.5).to(dt) for _ in range(2)]
         pools = [pools[0], None, pools[1], None]
@@ -652,7 +659,7 @@ def _flat_case(dev, q_dtype, pool, shape, seed=0):
 def _flat_check(dev, q_dtype, pool, shape, layer, starts_on=True):
     q, pools, lengths, starts = _flat_case(dev, q_dtype, pool, shape)
     starts = starts if starts_on else None
-    info = kc.FLAT_KERNELS[torch.int8 if pool == "int8" else q.dtype]
+    info = kc.FLAT_KERNELS[pools[0].dtype]
     want = ka.kv_attention_decode_torch(q, *pools, lengths, layer,
                                         starts=starts)
     before = [x.clone() for x in pools if x is not None]
@@ -660,7 +667,7 @@ def _flat_check(dev, q_dtype, pool, shape, layer, starts_on=True):
     got = ka.kv_attention_decode(q, *pools, lengths, layer, starts=starts)
     torch.cuda.synchronize()
     assert info.launches == launches + 1
-    assert all(torch.equal(a, b) for a, b in
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in
                zip([x for x in pools if x is not None], before))
     del before, pools
     assert got.dtype == q_dtype and got.shape == q.shape
@@ -676,7 +683,9 @@ def _flat_check(dev, q_dtype, pool, shape, layer, starts_on=True):
 FLAT_KINDS = {"int8_f32": (torch.float32, "int8"),
               "int8_bf16": (torch.bfloat16, "int8"),
               "bf16": (torch.bfloat16, "bf16"),
-              "f32": (torch.float32, "f32")}
+              "f32": (torch.float32, "f32"),
+              "fp8_bf16": (torch.bfloat16, "fp8"),
+              "fp8_f32": (torch.float32, "fp8")}
 
 
 @pytest.mark.parametrize("kind", sorted(FLAT_KINDS))
@@ -792,8 +801,9 @@ def test_kv_decode_wrapper_checks_inputs(dev):
         call(k=k[:, :, :32].contiguous())
     with pytest.raises(ValueError, match="layer"):
         call(layer=2)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        call(k=k.to(torch.float8_e4m3fn), v=v.to(torch.float8_e4m3fn))
+    with pytest.raises(TypeError, match="v_pool must be"):
+        call(k=k.to(torch.float8_e4m3fn))
+    call(k=k.to(torch.float8_e4m3fn), v=v.to(torch.float8_e4m3fn))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -835,10 +845,11 @@ def test_generate_kernel_path_matches_plain(dev, dtype):
 # ---------------------------------------------------------------------------
 # B10: paged decode attention
 # ---------------------------------------------------------------------------
-# Inputs with a context of order 1, as for B5-B8: float pages of N(0, 1);
-# int8 pages with raw absmax scales of 64/127.5-191/127.5, so that the
-# integer range dequantizes to about +-0.5-1.5; q of std 5. The output is
-# float32 on both sides; in bf16 they round P = exp(s - m) to bf16 (2**-9
+# Inputs with a context of order 1, as for B5-B8: float (and fp8 e4m3) pages
+# of N(0, 1); int8 pages with raw absmax scales of 64/127.5-191/127.5, so
+# that the integer range dequantizes to about +-0.5-1.5; q of std 5. The
+# helpers' ``quant``: False (pages of q's dtype), True (int8) or "fp8". The
+# output is float32 on both sides; in bf16 they round P = exp(s - m) to bf16 (2**-9
 # relative) at different softmax maxima, apart by at most 2**-8 * max |v|
 # < 1/32 (|v| < 8).
 
@@ -852,7 +863,7 @@ def _paged_case(dev, dtype, quant, shape, seed=0):
     pshape = (n_layers, n_pages, nkv, ps, hd)
     q = (5 * torch.randn(b, nkv * g, hd, generator=gen, device=dev)
          ).to(dtype)
-    if quant:
+    if quant is True:
         def ints():
             return torch.randint(-127, 128, pshape, generator=gen,
                                  device=dev, dtype=torch.int8)
@@ -862,7 +873,8 @@ def _paged_case(dev, dtype, quant, shape, seed=0):
                                  device=dev).float() / 127.5
         pool = [ints(), scales(), ints(), scales()]
     else:
-        pool = [torch.randn(pshape, generator=gen, device=dev).to(dtype)
+        pdt = torch.float8_e4m3fn if quant == "fp8" else dtype
+        pool = [torch.randn(pshape, generator=gen, device=dev).to(pdt)
                 for _ in range(2)]
     tables = torch.stack([
         torch.randperm(n_pages - 1, generator=gen, device=dev)[:mp] + 1
@@ -878,7 +890,8 @@ def _paged_check(dev, dtype, quant, shape, layer):
     from onebit_tpu_torch.kernels import paged_attention as pa
     from onebit_tpu_torch.kernels import paged_attention_cuda as pc
     q, pool, lengths, tables = _paged_case(dev, dtype, quant, shape)
-    info = pc.PAGED_INT8 if quant else pc.PAGED
+    info = {True: pc.PAGED_INT8, "fp8": pc.PAGED_FP8}.get(quant, pc.PAGED)
+    quant = quant is True
     before_pool = [x.clone() for x in pool]
     want = pa.paged_attention_flat_torch(q, *pool, lengths=lengths,
                                          page_indices=tables, layer=layer,
@@ -889,7 +902,8 @@ def _paged_check(dev, dtype, quant, shape, layer):
                                   quant=quant)
     torch.cuda.synchronize()
     assert info.launches == before + 1
-    assert all(torch.equal(a, b) for a, b in zip(pool, before_pool))
+    assert all(torch.equal(_bits(a), _bits(b))
+               for a, b in zip(pool, before_pool))
     del before_pool
     assert got.dtype == torch.float32 and got.shape == q.shape
     assert torch.isfinite(got).all()
@@ -902,7 +916,8 @@ def _paged_check(dev, dtype, quant, shape, layer):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("quant", [False, True, "fp8"],
+                         ids=["float", "int8", "fp8"])
 @pytest.mark.parametrize("g", [1, 2, 4, 8])
 @pytest.mark.parametrize("hd", [64, 128])
 @pytest.mark.parametrize("ps", [4, 16, 64])
@@ -922,7 +937,8 @@ def test_paged_attention_pool_past_2_31_elements(dev):
                  (32, 1025, 32, 1, 16, 128, 8, 128), 31)
 
 
-@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("quant", [False, True, "fp8"],
+                         ids=["float", "int8", "fp8"])
 @pytest.mark.parametrize("g", [1, 8])
 @pytest.mark.parametrize("ps", [1, 16, 48])
 def test_paged_chunk_edges(dev, quant, g, ps):
@@ -937,7 +953,8 @@ def test_paged_chunk_edges(dev, quant, g, ps):
                                      (1, 8 * mp + 1, 1, g, ps, 64, 8, mp))
     lengths = torch.tensor([c - 1, c, c + 1, 6 * c - 7, ps, 1, mp * ps,
                             2 * c + 101], dtype=torch.int32, device=dev)
-    kw = dict(lengths=lengths, page_indices=tables, layer=0, quant=quant)
+    kw = dict(lengths=lengths, page_indices=tables, layer=0,
+              quant=quant is True)
     want = pa.paged_attention_flat_torch(q, *pool, **kw)
     got = pa.paged_attention_flat(q, *pool, **kw)
     torch.cuda.synchronize()
@@ -946,7 +963,8 @@ def test_paged_chunk_edges(dev, quant, g, ps):
     assert want.abs().amax(dim=(1, 2)).min() >= 8 * KV_TOL[torch.bfloat16]
 
 
-@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("quant", [False, True, "fp8"],
+                         ids=["float", "int8", "fp8"])
 @pytest.mark.parametrize("ps", [8, 16])
 def test_paged_is_deterministic_and_follows_positions(dev, quant, ps):
     """Two launches on the same inputs give the same bits (the chunks merge
@@ -965,9 +983,11 @@ def test_paged_is_deterministic_and_follows_positions(dev, quant, ps):
     moved = []
     for x in pool:
         y = torch.empty_like(x)
-        y[:, perm] = x                 # page p's contents now at perm[p]
+        yb, xb = ((y.view(torch.uint8), x.view(torch.uint8))
+                  if quant == "fp8" else (y, x))
+        yb[:, perm] = xb               # page p's contents now at perm[p]
         moved.append(y)
-    kw = dict(lengths=lengths, layer=0, quant=quant)
+    kw = dict(lengths=lengths, layer=0, quant=quant is True)
     a = pa.paged_attention_flat(q, *pool, page_indices=ident, **kw)
     a2 = pa.paged_attention_flat(q, *pool, page_indices=ident, **kw)
     moved_tables = perm[ident.long()].to(torch.int32)
@@ -1009,15 +1029,16 @@ def test_paged_wrapper_checks_inputs(dev):
              pool=[torch.zeros(2, 9, 2, 4, 96, device=dev)] * 2)
 
 
-@pytest.mark.parametrize("quantized_kv", [False, True],
-                         ids=["float", "int8"])
+@pytest.mark.parametrize("quantized_kv", [False, True, "fp8"],
+                         ids=["float", "int8", "fp8"])
 def test_paged_engine_kernel_path_matches_plain(dev, quantized_kv):
     """A small model served from pages on the card: the first decode step's
     logits through B10 agree with the gather path (impl="torch") in fp32,
     B10 runs once per layer, and the requests finish with every page back
     in the pool. Int8 pages: B10 dequantizes before the dot, the gather
     path folds the scales in after it, 5e-3 apart at most (the JAX
-    package's own bound, tests/test_paged_kernel.py)."""
+    package's own bound, tests/test_paged_kernel.py). fp8 pages: both read
+    the same exact values, 1e-3 as float pages."""
     import numpy as np
     from onebit_tpu_torch import (BitLlamaConfig, ContinuousBatchingEngine,
                                   fuse_for_decode, host_random_packed_params)
@@ -1034,7 +1055,8 @@ def test_paged_engine_kernel_path_matches_plain(dev, quantized_kv):
         eng.add_request(rng.integers(3, 500, n).tolist(), max_new_tokens=4)
     eng._admit()
     tokens = torch.from_numpy(eng.next_token[:, None].astype(np.int64)).to(dev)
-    info = pc.PAGED_INT8 if quantized_kv else pc.PAGED
+    info = {True: pc.PAGED_INT8, "fp8": pc.PAGED_FP8}.get(quantized_kv,
+                                                           pc.PAGED)
     out = {}
     for impl in ("auto", "torch"):
         cache = type(eng.cache)(*(t.clone() for t in eng.cache))
@@ -1045,7 +1067,7 @@ def test_paged_engine_kernel_path_matches_plain(dev, quantized_kv):
         runs = info.launches - before
         assert runs == (config.num_hidden_layers if impl == "auto" else 0)
     torch.cuda.synchronize()
-    tol = 5e-3 if quantized_kv else 1e-3
+    tol = 5e-3 if quantized_kv is True else 1e-3
     assert (out["auto"] - out["torch"]).abs().max().item() < tol
     assert all(len(v) == 4 for v in eng.run().values())
     m = eng.metrics()
@@ -1433,7 +1455,9 @@ BLOCK_CACHES = {"dense": {}, "int8_kt": dict(quantized_kv=True),
                 "int4_kt": dict(quantized_kv="int4"),
                 "paged": dict(paged=True, page_size=16),
                 "paged_int8": dict(paged=True, page_size=16,
-                                   quantized_kv=True)}
+                                   quantized_kv=True),
+                "paged_fp8": dict(paged=True, page_size=16,
+                                  quantized_kv="fp8")}
 
 
 def _block_engine(dev, kind, dtype, block_steps=4, **kw):
@@ -1478,7 +1502,7 @@ def _step_kernel(kind, dtype):
     from onebit_tpu_torch.kernels import paged_attention_cuda as pc
     return {"dense": kc.FLAT_KERNELS[dtype], "int8_kt": kc.APPEND_KT,
             "int4_kt": kc.APPEND_KT4, "paged": pc.PAGED,
-            "paged_int8": pc.PAGED_INT8}[kind]
+            "paged_int8": pc.PAGED_INT8, "paged_fp8": pc.PAGED_FP8}[kind]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -1539,7 +1563,7 @@ def test_block_graph_replays_equal_eager(dev, kind, dtype):
     for got, want in zip(outs[-1].finals, wants[-1][2]):
         assert torch.equal(got, want)
     for got, want in zip(graph_cache, eager_cache):
-        assert torch.equal(got, want)
+        assert torch.equal(_bits(got), _bits(want))
     assert wants[0][1].sum(0).tolist()[1:3] == [2, 0]
     assert all(not buf.any() for buf in bc._COUNTERS.values())
     step = _step_kernel(kind, dtype)
@@ -1815,8 +1839,11 @@ def test_windows_on_the_card_match_plain(dev, kind):
 
 @pytest.mark.parametrize("opts", [{}, dict(quantized_kv=True),
                                   dict(paged=True, page_size=16),
-                                  dict(prefill_chunk_size=64)],
-                         ids=["dense", "int8", "paged", "dense_chunked"])
+                                  dict(prefill_chunk_size=64),
+                                  dict(paged=True, page_size=16,
+                                       quantized_kv="fp8")],
+                         ids=["dense", "int8", "paged", "dense_chunked",
+                              "paged_fp8"])
 def test_spec_engine_on_the_card_matches_plain(dev, opts):
     """A greedy engine with a 2-layer draft (the target itself, so every
     proposal is accepted) gives the plain engine's tokens on the card in

@@ -86,31 +86,25 @@ def test_bucket_and_streaming_callbacks():
     assert m["ttft_p50_s"] >= 0 and m["tpot_p50_s"] >= 0
 
 
-@pytest.mark.parametrize("kwargs,waits_for", [
-    pytest.param(dict(paged=True, quantized_kv="fp8"), "item 5",
-                 id="kwargs0-item 5"),
-    pytest.param(dict(draft_params="self"), None, id="kwargs1-item 5"),
+@pytest.mark.parametrize("kwargs", [
+    pytest.param(dict(paged=True, quantized_kv="fp8"), id="kwargs0-item 5"),
+    pytest.param(dict(draft_params="self"), id="kwargs1-item 5"),
     pytest.param(dict(tp_group=TPGroup(None, 0, 2, torch.device("cpu")),
-                      prefill_chunk_size=64), None, id="kwargs2-item 5"),
-    pytest.param(dict(prefill_chunk_size=64), None, id="kwargs3-item 5"),
-    pytest.param(dict(block_steps=4), None, id="kwargs4-None"),
-    pytest.param(dict(block_steps=4, pipeline_blocks=True), None,
+                      prefill_chunk_size=64), id="kwargs2-item 5"),
+    pytest.param(dict(prefill_chunk_size=64), id="kwargs3-item 5"),
+    pytest.param(dict(block_steps=4), id="kwargs4-None"),
+    pytest.param(dict(block_steps=4, pipeline_blocks=True),
                  id="kwargs5-None"),
     pytest.param(dict(paged=True, prefix_cache=True, draft_params="self"),
-                 None, id="kwargs6-item 5")])
-def test_unported_options_raise(kwargs, waits_for):
-    """Options not ported yet (fp8 pages) raise NotImplementedError naming
-    the ROADMAP item they wait for. The others (``waits_for`` None) are
-    ported: decode blocks, dense chunked prefill and a draft (the target
-    itself, ``draft_params="self"``) build and serve a request; a
-    tensor-parallel rank's engine with chunked prefill builds
-    (tests/test_torch_tp.py serves through it over two ranks). The ids
-    are those of the cases when they all waited."""
+                 id="kwargs6-item 5")])
+def test_unported_options_raise(kwargs):
+    """Every option of the JAX engine is ported: fp8 pages, decode
+    blocks, dense chunked prefill and a draft (the target itself,
+    ``draft_params="self"``) build and serve a request; a tensor-parallel
+    rank's engine with chunked prefill builds (tests/test_torch_tp.py
+    serves through it over two ranks). The ids are those of the cases
+    when they waited."""
     c = BitLlamaConfig.named("tiny")
-    if waits_for is not None:
-        with pytest.raises(NotImplementedError, match=waits_for):
-            ContinuousBatchingEngine({}, c, device="cpu", **kwargs)
-        return
     params = host_random_packed_params(c, seed=0, dtype=torch.float32,
                                        device="cpu")
     if kwargs.get("draft_params") == "self":
@@ -124,6 +118,8 @@ def test_unported_options_raise(kwargs, waits_for):
     if "tp_group" in kwargs:
         assert eng._tp is not None
         return
+    if kwargs.get("quantized_kv") == "fp8":
+        assert eng.cache.k_pages.dtype == torch.float8_e4m3fn
     uid = eng.add_request([5, 6, 7], max_new_tokens=6)
     assert len(eng.run()[uid]) == 6
     # the first token comes from the prefill; a draft that is the target

@@ -5,7 +5,8 @@ tests/test_kv_attention.py:24-72 runs it.
 
 The cases: int8 pools with scales at GQA groups 1 and 2 and layers 0 and
 2, ``starts``, lengths 1 and T, a bf16 pool, an fp32 q with an fp32 pool
-and with an int8 pool. Tolerances: 2e-2 where q or the pool is bf16 (the
+and with an int8 pool, fp8 e4m3 pools (no scales) with bf16 and fp32 q,
+the same bytes on both sides. Tolerances: 2e-2 where q or the pool is bf16 (the
 JAX tests' own: both sides round P to bf16, at different softmax scales);
 1e-5 in fp32 (the same fp32 products summed in another order). At a T that
 is not a multiple of 128, which the Pallas kernel rejects, the reference is
@@ -47,9 +48,9 @@ def _inputs(seed, g, t, pool, q_dtype):
                  rng.randn(L, B, t, NKV, HD).astype(np.float32), None]
     jq = jnp.asarray(q).astype(q_dtype)
     jpools = [None if p is None else jnp.asarray(p) for p in pools]
-    if pool == "bf16":
-        jpools = [None if p is None else p.astype(jnp.bfloat16)
-                  for p in jpools]
+    if pool in ("bf16", "fp8"):
+        dt = jnp.bfloat16 if pool == "bf16" else jnp.float8_e4m3fn
+        jpools = [None if p is None else p.astype(dt) for p in jpools]
     return jq, jpools
 
 
@@ -59,6 +60,9 @@ def _port(jq, jpools):
             return None
         if a.dtype == jnp.bfloat16:
             return _t(np.asarray(a.astype(jnp.float32))).to(torch.bfloat16)
+        if a.dtype == jnp.float8_e4m3fn:    # the same bytes
+            return _t(np.asarray(a).view(np.uint8)).view(
+                torch.float8_e4m3fn)
         return _t(np.asarray(a))
     return conv(jq), [conv(p) for p in jpools]
 
@@ -75,6 +79,8 @@ CASES = {  # pool, q dtype, tolerance
     "int8_f32q": ("int8", jnp.float32, F32_TOL),
     "bf16": ("bf16", jnp.bfloat16, BF16_TOL),
     "f32": ("f32", jnp.float32, F32_TOL),
+    "fp8_bf16q": ("fp8", jnp.bfloat16, BF16_TOL),
+    "fp8_f32q": ("fp8", jnp.float32, F32_TOL),
 }
 
 
@@ -135,9 +141,24 @@ def test_t_not_a_multiple_of_128(case):
     _check(got, want, np.ones(B, bool), tol)
 
 
-def test_fp8_pool_raises():
-    q = torch.zeros(B, NKV, HD)
-    pool = torch.zeros(L, B, 128, NKV, HD).to(torch.float8_e4m3fn)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tka.kv_attention_decode(q, pool, None, pool, None,
-                                torch.ones(B, dtype=torch.int32), 0)
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_fp8_pool_reads_as_q_dtype(q_dtype):
+    """An fp8 e4m3 pool attends as the same pool cast to q's dtype, bit
+    for bit: every e4m3 value is exact in bf16 and f32 (JAX's
+    ``k.astype(q.dtype)``), values past the normals, at 448 and NaN-free
+    extremes included."""
+    rng = np.random.RandomState(4)
+    q = torch.from_numpy(rng.randn(B, NKV, HD).astype(np.float32)).to(
+        q_dtype)
+    pools = [torch.from_numpy(rng.randint(0, 256, (L, B, 128, NKV, HD),
+                                          dtype=np.uint8)
+                              ).view(torch.float8_e4m3fn) for _ in range(2)]
+    for p in pools:     # NaN patterns (0x7f, 0xff) made finite
+        p.view(torch.uint8)[(p.view(torch.uint8) & 0x7F) == 0x7F] = 0x7E
+    lengths = torch.tensor([128, 77], dtype=torch.int32)
+    got = tka.kv_attention_decode(q, pools[0], None, pools[1], None,
+                                  lengths, 1)
+    want = tka.kv_attention_decode(q, pools[0].to(q_dtype), None,
+                                   pools[1].to(q_dtype), None, lengths, 1)
+    assert got.dtype == q_dtype and torch.isfinite(got).all()
+    assert torch.equal(got, want)

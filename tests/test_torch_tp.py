@@ -45,12 +45,24 @@ ENGINES = {
     "paged": dict(paged=True, page_size=8),
     "paged_int8_prefix": dict(paged=True, page_size=4, quantized_kv=True,
                               prefix_cache=True),
+    "paged_fp8": dict(paged=True, page_size=8, quantized_kv="fp8"),
 }
 # dense chunked prefill through TPServing.chunk_append, held to the
 # single-device chunked engine (chunks of 4: the prompts take one or two)
 CHUNKED = {
     "dense_chunked": dict(prefill_chunk_size=4),
     "int8_kt_chunked": dict(quantized_kv=True, prefill_chunk_size=4),
+}
+# the greedy speculative round through TPServing.spec_round and
+# paged_spec_round (tests/test_tp_engine.py:107-200, test_tp_paged.py:
+# 121-150): the target itself as the draft (every proposal accepted), or
+# its first layer (almost none)
+SPEC = {
+    "dense_spec": dict(draft="self", n_draft=3),
+    "int8_kt_spec": dict(quantized_kv=True, draft="self", n_draft=3),
+    "paged_spec": dict(paged=True, page_size=8, draft="layer0", n_draft=2),
+    "paged_prefix_spec": dict(paged=True, page_size=4, prefix_cache=True,
+                              draft="layer0", n_draft=2),
 }
 DECODE_B, DECODE_S, DECODE_T = 2, 6, 16
 CPU = torch.device("cpu")
@@ -62,7 +74,21 @@ def _rand(shape, seed):
 
 
 def _prompts(name):
-    return PREFIX_PROMPTS if name.endswith("prefix") else PROMPTS
+    return PREFIX_PROMPTS if "prefix" in name else PROMPTS
+
+
+def _with_draft(params, config, opts, build_draft):
+    """Engine options with the case's ``draft`` made from ``params``:
+    ``"self"`` (the target) or ``"layer0"`` (``build_draft``'s one-layer
+    slice, of either package)."""
+    opts = dict(opts)
+    kind = opts.pop("draft", None)
+    if kind == "self":
+        opts.update(draft_params=params, draft_config=config)
+    elif kind == "layer0":
+        d_config, d_params = build_draft(params, config, 1)
+        opts.update(draft_params=d_params, draft_config=d_config)
+    return opts
 
 
 def _run_engine(eng, prompts):
@@ -143,6 +169,7 @@ def _rank_decode(group, params, config, ids, tie_params):
 
 
 def _rank_main(group, tree, bitlinear_case, decode_ids, tie_tree):
+    from onebit_tpu_torch.train.draft import build_draft
     torch.set_num_threads(1)
     config = BitLlamaConfig.named("tiny")
     params = params_from_jax(tree, config, device=CPU)
@@ -152,11 +179,13 @@ def _rank_main(group, tree, bitlinear_case, decode_ids, tie_tree):
            "decode": _rank_decode(group, ttd.shard_tp_params(params, group),
                                   config, decode_ids, tie_params),
            "engine": {}}
-    for name, opts in {**ENGINES, **CHUNKED}.items():
-        eng = _engine(params, config, tp_group=group, **opts)
+    for name, opts in {**ENGINES, **CHUNKED, **SPEC}.items():
+        eng = _engine(params, config, tp_group=group,
+                      **_with_draft(params, config, opts, build_draft))
         out["engine"][name] = _run_engine(eng, _prompts(name))
         if eng.paged:
             out["engine"][name + "_hits"] = eng.prefix_hits
+        out["engine"][name + "_rounds"] = eng.spec_rounds
     sampled = _engine(params, config, tp_group=group, seed=3,
                       sampling=SamplingConfig(temperature=0.9, top_k=50))
     out["sampled"] = _run_engine(sampled, PROMPTS)
@@ -471,18 +500,19 @@ def test_tp_greedy_tie_goes_to_the_lower_index(ranks, jax_decode):
 
 @pytest.fixture(scope="module")
 def jax_engines(jax_tiny):
-    """For each cache, the JAX TP engine's greedy tokens
-    (tp_mesh=create_mesh((1, 2))) and prefix hits."""
+    """For each cache, and each speculative case, the JAX TP engine's
+    greedy tokens (tp_mesh=create_mesh((1, 2))) and prefix hits."""
     import jax.numpy as jnp
 
     from onebit_tpu.engine.batching import ContinuousBatchingEngine as JaxEng
     from onebit_tpu.parallel.mesh import create_mesh
+    from onebit_tpu.train.draft import build_draft
     jc, jp, _ = jax_tiny
     out = {}
-    for name, opts in ENGINES.items():
+    for name, opts in {**ENGINES, **SPEC}.items():
         eng = JaxEng(jp, jc, max_batch=2, max_len=64,
                      compute_dtype=jnp.float32, tp_mesh=create_mesh((1, MP)),
-                     **opts)
+                     **_with_draft(jp, jc, opts, build_draft))
         out[name] = _run_engine(eng, _prompts(name))
         out[name + "_hits"] = getattr(eng, "prefix_hits", None)
     return out
@@ -493,9 +523,15 @@ def _single_device_run(params, config, name, monkeypatch):
     gap between the two largest logits it was chosen from, per request (a
     row of each sample is emitted in the order of the sample's rows at
     admission, and at the slot's row in a decode step)."""
-    from onebit_tpu_torch.engine import batching
     eng = _engine(params, config, device="cpu",
                   **{**ENGINES, **CHUNKED}[name])
+    return _recorded_run(eng, _prompts(name), monkeypatch)
+
+
+def _recorded_run(eng, prompts, monkeypatch):
+    """``eng``'s greedy tokens for ``prompts`` and the gaps of
+    :func:`_single_device_run`."""
+    from onebit_tpu_torch.engine import batching
     gaps, state = {}, {"decoding": False, "gaps": None, "next": 0}
     sample, emit, decode = batching.sample_token, eng._emit, eng._decode
 
@@ -519,7 +555,8 @@ def _single_device_run(params, config, name, monkeypatch):
 
     monkeypatch.setattr(batching, "sample_token", sample_token)
     eng._emit, eng._decode = _emit, _decode
-    tokens = _run_engine(eng, _prompts(name))
+    tokens = _run_engine(eng, prompts)
+    monkeypatch.undo()
     return tokens, [gaps[u] for u in sorted(gaps)]
 
 
@@ -571,6 +608,41 @@ def test_tp_chunked_engine_matches_single_device(ranks, jax_tiny, name,
     _equal_off_near_ties(got, single, gaps, tie)
 
 
+@pytest.mark.parametrize("name", sorted(SPEC))
+def test_tp_spec_engine_matches_jax_and_single_device(ranks, jax_engines,
+                                                      jax_tiny, name,
+                                                      monkeypatch):
+    """The greedy speculative round under TP (``TPServing.spec_round``,
+    ``paged_spec_round``): both ranks' tokens equal the JAX TP spec
+    engine's, the port's single-device spec engine's and its plain
+    engine's (greedy speculative decoding is the plain decode, token for
+    token), off near-ties of the plain engine's logits (2 x 2e-4; 2 x 1e-2
+    on int8 pools); both ranks ran the same rounds, fewer than their
+    tokens with the self-draft; the prefix case reused pages."""
+    from onebit_tpu_torch.train.draft import build_draft
+    c = BitLlamaConfig.named("tiny")
+    params = params_from_jax(jax_tiny[2], c, device=CPU)
+    opts = _with_draft(params, c, SPEC[name], build_draft)
+    plain = {k: v for k, v in opts.items()
+             if k not in ("draft_params", "draft_config", "n_draft")}
+    want, gaps = _recorded_run(_engine(params, c, device="cpu", **plain),
+                               _prompts(name), monkeypatch)
+    single = _run_engine(_engine(params, c, device="cpu", **opts),
+                         _prompts(name))
+    tie = 2 * (1e-2 if plain.get("quantized_kv") else 2e-4)
+    got = ranks[0]["engine"][name]
+    assert got == ranks[1]["engine"][name]
+    for ref in (want, jax_engines[name], single):
+        _equal_off_near_ties(got, ref, gaps, tie)
+    rounds = [r["engine"][name + "_rounds"] for r in ranks]
+    assert rounds[0] == rounds[1] > 0
+    if SPEC[name]["draft"] == "self":
+        assert rounds[0] < sum(len(t) for t in got) // 2
+    if "prefix" in name:
+        hits = [r["engine"][name + "_hits"] for r in ranks]
+        assert hits[0] == hits[1] == jax_engines[name + "_hits"] > 0
+
+
 def test_tp_engine_sampled_ranks_agree(ranks):
     got = [r["sampled"] for r in ranks]
     assert got[0] == got[1]
@@ -606,32 +678,56 @@ def test_fused_params_refused_under_tp(jax_tiny):
 
 @pytest.mark.parametrize("kwargs", [
     dict(block_steps=4), dict(prefill_chunk_size=16),
-    dict(paged=True, block_steps=2), dict(draft_params={}),
+    dict(paged=True, block_steps=2), dict(draft_params="self"),
     dict(block_steps=4, pipeline_blocks=True),
     dict(paged=True, quantized_kv="fp8")],
     ids=["block_steps", "dense_chunked_prefill", "paged_block_steps",
          "speculative", "pipeline_blocks", "fp8_pages"])
 def test_unported_options_raise_under_tp(jax_tiny, kwargs):
-    """Options not ported yet (the speculative round under TP, fp8 pages)
-    raise NotImplementedError naming ROADMAP §1 item 5. Decode blocks and
-    dense chunked prefill are ported: a rank's engine builds, with its
+    """Every engine option builds under TP now: a rank's engine with its
     eager blocks (tests/test_torch_blocks.py serves through them over two
-    ranks) or its chunk program (``test_tp_engines_match_single_device``
-    serves through it)."""
+    ranks), its chunk program, the greedy speculative round with the
+    draft whole on the rank (``test_tp_spec_engine_matches_jax_and_single_
+    device`` serves through it) and fp8 pages holding the rank's nkv / 2
+    heads. The ids are those of the cases when some waited."""
     c = BitLlamaConfig.named("tiny")
     group = TPGroup(None, 0, 2, CPU)
-    if not {"block_steps", "prefill_chunk_size"} & set(kwargs):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            ContinuousBatchingEngine({}, c, tp_group=group, **kwargs)
-        return
-    eng = ContinuousBatchingEngine(params_from_jax(jax_tiny[2], c,
-                                                   device=CPU), c,
-                                   tp_group=group, **kwargs)
+    params = params_from_jax(jax_tiny[2], c, device=CPU)
+    if kwargs.get("draft_params") == "self":
+        kwargs = dict(kwargs, draft_params=params, draft_config=c)
+    eng = ContinuousBatchingEngine(params, c, tp_group=group, **kwargs)
     assert eng._tp.block_steps == eng.block_steps == kwargs.get(
         "block_steps", 1)
     assert eng.prefill_chunk_size == kwargs.get("prefill_chunk_size")
     assert eng._graph is None and eng.pipeline_blocks == kwargs.get(
         "pipeline_blocks", False)
+    if "draft_params" in kwargs:
+        assert eng._tp.draft_config is c and eng._tp.n_draft == 4
+        assert eng.draft_cache.k.shape[3] == c.num_key_value_heads
+    if kwargs.get("quantized_kv") == "fp8":
+        assert eng.cache.k_pages.dtype == torch.float8_e4m3fn
+        assert eng.cache.k_pages.shape[2] == c.num_key_value_heads // 2
+
+
+def test_tp_sampled_speculative_raises_as_in_jax(jax_tiny):
+    """A sampled speculative round under TP raises the JAX engine's
+    ValueError, in its words: the acceptance reads per-shard argmaxes."""
+    from onebit_tpu.engine.batching import ContinuousBatchingEngine as JaxEng
+    from onebit_tpu.engine.sampler import SamplingConfig as JaxSampling
+    from onebit_tpu.parallel.mesh import create_mesh
+    jc, jp, tree = jax_tiny
+    c = BitLlamaConfig.named("tiny")
+    params = params_from_jax(tree, c, device=CPU)
+    with pytest.raises(ValueError) as want:
+        JaxEng(jp, jc, sampling=JaxSampling(greedy=False, temperature=1.0),
+               draft_params=jp, draft_config=jc, tp_mesh=create_mesh((1, MP)))
+    with pytest.raises(ValueError) as got:
+        ContinuousBatchingEngine(
+            params, c, sampling=SamplingConfig(greedy=False, temperature=1.0),
+            draft_params=params, draft_config=c,
+            tp_group=TPGroup(None, 0, MP, CPU))
+    assert str(got.value) == str(want.value)
+    assert "greedy" in str(got.value)
 
 
 def _fail_on_rank_0(group):
