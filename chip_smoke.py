@@ -109,16 +109,16 @@ toolkit and PyTorch. It imports nothing of JAX. Phases, one JSON line each:
    first decode step's logits at full depth against the single-device
    engine's and ``impl="torch"``, with a planted fault (rank 1's share of
    layer 0's o_proj all-reduce dropped) that must break their limit; then
-   served runs on the first 8 of the 32 layers (``TP_RUN_LAYERS``, to
+   served runs on the first 4 of the 32 layers (``TP_RUN_LAYERS``, to
    keep the script under 11 minutes: dense at ``max_len=256``, the same in
    eager decode blocks of 8, whose tokens must be the dense run's, int8 KV
    pools, paged int8 pages with the prefix cache, paged fp8 pages (16 new
    tokens)) in which both ranks emit the same tokens, B4 launches exactly
-   7 x 8 times per forward pass, B9, B5 or B10 exactly 8 times per decode
+   7 x 4 times per forward pass, B9, B5 or B10 exactly 4 times per decode
    step and K1-K3 never; then the greedy speculative round under TP (16
    new tokens) on the dense and int8 targets with the 2-layer spread draft
    whole on each rank: the ranks' tokens equal, each round exactly B4
-   7 x 8, K1 and K2 20 and B9 10, nothing else;
+   7 x 4, K1 and K2 20 and B9 10, nothing else;
 5. evaluation at full llama2-7b width and depth on the same weights,
    unfused (:func:`eval_checks`): perplexity of 8 windows of 2048 at batch
    4 in fp32, direct and vocab-chunked, against ``impl="torch"`` per window
@@ -178,7 +178,17 @@ toolkit and PyTorch. It imports nothing of JAX. Phases, one JSON line each:
    the kernel path and with impl="torch": finite losses, the first step's
    loss and grad norm within 1e-3, ms per step, peak memory; then
    ``save_predictions`` of the trained student, packed and fused, on 4
-   prompts (K1, K2, B9 launched; its jsonl and metrics files).
+   prompts (K1, K2, B9 launched; its jsonl and metrics files);
+9. between training and the task harness, the ``parallel`` phase
+   (:func:`parallel_checks`): fully sharded KD training at llama2-7b
+   width, 2 layers, on two gloo ranks sharing the card, after its memory
+   plan (``parallel/memplan.py``): the sharded step's loss and gradients
+   against the single-device step's on the same global batch 4 x 2048, a
+   planted reduce-scatter fault, 3 steps with exact B11 launches, each
+   rank's ms a step, tokens/s and peak memory beside the plan, a sharded
+   train state saved and read back bit for bit; and, with the command
+   lines of phase 6, ``serve --tp 2`` as the two processes of a
+   multi-host launch (``--coordinator``).
 
 Then the wall time, the ``kernels`` line (each kernel's launches from the
 run of its own path, and ``graph_launches``, those that the graph replays
@@ -188,7 +198,8 @@ the dense tensor-parallel run; B9's from the bf16 and fp32
 B10's from the paged bf16, int8 and fp8 runs; K3's fp32 instance's and
 B11's from the fp32 perplexity run, B11 bf16's from the bf16 forward, B11-dkv's and B11-dq's fp32 instances'
 from the fp32 gradient check of phase 6 and their bf16 instances' from
-its three KD steps), the
+its three KD steps; the bf16 ones also as ``parallel_launches``, rank
+0's in the sharded steps), the
 card's name and power
 limit as ``nvidia-smi`` prints them, and a last line ``{"ok": true,
 "device": ...}``. Any failure exits nonzero without that line. Needs one
@@ -2130,6 +2141,14 @@ def run_cli(seconds: dict, *args, stdin=None, name=None) -> list:
     return finish_cli(seconds, start_cli(*args, stdin=stdin), name)
 
 
+def _free_port() -> int:
+    """A TCP port free on this host now (the multi-host launches' store)."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
 def small_ckpt(dev) -> str:
     """The 2-layer native checkpoint of 7B width under ``build/smoke_ckpt``
     (random packed weights of seed 1), which :func:`eval_checks` writes;
@@ -2155,9 +2174,13 @@ def serve_surface_cli(dev) -> None:
     the draft on stdin lines (the single-device ``serve --draft``'s tokens
     off near-ties), and ``--http 0`` with one POST /generate (the tokens of
     an engine serving that prompt alone in this process, off near-ties),
-    stopped by SIGINT with exit code 0. After ``build-draft`` the commands
-    run together, ``serve --tp --http`` driven while the others run, so
-    their seconds overlap. The draft is removed after."""
+    stopped by SIGINT with exit code 0; and ``serve --tp 2`` as the two
+    processes of a multi-host launch (``--coordinator 127.0.0.1:PORT
+    --num-processes 2 --process-id i``, rank 0 on stdin, rank 1 printing
+    nothing): the single-device engine's tokens off near-ties. After
+    ``build-draft`` the commands run together, ``serve --tp --http``
+    driven while the others run, so their seconds overlap. The draft is
+    removed after."""
     import shutil
 
     from onebit_tpu_torch import (ContinuousBatchingEngine, SamplingConfig,
@@ -2184,6 +2207,14 @@ def serve_surface_cli(dev) -> None:
                       str(SURFACE_CLI_NEW)),
             start_cli("serve", "--ckpt", ckpt, "--draft", out, "--n-draft",
                       "3", *flags, *tp, stdin=lines)]
+        # (the parallel phase's f) serve --tp 2 as two processes of a
+        # multi-host launch, rank 0 on stdin
+        coordinator = f"127.0.0.1:{_free_port()}"
+        started += [
+            start_cli("serve", "--ckpt", ckpt, *flags, *tp, "--coordinator",
+                      coordinator, "--num-processes", "2", "--process-id",
+                      str(i), stdin=lines if i == 0 else "")
+            for i in range(2)]
         t = time.perf_counter()
         http_tp = _serve_http(ckpt, SERVE_PROMPTS[1], (*flags, *tp),
                               SURFACE_CLI_NEW)
@@ -2196,6 +2227,10 @@ def serve_surface_cli(dev) -> None:
         beams = finish_cli(seconds, started[1])[-1]
         served_tp = completions(finish_cli(seconds, started[2],
                                            "serve --tp"))
+        multi_host = completions(finish_cli(
+            seconds, started[3], "serve --tp --coordinator (rank 0)"))
+        multi_host_rank1 = finish_cli(
+            seconds, started[4], "serve --tp --coordinator (rank 1)")
         loaded, draft = load_native(ckpt, device=dev), load_native(out,
                                                                    device=dev)
         config = loaded["config"]
@@ -2218,6 +2253,8 @@ def serve_surface_cli(dev) -> None:
                            want["spec"], want["plain"])
         parted_tp = _partings(loaded["params"], config, dev, SERVE_PROMPTS,
                               served_tp, served)
+        parted_mh = _partings(loaded["params"], config, dev, SERVE_PROMPTS,
+                              multi_host, want["plain"])
         eng = ContinuousBatchingEngine(
             loaded["params"], config, max_batch=2, max_len=256,
             sampling=SamplingConfig(greedy=True), device=dev)
@@ -2250,6 +2287,12 @@ def serve_surface_cli(dev) -> None:
                 "serve_tp_http_request_s": http_tp["request_s"],
                 "serve_tp_http_exit_code": http_tp["exit_code"],
                 "serve_tp_http_metrics": http_tp["metrics"],
+                "serve_tp_multi_host": multi_host,
+                "serve_tp_multi_host_equals_single_device":
+                    multi_host == want["plain"],
+                "serve_tp_multi_host_parted": {str(r): v for r, v in
+                                               parted_mh.items()},
+                "serve_tp_multi_host_rank1_lines": len(multi_host_rank1),
                 "seconds": seconds}
         emit(line)
         if not same_draft or served != want["spec"] or \
@@ -2257,7 +2300,9 @@ def serve_surface_cli(dev) -> None:
                 or _parted_badly(parted_tp) or _parted_badly(parted_http) \
                 or len(served_tp) != len(SERVE_PROMPTS) \
                 or http_tp["exit_code"] != 0 \
-                or http_tp["metrics"]["completed_requests"] != 1:
+                or http_tp["metrics"]["completed_requests"] != 1 \
+                or len(multi_host) != len(SERVE_PROMPTS) \
+                or _parted_badly(parted_mh) or multi_host_rank1:
             raise RuntimeError(f"build-draft, serve --draft, generate "
                                f"--num-beams, serve --tp: {line}")
     finally:
@@ -2509,11 +2554,12 @@ TP_NEW = 32
 # the new tokens a request of the paged fp8 and speculative runs: their
 # checks are per step and per round
 TP_NEW_SHORT = 16
-# the served runs' depth: the first 8 layers of the 7B weights (full
+# the served runs' depth: the first 4 layers of the 7B weights (full
 # width); each decode step makes 130 host all-reduces over gloo at 32
 # layers, which made the TP phase the script's longest (at 16 layers the
-# fp8 and speculative runs took the script past its time)
-TP_RUN_LAYERS = 8
+# fp8 and speculative runs took the script past its time, and at 8 the
+# sharded-training phase did on a slower host)
+TP_RUN_LAYERS = 4
 # (run, engine options, prompts, the attention kernel of every decode
 # layer), each at full width and TP_RUN_LAYERS deep
 TP_RUNS = (
@@ -2995,9 +3041,11 @@ def end_to_end(dev) -> dict:
     :func:`registry_checks`) and SFT (:func:`sft_checks`). Each served run
     goes again through graph-replayed decode blocks (:func:`block_run`), the
     dense one also with a fault captured in its graph
-    (:func:`block_fault_check`). Returns
-    each kernel's launches from the run of its own path, and those that
-    its block run's graph replays made."""
+    (:func:`block_fault_check`); after training, fully sharded KD training
+    on two ranks (:func:`parallel_checks`). Returns
+    each kernel's launches from the run of its own path, those that
+    its block run's graph replays made, and B11's launches in rank 0 of
+    the sharded steps."""
     from onebit_tpu_torch import (BitLlamaConfig, fuse_for_decode,
                                   host_random_packed_params)
     from onebit_tpu_torch.kernels import kv_attention_cuda as kc
@@ -3056,6 +3104,8 @@ def end_to_end(dev) -> dict:
     generate_cli_checks(dev)
     serve_surface_cli(dev)
     launches.update(train_checks(dev))
+    torch.cuda.empty_cache()
+    parallel = parallel_checks(dev)
     # the task harness and the registry on the evaluation's weights, made
     # again from their seed, then SFT
     unfused = host_random_packed_params(config, seed=0, device=dev)
@@ -3066,7 +3116,332 @@ def end_to_end(dev) -> dict:
     sft_checks(dev)
     # B6 and B8, the read-only variants, are on no path of the port
     return ({k.name: launches.get(k.name, 0) for k in all_kernels()},
-            {k.name: graph_launches.get(k.name, 0) for k in all_kernels()})
+            {k.name: graph_launches.get(k.name, 0) for k in all_kernels()},
+            parallel)
+
+
+# ---------------------------------------------------------------------------
+# the parallel phase: fully sharded KD training on two ranks of the card
+# ---------------------------------------------------------------------------
+
+PAR_LAYERS, PAR_RANKS, PAR_BATCH, PAR_SEQLEN, PAR_STEPS = 2, 2, 4, 2048, 3
+PAR_TIMEOUT = 900          # seconds for the ranks, every one of them
+# the band of a rank's torch.cuda.max_memory_allocated over the 3 steps
+# around the memory plan's estimate of its step (parallel/memplan.py),
+# stated before the first run on the card: the plan runs the same code on
+# fake tensors, and the card adds only the allocator's 512-byte rounding
+# and cuBLAS's workspace
+PAR_MEM_BAND = (0.85, 1.2)
+
+
+def _parallel_setup(dev):
+    """The config at PAR_LAYERS, a random plain teacher (fp32,
+    ``torch.Generator`` seed 0 on the card, so every process makes the same
+    one), its SVID start student, the teacher in bf16 for the steps, and
+    PAR_STEPS global batches of PAR_BATCH x PAR_SEQLEN."""
+    from onebit_tpu_torch import BitLlamaConfig
+    from onebit_tpu_torch.core.build_start import build_start_params
+    from onebit_tpu_torch.model.bitllama import init_params
+    from onebit_tpu_torch.parallel.sharding import map_leaves
+    config = BitLlamaConfig.named("llama2-7b", num_hidden_layers=PAR_LAYERS)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    teacher = init_params(config, gen, mode="linear", device=dev)
+    student = build_start_params(teacher)
+    teacher = map_leaves(teacher, lambda k, t: t.to(torch.bfloat16))
+    rng = np.random.default_rng(11)
+    ids = rng.integers(3, config.vocab_size,
+                       (PAR_STEPS, PAR_BATCH, PAR_SEQLEN))
+    batches = [{"input_ids": b, "labels": b} for b in ids]
+    return config, teacher, student, batches
+
+
+def kd_recipe():
+    """The reference recipe (scripts/llama_7b.sh), as the train phase."""
+    from onebit_tpu_torch.train.losses import KDConfig
+    return KDConfig(kd_alpha=1.0, kd_beta=1.0, kd_gamma=0.0,
+                    kd_loss_scale=0.01)
+
+
+def _par_train_cfg():
+    from onebit_tpu_torch.train.trainer import TrainConfig
+    return TrainConfig(warmup_steps=1, total_steps=PAR_STEPS)
+
+
+class _DropOneReduceScatter:
+    """A data group whose rank 1 drops its contribution (zeros in place of
+    its gradient) to one leaf's reduce-scatters: those of the gradients of
+    ``shape``'s, the down_proj latent's ``[d, intermediate]`` in every
+    layer (the planted fault of part d)."""
+
+    def __init__(self, group, shape):
+        self.inner, self.shape = group, tuple(shape)
+        self.group, self.rank = group.group, group.rank
+        self.size, self.device = group.size, group.device
+
+    def all_gather(self, t):
+        return self.inner.all_gather(t)
+
+    def all_reduce(self, t):
+        return self.inner.all_reduce(t)
+
+    def reduce_scatter(self, full):
+        if self.rank == 1 and tuple(full.shape) == self.shape:
+            full = torch.zeros_like(full)
+        return self.inner.reduce_scatter(full)
+
+
+def _full_grads(named, grads, layout, group) -> list:
+    """Each trainable leaf's full gradient on rank 0's host (None on the
+    other ranks): a split leaf's layers' shards stacked and gathered."""
+    from onebit_tpu_torch.parallel.sharding import gather_leaf
+    out = []
+    for (key, _), g in zip(named, grads):
+        if isinstance(g, list):
+            g = gather_leaf(torch.stack(g), layout[key], group)
+        out.append(g.float().cpu() if group.rank == 0 else None)
+    return out
+
+
+def _host_grad_rel(grads, ref) -> float:
+    return max(((g - r).abs().max() / r.abs().max()).item()
+               for g, r in zip(grads, ref))
+
+
+def _parallel_rank(tp_group, ckpt_dir):
+    """One rank of the parallel phase: (b) on rank 0 alone, then (c)-(e)
+    on both. Returns numbers only."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from onebit_tpu_torch.kernels import attention_cuda as fc
+    from onebit_tpu_torch.parallel.mesh import DataGroup
+    from onebit_tpu_torch.parallel.sharding import (map_leaves, param_layout,
+                                                    shard_params)
+    from onebit_tpu_torch.train import trainer as tt
+    from onebit_tpu_torch.train.run_kd import (load_train_state,
+                                               save_train_state)
+    group = DataGroup.of(tp_group)
+    dev = group.device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config, teacher, student, batches = _parallel_setup(dev)
+    kd_cfg, tcfg = kd_recipe(), _par_train_cfg()
+    out = {"rank": group.rank}
+    ref = None
+    if group.rank == 0:
+        # (b) the single-device step on the global batch: loss, gradients
+        t = time.perf_counter()
+        state = tt.init_train_state(tt.clone_params(student), tcfg)
+        step = tt.make_train_step(config, kd_cfg, tcfg,
+                                  compute_dtype=torch.bfloat16)
+        grads, m = step.grads(state, teacher, batches[0])
+        ref = (m["loss"].item(), [g.float().cpu() for g in grads])
+        out["reference_s"] = time.perf_counter() - t
+        del state, step, grads, m
+        torch.cuda.empty_cache()
+    dist.barrier()
+
+    layout = param_layout(student, group.size)
+    t_layout = param_layout(teacher, group.size)
+    local = shard_params(student, group, layout)
+    t_local = shard_params(teacher, group, t_layout)
+    del student, teacher
+    torch.cuda.empty_cache()
+    state = tt.init_train_state(local, tcfg)
+    out["split"] = sorted(layout)
+
+    # (c), (d): the sharded step's loss and gradients against (b)'s, and
+    # again with rank 1's share of one reduce-scatter dropped
+    down = (config.hidden_size, config.intermediate_size)
+    for name, grp in (("sharded", group),
+                      ("fault", _DropOneReduceScatter(group, down))):
+        step = tt.make_sharded_train_step(
+            config, kd_cfg, tcfg, grp, layout, t_layout,
+            compute_dtype=torch.bfloat16)
+        named = tt.named_trainable(state.params)
+        grads, m = step.grads(state, t_local, batches[0])
+        full = _full_grads(named, grads, layout, group)
+        del grads
+        if group.rank == 0:
+            out[f"{name}_loss"] = m["loss"].item()
+            out[f"{name}_loss_rel_err"] = abs(m["loss"].item() - ref[0]) / \
+                abs(ref[0])
+            out[f"{name}_grad_max_rel_err"] = _host_grad_rel(full, ref[1])
+        del full
+        torch.cuda.empty_cache()
+    out["reference_loss"] = ref[0] if ref else None
+    del ref
+
+    # the steps: every count set to 0 before them, the peak reset; (e) the
+    # state after step 1 saved (DCP, each rank its blocks) and kept on the
+    # host
+    step = tt.make_sharded_train_step(config, kd_cfg, tcfg, group, layout,
+                                      t_layout, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    step_s, metrics, saved, prof = [], [], None, None
+    for i, batch in enumerate(batches):
+        t = time.perf_counter()
+        if i == PAR_STEPS - 1 and group.rank == 0:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                state, m = step(state, t_local, batch)
+                torch.cuda.synchronize()
+        else:
+            state, m = step(state, t_local, batch)
+            torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        metrics.append({k: v.item() for k, v in m.items()})
+        if i == 0:
+            t = time.perf_counter()
+            save_train_state(ckpt_dir, state, sharded=True, group=group,
+                             layout=layout)
+            saved = {k: v.detach().cpu().clone()
+                     for k, v in tt.state_tensors(state).items()}
+            out["save_s"] = time.perf_counter() - t
+    counts = read_counts()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["launches"] = {k: v for k, v in counts.items() if v}
+    out["want_launches"] = {fc.FLASH_BF16.name: 2 * PAR_LAYERS * PAR_STEPS,
+                            fc.FLASH_DKV_BF16.name: PAR_LAYERS * PAR_STEPS,
+                            fc.FLASH_DQ_BF16.name: PAR_LAYERS * PAR_STEPS}
+    out["step_s"], out["metrics"] = step_s, metrics
+    if prof is not None:
+        out["profiled_step_device_ms"], out["top_kernels"] = \
+            _device_ms(prof)
+
+    # (e) a fresh sharded state of the same shapes reads the saved one
+    t = time.perf_counter()
+    fresh = tt.TrainState(
+        map_leaves(state.params, lambda k, v: torch.empty_like(v)),
+        tt.AdamState(0, [torch.empty_like(x) for x in state.opt_state.mu],
+                     [torch.empty_like(x) for x in state.opt_state.nu]), 0)
+    del state
+    fresh = load_train_state(ckpt_dir, fresh, group=group, layout=layout)
+    got = tt.state_tensors(fresh)
+    out["ckpt_same_bits"] = sorted(got) == sorted(saved) and all(
+        torch.equal(got[k].cpu(), saved[k]) for k in saved)
+    out["ckpt_step"] = fresh.step
+    out["load_s"] = time.perf_counter() - t
+    return out
+
+
+def parallel_checks(dev) -> dict:
+    """Fully sharded KD training at llama2-7b width, PAR_LAYERS layers, on
+    PAR_RANKS gloo ranks sharing the card (``spawn_tp``; each rank's
+    params, teacher and moments split over both, ``parallel/sharding.py``):
+
+    (a) the memory plan of one rank's step (``parallel/memplan.py``
+        ``dry_run_train``: batch 2 x 2048 a rank, bf16 compute, no remat),
+        the ranks' sum held against the card's memory before anything
+        launches;
+    (b) rank 0 alone: the single-device step (``make_train_step``) on the
+        global batch PAR_BATCH x PAR_SEQLEN, kernel path: the loss and the
+        gradients, moved to the host, then freed;
+    (c) the sharded step on the same global batch: the loss's relative
+        error and the gradients' largest relative error (the shards
+        gathered to the host) within TRAIN_GRAD_TOL[bfloat16]; then
+        PAR_STEPS steps, every count set to 0 before them: finite losses,
+        each rank's B11 bf16 exactly 2 x PAR_LAYERS a step (student,
+        teacher) and B11-dkv, B11-dq PAR_LAYERS a step; per rank the ms a
+        step, the tokens/s, ``max_memory_allocated`` beside (a)'s estimate
+        (PAR_MEM_BAND), rank 0's last step profiled (device ms, busy share);
+    (d) rank 1's contribution to one leaf's reduce-scatters dropped
+        (:class:`_DropOneReduceScatter`, the down_proj latent): the
+        gradients must break the limit;
+    (e) the state after step 1 saved as DCP files (each rank its blocks,
+        ``save_train_state(sharded=True)``) and read into a fresh sharded
+        state: the same bits.
+
+    Returns B11's launches, rank 0's."""
+    import shutil
+
+    from onebit_tpu_torch.parallel.memplan import dry_run_train
+    from onebit_tpu_torch.parallel.mesh import spawn_tp
+    from onebit_tpu_torch.kernels import attention_cuda as fc
+    from onebit_tpu_torch import BitLlamaConfig
+    t0 = time.perf_counter()
+    config = BitLlamaConfig.named("llama2-7b", num_hidden_layers=PAR_LAYERS)
+    plan = dry_run_train(config, (PAR_RANKS, 1), PAR_BATCH, PAR_SEQLEN,
+                         kd_cfg=kd_recipe(), train_cfg=_par_train_cfg())
+    card = torch.cuda.get_device_properties(0).total_memory
+    line = {"phase": "parallel_plan", "config": "llama2-7b",
+            "layers": PAR_LAYERS, "mesh": [PAR_RANKS, 1],
+            "batch_per_rank": [PAR_BATCH // PAR_RANKS, PAR_SEQLEN],
+            "report": str(plan), "peak_bytes": plan.peak_bytes,
+            "ranks_sum_bytes": PAR_RANKS * plan.peak_bytes,
+            "card_bytes": card, "seconds": time.perf_counter() - t0,
+            "reduced": f"depth 32 -> {PAR_LAYERS}: two ranks share one 80 GB "
+                       f"card (a rank a card would hold 32 layers split "
+                       f"8 ways, parallel/memplan.py)"}
+    emit(line)
+    if PAR_RANKS * plan.peak_bytes > card:
+        raise RuntimeError(f"the plan does not fit the card: {line}")
+    ckpt_dir = os.path.join(ROOT, "build", "smoke_parallel")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    t = time.perf_counter()
+    try:
+        ranks = spawn_tp(_parallel_rank, PAR_RANKS, backend=TP_BACKEND,
+                         device="cuda", timeout=PAR_TIMEOUT,
+                         args=(ckpt_dir,))
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    wall = time.perf_counter() - t
+    tol = TRAIN_GRAD_TOL[torch.bfloat16]
+    r0 = ranks[0]
+    lo, hi = PAR_MEM_BAND
+    per_rank = []
+    for r in ranks:
+        steady = sum(r["step_s"][1:]) / (PAR_STEPS - 1)
+        per_rank.append({
+            "rank": r["rank"], "step_s": r["step_s"],
+            "ms_per_step": steady * 1e3,
+            "tok_per_s": PAR_BATCH // PAR_RANKS * PAR_SEQLEN / steady,
+            "peak_bytes": r["peak_bytes"],
+            "peak_over_plan": r["peak_bytes"] / plan.peak_bytes,
+            "launches": r["launches"], "save_s": r["save_s"],
+            "load_s": r["load_s"], "ckpt_same_bits": r["ckpt_same_bits"]})
+    line = {"phase": "parallel", "ranks": PAR_RANKS, "backend": TP_BACKEND,
+            "layers": PAR_LAYERS, "batch": [PAR_BATCH, PAR_SEQLEN],
+            "dtype": "bfloat16", "split_leaves": r0["split"],
+            "reference_loss": r0["reference_loss"],
+            "reference_s": r0["reference_s"],
+            "sharded_loss": r0["sharded_loss"],
+            "loss_rel_err": r0["sharded_loss_rel_err"],
+            "grad_max_rel_err": r0["sharded_grad_max_rel_err"],
+            "rel_tol": tol,
+            "fault": "rank 1's share of the down_proj latent's "
+                     "reduce-scatters (every layer) dropped",
+            "fault_grad_max_rel_err": r0["fault_grad_max_rel_err"],
+            "metrics": r0["metrics"], "want_launches": r0["want_launches"],
+            "per_rank": per_rank, "mem_band": list(PAR_MEM_BAND),
+            "plan_peak_bytes": plan.peak_bytes,
+            "tok_per_s_global": PAR_BATCH * PAR_SEQLEN / max(
+                sum(r["step_s"][1:]) / (PAR_STEPS - 1) for r in ranks),
+            "rank0_profiled_step_device_ms": r0["profiled_step_device_ms"],
+            "rank0_busy_share": r0["profiled_step_device_ms"] / (
+                r0["step_s"][-1] * 1e3),
+            "rank0_top_kernels": r0["top_kernels"],
+            "ckpt_step": r0["ckpt_step"], "wall_s": wall}
+    emit(line)
+    finite = all(math.isfinite(v) for r in ranks for m in r["metrics"]
+                 for v in m.values())
+    ok = (finite and r0["sharded_loss_rel_err"] <= tol
+          and r0["sharded_grad_max_rel_err"] <= tol
+          and r0["fault_grad_max_rel_err"] > tol
+          and all({k: v for k, v in r["launches"].items() if "flash" in k}
+                  == r["want_launches"] for r in ranks)
+          and all(lo <= p["peak_over_plan"] <= hi for p in per_rank)
+          and all(r["ckpt_same_bits"] and r["ckpt_step"] == 1
+                  for r in ranks)
+          and ranks[0]["metrics"] == ranks[1]["metrics"])
+    if not ok:
+        raise RuntimeError(f"the sharded KD step: {line}")
+    return {k: r0["launches"].get(k, 0)
+            for k in (fc.FLASH_BF16.name, fc.FLASH_DKV_BF16.name,
+                      fc.FLASH_DQ_BF16.name)}
 
 
 # ---------------------------------------------------------------------------
@@ -3392,7 +3767,8 @@ def eval_checks(params, config, dev) -> dict:
 # teacher (0.8 GB) and some 9 GB of activations at 4 x 2048 tokens (the
 # latent projections keep fp32 copies for their products), so 4 layers fit
 # one 80 GB card beside the embeddings and the [4, 2048, 32000] logits of
-# the KL; the 32 of llama2-7b need a sharded model (ROADMAP.md §1 item 6).
+# the KL; the 32 of llama2-7b take the fully sharded step over 8 cards
+# (parallel/sharding.py; the parallel phase runs it on 2 ranks).
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQLEN, TRAIN_STEPS = 4, 4, 2048, 3
 # The first KD step's loss and each trainable leaf's gradient on the kernel
 # path against impl="torch", relative to the leaf's largest |gradient|.
@@ -3466,15 +3842,13 @@ def _train_setup(dev):
     from onebit_tpu_torch import BitLlamaConfig
     from onebit_tpu_torch.core.build_start import build_start_params
     from onebit_tpu_torch.model.bitllama import init_params
-    from onebit_tpu_torch.train.losses import KDConfig
     config = BitLlamaConfig.named("llama2-7b", num_hidden_layers=TRAIN_LAYERS)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     teacher = init_params(config, gen, mode="linear", device=dev)
     student = build_start_params(teacher)
     torch.cuda.synchronize()
-    kd_cfg = KDConfig(kd_alpha=1.0, kd_beta=1.0, kd_gamma=0.0,
-                      kd_loss_scale=0.01)
+    kd_cfg = kd_recipe()
     rng = np.random.default_rng(7)
     blocks = rng.integers(3, config.vocab_size,
                           (TRAIN_STEPS * TRAIN_BATCH, TRAIN_SEQLEN)
@@ -3570,8 +3944,9 @@ def train_checks(dev) -> dict:
           "full_depth": 32, "batch": [TRAIN_BATCH, TRAIN_SEQLEN],
           "reduced": "depth 32 -> 4: at 7B width a layer's fp32 latent "
                      "weights, gradients, Adam moments, teacher share and "
-                     "activations take about 13 GB; 32 layers need a "
-                     "sharded model (ROADMAP.md §1 item 6)"})
+                     "activations take about 13 GB on one card; 32 layers "
+                     "take the fully sharded step over 8 cards (the "
+                     "parallel phase runs it on 2 ranks)"})
     t0 = time.perf_counter()
     config, teacher, student, kd_cfg, blocks, first = _train_setup(dev)
     emit({"phase": "train_start", "seconds": time.perf_counter() - t0,
@@ -3724,7 +4099,6 @@ def train_cli_check(dev) -> None:
     from onebit_tpu_torch import BitLlamaConfig, load_native, save_native
     from onebit_tpu_torch.model.bitllama import init_params, pack_model_params
     from onebit_tpu_torch.train.data import batch_iterator
-    from onebit_tpu_torch.train.losses import KDConfig
     from onebit_tpu_torch.train.run_kd import KDRunConfig
     from onebit_tpu_torch.train.trainer import (TrainConfig, clone_params,
                                                 init_train_state,
@@ -3764,8 +4138,7 @@ def train_cli_check(dev) -> None:
         # --warmup-steps 1 < total 2 is kept), seed 42's batches
         run_cfg = KDRunConfig()
         train_cfg = TrainConfig(warmup_steps=1, total_steps=2)
-        kd_cfg = KDConfig(kd_alpha=1.0, kd_beta=1.0, kd_gamma=0.0,
-                          kd_loss_scale=0.01)
+        kd_cfg = kd_recipe()
         state = init_train_state(clone_params(start["params"]), train_cfg)
         del start
         step = make_train_step(small, kd_cfg, train_cfg,
@@ -4628,7 +5001,7 @@ def main() -> int:
     emit({"phase": "kernel", "bound_share": shares})
     if max(shares.values()) > 1:
         raise RuntimeError(f"a kernel ran faster than its bound: {shares}")
-    launches, graph_launches = end_to_end(dev)
+    launches, graph_launches, parallel = end_to_end(dev)
     emit({"phase": "done", "wall_s": time.perf_counter() - t_wall,
           "graph_launches_of": "the block run (8 steps a replayed CUDA "
                                "graph) of the kernel's served path; "
@@ -4639,7 +5012,9 @@ def main() -> int:
          "graph_launches": graph_launches[k.name],
          **results[k.name],
          **({"launches_of": "rank 0 of the dense tensor-parallel run"}
-            if k.name.startswith("bitlinear_raw") else {})}
+            if k.name.startswith("bitlinear_raw") else {}),
+         **({"parallel_launches": parallel[k.name]}
+            if k.name in parallel else {})}
         for k in all_kernels()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -59,7 +59,13 @@ weights (each unpadded layer's attention in B11 and its backward kernels
 B11-dkv and B11-dq on the card), and ``pack_model_params`` packs the result
 for serving; ``python -m onebit_tpu_torch build-start-ckpt | train |
 convert`` does the same on native checkpoints (``train --config FILE``
-takes its flags from a yaml or json file). ``run_sft`` fine-tunes on
+takes its flags from a yaml or json file). When the default process
+group holds N ranks (``parallel/mesh.py`` ``initialize_distributed``, or
+the ``--coordinator/--num-processes/--process-id`` flags), ``run_kd``
+trains fully sharded over them (``parallel/sharding.py``,
+``make_sharded_train_step``); ``ckpt/sharded.py`` writes and reads sharded
+checkpoints, and ``parallel/memplan.py`` plans a rank's memory on fake
+tensors (``--dry-compile``). ``run_sft`` fine-tunes on
 (prompt, response) pairs with prompt-masked CE and ``save_predictions``
 writes greedy predictions with their ROUGE/BLEU scores.
 

@@ -7,8 +7,10 @@
         [--cutoff-len 2048]) [--output-dir out] [--batch-size 4] \\
         [--max-steps N] [KD and optimizer flags] [--device cuda|cpu]
     python -m onebit_tpu_torch train --config FILE.yaml|FILE.json [flags]
+    python -m onebit_tpu_torch train --dry-compile --model NAME \\
+        [--mesh 8x1] [--batch-size 8] [--cutoff-len 2048] [--hbm-gb 80]
     python -m onebit_tpu_torch convert TRAIN_CKPT OUT_DIR \\
-        [--format native|reference] [--device ...]
+        [--format native|reference|sharded] [--device ...]
     python -m onebit_tpu_torch build-draft STUDENT_DIR OUT_DIR \\
         [--num-layers 2] [--strategy spread|first] [--for-training] \\
         [--device ...]
@@ -32,6 +34,20 @@
         [--fuse-decode] [--draft DIR [--n-draft 4]] \\
         [--tp N [--tp-backend nccl|gloo]] \\
         [sampling flags] [--http [PORT]] [--host H] [--device cuda|cpu]
+    python -m onebit_tpu_torch serve --dry-compile --model NAME --tp N \\
+        [--max-batch 8] [--max-len 2048] [--paged] [--hbm-gb 80]
+
+``train``, ``eval`` and ``serve`` take the multi-host flags
+(``onebit_tpu/cli.py:525-562``): run the same command in every process
+with ``--coordinator HOST:PORT --num-processes N --process-id I``, or under
+torchrun with ``--distributed``. Each process is one rank, on
+``cuda:{rank % device_count}`` (or the CPU with ``--device cpu``), and
+joins the group before it computes anything (``parallel/mesh.py``
+``initialize_distributed``): ``train`` trains fully sharded over the N
+ranks (nccl under ``--device cuda``, a card a rank; gloo on the CPU),
+``eval`` runs in every rank as one process does, and ``serve --tp N``
+runs rank ``--process-id`` of its N tensor-parallel ranks, rank 0 the front
+end.
 
 Port of ``onebit_tpu/cli.py``'s pipeline. A checkpoint is a native
 directory (``config.json`` + ``params.npz``) or a reference Hugging Face
@@ -51,9 +67,12 @@ tensor-parallel ranks behind one front end (``engine/tp_serve.py``). Without
 A tokenizer is ``AutoTokenizer.from_pretrained(--tokenizer)`` (for eval
 and train, the checkpoint's own directory by default), imported only
 where a command needs one. ``train --config`` reads the train flags from
-a yaml or json file (its values override the command line's). What is
-not ported yet (sharded checkpoints, ``--dry-compile``) exits nonzero,
-naming what it waits for.
+a yaml or json file (its values override the command line's). Every
+``--ckpt`` (and ``--student``, ``--teacher``, ``--draft``) may also be the
+port's sharded checkpoint (``ckpt/sharded.py``, written by ``convert
+--format sharded``); the JAX package's orbax directories exit nonzero,
+saying why. ``--dry-compile`` prints one rank's memory plan
+(``parallel/memplan.py``) and exits nonzero when it passes ``--hbm-gb``.
 """
 
 from __future__ import annotations
@@ -63,8 +82,6 @@ import json
 import os
 import sys
 
-from onebit_tpu_torch.parallel.mesh import PARALLEL_WAIT
-
 # the engine configurations of --check-engines (onebit_tpu/cli.py:214-220)
 ENGINE_CHECKS = {
     "dense": {},
@@ -73,17 +90,6 @@ ENGINE_CHECKS = {
     "paged": dict(paged=True, quantized_kv=True, page_size=16),
     "pipelined": dict(block_steps=4, pipeline_blocks=True),
 }
-_PARALLEL = PARALLEL_WAIT
-# train flag -> what it waits for (ROADMAP.md)
-WAITING_TRAIN = {
-    "sharded_ckpt": "orbax sharded train states, " + _PARALLEL,
-    "dry_compile": "parallel/memplan.py, " + _PARALLEL,
-    "model": "--dry-compile", "mesh": "--dry-compile", "hbm_gb":
-    "--dry-compile",
-}
-WAITING_CONVERT = {"sharded": "sharded checkpoints, " + _PARALLEL}
-# serve flag -> what it waits for
-WAITING_SERVE = {"dry_compile": "parallel/memplan.py, " + _PARALLEL}
 
 
 def _check_expect(results, path: str, check_engines: bool) -> None:
@@ -122,14 +128,14 @@ def _check_expect(results, path: str, check_engines: bool) -> None:
 
 
 def _load_any_ckpt(path: str, device):
-    """A native checkpoint (``params.npz``) or a reference Hugging Face
-    directory (onebit_tpu/cli.py:25-35); a sharded one exits nonzero."""
-    meta = os.path.join(path, "metadata.json")
-    if os.path.exists(meta):
-        with open(meta) as f:
-            if json.load(f).get("format") == "onebit-sharded":
-                raise SystemExit(f"{path} is a sharded checkpoint, which is "
-                                 f"not ported yet: it waits for {_PARALLEL}")
+    """The port's sharded checkpoint, a native one (``params.npz``) or a
+    reference Hugging Face directory (onebit_tpu/cli.py:25-35), whole on
+    ``device``; a JAX orbax directory exits nonzero, saying why."""
+    from onebit_tpu_torch.ckpt.sharded import (check_not_orbax,
+                                               is_sharded_ckpt, load_sharded)
+    check_not_orbax(path)
+    if is_sharded_ckpt(path):
+        return load_sharded(path, device=device)
     if os.path.exists(os.path.join(path, "params.npz")):
         from onebit_tpu_torch.ckpt.native import load_native
         return load_native(path, device=device)
@@ -163,11 +169,11 @@ def cmd_convert(args) -> None:
                                               save_native)
     from onebit_tpu_torch.model.bitllama import pack_model_params
 
-    if args.format in WAITING_CONVERT:
-        raise SystemExit(f"--format {args.format} is not ported yet: it "
-                         f"waits for {WAITING_CONVERT[args.format]}")
+    from onebit_tpu_torch.ckpt.sharded import save_sharded
+
     loaded = _load_any_ckpt(args.ckpt, args.device)
-    write = save_native if args.format == "native" else export_reference_int8
+    write = {"native": save_native, "reference": export_reference_int8,
+             "sharded": save_sharded}[args.format]
     write(args.out, loaded["config"], pack_model_params(loaded["params"]))
     print(f"packed inference checkpoint ({args.format}) -> {args.out}")
 
@@ -187,21 +193,63 @@ def cmd_build_draft(args) -> None:
     print(f"{args.num_layers}-layer draft ({args.strategy}) -> {args.out}")
 
 
+def _kd_config(args):
+    from onebit_tpu_torch.train.losses import KDConfig
+    return KDConfig(kd_alpha=args.kd_alpha, kd_beta=args.kd_beta,
+                    kd_gamma=args.kd_gamma, kd_loss_scale=args.kd_loss_scale)
+
+
+def _report(report, hbm_gb) -> None:
+    """Print a memory plan; exit nonzero, with its accounting, past
+    ``hbm_gb``."""
+    print(report, flush=True)
+    if hbm_gb:
+        try:
+            report.check(hbm_gb)
+        except MemoryError as e:
+            raise SystemExit(str(e))
+        print(f"fits the {hbm_gb:g} GiB/card budget")
+
+
+def _dry_compile_train(args) -> None:
+    """One rank's fully sharded KD step at the geometry of ``--model`` (or
+    the student's config.json) on ``--mesh``, on fake tensors
+    (``parallel/memplan.py``), with the flags' KD terms and ``--remat``:
+    no weights, no card."""
+    from onebit_tpu_torch.parallel.memplan import (config_only,
+                                                   dry_run_train, parse_mesh)
+    from onebit_tpu_torch.train.trainer import TrainConfig
+    mesh = parse_mesh(args.mesh)
+    config = config_only(args.model, args.student)
+    try:
+        report = dry_run_train(config, mesh, args.batch_size,
+                               args.cutoff_len, kd_cfg=_kd_config(args),
+                               train_cfg=TrainConfig(remat=args.remat))
+    except NotImplementedError as e:
+        raise SystemExit(str(e))
+    _report(report, args.hbm_gb)
+
+
 def cmd_train(args) -> None:
     import numpy as np
 
     from onebit_tpu_torch.train.data import load_texts, prepare_kd_dataset
-    from onebit_tpu_torch.train.losses import KDConfig
     from onebit_tpu_torch.train.run_kd import KDRunConfig, run_kd
     from onebit_tpu_torch.train.trainer import TrainConfig
     from onebit_tpu_torch.train.validate import validate_kd
 
+    if args.dry_compile:
+        _dry_compile_train(args)
+        return
     if not (args.tokens or (args.data and args.dataset)):
         raise SystemExit("train needs --tokens BLOCKS.npy (pre-tokenized "
                          "[N, S] blocks) or --data DIR --dataset NAME (a "
                          "registered text dataset)")
-    student = _load_any_ckpt(args.student, args.device)
-    teacher = _load_any_ckpt(args.teacher, args.device)
+    # in a group every rank loads the checkpoints on the host and trains
+    # its shards on its device (run_kd)
+    where = "cpu" if _world() > 1 else args.device
+    student = _load_any_ckpt(args.student, where)
+    teacher = _load_any_ckpt(args.teacher, where)
     config = student["config"]
     if args.tokens:
         blocks = np.load(args.tokens)
@@ -213,9 +261,7 @@ def cmd_train(args) -> None:
             texts, lambda s: tok(s)["input_ids"], cutoff_len=args.cutoff_len,
             eos_id=config.eos_token_id)
     print(f"dataset: {blocks.shape[0]} blocks x {blocks.shape[1]}")
-    kd_cfg = KDConfig(kd_alpha=args.kd_alpha, kd_beta=args.kd_beta,
-                      kd_gamma=args.kd_gamma,
-                      kd_loss_scale=args.kd_loss_scale)
+    kd_cfg = _kd_config(args)
     train_cfg = TrainConfig(learning_rate=args.learning_rate,
                             warmup_steps=args.warmup_steps,
                             weight_decay=args.weight_decay,
@@ -226,12 +272,14 @@ def cmd_train(args) -> None:
                           max_steps=args.max_steps,
                           save_steps=args.save_steps,
                           save_total_limit=args.save_total_limit,
+                          sharded_ckpt=args.sharded_ckpt,
                           resume_from=args.resume_from)
     # student-vs-teacher cross-checks need both configs; run_kd validates
     # the rest (reference get_train_args, core.py:81-215)
     validate_kd(kd_cfg, config, teacher["config"])
     run_kd(config, student["params"], teacher["params"], blocks,
-           kd_cfg=kd_cfg, train_cfg=train_cfg, run_cfg=run_cfg)
+           kd_cfg=kd_cfg, train_cfg=train_cfg, run_cfg=run_cfg,
+           device=args.device)
 
 
 def _engine_consistency_check(loaded, configs, device, *, max_len: int = 256,
@@ -357,12 +405,12 @@ def cmd_eval(args) -> None:
         raise SystemExit("eval needs --tokens FILE.npy (a pre-tokenized "
                          "stream), --corpus, --wikitext, --tasks or "
                          "--check-engines")
-    loaded = _load_any_ckpt(args.ckpt, args.device)
+    loaded = _load_any_ckpt(args.ckpt, _rank_device(args))
     params, config = loaded["params"], loaded["config"]
     results = {}
     if configs:
         results["engine_check"] = _engine_consistency_check(
-            loaded, configs, args.device)
+            loaded, configs, _rank_device(args))
     if args.tokens:
         results["ppl"] = perplexity(
             params, config, np.load(args.tokens), seqlen=args.seqlen,
@@ -436,10 +484,18 @@ def cmd_serve(args) -> None:
     PORT``: an HTTP server with POST /generate (sync and ndjson streaming;
     ``text`` bodies with ``--tokenizer``), GET /metrics and GET /health
     (``engine/server.py``). ``--tp N``: N rank processes on this host
-    behind one front end, rank 0 (``engine/tp_serve.py``)."""
+    behind one front end, rank 0 (``engine/tp_serve.py``); with the
+    multi-host flags this process is rank ``--process-id`` of them.
+    ``--dry-compile``: one rank's decode step's memory plan
+    (``parallel/memplan.py``)."""
     if args.dry_compile:
-        raise SystemExit("--dry-compile is not ported yet: it waits for "
-                         + WAITING_SERVE["dry_compile"])
+        from onebit_tpu_torch.parallel.memplan import (config_only,
+                                                       dry_run_serve)
+        _report(dry_run_serve(config_only(args.model, args.ckpt),
+                              max(args.tp, 1), max_batch=args.max_batch,
+                              max_len=args.max_len, paged=args.paged,
+                              page_size=args.page_size), args.hbm_gb)
+        return
     if not args.paged and args.prefix_cache:
         raise SystemExit("--prefix-cache requires --paged")
     if not args.paged and args.kv_quant == "fp8":
@@ -454,6 +510,10 @@ def cmd_serve(args) -> None:
                          "drop --fuse-decode")
     if not args.ckpt:
         raise SystemExit("serve needs --ckpt DIR")
+    if _multi_host(args):
+        from onebit_tpu_torch.engine.tp_serve import serve_rank
+        serve_rank(args)
+        return
     if args.tp > 1:
         from onebit_tpu_torch.engine.tp_serve import serve_tp
         serve_tp(args)
@@ -537,6 +597,69 @@ def _device_flag(parser) -> None:
                         help="where to run: cuda (default) or cpu")
 
 
+def _add_dist_args(sp) -> None:
+    """The multi-host flags (onebit_tpu/cli.py:525-544): the same command
+    in every process, each with its ``--process-id``."""
+    sp.add_argument("--coordinator", help="HOST:PORT of rank 0's store "
+                    "(a multi-host launch)")
+    sp.add_argument("--num-processes", type=int,
+                    help="the processes of the launch, one rank each")
+    sp.add_argument("--process-id", type=int,
+                    help="this process's rank (0-based)")
+    sp.add_argument("--distributed", action="store_true",
+                    help="join the group from torchrun's environment (RANK, "
+                    "WORLD_SIZE, MASTER_ADDR, MASTER_PORT)")
+
+
+def _multi_host(args) -> bool:
+    return bool(getattr(args, "distributed", False)
+                or getattr(args, "coordinator", None) is not None)
+
+
+def _world() -> int:
+    import torch.distributed as dist
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _rank_device(args) -> str:
+    """This process's device: ``args.device``, or in a group
+    ``cuda:{rank % device_count}`` (made current) or the CPU."""
+    if _world() == 1:
+        return args.device
+    import torch
+    import torch.distributed as dist
+
+    from onebit_tpu_torch.parallel.mesh import rank_device
+    dev = rank_device(dist.get_rank(), args.device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return str(dev)
+
+
+def _maybe_init_distributed(args) -> None:
+    """Join the default process group from the multi-host flags, before any
+    computation (onebit_tpu/cli.py:547-562). ``serve`` joins in
+    ``engine/tp_serve.py``, as one of its tensor-parallel ranks."""
+    if not _multi_host(args):
+        if args.num_processes is not None or args.process_id is not None:
+            raise SystemExit("--num-processes and --process-id go with "
+                             "--coordinator")
+        return
+    if args.coordinator is not None and (args.num_processes is None
+                                         or args.process_id is None):
+        raise SystemExit("--coordinator requires --num-processes and "
+                         "--process-id")
+    if args.fn is cmd_serve:
+        return
+    from onebit_tpu_torch.parallel.mesh import initialize_distributed
+    backend = "nccl" if args.device == "cuda" else "gloo"
+    try:
+        initialize_distributed(args.coordinator, args.num_processes,
+                               args.process_id, backend=backend)
+    except ValueError as e:
+        raise SystemExit(str(e))
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="onebit_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -606,11 +729,22 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--config", help="yaml or json file of train flags "
                    "(its keys are the flags' names; its values override "
                    "the command line's)")
-    for flag in ("model", "mesh", "hbm_gb"):
-        t.add_argument(f"--{flag.replace('_', '-')}", help="not ported yet")
-    for flag in ("sharded_ckpt", "dry_compile"):
-        t.add_argument(f"--{flag.replace('_', '-')}", action="store_true",
-                       help="not ported yet")
+    t.add_argument("--sharded-ckpt", action="store_true",
+                   help="train states as sharded checkpoints: each rank "
+                   "writes its blocks (torch.distributed.checkpoint)")
+    t.add_argument("--dry-compile", action="store_true",
+                   help="print one rank's memory plan of the sharded KD "
+                   "step at real geometry on fake tensors: no weights, no "
+                   "card")
+    t.add_argument("--model", help="named geometry for --dry-compile "
+                   "(llama-7b/llama2-7b/llama-13b/llama2-13b)")
+    t.add_argument("--mesh", default="8x1",
+                   help="DATAxMODEL mesh for --dry-compile (default 8x1; "
+                   "the model axis must be 1)")
+    t.add_argument("--hbm-gb", type=float, default=None,
+                   help="exit nonzero when --dry-compile's per-card peak "
+                   "passes this budget (H100: 80)")
+    _add_dist_args(t)
     t.set_defaults(fn=cmd_train)
     e = sub.add_parser("eval", help="perplexity and zero-shot eval")
     e.add_argument("--ckpt", required=True, help="native or reference "
@@ -648,6 +782,7 @@ def build_parser() -> argparse.ArgumentParser:
                    "generate: a comma list of dense, pipelined, kvq, int4, "
                    "paged (the bare flag: all); adds engine_check.* to the "
                    "results")
+    _add_dist_args(e)
     e.set_defaults(fn=cmd_eval)
 
     g = sub.add_parser("generate", help="generation from token ids")
@@ -721,8 +856,14 @@ def build_parser() -> argparse.ArgumentParser:
                     "--device cuda; a card a rank) or gloo (the default "
                     "under --device cpu; ranks may share a card)")
     sv.add_argument("--dry-compile", action="store_true",
-                    help="not ported yet")
+                    help="print one tensor-parallel rank's memory plan of a "
+                    "decode step at real geometry on fake tensors")
+    sv.add_argument("--model", help="named geometry for --dry-compile")
+    sv.add_argument("--hbm-gb", type=float, default=None,
+                    help="exit nonzero when --dry-compile's per-card peak "
+                    "passes this budget (H100: 80)")
     _device_flag(sv)
+    _add_dist_args(sv)
     sv.set_defaults(fn=cmd_serve)
     return p
 
@@ -750,16 +891,17 @@ def main(argv=None) -> None:
     if args.fn is cmd_train:
         if args.config:
             _apply_config_file(args)
-        # a flag that waits names its reason, from the file or the command
-        # line, before anything else is checked
-        for flag, why in WAITING_TRAIN.items():
-            if getattr(args, flag):
-                raise SystemExit(f"--{flag.replace('_', '-')} is not ported "
-                                 f"yet: it waits for {why}")
-        if not (args.student and args.teacher):
+        if not args.dry_compile and not (args.student and args.teacher):
             parser.error("train requires --student and --teacher (via "
                          "flags or --config)")
-    args.fn(args)
+    if args.fn in (cmd_train, cmd_eval, cmd_serve):
+        _maybe_init_distributed(args)
+    try:
+        args.fn(args)
+    finally:
+        if args.fn in (cmd_train, cmd_eval) and _world() > 1:
+            import torch.distributed as dist
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -51,7 +51,7 @@ from onebit_tpu_torch.model.bitllama import (Proj, _decoder_layer, _lm_head,
 from onebit_tpu_torch.model.config import BitLlamaConfig
 from onebit_tpu_torch.model.ragged_decode import decode_block
 from onebit_tpu_torch.model.rope import apply_rope, rope_cos_sin
-from onebit_tpu_torch.utils.device import resolve_device
+from onebit_tpu_torch.utils.device import is_fake, on_card, resolve_device
 
 FP8 = torch.float8_e4m3fn
 # |x| past this rounds beyond 448, e4m3's largest finite value: JAX's
@@ -231,7 +231,7 @@ def _cos_sin(positions, config: BitLlamaConfig, compute_dtype):
 
 def _use_kernel(cache, impl: str) -> bool:
     """B10 serves decode on the card unless ``impl="torch"``."""
-    return cache[0].device.type == "cuda" and impl != "torch"
+    return on_card(cache[0]) and impl != "torch"
 
 
 # ---------------------------------------------------------------------------
@@ -321,7 +321,8 @@ def _tables(cache, page_indices) -> torch.Tensor:
     """Page tables as contiguous int32 on the cache's device. Tables given
     on the host are checked there to hold page ids in ``[0, P)``: B10 reads
     pages at the ids it is given."""
-    if not torch.is_tensor(page_indices) or page_indices.device.type == "cpu":
+    if not torch.is_tensor(page_indices) or (
+            page_indices.device.type == "cpu" and not is_fake(page_indices)):
         ids = np.asarray(page_indices)
         if ids.size and (ids.min() < 0 or ids.max() >= cache.num_pages):
             raise ValueError(f"page ids must lie in [0, {cache.num_pages}), "

@@ -30,7 +30,7 @@ strategy (``model/tp_decode.py`` ``tp_proj``):
   ``torch.distributed``, and gloo's all-reduce passes through the host,
   which no CUDA graph captures. The port's only card runs of tensor
   parallelism are gloo ranks sharing one card; a graph over NCCL waits for
-  a machine with a card a rank (ROADMAP.md §1 item 6).
+  a machine with a card a rank (ROADMAP.md §1 items 9 and 10).
 
 Greedy decode and the speculative round's acceptance gather no logits:
 each rank takes the argmax of its vocab shard and only ``mp`` (max, index)

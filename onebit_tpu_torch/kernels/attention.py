@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from onebit_tpu_torch.kernels import attention_cuda as fc
+from onebit_tpu_torch.utils.device import on_card
 
 
 def _causal_mask(s: int, t: int, offset: int, device=None) -> torch.Tensor:
@@ -205,7 +206,7 @@ def flash_causal_attention(q, k, v, *, num_kv_groups: int) -> torch.Tensor:
     row's ``[n, hd]`` contiguous, any batch and sequence strides) ->
     ``[B, S, nh, hd]`` in q's dtype. Under autograd on the card, its
     gradient runs B11-dkv and B11-dq."""
-    if q.device.type == "cpu":
+    if not on_card(q):
         return flash_causal_attention_torch(q, k, v,
                                             num_kv_groups=num_kv_groups)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):

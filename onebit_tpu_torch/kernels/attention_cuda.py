@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 import torch
 
 from onebit_tpu_torch.kernels import build
+from onebit_tpu_torch.utils.device import is_fake
 from onebit_tpu_torch.kernels.bitlinear_cuda import (KernelInfo, _raise_on,
                                                      _stream)
 
@@ -161,7 +162,14 @@ def launch(q, k, v, num_kv_groups: int, with_lse: bool = False):
     k/v ``[B, S, nkv, hd]`` in q's dtype, each row's ``[n, hd]``
     contiguous (views of the projections' ``[B*S, n*hd]`` output are).
     Returns ``[B, S, nh, hd]`` in q's dtype, and with ``with_lse`` also the
-    rows' fp32 log-sum-exp ``[B, nh, S]`` (the backward's residual)."""
+    rows' fp32 log-sum-exp ``[B, nh, S]`` (the backward's residual). On
+    fake tensors (``parallel/memplan.py``) only the outputs are made."""
+    if is_fake(q):
+        out = q.new_empty(q.shape)
+        if not with_lse:
+            return out
+        return out, q.new_empty((q.shape[0], q.shape[2], q.shape[1]),
+                                dtype=torch.float32)
     b, s, nh, nkv, hd = _check(q, k, v, num_kv_groups)
     (info, _, _), code = _INFO[q.dtype]
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -196,6 +204,8 @@ def launch_bwd_dkv(q, k, v, do, lse, di, num_kv_groups: int):
     from q, k, v (as :func:`launch` takes them), ``do`` (q's shape; copied
     to a readable layout if it is not one), the forward's ``lse`` and
     ``di = Σ o·do``, both fp32 ``[B, nh, S]``."""
+    if is_fake(q):
+        return k.new_empty(k.shape), v.new_empty(k.shape)
     do = _row_layout(do)
     b, s, nh, nkv, hd = _check(q, k, v, num_kv_groups, (("do", do),))
     _stats_check(lse, di, b, nh, s, q.device)
@@ -214,6 +224,8 @@ def launch_bwd_dkv(q, k, v, do, lse, di, num_kv_groups: int):
 def launch_bwd_dq(q, k, v, do, lse, di, num_kv_groups: int):
     """One launch of B11-dq: ``dq [B, S, nh, hd]`` in q's dtype, from the
     inputs of :func:`launch_bwd_dkv`."""
+    if is_fake(q):
+        return q.new_empty(q.shape)
     do = _row_layout(do)
     b, s, nh, nkv, hd = _check(q, k, v, num_kv_groups, (("do", do),))
     _stats_check(lse, di, b, nh, s, q.device)

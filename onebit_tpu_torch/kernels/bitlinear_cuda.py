@@ -49,6 +49,7 @@ import torch
 from onebit_tpu_torch.core.bitlinear import LN_EPS
 from onebit_tpu_torch.core.packing import WORD_BITS, unpack_signs_kmajor
 from onebit_tpu_torch.kernels import build
+from onebit_tpu_torch.utils.device import is_fake
 
 SMALL_M_MAX = 128   # rows; above it prefill takes K3 (bitlinear_pallas.py:51)
 _SEG_ALIGN = 64     # fused segments: a multiple of both kernels' column tile
@@ -406,11 +407,22 @@ def _launch_small_m(info: KernelInfo, x2, packed, g, h, bias, *, ns: int,
     return out
 
 
+def _fake_small_m(x2, packed, ns: int, n_true: int, raw: bool):
+    """The small-M kernel's allocations on fake tensors (the memory plans
+    of ``parallel/memplan.py``): the fp32 ``z`` and, unless raw, the
+    output; nothing launches and nothing counts."""
+    z = x2.new_empty((x2.shape[0], packed.shape[-1]), dtype=torch.float32)
+    return z if raw else x2.new_empty((ns, x2.shape[0], n_true))
+
+
 def small_m(x2, packed, g, h, bias=None, *, raw: bool = False,
             eps: float = LN_EPS) -> torch.Tensor:
     """K1: ``x2 [M<=128, K]``, ``packed [K/32, N]``, ``g [K]`` (x.dtype),
     ``h [N]`` fp32, ``bias [N]`` fp32 or None -> ``[M, N]`` in x.dtype
     (with ``raw=True`` B4: fp32 ``z ⊙ h`` before the LayerNorm)."""
+    if is_fake(x2):
+        out = _fake_small_m(x2, packed, 1, packed.shape[-1], raw)
+        return out if raw else out[0]
     if x2.device.type == "cpu":
         return small_m_torch(x2, packed, g, h, bias, raw=raw, eps=eps)
     _check(x2, packed, g[None], h, bias, 1, packed.shape[-1])
@@ -424,6 +436,8 @@ def fused_small_m(x2, packed, g, h, *, n_true: int,
                   eps: float = LN_EPS) -> torch.Tensor:
     """K2: ``x2 [M<=128, K]``, ``packed [K/32, ns*seg_pad]``, ``g [ns, K]``
     (x.dtype), ``h [ns*seg_pad]`` fp32 (0 on pads) -> ``[ns, M, n_true]``."""
+    if is_fake(x2):
+        return _fake_small_m(x2, packed, g.shape[0], n_true, False)
     if x2.device.type == "cpu":
         return fused_small_m_torch(x2, packed, g, h, n_true=n_true, eps=eps)
     ns = g.shape[0]
@@ -439,6 +453,9 @@ def large_m(x2, packed, g, h, *, n_true: int, bias=None, raw: bool = False,
     ``[ns, M, n_true]`` in x.dtype (with ``raw=True`` B4:
     ``z ⊙ h [M, ns*seg_pad]`` in x.dtype). The column tile is
     :func:`large_m_block_n`'s."""
+    if is_fake(x2):
+        z = x2.new_empty((x2.shape[0], packed.shape[-1]))
+        return z if raw else x2.new_empty((g.shape[0], x2.shape[0], n_true))
     if x2.device.type == "cpu":
         return large_m_torch(x2, packed, g, h, n_true=n_true, bias=bias,
                              raw=raw, eps=eps)

@@ -36,6 +36,7 @@ import torch
 
 from onebit_tpu_torch.kernels import kv_attention_cuda as kc
 from onebit_tpu_torch.kernels.attention import _attention
+from onebit_tpu_torch.utils.device import is_fake
 from onebit_tpu_torch.model.kv_cache import (merge_nibbles,
                                              unpack_int4_halfplane)
 
@@ -405,7 +406,10 @@ def kv_attention_decode(q, k_q, k_s, v_q, v_s, lengths, layer: int, *,
     version: the scale-folded ``_attention_quant`` on int8 pools,
     ``_attention`` over the pool cast to q's dtype otherwise (an fp8
     element is exact in bf16 and f32: JAX's ``k.astype(q.dtype)``,
-    ``onebit_tpu/kernels/kv_attention.py:68,79``)."""
+    ``onebit_tpu/kernels/kv_attention.py:68,79``). On fake tensors
+    (``parallel/memplan.py``) only the output is made."""
+    if is_fake(q):
+        return q.new_empty(q.shape)
     if q.device.type == "cpu":
         return kv_attention_decode_torch(q, k_q, k_s, v_q, v_s, lengths,
                                          layer, starts=starts)

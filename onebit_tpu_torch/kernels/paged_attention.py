@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from onebit_tpu_torch.kernels import paged_attention_cuda as pc
+from onebit_tpu_torch.utils.device import is_fake
 
 _MAX_INT8 = 127.5    # the paged pools' quantization convention
 
@@ -146,7 +147,10 @@ def paged_attention_flat(q, *pool, lengths, page_indices, layer: int,
     1]``); ``lengths [B]`` valid
     positions per row (this step's token included), ``page_indices
     [B, mp]``; ``layer`` a Python int. The pools are read only. Returns
-    ``[B, nh, hd]`` float32."""
+    ``[B, nh, hd]`` float32. On fake tensors (``parallel/memplan.py``)
+    only the output is made."""
+    if is_fake(q):
+        return q.new_empty(q.shape, dtype=torch.float32)
     if q.device.type == "cpu":
         return paged_attention_flat_torch(
             q, *pool, lengths=lengths, page_indices=page_indices,

@@ -53,7 +53,7 @@ from onebit_tpu_torch.model.kv_cache import (QuantKVCache, QuantKVCacheKT,
                                              quantize_kv, quantize_kv4,
                                              unpack_int4_halfplane)
 from onebit_tpu_torch.model.rope import apply_rope, rope_cos_sin
-from onebit_tpu_torch.utils.device import resolve_device
+from onebit_tpu_torch.utils.device import on_card, resolve_device
 
 PROJ_NAMES = ("q_proj", "k_proj", "v_proj", "o_proj",
               "gate_proj", "up_proj", "down_proj")
@@ -259,6 +259,8 @@ class Proj(NamedTuple):
     final: Callable    # x -> final-normed x
     nh: int
     nkv: int
+    # h -> fp32 logits; None: the lm_head of the params forward is given
+    head: Optional[Callable] = None
 
 
 def default_proj(params, config: BitLlamaConfig, impl: str,
@@ -280,22 +282,31 @@ def default_proj(params, config: BitLlamaConfig, impl: str,
         nh=config.num_attention_heads, nkv=config.num_key_value_heads)
 
 
-def _decoder_layer(x, proj: Proj, i: int, attend):
-    """Layer ``i`` on ``x [B, S, d]`` around ``attend(q, k, v) -> ctx``,
-    which takes the projections before RoPE (``[B, S, n, hd]``) and returns
-    ``[B, S, nh, hd]``: the caller owns RoPE, the cache and the mask."""
+def _attention_block(x, proj: Proj, i: int, attend):
+    """The first half of layer ``i``: ``x`` plus the attention of its
+    normed self (see :func:`_decoder_layer`)."""
     b, s = x.shape[:2]
-    residual = x
     hx = proj.ln(x, "input_layernorm", i)
     q, k, v = proj.qkv(hx, i)
     hd = q.shape[-1] // proj.nh
     ctx = attend(q.reshape(b, s, proj.nh, hd), k.reshape(b, s, proj.nkv, hd),
                  v.reshape(b, s, proj.nkv, hd))
-    x = residual + proj.o(ctx.reshape(b, s, proj.nh * hd), i)
-    residual = x
+    return x + proj.o(ctx.reshape(b, s, proj.nh * hd), i)
+
+
+def _mlp_block(x, proj: Proj, i: int):
+    """The second half of layer ``i``: ``x`` plus the MLP of its normed
+    self."""
     hx = proj.ln(x, "post_attention_layernorm", i)
     gate, up = proj.gateup(hx, i)
-    return residual + proj.down(F.silu(gate) * up, i)
+    return x + proj.down(F.silu(gate) * up, i)
+
+
+def _decoder_layer(x, proj: Proj, i: int, attend):
+    """Layer ``i`` on ``x [B, S, d]`` around ``attend(q, k, v) -> ctx``,
+    which takes the projections before RoPE (``[B, S, n, hd]``) and returns
+    ``[B, S, nh, hd]``: the caller owns RoPE, the cache and the mask."""
+    return _mlp_block(_attention_block(x, proj, i, attend), proj, i)
 
 
 # ---- the full-sequence forward ----------------------------------------------
@@ -311,7 +322,8 @@ def forward(params, input_ids, config: BitLlamaConfig, *,
             compute_dtype=torch.bfloat16, use_flash="auto",
             return_prelogits: bool = False,
             output_hidden_states: bool = False,
-            output_attentions: bool = False, remat: bool = False):
+            output_attentions: bool = False, remat: bool = False,
+            proj: Optional[Proj] = None):
     """Full-sequence forward (bitllama.py:415-494) -> logits ``[B, S, V]``
     fp32, or with ``return_prelogits`` the final-norm hidden states
     ``[B, S, d]`` in ``compute_dtype``.
@@ -333,10 +345,16 @@ def forward(params, input_ids, config: BitLlamaConfig, *,
     ``compute_dtype`` and takes the masked attention in every layer (never
     B11); the return is then ``(logits, *extras)``. ``remat`` recomputes
     each layer in the backward pass (``torch.utils.checkpoint``,
-    non-reentrant), which runs B11's forward a second time."""
+    non-reentrant; its two halves apart, so that the backward holds one
+    half's activations at a time), which runs B11's forward a second time.
+    ``proj``
+    replaces :func:`default_proj`'s strategy over ``params``: a data-
+    parallel rank's, which gathers each layer's shards at use
+    (``parallel/sharding.py``)."""
     b, s = input_ids.shape
     device = input_ids.device
-    proj = default_proj(params, config, impl, compute_dtype)
+    if proj is None:
+        proj = default_proj(params, config, impl, compute_dtype)
     x = proj.embed(input_ids)
     if attention_mask is not None:
         attention_mask = torch.as_tensor(attention_mask, device=device)
@@ -348,7 +366,7 @@ def forward(params, input_ids, config: BitLlamaConfig, *,
                             config.max_position_embeddings, seq_len=s,
                             dtype=compute_dtype)
     if use_flash == "auto":
-        flash = attention_mask is None and device.type == "cuda"
+        flash = attention_mask is None and on_card(input_ids)
     else:
         flash = bool(use_flash) and attention_mask is None
     flash = flash and not output_attentions
@@ -360,7 +378,7 @@ def forward(params, input_ids, config: BitLlamaConfig, *,
             mask = mask & (attention_mask[:, None, None, :] > 0)
     g = config.num_kv_groups
 
-    def layer(x, i):
+    def attention_half(x, i):
         probs = []
 
         def attend(q, k, v):
@@ -374,23 +392,27 @@ def forward(params, input_ids, config: BitLlamaConfig, *,
                 return ctx
             return _attention(q, k, v, mask, num_kv_groups=g)
 
-        x = _decoder_layer(x, proj, i, attend)
+        x = _attention_block(x, proj, i, attend)
         return (x, probs[0]) if output_attentions else x
+
+    def run(fn, *args):
+        return (checkpoint(fn, *args, use_reentrant=False) if remat
+                else fn(*args))
 
     hidden, attn = [x], []
     for i in range(config.num_hidden_layers):
-        out = (checkpoint(layer, x, i, use_reentrant=False) if remat
-               else layer(x, i))
+        out = run(attention_half, x, i)
         if output_attentions:
             out, p = out
             attn.append(p)
-        x = out
+        x = run(_mlp_block, out, proj, i)
         if output_hidden_states:
             hidden.append(x)
     h = proj.final(x)
     if return_prelogits:
         return h
-    logits = _lm_head(h, params, compute_dtype)
+    logits = (proj.head(h) if proj.head is not None
+              else _lm_head(h, params, compute_dtype))
     extras = []
     if output_hidden_states:
         extras.append(torch.stack(hidden))

@@ -49,6 +49,7 @@ from onebit_tpu_torch.model.kv_cache import (QuantKVCacheKT, QuantKVCacheKT4,
                                              merge_nibbles, quantize_kv,
                                              quantize_kv4)
 from onebit_tpu_torch.model.rope import apply_rope, rope_cos_sin
+from onebit_tpu_torch.utils.device import on_card
 
 
 def attention_widths(max_len: int):
@@ -126,7 +127,7 @@ def _decode_attention(cache, pos, act, width, cos, sin,
                 new = torch.where(keep, new, pool[i, rows, pos])
             pool[i, rows, pos] = new
 
-    if cache.k.device.type == "cuda" and impl != "torch":
+    if on_card(cache.k) and impl != "torch":
         # B9 over the whole pool: each row's positions [0, length) only
         lengths = torch.where(act, pos + 1, 0).to(torch.int32)
 

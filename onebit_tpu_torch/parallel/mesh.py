@@ -1,11 +1,15 @@
-"""Tensor-parallel process groups and their launcher.
+"""Process groups of the two mesh axes, their launcher and the
+distributed start-up.
 
-Port of ``onebit_tpu/parallel/mesh.py`` ``create_mesh`` / ``MODEL_AXIS``
-for the serving path. Where JAX runs one SPMD program over a mesh's
-``model`` axis, the port runs one process per shard, each holding its
-slices of the weights and of the KV heads, and the collectives of the
-shard_map bodies become ``torch.distributed`` calls on a process group
-(:class:`TPGroup`).
+Port of ``onebit_tpu/parallel/mesh.py``. Where JAX runs one SPMD program
+over a ``(data, model)`` mesh, the port runs one process a rank, and the
+collectives that GSPMD or the shard_map bodies insert become
+``torch.distributed`` calls on a process group:
+
+* :class:`TPGroup`, the ``model`` axis of tensor-parallel serving: each
+  rank holds its slices of the weights and of the KV heads;
+* :class:`DataGroup`, the ``data`` axis of fully sharded training
+  (``parallel/sharding.py``): all-gather, reduce-scatter and all-reduce.
 
 The backend and the device are always the caller's explicit choice, and
 nothing here switches either on its own:
@@ -19,9 +23,13 @@ nothing here switches either on its own:
 method; they meet at a ``file://`` store in a fresh temporary directory,
 not at a TCP port, so concurrent launches never collide. Where a rank
 joins is a :class:`RankAddress` (its rank, the group's size, the
-rendezvous), all of them from :func:`local_addresses`, the one source that
-both launchers here (``spawn_tp`` and ``serve --tp``,
-``engine/tp_serve.py``) read; :func:`join_group` joins one.
+rendezvous), from one of two sources: :func:`local_addresses` (the ranks of
+one launch on this host, which ``spawn_tp`` and ``serve --tp`` start) or
+:func:`flag_address` (this process's place in a multi-host launch, from
+``--coordinator``/``--num-processes``/``--process-id`` or torchrun's
+environment under ``--distributed``); :func:`join_group` joins one, and
+:func:`initialize_distributed` is the multi-host start-up, the counterpart
+of ``jax.distributed.initialize``.
 """
 
 from __future__ import annotations
@@ -33,15 +41,22 @@ import queue as queue_mod
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, Sequence
+from typing import Any, Callable, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
 BACKENDS = ("gloo", "nccl")
-# what the port's parallelism has yet to bring beyond tensor-parallel
-# serving: data/model-parallel training, sharded checkpoints, memory plans
-PARALLEL_WAIT = "the rest of parallelism (ROADMAP.md §1 item 6)"
+# the single-tensor collectives under their current names (torch 2.13
+# deprecates the older ones, which torch 2.11 alone has)
+_ALL_GATHER = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
+# what training on a model axis > 1 waits for
+MODEL_AXIS_WAIT = ("tensor-parallel training, whose BitLinear backward "
+                   "reduces the LayerNorm statistics across shards "
+                   "(ROADMAP.md §1 item 8)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +85,63 @@ class TPGroup:
         blocks[self.rank] = t
         self.all_reduce(blocks)
         return torch.cat(blocks.unbind(0), dim=dim)
+
+
+@dataclasses.dataclass(frozen=True)
+class DataGroup:
+    """One rank's view of the data axis of fully sharded training: the
+    process group, this rank, the axis' size and the rank's device. A
+    shard is block ``rank`` of ``size`` along a tensor's first axis, so a
+    gather is a concatenation along it. The collectives are the ones
+    ZeRO-3 runs: gather a weight's shards at use, reduce-scatter its
+    gradient, all-reduce what every rank holds whole. gloo takes all three
+    on CUDA tensors (torch 2.11, probed on the H100 machine) as on CPU
+    ones; a backend that refuses one raises."""
+    group: Any
+    rank: int
+    size: int
+    device: torch.device
+
+    @classmethod
+    def of(cls, group) -> "DataGroup":
+        """The same ranks as another group view (a :class:`TPGroup`)."""
+        return cls(group.group, group.rank, group.size, group.device)
+
+    def all_gather(self, shard: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``shard`` concatenated along axis 0, rank order."""
+        shard = shard.contiguous()
+        out = shard.new_empty((self.size * shard.shape[0], *shard.shape[1:]))
+        _ALL_GATHER(out, shard, group=self.group)
+        return out
+
+    def reduce_scatter(self, full: torch.Tensor) -> torch.Tensor:
+        """Block ``rank`` along axis 0 of the sum of every rank's
+        ``full``."""
+        full = full.contiguous()
+        if full.shape[0] % self.size:
+            raise ValueError(f"{full.shape[0]} rows do not split over "
+                             f"{self.size} ranks")
+        out = full.new_empty((full.shape[0] // self.size, *full.shape[1:]))
+        _REDUCE_SCATTER(out, full, group=self.group)
+        return out
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum ``t`` over the ranks, in place; returns it."""
+        dist.all_reduce(t, group=self.group)
+        return t
+
+
+def create_data_group(device: str) -> DataGroup:
+    """This process's :class:`DataGroup` over the default process group
+    (every rank of it on the data axis); sets a CUDA rank's device."""
+    if not dist.is_initialized():
+        raise RuntimeError("torch.distributed is not initialised: call "
+                           "initialize_distributed first")
+    rank = dist.get_rank()
+    dev = rank_device(rank, device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return DataGroup(dist.group.WORLD, rank, dist.get_world_size(), dev)
 
 
 def rank_device(rank: int, device: str) -> torch.device:
@@ -124,16 +196,60 @@ def local_addresses(world: int, store_dir: str) -> list:
     return [RankAddress(r, world, store) for r in range(world)]
 
 
-def join_group(addr: RankAddress, *, backend: str, device: str,
-               timeout: float) -> TPGroup:
-    """Join the default process group at ``addr`` and return this rank's
-    :class:`TPGroup`; collectives wait ``timeout`` seconds at most."""
+def flag_address(coordinator: Optional[str] = None,
+                 num_processes: Optional[int] = None,
+                 process_id: Optional[int] = None) -> RankAddress:
+    """This process's place in a multi-host launch: ``coordinator``
+    (``host:port`` of rank 0's store) with ``num_processes`` and
+    ``process_id``, or without any of them torchrun's ``RANK`` and
+    ``WORLD_SIZE`` at its ``MASTER_ADDR:MASTER_PORT`` (``env://``)."""
+    if coordinator is not None:
+        if num_processes is None or process_id is None:
+            raise ValueError("--coordinator requires --num-processes and "
+                             "--process-id")
+        if not 0 <= process_id < num_processes:
+            raise ValueError(f"--process-id {process_id} is not a rank of "
+                             f"{num_processes}")
+        return RankAddress(process_id, num_processes, f"tcp://{coordinator}")
+    missing = [k for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR",
+                           "MASTER_PORT") if k not in os.environ]
+    if missing:
+        raise ValueError(f"--distributed without --coordinator reads "
+                         f"torchrun's environment; {missing} not set")
+    return RankAddress(int(os.environ["RANK"]),
+                       int(os.environ["WORLD_SIZE"]), "env://")
+
+
+def initialize_distributed(coordinator: Optional[str] = None,
+                           num_processes: Optional[int] = None,
+                           process_id: Optional[int] = None, *,
+                           backend: str,
+                           timeout: float = 1800.0) -> RankAddress:
+    """Multi-host start-up (``onebit_tpu/parallel/mesh.py:47-53``): join
+    the default process group at :func:`flag_address`'s address on
+    ``backend``, and return that address."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got "
+                         f"{backend!r}")
+    addr = flag_address(coordinator, num_processes, process_id)
+    _init(addr, backend, timeout)
+    return addr
+
+
+def _init(addr: RankAddress, backend: str, timeout: float) -> None:
     if addr.init_method.startswith("file://"):
         # a file store: every rank runs on this host
         os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     dist.init_process_group(
         backend, init_method=addr.init_method, world_size=addr.world,
         rank=addr.rank, timeout=datetime.timedelta(seconds=timeout))
+
+
+def join_group(addr: RankAddress, *, backend: str, device: str,
+               timeout: float) -> TPGroup:
+    """Join the default process group at ``addr`` and return this rank's
+    :class:`TPGroup`; collectives wait ``timeout`` seconds at most."""
+    _init(addr, backend, timeout)
     return create_tp_group(addr.world, backend=backend, device=device)
 
 

@@ -1,20 +1,28 @@
-"""KD training driver: the reference's ``run_kd`` (kd.py:195-240) on one
-device.
+"""KD training driver: the reference's ``run_kd`` (kd.py:195-240).
 
 Port of ``onebit_tpu/train/run_kd.py``: pre-chunked token blocks -> the
 train loop with jsonl logging, held-out evaluation, periodic checkpoints
 with rotation, resume, the final native checkpoint under ``final/`` and
-loss plots. The resume state is the port's own file, ``train_state.pt``
-(the params under their native-checkpoint keys, the Adam moments, the
-step): optax's state pytree has no torch counterpart, so the JAX package's
-``train_state.npz`` does not load here, nor the port's there. Meshes of
-more than one device and orbax sharded states wait for the rest of
-parallelism (ROADMAP.md §1 item 6).
+loss plots. On one device, or fully sharded over the ranks of a data axis
+(``parallel/sharding.py``, ``train/trainer.py``
+``make_sharded_train_step``) when the default process group has more than
+one rank: a mesh ``(N, 1)``, params, teacher and moments split over all N.
+Rank 0 alone writes the jsonl log, the plots and the final checkpoint.
+
+The resume state is the port's own: ``train_state.pt`` (the params under
+their native-checkpoint keys, the Adam moments, the step; in a group
+gathered to rank 0, which writes it once), or with ``sharded_ckpt`` a
+``train_state.dcp/`` directory of ``torch.distributed.checkpoint`` files that
+each rank writes its blocks into and reads them from
+(``ckpt/sharded.py``). optax's state pytree has no torch counterpart, so
+the JAX package's ``train_state.npz`` and orbax states do not load here,
+nor the port's there.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import re
 import shutil
@@ -22,36 +30,90 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from onebit_tpu_torch.ckpt.native import save_native
+from onebit_tpu_torch.ckpt.sharded import load_dcp, save_dcp
 from onebit_tpu_torch.model.config import BitLlamaConfig
-from onebit_tpu_torch.parallel.mesh import PARALLEL_WAIT
+from onebit_tpu_torch.parallel.mesh import MODEL_AXIS_WAIT, DataGroup
+from onebit_tpu_torch.parallel.sharding import (Layout, gather_leaf,
+                                                gather_params, param_layout,
+                                                shard_params)
 from onebit_tpu_torch.train.data import batch_iterator, split_dataset
 from onebit_tpu_torch.train.losses import KDConfig
 from onebit_tpu_torch.train.trainer import (TrainConfig, TrainState,
                                             clone_params, init_train_state,
                                             load_state_tensors,
                                             make_eval_step, make_schedule,
-                                            make_train_step, state_tensors)
+                                            make_sharded_train_step,
+                                            make_train_step,
+                                            named_trainable, state_tensors)
 from onebit_tpu_torch.train.validate import validate_train_run
 from onebit_tpu_torch.utils.logging import TrainerLog, get_logger, plot_loss
 
 logger = get_logger(__name__)
 
 STATE_FILE = "train_state.pt"
+STATE_DIR = "train_state.dcp"
+# the JAX package's resume states: npz, and orbax's directory
+JAX_STATES = ("train_state.npz", "train_state")
 
 
-def save_train_state(path: str, state: TrainState) -> None:
-    """``path/train_state.pt``: the state's tensors, on the host."""
-    os.makedirs(path, exist_ok=True)
-    torch.save({k: v.detach().cpu() for k, v in state_tensors(state).items()},
-               os.path.join(path, STATE_FILE))
+def state_split(state: TrainState, layout: Layout) -> Dict[str, int]:
+    """The split axis of each of :func:`state_tensors`' keys that is split
+    over the ranks: a split param's, and its moments'."""
+    split = {f"params.{k}": a for k, a in layout.items()}
+    for i, (key, _) in enumerate(named_trainable(state.params)):
+        if key in layout:
+            split[f"mu.{i}"] = split[f"nu.{i}"] = layout[key]
+    return split
 
 
-def load_train_state(path: str, template: TrainState) -> TrainState:
-    """The state saved under ``path``, copied into ``template``'s tensors
-    (the params and moments of :func:`init_train_state`)."""
-    flat = torch.load(os.path.join(path, STATE_FILE), weights_only=True)
+def save_train_state(path: str, state: TrainState, sharded: bool = False,
+                     *, group: Optional[DataGroup] = None,
+                     layout: Optional[Layout] = None) -> None:
+    """``sharded``: ``path/train_state.dcp/`` in DCP's files, each rank's
+    blocks written by that rank. Else ``path/train_state.pt`` on the host;
+    in a group every leaf is gathered (a collective: every rank calls this)
+    and rank 0 alone writes the file."""
+    flat = state_tensors(state)
+    split = state_split(state, layout or {}) if group is not None else {}
+    if sharded:
+        save_dcp(os.path.join(os.path.abspath(path), STATE_DIR), flat,
+                 split, group)
+        return
+    host = {k: gather_leaf(v, split.get(k), group).cpu()
+            if k in split else v.detach().cpu() for k, v in flat.items()}
+    if group is None or group.rank == 0:
+        os.makedirs(path, exist_ok=True)
+        torch.save(host, os.path.join(path, STATE_FILE))
+
+
+def load_train_state(path: str, template: TrainState, *,
+                     group: Optional[DataGroup] = None,
+                     layout: Optional[Layout] = None) -> TrainState:
+    """The state saved under ``path`` (either layout), copied into
+    ``template``'s tensors (the params and moments of
+    :func:`init_train_state`; in a group the rank's blocks)."""
+    flat = state_tensors(template)
+    split = state_split(template, layout or {}) if group is not None else {}
+    if os.path.isdir(os.path.join(path, STATE_DIR)):
+        load_dcp(os.path.join(os.path.abspath(path), STATE_DIR), flat, split,
+                 group)
+    elif not os.path.exists(os.path.join(path, STATE_FILE)):
+        jax = [n for n in JAX_STATES if os.path.exists(os.path.join(path, n))]
+        if jax:
+            raise ValueError(
+                f"{path} holds the JAX package's train state ({jax[0]}: "
+                f"optax's pytree, orbax's files); the port resumes from its "
+                f"own, {STATE_FILE} or {STATE_DIR}/")
+        raise FileNotFoundError(f"no {STATE_FILE} or {STATE_DIR}/ in {path}")
+    else:
+        saved = torch.load(os.path.join(path, STATE_FILE), weights_only=True)
+        for k, axis in split.items():
+            size = saved[k].shape[axis] // group.size
+            saved[k] = saved[k].narrow(axis, group.rank * size, size)
+        flat = saved
     return load_state_tensors(template, flat)
 
 
@@ -76,7 +138,7 @@ class KDRunConfig:
     max_steps: Optional[int] = None
     log_steps: int = 10
     save_steps: int = 5000          # reference llama_7b.sh:46
-    mesh_shape: Optional[tuple] = None   # one device; more wait (item 6)
+    mesh_shape: Optional[tuple] = None   # (data, model); model must be 1
     compute_dtype: Any = torch.bfloat16
     resume_from: Optional[str] = None
     plot: bool = True
@@ -87,33 +149,58 @@ class KDRunConfig:
     val_split: float = 0.0
     eval_steps: Optional[int] = None   # default: evaluate at save points
     eval_batches: int = 16             # eval subset size cap (batches)
-    sharded_ckpt: bool = False         # orbax sharded states: item 6
+    # train states in DCP's sharded files (each rank writes its blocks)
+    sharded_ckpt: bool = False
     # keep only the newest N checkpoint-* dirs (HF Trainer save_total_limit,
     # training_args save_total_limit semantics); None = keep all
     save_total_limit: Optional[int] = None
 
 
-def _one_device(run_cfg: KDRunConfig) -> None:
+def data_axis(run_cfg: KDRunConfig, world: int) -> int:
+    """The data axis of the run's mesh over ``world`` ranks: ``mesh_shape``
+    or JAX's default ``(gcd(world, batch), world // gcd)``
+    (``onebit_tpu/train/run_kd.py:150-159``); a model axis > 1 raises."""
     shape = run_cfg.mesh_shape
-    if shape is not None and int(np.prod(shape)) != 1:
+    if shape is None:
+        d = math.gcd(world, run_cfg.batch_size)
+        shape = (d, world // d)
+    data, model = (int(x) for x in shape)
+    if model != 1:
         raise NotImplementedError(
-            f"mesh_shape {tuple(shape)}: data- and model-parallel training "
-            f"wait for {PARALLEL_WAIT}; run_kd trains on one device")
-    if run_cfg.sharded_ckpt:
-        raise NotImplementedError(
-            f"sharded_ckpt: orbax sharded train states wait for "
-            f"{PARALLEL_WAIT}")
+            f"mesh_shape {(data, model)}: a model axis > 1 waits for "
+            f"{MODEL_AXIS_WAIT}; run_kd trains on meshes (N, 1)")
+    if data != world:
+        raise ValueError(f"mesh_shape {(data, model)} needs {data} ranks, "
+                         f"the process group has {world}")
+    if run_cfg.batch_size % data != 0:
+        raise ValueError(f"batch_size {run_cfg.batch_size} not divisible by "
+                         f"data axis {data}")
+    return data
 
 
 def run_kd(config: BitLlamaConfig, student_params, teacher_params,
            blocks: np.ndarray, *, kd_cfg: KDConfig = KDConfig(),
            train_cfg: TrainConfig = TrainConfig(),
            run_cfg: KDRunConfig = KDRunConfig(),
-           eval_blocks: Optional[np.ndarray] = None) -> TrainState:
+           eval_blocks: Optional[np.ndarray] = None,
+           device: Optional[str] = None) -> TrainState:
     """Train the student against the teacher on pre-chunked token blocks
-    ``[N, S]``, on the device the params live on. The caller's student
-    params are not changed: the run trains a copy."""
-    _one_device(run_cfg)
+    ``[N, S]``. The caller's student params are not changed: the run
+    trains a copy. One process: on the device the params live on. When
+    the default process group holds N > 1 ranks (``initialize_distributed``
+    or ``spawn_tp``), every rank calls this with the full params (on any
+    device, the host is best) and the same blocks, and trains its shards
+    on its device: ``cuda:{rank % device_count}`` for ``device="cuda"``,
+    the CPU for ``"cpu"`` (default: the params' device type). The
+    returned state then holds the rank's shards."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    n_data = data_axis(run_cfg, world)
+    group = None
+    if n_data > 1:
+        from onebit_tpu_torch.parallel.mesh import create_data_group
+        group = create_data_group(device or student_params[
+            "embed_tokens"].device.type)
+    is_main = group is None or group.rank == 0
     if eval_blocks is None and run_cfg.val_split > 0:
         blocks, eval_blocks = split_dataset(blocks, run_cfg.val_split,
                                             seed=run_cfg.seed)
@@ -132,20 +219,31 @@ def run_kd(config: BitLlamaConfig, student_params, teacher_params,
     validate_train_run(config, kd_cfg, train_cfg, run_cfg,
                        n_blocks=len(blocks), block_len=int(blocks.shape[1]))
 
-    state = init_train_state(clone_params(student_params), train_cfg)
-    if run_cfg.resume_from:
-        state = load_train_state(run_cfg.resume_from, state)
-        logger.info(f"resumed from {run_cfg.resume_from} at step "
-                    f"{state.step}")
-
-    step_fn = make_train_step(config, kd_cfg, train_cfg,
-                              compute_dtype=run_cfg.compute_dtype)
-    schedule = make_schedule(train_cfg)
-
-    eval_fn = None
-    if eval_blocks is not None and len(eval_blocks) >= run_cfg.batch_size:
+    layout: Layout = {}
+    if group is None:
+        state = init_train_state(clone_params(student_params), train_cfg)
+        step_fn = make_train_step(config, kd_cfg, train_cfg,
+                                  compute_dtype=run_cfg.compute_dtype)
         eval_fn = make_eval_step(config, kd_cfg, train_cfg,
                                  compute_dtype=run_cfg.compute_dtype)
+    else:
+        layout = param_layout(student_params, group.size)
+        t_layout = param_layout(teacher_params, group.size)
+        state = init_train_state(
+            shard_params(student_params, group, layout), train_cfg)
+        teacher_params = shard_params(teacher_params, group, t_layout)
+        step_fn = make_sharded_train_step(
+            config, kd_cfg, train_cfg, group, layout, t_layout,
+            compute_dtype=run_cfg.compute_dtype)
+        eval_fn = step_fn.eval_step
+    if run_cfg.resume_from:
+        state = load_train_state(run_cfg.resume_from, state, group=group,
+                                 layout=layout)
+        logger.info(f"resumed from {run_cfg.resume_from} at step "
+                    f"{state.step}")
+    schedule = make_schedule(train_cfg)
+    if eval_blocks is None or len(eval_blocks) < run_cfg.batch_size:
+        eval_fn = None
 
     def run_eval(params):
         """Mean held-out metrics over up to eval_batches batches."""
@@ -160,7 +258,7 @@ def run_kd(config: BitLlamaConfig, student_params, teacher_params,
                 break
         return {f"eval_{k}": v / count for k, v in sums.items()}
 
-    tlog = TrainerLog(run_cfg.output_dir, total)
+    tlog = TrainerLog(run_cfg.output_dir, total) if is_main else None
     start_step = state.step
     it = batch_iterator(blocks, run_cfg.batch_size, seed=run_cfg.seed,
                         epochs=None)
@@ -171,8 +269,8 @@ def run_kd(config: BitLlamaConfig, student_params, teacher_params,
     for step_idx in range(start_step, total):
         state, metrics = step_fn(state, teacher_params, next(it))
         epoch = (step_idx + 1) / max(steps_per_epoch, 1)
-        if ((step_idx + 1) % run_cfg.log_steps == 0
-                or step_idx + 1 == total):
+        if is_main and ((step_idx + 1) % run_cfg.log_steps == 0
+                        or step_idx + 1 == total):
             m = {k: float(v) for k, v in metrics.items()}
             m["learning_rate"] = float(schedule(step_idx))
             entry = tlog.log(step_idx + 1, m, epoch=epoch)
@@ -185,15 +283,20 @@ def run_kd(config: BitLlamaConfig, student_params, teacher_params,
         if eval_fn is not None and ((step_idx + 1) % eval_every == 0
                                     or step_idx + 1 == total):
             em = run_eval(state.params)
-            tlog.log(step_idx + 1, em, epoch=epoch)
-            logger.info(f"eval step {step_idx + 1}: "
-                        f"loss={em.get('eval_loss', float('nan')):.4f}")
+            if is_main:
+                tlog.log(step_idx + 1, em, epoch=epoch)
+                logger.info(f"eval step {step_idx + 1}: "
+                            f"loss={em.get('eval_loss', float('nan')):.4f}")
         if (step_idx + 1) % run_cfg.save_steps == 0 or step_idx + 1 == total:
             ckpt_dir = os.path.join(run_cfg.output_dir,
                                     f"checkpoint-{step_idx + 1}")
-            save_train_state(ckpt_dir, state)
-            logger.info(f"saved {ckpt_dir}")
-            if run_cfg.save_total_limit:
+            # every rank takes part (DCP's writes and the gathers are
+            # collectives); rank 0 alone writes train_state.pt
+            save_train_state(ckpt_dir, state, sharded=run_cfg.sharded_ckpt,
+                             group=group, layout=layout)
+            if is_main:
+                logger.info(f"saved {ckpt_dir}")
+            if is_main and run_cfg.save_total_limit:
                 _prune_checkpoints(run_cfg.output_dir,
                                    run_cfg.save_total_limit)
 
@@ -201,10 +304,14 @@ def run_kd(config: BitLlamaConfig, student_params, teacher_params,
     # end-of-run save_pretrained): convert and eval read it; the
     # checkpoint-* states are resume state, not a model
     final_dir = os.path.join(run_cfg.output_dir, "final")
-    save_native(final_dir, config, state.params)
-    logger.info(f"final model -> {final_dir}")
+    params_out = (state.params if group is None
+                  else gather_params(state.params, layout, group, dst=0))
+    if is_main:
+        save_native(final_dir, config, params_out)
+        logger.info(f"final model -> {final_dir}")
+    del params_out
 
-    if run_cfg.plot:
+    if run_cfg.plot and is_main:
         try:
             plot_loss(run_cfg.output_dir, keys=["loss", "kd_loss",
                                                 "student_loss"])

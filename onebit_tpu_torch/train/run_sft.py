@@ -27,7 +27,7 @@ from onebit_tpu_torch.model.config import BitLlamaConfig
 from onebit_tpu_torch.train.data import prepare_sft_dataset
 from onebit_tpu_torch.train.gen_metrics import compute_generation_metrics
 from onebit_tpu_torch.train.losses import KDConfig
-from onebit_tpu_torch.train.run_kd import KDRunConfig, _one_device
+from onebit_tpu_torch.train.run_kd import KDRunConfig
 from onebit_tpu_torch.train.trainer import (TrainConfig, TrainState,
                                             clone_params, init_train_state,
                                             make_train_step)
@@ -49,8 +49,13 @@ def run_sft(config: BitLlamaConfig, params,
     device the params live on. The caller's params are not changed: the
     run trains a copy. Each step draws ``batch_size`` rows with
     ``np.random.default_rng(seed).choice`` (with replacement only when the
-    dataset holds fewer rows), as JAX draws them."""
-    _one_device(run_cfg)
+    dataset holds fewer rows), as JAX draws them. Like JAX's, it never
+    shards: a ``mesh_shape`` of more than one device raises."""
+    shape = run_cfg.mesh_shape
+    if shape is not None and int(np.prod(shape)) != 1:
+        raise NotImplementedError(
+            f"mesh_shape {tuple(shape)}: run_sft trains on one device, as "
+            f"the JAX package's run_sft does (it never shards)")
     batch = prepare_sft_dataset(pairs, tokenize, cutoff_len=cutoff_len,
                                 eos_id=config.eos_token_id or 2,
                                 template=template)

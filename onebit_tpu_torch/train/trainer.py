@@ -1,6 +1,8 @@
 """The KD train step: masked AdamW over the trainable BitLinear leaves.
 
-Port of ``onebit_tpu/train/trainer.py`` on one device:
+Port of ``onebit_tpu/train/trainer.py``, on one device
+(:func:`make_train_step`) or fully sharded over the ranks of a data axis
+(:func:`make_sharded_train_step`, ``parallel/sharding.py``):
 
 * only BitLinear float params train (latent weight, weight_scale,
   input_factor, bias): ``requires_grad`` is set on those leaves and cleared
@@ -18,7 +20,9 @@ Port of ``onebit_tpu/train/trainer.py`` on one device:
 
 The step updates the params and the moments in place (JAX donates their
 buffers); the state it returns holds the same tensors. Moments are kept in
-the params' dtype (fp32), as optax keeps them.
+the params' dtype (fp32), as optax keeps them. The update runs a stacked
+plane a layer at a time (its slices along its first axis): elementwise,
+so the numbers are the whole leaf's, and its temporaries are a layer's.
 """
 
 from __future__ import annotations
@@ -32,7 +36,11 @@ import torch
 from onebit_tpu_torch.kernels.bitlinear import BitLinearWeights
 from onebit_tpu_torch.model.bitllama import forward
 from onebit_tpu_torch.model.config import BitLlamaConfig
-from onebit_tpu_torch.train.losses import KDConfig, kd_total_loss
+from onebit_tpu_torch.parallel.mesh import DataGroup
+from onebit_tpu_torch.parallel.sharding import (Layout, ShardGrads,
+                                                named_leaves, sharded_proj)
+from onebit_tpu_torch.train.losses import (IGNORE_INDEX, KDConfig,
+                                           kd_total_loss)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,31 +94,39 @@ def trainable_mask(params: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def _leaves(params: Dict[str, Any], mask: Dict[str, Any]):
-    """(leaf, trainable) pairs in the JAX tree's order (dict keys sorted,
-    named-tuple fields in order)."""
+    """(native key, leaf, trainable) in the JAX tree's order (dict keys
+    sorted, named-tuple fields in order)."""
     out = []
     for key in sorted(params):
         if key != "layers":
-            out.append((params[key], mask[key]))
+            out.append((key, params[key], mask[key]))
             continue
         for name in sorted(params["layers"]):
             val, m = params["layers"][name], mask["layers"][name]
             if isinstance(val, tuple):
-                out.extend((a, t) for a, t in zip(val, m) if a is not None)
+                out.extend((f"layers.{name}.{f}", a, t)
+                           for f, a, t in zip(val._fields, val, m)
+                           if a is not None)
             else:
-                out.append((val, m))
+                out.append((f"layers.{name}", val, m))
     return out
 
 
-def trainable_leaves(params: Dict[str, Any]) -> List[torch.Tensor]:
+def named_trainable(params: Dict[str, Any]) -> List[tuple]:
     """Set ``requires_grad`` on the trainable leaves, clear it on the rest,
-    and return the trainable leaves in the JAX tree's order."""
+    and return ``(key, leaf)`` of the trainable ones in the JAX tree's
+    order (the order of the moments)."""
     train = []
-    for leaf, trainable in _leaves(params, trainable_mask(params)):
+    for key, leaf, trainable in _leaves(params, trainable_mask(params)):
         leaf.requires_grad_(bool(trainable))
         if trainable:
-            train.append(leaf)
+            train.append((key, leaf))
     return train
+
+
+def trainable_leaves(params: Dict[str, Any]) -> List[torch.Tensor]:
+    """:func:`named_trainable`'s leaves."""
+    return [leaf for _, leaf in named_trainable(params)]
 
 
 def make_schedule(cfg: TrainConfig) -> Callable[[int], float]:
@@ -164,26 +180,47 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
 
 
+def _slices(p, *ts):
+    """``p`` and the same-shaped tensors ``ts`` (or lists of their layers)
+    a layer at a time along the first axis when ``p`` is a stacked plane
+    (3-d or more); whole otherwise (stacked vectors are small)."""
+    if p.dim() < 3:
+        yield (p, *ts)
+        return
+    for i in range(p.shape[0]):
+        yield (p[i], *(t[i] for t in ts))
+
+
 @torch.no_grad()
 def _adamw_update(cfg: TrainConfig, schedule, leaves, grads,
-                  opt: AdamState) -> AdamState:
-    """clip_by_global_norm then adamw (optax semantics), in place."""
-    norm = global_norm(grads)
-    if not bool(norm < cfg.max_grad_norm):
-        grads = [(g / norm.to(g.dtype)) * cfg.max_grad_norm for g in grads]
+                  opt: AdamState, norm=None) -> AdamState:
+    """clip_by_global_norm then adamw (optax semantics), in place, a layer
+    at a time. ``norm``: the global norm of the gradients when they are a
+    rank's shards (default: theirs); a gradient may be a list of its
+    layers. The clip is optax's ``(g / norm) · max_norm`` where ``norm >=
+    max_norm``: ``(g / den) · num`` with the two scalars chosen once on the
+    device, ``(norm, max_norm)`` or ``(1, 1)``, which leave ``g`` exact."""
+    if norm is None:
+        norm = global_norm(grads)
+    clip = ~(norm < cfg.max_grad_norm)
+    one = torch.ones_like(norm)
+    den = torch.where(clip, norm, one)
+    num = torch.where(clip, torch.full_like(norm, cfg.max_grad_norm), one)
     b1, b2 = cfg.adam_beta1, cfg.adam_beta2
     count = opt.count + 1
     # optax forms decay**count in fp32
     bc1 = 1 - torch.tensor(b1, dtype=torch.float32) ** count
     bc2 = 1 - torch.tensor(b2, dtype=torch.float32) ** count
     lr = schedule(opt.count)
-    for p, g, mu, nu in zip(leaves, grads, opt.mu, opt.nu):
-        mu.copy_((1 - b1) * g + b1 * mu)
-        nu.copy_((1 - b2) * (g * g) + b2 * nu)
-        u = (mu / bc1.to(mu.device)) / (torch.sqrt(nu / bc2.to(nu.device))
-                                        + ADAM_EPS)
-        u = u + cfg.weight_decay * p
-        p.add_(u * torch.tensor(-lr, dtype=u.dtype, device=u.device))
+    for p_all, g_all, mu_all, nu_all in zip(leaves, grads, opt.mu, opt.nu):
+        for p, g, mu, nu in _slices(p_all, g_all, mu_all, nu_all):
+            g = (g / den.to(g.dtype)) * num.to(g.dtype)
+            mu.copy_((1 - b1) * g + b1 * mu)
+            nu.copy_((1 - b2) * (g * g) + b2 * nu)
+            u = (mu / bc1.to(mu.device)) / (
+                torch.sqrt(nu / bc2.to(nu.device)) + ADAM_EPS)
+            u = u + cfg.weight_decay * p
+            p.add_(u * torch.tensor(-lr, dtype=u.dtype, device=u.device))
     return AdamState(count=count, mu=opt.mu, nu=opt.nu)
 
 
@@ -194,10 +231,13 @@ def _on(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
 
 
 def _build_loss(config: BitLlamaConfig, kd_cfg: KDConfig,
-                train_cfg: TrainConfig, compute_dtype, impl: str):
+                train_cfg: TrainConfig, compute_dtype, impl: str,
+                student_proj=None, teacher_proj=None):
     """Shared loss plumbing of the train and eval steps: ``(loss_fn(params,
-    teacher_out, batch) -> (total, metrics), teacher_fwd(teacher_params,
-    batch) -> teacher_out | None)``."""
+    teacher_out, batch, **denominators) -> (total, metrics),
+    teacher_fwd(teacher_params, batch) -> teacher_out | None)``.
+    ``student_proj``/``teacher_proj``: ``params -> Proj``, a sharded
+    rank's strategies (default: one device's)."""
     need_hidden = kd_cfg.kd_beta > 0
     need_attn = kd_cfg.kd_gamma > 0
     use_teacher = kd_cfg.kd_loss_scale > 0 or need_hidden or need_attn
@@ -212,16 +252,17 @@ def _build_loss(config: BitLlamaConfig, kd_cfg: KDConfig,
         attn = items.pop(0) if need_attn else None
         return logits, hidden, attn
 
-    def run(params, batch, **kw):
+    def run(params, batch, make_proj, **kw):
         return forward(params, batch["input_ids"], config, impl=impl,
                        attention_mask=batch.get("attention_mask"),
                        compute_dtype=compute_dtype,
                        output_hidden_states=need_hidden,
-                       output_attentions=need_attn, **kw)
+                       output_attentions=need_attn,
+                       proj=make_proj and make_proj(params), **kw)
 
-    def loss_fn(params, teacher_out, batch):
+    def loss_fn(params, teacher_out, batch, **denominators):
         s_logits, s_hidden, s_attn = unpack(
-            run(params, batch, remat=train_cfg.remat))
+            run(params, batch, student_proj, remat=train_cfg.remat))
         if teacher_out is None:
             t_logits, t_hidden, t_attn = s_logits.detach(), None, None
         else:
@@ -230,14 +271,15 @@ def _build_loss(config: BitLlamaConfig, kd_cfg: KDConfig,
             kd_cfg, student_logits=s_logits, teacher_logits=t_logits,
             labels=batch["labels"], student_hidden=s_hidden,
             teacher_hidden=t_hidden, student_attn=s_attn,
-            teacher_attn=t_attn, num_layers=config.num_hidden_layers)
+            teacher_attn=t_attn, num_layers=config.num_hidden_layers,
+            **denominators)
 
     @torch.no_grad()
     def teacher_fwd(teacher_params, batch):
         if not use_teacher:
             # pure-CE stage (kd_alpha = 0 without distillation terms)
             return None
-        return run(teacher_params, batch)
+        return run(teacher_params, batch, teacher_proj)
 
     return loss_fn, teacher_fwd
 
@@ -252,13 +294,15 @@ def make_train_step(config: BitLlamaConfig, kd_cfg: KDConfig,
     ``attn_loss`` when those terms are on) averaged over the micro-batches,
     and ``grad_norm`` of the averaged gradients before the clip. ``impl``:
     ``"auto"`` (B11 and its backward kernels on the card) or ``"torch"``
-    (the plain attention)."""
+    (the plain attention). ``step.grads(state, teacher_params, batch) ->
+    (grads, metrics)``: the step without the update, the trainable leaves'
+    averaged gradients in the moments' order."""
     accum = max(train_cfg.grad_accum_steps, 1)
     loss_fn, teacher_fwd = _build_loss(config, kd_cfg, train_cfg,
                                        compute_dtype, impl)
     schedule = make_schedule(train_cfg)
 
-    def train_step(state: TrainState, teacher_params, batch):
+    def grads_of(state: TrainState, teacher_params, batch):
         params = state.params
         leaves = trainable_leaves(params)
         for p in leaves:
@@ -285,12 +329,18 @@ def make_train_step(config: BitLlamaConfig, kd_cfg: KDConfig,
             grads = [g / accum for g in grads]
             sums = {k: v / accum for k, v in sums.items()}
         sums["grad_norm"] = global_norm(grads)
-        opt = _adamw_update(train_cfg, schedule, leaves, grads,
-                            state.opt_state)
         for p in leaves:
             p.grad = None
-        return TrainState(params, opt, state.step + 1), sums
+        return grads, sums
 
+    def train_step(state: TrainState, teacher_params, batch):
+        grads, sums = grads_of(state, teacher_params, batch)
+        opt = _adamw_update(train_cfg, schedule,
+                            trainable_leaves(state.params), grads,
+                            state.opt_state, norm=sums["grad_norm"])
+        return TrainState(state.params, opt, state.step + 1), sums
+
+    train_step.grads = grads_of
     return train_step
 
 
@@ -313,6 +363,129 @@ def make_eval_step(config: BitLlamaConfig, kd_cfg: KDConfig,
     return eval_step
 
 
+def make_sharded_train_step(config: BitLlamaConfig, kd_cfg: KDConfig,
+                            train_cfg: TrainConfig, group: DataGroup,
+                            layout: Layout, teacher_layout: Layout, *,
+                            compute_dtype=torch.bfloat16,
+                            impl: str = "auto"):
+    """The KD train step of one rank of a data axis, over its trees
+    (``parallel/sharding.py`` ``shard_params``; the student's split by
+    ``layout``, the teacher's by ``teacher_layout``), with its moments
+    (:func:`init_train_state` of its tree): the function JAX's
+    ``make_train_step`` computes on ``shard_params(..., mesh)`` with the
+    mesh's data axis of ``group.size``.
+
+    ``step(state, teacher_params, batch)`` takes the GLOBAL batch, the
+    same on every rank. Micro-batch ``m`` is rows ``[m·B/A, (m+1)·B/A)``
+    of it (JAX's reshape), and the rank takes block ``rank`` of those rows
+    (so ``B/A`` must divide by the ranks). The losses are the rank's
+    shares of the micro-batch's global losses (its global batch size and
+    count of valid tokens; ``train/losses.py``); the split latent planes'
+    gradients are reduce-scattered into the rank's shards as the backward
+    reaches each layer, the whole leaves' are all-reduced after the last
+    micro-batch; the clip takes the global norm (the shards' squares
+    all-reduced), and AdamW updates the rank's shards and their moments.
+    ``metrics`` are the global ones, the same on every rank.
+    ``step.grads(state, teacher_params, batch) -> (grads, metrics)``: the
+    step without the update; a split leaf's gradient is the list of its
+    layers' shards. ``step.eval_step(params, teacher_params, batch)``:
+    the global metrics of the whole batch at once (``make_eval_step``'s),
+    without gradients."""
+    accum = max(train_cfg.grad_accum_steps, 1)
+    schedule = make_schedule(train_cfg)
+
+    def step_losses(params, teacher_params, batch, parts, grads=None):
+        """Yield ``(loss, metrics)`` of the rank's rows of each of the
+        batch's ``parts`` micro-batches (a generator, so that the caller's
+        backward runs before the next micro-batch's forward)."""
+        device = params["embed_tokens"].device
+        batch = _on(batch, device)
+        n = batch["input_ids"].shape[0]
+        if n % parts or (n // parts) % group.size:
+            raise ValueError(
+                f"batch {n} is not a multiple of {parts} micro-batch(es) x "
+                f"{group.size} data ranks")
+        micro_n = n // parts
+        per = micro_n // group.size
+
+        def proj(tree, layout_):
+            return sharded_proj(tree, layout_, config, group, impl=impl,
+                                compute_dtype=compute_dtype, grads=grads)
+
+        loss_fn, teacher_fwd = _build_loss(
+            config, kd_cfg, train_cfg, compute_dtype, impl,
+            student_proj=lambda p: proj(p, layout),
+            teacher_proj=lambda p: proj(p, teacher_layout))
+        for m in range(parts):
+            lo = m * micro_n
+            mine = slice(lo + group.rank * per, lo + (group.rank + 1) * per)
+            micro = {k: v[mine] for k, v in batch.items()}
+            labels = batch["labels"][lo:lo + micro_n, 1:]
+            teacher_out = teacher_fwd(teacher_params, micro)
+            yield loss_fn(params, teacher_out, micro, batch_size=micro_n,
+                          valid_tokens=(labels != IGNORE_INDEX).sum())
+
+    def global_metrics(sums, parts):
+        keys = sorted(sums)
+        total = group.all_reduce(torch.stack([sums[k] for k in keys]))
+        return dict(zip(keys, (total / parts).unbind()))
+
+    def grads_of(state: TrainState, teacher_params, batch):
+        params = state.params
+        named = named_trainable(params)
+        for _, p in named:
+            p.grad = None
+        grads = ShardGrads()
+        sums: Dict[str, torch.Tensor] = {}
+        for loss, metrics in step_losses(params, teacher_params, batch,
+                                         accum, grads):
+            loss.backward()
+            for k, v in metrics.items():
+                v = v.detach()
+                sums[k] = v if k not in sums else sums[k] + v
+        split_sq = whole_sq = torch.zeros((), device=sums["loss"].device)
+        out = []
+        for key, p in named:
+            if key in layout:
+                g = [torch.zeros_like(p[i]) if x is None else x
+                     for i, x in enumerate(grads.grads.get(key)
+                                           or [None] * p.shape[0])]
+                g = [x / accum for x in g] if accum > 1 else g
+                split_sq = split_sq + sum((x.float() ** 2).sum() for x in g)
+            else:
+                g = group.all_reduce(p.grad if p.grad is not None
+                                     else torch.zeros_like(p))
+                g = g / accum if accum > 1 else g
+                whole_sq = whole_sq + (g.float() ** 2).sum()
+            out.append(g)
+        del grads
+        for _, p in named:
+            p.grad = None
+        metrics = global_metrics(sums, accum)
+        metrics["grad_norm"] = torch.sqrt(group.all_reduce(split_sq)
+                                          + whole_sq)
+        return out, metrics
+
+    def train_step(state: TrainState, teacher_params, batch):
+        grads, metrics = grads_of(state, teacher_params, batch)
+        opt = _adamw_update(train_cfg, schedule,
+                            trainable_leaves(state.params), grads,
+                            state.opt_state, norm=metrics["grad_norm"])
+        return TrainState(state.params, opt, state.step + 1), metrics
+
+    @torch.no_grad()
+    def eval_step(params, teacher_params, batch):
+        sums: Dict[str, torch.Tensor] = {}
+        for _, metrics in step_losses(params, teacher_params, batch, 1):
+            for k, v in metrics.items():
+                sums[k] = v if k not in sums else sums[k] + v
+        return global_metrics(sums, 1)
+
+    train_step.grads = grads_of
+    train_step.eval_step = eval_step
+    return train_step
+
+
 def state_tensors(state: TrainState) -> Dict[str, torch.Tensor]:
     """The state as flat named tensors (the resume file's contents): the
     params under their native-checkpoint keys, the moments by trainable
@@ -320,7 +493,7 @@ def state_tensors(state: TrainState) -> Dict[str, torch.Tensor]:
     flat: Dict[str, torch.Tensor] = {
         "step": torch.tensor(state.step),
         "count": torch.tensor(state.opt_state.count)}
-    for key, val in _named_leaves(state.params):
+    for key, val in named_leaves(state.params):
         flat[f"params.{key}"] = val.detach()
     for i, (mu, nu) in enumerate(zip(state.opt_state.mu,
                                      state.opt_state.nu)):
@@ -333,7 +506,7 @@ def load_state_tensors(template: TrainState,
     """Copy :func:`state_tensors`' output into ``template``'s tensors (in
     place) and return the state at the saved step."""
     with torch.no_grad():
-        for key, val in _named_leaves(template.params):
+        for key, val in named_leaves(template.params):
             val.copy_(flat[f"params.{key}"])
         for i, (mu, nu) in enumerate(zip(template.opt_state.mu,
                                          template.opt_state.nu)):
@@ -341,18 +514,6 @@ def load_state_tensors(template: TrainState,
             nu.copy_(flat[f"nu.{i}"])
     opt = template.opt_state._replace(count=int(flat["count"]))
     return TrainState(template.params, opt, int(flat["step"]))
-
-
-def _named_leaves(params: Dict[str, Any]):
-    for key in ("embed_tokens", "lm_head", "final_norm"):
-        yield key, params[key]
-    for name, val in params["layers"].items():
-        if isinstance(val, tuple):
-            for field, arr in val._asdict().items():
-                if arr is not None:
-                    yield f"layers.{name}.{field}", arr
-        else:
-            yield f"layers.{name}", val
 
 
 def clone_params(params: Dict[str, Any]) -> Dict[str, Any]:

@@ -2,8 +2,9 @@
 
 A copy of ``onebit_tpu/train/validate.py``, which imports no framework; the
 port keeps its own copy so that it imports nothing of the JAX package. One
-change: the output-dir rule looks for the port's resume file
-(``train_state.pt``), not the JAX package's ``train_state.npz``.
+change: the output-dir rule looks for the port's resume state
+(``train_state.pt`` or ``train_state.dcp/``), not the JAX package's
+``train_state.npz``.
 
 The reference validates its five HfArgumentParser dataclass groups with ~25
 cross-checks in ``get_train_args`` (llama_factory/llamafactory/core.py:81-215)
@@ -148,8 +149,9 @@ def validate_run(run_cfg, config, *, n_blocks: Optional[int] = None,
     # output-dir clobber protection (reference core.py:185-197): an output
     # dir holding a previous run's state requires explicit resume
     if run_cfg.resume_from is None and os.path.isdir(run_cfg.output_dir):
-        state = os.path.join(run_cfg.output_dir, "train_state.pt")
-        _req(not os.path.exists(state), "output-dir-clobber",
+        held = [os.path.join(run_cfg.output_dir, n)
+                for n in ("train_state.pt", "train_state.dcp")]
+        _req(not any(map(os.path.exists, held)), "output-dir-clobber",
              f"output_dir {run_cfg.output_dir!r} already holds a training "
              "state; pass resume_from to continue it or choose a fresh "
              "directory")

@@ -4,6 +4,7 @@ otherwise."""
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 
 def resolve_device(device=None) -> torch.device:
@@ -15,3 +16,16 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is present; pass device='cpu' to run the plain "
             "PyTorch path on the CPU")
     return device
+
+
+def is_fake(t: torch.Tensor) -> bool:
+    """A fake tensor (shapes and dtypes, no storage): the memory plans of
+    ``parallel/memplan.py`` run the steps on them."""
+    return isinstance(t, FakeTensor)
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` takes the kernel path: a CUDA tensor, or a fake one,
+    whose kernel wrappers return the kernels' outputs' shapes (the memory
+    plans count the kernel path, not the plain one)."""
+    return t.device.type == "cuda" or is_fake(t)

@@ -1,9 +1,10 @@
 """Run ``chip_smoke.py``'s serving-surface, task-harness, task-registry
 and SFT phases alone on one card, and on request its decode-attention
-kernel checks, its paged fp8 served runs and its tensor-parallel phase.
+kernel checks, its paged fp8 served runs, its tensor-parallel phase and
+its parallel (fully sharded KD training) phase.
 
     python scripts/torch_smoke_phases.py [serve_surface] [tasks] [registry]
-        [sft] [attention_kernels] [paged_fp8] [tp] [serve_cli]
+        [sft] [attention_kernels] [paged_fp8] [tp] [serve_cli] [parallel]
 
 Builds the CUDA sources, then runs ``serve_surface_checks`` on the fused
 full-depth llama2-7b weights of ``chip_smoke.py``'s serving runs (with the
@@ -18,7 +19,8 @@ name and power limit, and the wall seconds. All four phases by default.
 ``flat_kernel_checks``); ``paged_fp8``: the full-depth served run on fp8
 pages and its block run (``served_run``, ``block_run``); ``tp``:
 ``tp_checks`` on the unfused weights; ``serve_cli``: ``serve_surface_cli``
-alone (``serve_surface`` runs it too).
+alone (``serve_surface`` runs it too; with the multi-host ``serve --tp``);
+``parallel``: ``parallel_checks``.
 Each check raises as in ``chip_smoke.py``: a failure exits nonzero. Needs
 a CUDA device; a few minutes with the build.
 """
@@ -51,6 +53,9 @@ def main(argv) -> int:
     t = time.perf_counter()
     build.build()
     cs.emit({"phase": "build", "seconds": time.perf_counter() - t})
+    if "parallel" in phases:
+        cs.parallel_checks(dev)
+        torch.cuda.empty_cache()
     if "attention_kernels" in phases:
         cs.paged_kernel_checks(dev)
         cs.flat_kernel_checks(dev)

@@ -495,7 +495,7 @@ def test_serve_stdin_ids(tiny, tmp_path, monkeypatch, capsys):
     (["--draft", "d"], None), (["--tp", "2"], None),
     (["--prefill-chunk", "16"], None),
     (["--paged", "--kv-quant", "fp8"], None),
-    (["--dry-compile"], "not ported yet"),
+    (["--dry-compile"], None),
     (["--prefix-cache"], "--prefix-cache requires --paged"),
     (["--kv-quant", "fp8"], "--kv-quant fp8 requires --paged"),
     (["--paged", "--kv-quant", "int4"], "dense-engine only"),
@@ -510,12 +510,13 @@ def test_serve_refusals(flags, says):
     """``serve`` exits nonzero before it loads anything: the JAX command's
     exclusions in its wording (``--tp`` with ``--fuse-decode`` among
     them), NCCL asked of ranks that have no card each (this machine has
-    none: ``--tp 2`` under the default ``--device cuda`` takes nccl), and
-    what waits, named. ``--tokenizer``, ``--draft``, ``--prefill-chunk``
-    without ``--paged``, ``--tp`` on the CPU (gloo) and fp8 pages are ported
+    none: ``--tp 2`` under the default ``--device cuda`` takes nccl).
+    ``--tokenizer``, ``--draft``, ``--prefill-chunk`` without ``--paged``,
+    ``--tp`` on the CPU (gloo), fp8 pages and ``--dry-compile`` are ported
     (``says`` None): they get as far as the checkpoint, which is loaded
-    first, as the JAX command does (tests/test_torch_draft.py serves
-    through a draft, tests/test_torch_tp_serve.py through ``--tp``)."""
+    first, as the JAX command does (``--dry-compile`` reads its
+    config.json; tests/test_torch_draft.py serves through a draft,
+    tests/test_torch_tp_serve.py through ``--tp``)."""
     from onebit_tpu_torch import cli
     if says is None:
         with pytest.raises(FileNotFoundError, match="/nonexistent"):

@@ -258,11 +258,12 @@ def test_cli_check_engines(packed, tmp_path, capsys):
 
 
 def test_cli_sharded_checkpoint_exits_nonzero(tmp_path, capsys):
-    """A sharded checkpoint (``metadata.json`` of format onebit-sharded)
-    is not ported: every command exits nonzero naming the ROADMAP item it
-    waits for, before it reads anything else."""
+    """The JAX package's sharded checkpoint (``metadata.json`` of format
+    onebit-sharded, an orbax tree) does not load in the port: every
+    command exits nonzero naming why, before it reads anything else (the
+    port's own sharded format is ``onebit-sharded-torch``)."""
     (tmp_path / "metadata.json").write_text(json.dumps(
         {"format": "onebit-sharded"}))
-    with pytest.raises(SystemExit, match="item 6"):
+    with pytest.raises(SystemExit, match="orbax"):
         _port_cli(capsys, "generate", "--ckpt", str(tmp_path), "--prompt",
                   "1")

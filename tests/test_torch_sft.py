@@ -242,14 +242,12 @@ def test_train_config_file_gives_the_flags_args(tmp_path, ext):
 @pytest.mark.parametrize("data,match", [
     ({"batch_size": 2, "not_a_flag": 1}, "unknown config key"),
     ({"data": "corpus_dir", "dataset": "kd"}, None),
-    ({"sharded_ckpt": True}, "--sharded-ckpt is not ported yet"),
+    ({"sharded_ckpt": True}, None),
     ({"batch_size": 2}, None)], ids=["unknown", "data", "sharded", "no-ckpt"])
 def test_train_config_file_refusals(tmp_path, data, match, capsys):
-    """An unknown key raises ``ValueError``; a key naming a flag that
-    waits exits nonzero with its reason, ahead of the missing checkpoints;
-    without ``--student``/``--teacher`` from either source the parser
-    exits nonzero (2), also with the text dataset keys, which are
-    ported."""
+    """An unknown key raises ``ValueError``; without ``--student``/
+    ``--teacher`` from either source the parser exits nonzero (2), also
+    with the text dataset keys and ``sharded_ckpt``, which are ported."""
     cfg = _write_config(tmp_path / "cfg.json", data)
     if match == "unknown config key":
         with pytest.raises(ValueError, match=match):
@@ -257,12 +255,8 @@ def test_train_config_file_refusals(tmp_path, data, match, capsys):
         return
     with pytest.raises(SystemExit) as exit_:
         tcli.main(["train", "--config", cfg, "--device", "cpu"])
-    if match is None:
-        assert exit_.value.code == 2
-        assert "--student and --teacher" in capsys.readouterr().err
-    else:
-        assert match in str(exit_.value.code)
-        assert "parallelism" in str(exit_.value.code)
+    assert exit_.value.code == 2
+    assert "--student and --teacher" in capsys.readouterr().err
 
 
 def test_train_config_runs_as_the_flags_do(tmp_path):

@@ -158,10 +158,14 @@ def test_serve_tp_http_stream_equals_single_device(ckpts, http_exchange):
 
 
 def test_front_engine_sends_each_steps_requests_first():
-    """Before each step the front end sends the requests added since the
-    last one, in order and with their budgets, then steps; a step with
-    none sends an empty list, so every rank steps as often."""
+    """Before each step the front end passes on the requests added since
+    the last one, in order and with their budgets, then steps: on the
+    store while the other ranks have no work; while they have work, as the
+    step's code (0 none, 1 read the store first), with a store message
+    only where there are new requests. The stop goes the same way, and no
+    step runs after it."""
     log = []
+    work = iter([True, True, False, True])
 
     class Engine:
         uids = iter(range(10))
@@ -174,19 +178,47 @@ def test_front_engine_sends_each_steps_requests_first():
             log.append("step")
 
         def has_work(self):
-            return True
+            return next(work)
 
         def metrics(self):
             return {}
 
-    front = FrontEngine(Engine(), log.append)
+    front = FrontEngine(Engine(), log.append, lambda c: log.append(c))
     assert [front.add_request([1, 2], 3), front.add_request([4], 5)] == [0, 1]
-    front.step()
-    front.step()
+    front.step()                    # idle ranks: the store
+    front.step()                    # busy: code 0, no message
     front.add_request([6], 7)
+    front.step()                    # busy: a message, code 1; then idle
+    front.add_request([8], 9)
+    front.step()                    # idle: the store; then busy
+    front.stop()                    # busy: code -1
+    front.stop()
     front.step()
-    assert log == [("step", [([1, 2], 3), ([4], 5)]), "step", ("step", []),
-                   "step", ("step", [([6], 7)]), "step"]
+    assert log == [("step", [([1, 2], 3), ([4], 5)]), "step", 0, "step",
+                   ("step", [([6], 7)]), 1, "step", ("step", [([8], 9)]),
+                   "step", -1]
+
+
+def test_store_channel_deletes_what_each_rank_read():
+    """Rank 0's messages reach every other rank in order, each rank's copy
+    under a key of its own that the rank deletes once read, so a long run
+    leaves nothing behind in the store; an idle front end adds nothing."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from onebit_tpu_torch.engine.tp_serve import StoreChannel
+    store = dist.HashStore()
+    store.set_timeout(datetime.timedelta(seconds=5))
+    front, others = StoreChannel(store, 0, 3), [StoreChannel(store, r, 3)
+                                                for r in (1, 2)]
+    msgs = [("step", [([1, 2], 3)]), ("step", []), ("stop",)]
+    for m in msgs:
+        front.put(m)
+    assert store.num_keys() == 2 * len(msgs)
+    for ch in others:
+        assert [ch.get() for _ in msgs] == msgs
+    assert store.num_keys() == 0
 
 
 def test_launch_stops_on_a_failed_rank(ckpts, monkeypatch, capsys):

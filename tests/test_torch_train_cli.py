@@ -124,8 +124,9 @@ def test_run_kd_matches_jax(models, tmp_path):
 
 def test_run_kd_resume_and_one_device(models, tmp_path):
     """A run resumed from its step-2 state ends where the unbroken run
-    ends, bit for bit; a mesh of several devices and sharded states raise
-    naming ROADMAP.md §1 item 6, the rest of parallelism."""
+    ends, bit for bit; a mesh with a model axis > 1 raises naming ROADMAP.md
+    §1 item 8 (tensor-parallel training), and a resume from the JAX
+    package's orbax train state raises naming it."""
     jc, teacher, student, c, blocks = models
     kw = dict(batch_size=2, max_steps=4, save_steps=2, plot=False,
               compute_dtype=torch.float32)
@@ -145,11 +146,16 @@ def test_run_kd_resume_and_one_device(models, tmp_path):
     for name in jb.PROJ_NAMES:
         for field, arr in a["layers"][name].items():
             assert arr.tobytes() == b["layers"][name][field].tobytes()
-    for bad in (dict(mesh_shape=(2, 1)), dict(sharded_ckpt=True)):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            trun.run_kd(c, _port(student, c), _port(teacher, c), blocks,
-                        run_cfg=trun.KDRunConfig(
-                            output_dir=str(tmp_path / "c"), **bad))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        trun.run_kd(c, _port(student, c), _port(teacher, c), blocks,
+                    run_cfg=trun.KDRunConfig(output_dir=str(tmp_path / "c"),
+                                             mesh_shape=(1, 2)))
+    orbax = tmp_path / "jax_ckpt"
+    (orbax / "train_state").mkdir(parents=True)
+    with pytest.raises(ValueError, match="JAX package's train state"):
+        trun.run_kd(c, _port(student, c), _port(teacher, c), blocks,
+                    run_cfg=trun.KDRunConfig(output_dir=str(tmp_path / "d"),
+                                             resume_from=str(orbax), **kw))
 
 
 def test_output_dir_clobber_protection(models, tmp_path):
@@ -248,18 +254,26 @@ def test_cli_pipeline(models, tmp_path, capsys):
 
 @pytest.mark.parametrize("cmd", [
     ["train", "--data", "d", "--dataset", "kd"], ["train", "--tokenizer", "t"],
-    ["train", "--dry-compile", "--model", "llama2-7b"],
+    ["train", "--dry-compile", "--model", "llama2-7b", "--mesh", "4x2"],
     ["train", "--sharded-ckpt"],
-    ["convert", "x", "y", "--format", "sharded"]],
+    ["convert", "ORBAX", "y", "--format", "sharded"]],
     ids=["text", "tokenizer", "dry-compile", "sharded", "convert-sharded"])
-def test_cli_unported_exit_nonzero(cmd):
-    """What is not ported exits nonzero, saying so; the text dataset flags
-    are ported, and without checkpoints the parser exits nonzero (2)."""
-    run = _cli(*cmd, "--device", "cpu")
+def test_cli_unported_exit_nonzero(cmd, tmp_path):
+    """What the port refuses exits nonzero, saying why: a model axis > 1
+    (``--dry-compile --mesh 4x2``) names ROADMAP.md §1 item 8, and the JAX
+    package's orbax checkpoint names orbax. The text dataset flags and
+    ``--sharded-ckpt`` are ported: without checkpoints the parser exits
+    nonzero (2)."""
+    orbax = tmp_path / "orbax"
+    orbax.mkdir()
+    (orbax / "metadata.json").write_text(json.dumps(
+        {"format": "onebit-sharded", "version": 1}))
+    run = _cli(*[str(orbax) if a == "ORBAX" else a for a in cmd],
+               "--device", "cpu")
     assert run.returncode != 0
-    if "--data" in cmd or "--tokenizer" in cmd:
+    if "--data" in cmd or "--tokenizer" in cmd or "--sharded-ckpt" in cmd:
         assert run.returncode == 2
         assert "--student and --teacher" in run.stderr
-        assert "not ported yet" not in run.stderr
         return
-    assert "not ported yet" in run.stderr
+    assert "not ported yet" not in run.stderr
+    assert ("item 8" if "--dry-compile" in cmd else "orbax") in run.stderr
