@@ -184,11 +184,17 @@ toolkit and PyTorch. It imports nothing of JAX. Phases, one JSON line each:
    width, 2 layers, on two gloo ranks sharing the card, after its memory
    plan (``parallel/memplan.py``): the sharded step's loss and gradients
    against the single-device step's on the same global batch 4 x 2048, a
-   planted reduce-scatter fault, 3 steps with exact B11 launches, each
+   planted reduce-scatter fault, 2 steps with exact B11 launches, each
    rank's ms a step, tokens/s and peak memory beside the plan, a sharded
-   train state saved and read back bit for bit; and, with the command
-   lines of phase 6, ``serve --tp 2`` as the two processes of a
-   multi-host launch (``--coordinator``).
+   train state saved and read back bit for bit; then tensor-parallel KD
+   training (``tp_train``) on the same two ranks as the mesh (1, 2), each
+   rank 16 heads and the model shard of every projection: its plan, the
+   step's loss and gradients against the same single-device step, a
+   planted fault in the backward of the LayerNorm statistics'
+   all-reduce, 3 steps with exact B11 launches, ms a step, tokens/s and
+   peak memory beside the plan; and, with the command lines of phase 6,
+   ``serve --tp 2`` as the two processes of a multi-host launch
+   (``--coordinator``).
 
 Then the wall time, the ``kernels`` line (each kernel's launches from the
 run of its own path, and ``graph_launches``, those that the graph replays
@@ -199,7 +205,8 @@ B10's from the paged bf16, int8 and fp8 runs; K3's fp32 instance's and
 B11's from the fp32 perplexity run, B11 bf16's from the bf16 forward, B11-dkv's and B11-dq's fp32 instances'
 from the fp32 gradient check of phase 6 and their bf16 instances' from
 its three KD steps; the bf16 ones also as ``parallel_launches``, rank
-0's in the sharded steps), the
+0's in the sharded steps, and ``tp_train_launches``, rank 0's in the
+tensor-parallel steps), the
 card's name and power
 limit as ``nvidia-smi`` prints them, and a last line ``{"ok": true,
 "device": ...}``. Any failure exits nonzero without that line. Needs one
@@ -209,6 +216,7 @@ this script.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -249,9 +257,14 @@ RAW_TOL_F32 = 1e-2
 LOGITS_REL_TOL = 5e-2
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+_START = time.perf_counter()
 
 
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line gets ``t_s``, the seconds since
+    the script started."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=time.perf_counter() - _START)
     print(json.dumps(obj), flush=True)
 
 
@@ -3045,7 +3058,7 @@ def end_to_end(dev) -> dict:
     on two ranks (:func:`parallel_checks`). Returns
     each kernel's launches from the run of its own path, those that
     its block run's graph replays made, and B11's launches in rank 0 of
-    the sharded steps."""
+    the sharded and of the tensor-parallel steps."""
     from onebit_tpu_torch import (BitLlamaConfig, fuse_for_decode,
                                   host_random_packed_params)
     from onebit_tpu_torch.kernels import kv_attention_cuda as kc
@@ -3124,9 +3137,15 @@ def end_to_end(dev) -> dict:
 # the parallel phase: fully sharded KD training on two ranks of the card
 # ---------------------------------------------------------------------------
 
-PAR_LAYERS, PAR_RANKS, PAR_BATCH, PAR_SEQLEN, PAR_STEPS = 2, 2, 4, 2048, 3
+PAR_LAYERS, PAR_RANKS, PAR_BATCH, PAR_SEQLEN, PAR_STEPS = 2, 2, 4, 2048, 1
+# the tp_train scenario's steps and batches; the sharded steps take the
+# first PAR_STEPS of them
+TP_TRAIN_STEPS = 3
+# the planted faults run on the first FAULT_ROWS rows of the first batch,
+# against the single-device step's gradients on those rows
+FAULT_ROWS = 2
 PAR_TIMEOUT = 900          # seconds for the ranks, every one of them
-# the band of a rank's torch.cuda.max_memory_allocated over the 3 steps
+# the band of a rank's torch.cuda.max_memory_allocated over its steps
 # around the memory plan's estimate of its step (parallel/memplan.py),
 # stated before the first run on the card: the plan runs the same code on
 # fake tensors, and the card adds only the allocator's 512-byte rounding
@@ -3138,7 +3157,7 @@ def _parallel_setup(dev):
     """The config at PAR_LAYERS, a random plain teacher (fp32,
     ``torch.Generator`` seed 0 on the card, so every process makes the same
     one), its SVID start student, the teacher in bf16 for the steps, and
-    PAR_STEPS global batches of PAR_BATCH x PAR_SEQLEN."""
+    TP_TRAIN_STEPS global batches of PAR_BATCH x PAR_SEQLEN."""
     from onebit_tpu_torch import BitLlamaConfig
     from onebit_tpu_torch.core.build_start import build_start_params
     from onebit_tpu_torch.model.bitllama import init_params
@@ -3151,7 +3170,7 @@ def _parallel_setup(dev):
     teacher = map_leaves(teacher, lambda k, t: t.to(torch.bfloat16))
     rng = np.random.default_rng(11)
     ids = rng.integers(3, config.vocab_size,
-                       (PAR_STEPS, PAR_BATCH, PAR_SEQLEN))
+                       (TP_TRAIN_STEPS, PAR_BATCH, PAR_SEQLEN))
     batches = [{"input_ids": b, "labels": b} for b in ids]
     return config, teacher, student, batches
 
@@ -3165,7 +3184,7 @@ def kd_recipe():
 
 def _par_train_cfg():
     from onebit_tpu_torch.train.trainer import TrainConfig
-    return TrainConfig(warmup_steps=1, total_steps=PAR_STEPS)
+    return TrainConfig(warmup_steps=1, total_steps=TP_TRAIN_STEPS)
 
 
 class _DropOneReduceScatter:
@@ -3191,116 +3210,182 @@ class _DropOneReduceScatter:
         return self.inner.reduce_scatter(full)
 
 
-def _full_grads(named, grads, layout, group) -> list:
-    """Each trainable leaf's full gradient on rank 0's host (None on the
-    other ranks): a split leaf's layers' shards stacked and gathered."""
-    from onebit_tpu_torch.parallel.sharding import gather_leaf
-    out = []
+def _full_grads(named, grads, layout, mesh, keys=None) -> dict:
+    """The full gradient of each trainable leaf (of those in ``keys``,
+    default every one) on rank 0's host, by key (an empty dict on the
+    other ranks): a data-split leaf's layers' shards stacked, every split
+    leaf gathered over the data ranks, then the model ranks."""
+    from onebit_tpu_torch.parallel.sharding import gather_full
+    out = {}
     for (key, _), g in zip(named, grads):
-        if isinstance(g, list):
-            g = gather_leaf(torch.stack(g), layout[key], group)
-        out.append(g.float().cpu() if group.rank == 0 else None)
+        if keys is not None and key not in keys:
+            continue
+        g = torch.stack(g) if isinstance(g, list) else g
+        g = gather_full(g, key, layout, mesh)
+        if mesh.rank == 0:
+            out[key] = g.float().cpu()
     return out
 
 
-def _host_grad_rel(grads, ref) -> float:
-    return max(((g - r).abs().max() / r.abs().max()).item()
-               for g, r in zip(grads, ref))
+def _host_grad_rel(grads: dict, ref: dict) -> float:
+    """The largest relative error of the leaves in ``grads`` (a subset's
+    bounds the whole's from below)."""
+    return max(((g - ref[k]).abs().max() / ref[k].abs().max()).item()
+               for k, g in grads.items())
+
+
+def _clock(marks: dict, name: str, t0: float) -> None:
+    marks[name] = round(time.perf_counter() - t0, 3)
+
+
+def _first_step(step, state, t_local, batch, named, layout, mesh, ref,
+                out, prefix):
+    """Step 1 of a scenario: its gradients, each leaf gathered to rank 0's
+    host and held against the single-device step's (``ref``: loss,
+    gradients), then its update. Returns ``(state, metrics, seconds)``,
+    the seconds those of the gradients and the update, not the gather's."""
+    t = time.perf_counter()
+    grads, m = step.grads(state, t_local, batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    full = _full_grads(named, grads, layout, mesh)
+    if mesh.rank == 0:
+        out[f"{prefix}_loss"] = m["loss"].item()
+        out[f"{prefix}_loss_rel_err"] = abs(m["loss"].item() - ref[0]) / \
+            abs(ref[0])
+        out[f"{prefix}_grad_max_rel_err"] = _host_grad_rel(full, ref[1])
+    del full
+    t = time.perf_counter()
+    state, m = step.update(state, grads, m)
+    torch.cuda.synchronize()
+    return state, m, seconds + time.perf_counter() - t
+
+
+def _reference(config, student, teacher, batch) -> tuple:
+    """The single-device step's loss and gradients (by key, on the host)
+    on ``batch``."""
+    from onebit_tpu_torch.train import trainer as tt
+    state = tt.init_train_state(tt.clone_params(student), _par_train_cfg())
+    step = tt.make_train_step(config, kd_recipe(), _par_train_cfg(),
+                              compute_dtype=torch.bfloat16)
+    grads, m = step.grads(state, teacher, batch)
+    return m["loss"].item(), {
+        k: g.float().cpu() for (k, _), g in
+        zip(tt.named_trainable(state.params), grads)}
+
+
+def _import_dcp() -> None:
+    """torch.distributed.checkpoint and DTensor, which a first sharded
+    save imports (12 s of a rank's 18 s first save on the H100 machine,
+    whose installation compiles those modules at their first import)."""
+    import torch.distributed.checkpoint  # noqa: F401
+    import torch.distributed.tensor  # noqa: F401
 
 
 def _parallel_rank(tp_group, ckpt_dir):
     """One rank of the parallel phase: (b) on rank 0 alone, then (c)-(e)
-    on both. Returns numbers only."""
+    on both. Returns numbers only. The checkpoint's modules are imported
+    on a thread of their own meanwhile, joined before (e)'s save."""
+    import dataclasses
+    import threading
+
     import torch.distributed as dist
-    from torch.profiler import ProfilerActivity, profile
+    import torch.profiler  # noqa: F401  (imported before the thread starts)
 
     from onebit_tpu_torch.kernels import attention_cuda as fc
-    from onebit_tpu_torch.parallel.mesh import DataGroup
-    from onebit_tpu_torch.parallel.sharding import (map_leaves, param_layout,
+    from onebit_tpu_torch.parallel.mesh import create_mesh
+    from onebit_tpu_torch.parallel.sharding import (map_leaves, mesh_layout,
                                                     shard_params)
     from onebit_tpu_torch.train import trainer as tt
     from onebit_tpu_torch.train.run_kd import (load_train_state,
                                                save_train_state)
-    group = DataGroup.of(tp_group)
-    dev = group.device
+    t0, marks = time.perf_counter(), {}
+    importer = threading.Thread(target=_import_dcp, daemon=True)
+    importer.start()
+    mesh = create_mesh((PAR_RANKS, 1), tp_group.device.type)
+    dev = mesh.device
     torch.backends.cuda.matmul.allow_tf32 = False
     config, teacher, student, batches = _parallel_setup(dev)
+    fault_batch = {k: v[:FAULT_ROWS] for k, v in batches[0].items()}
     kd_cfg, tcfg = kd_recipe(), _par_train_cfg()
-    out = {"rank": group.rank}
-    ref = None
-    if group.rank == 0:
-        # (b) the single-device step on the global batch: loss, gradients
+    out = {"rank": mesh.rank, "timeline_s": marks}
+    _clock(marks, "setup", t0)
+    refs = None
+    if mesh.rank == 0:
+        # (b) the single-device step on the global batch, and on the
+        # faults' rows: loss, gradients
         t = time.perf_counter()
-        state = tt.init_train_state(tt.clone_params(student), tcfg)
-        step = tt.make_train_step(config, kd_cfg, tcfg,
-                                  compute_dtype=torch.bfloat16)
-        grads, m = step.grads(state, teacher, batches[0])
-        ref = (m["loss"].item(), [g.float().cpu() for g in grads])
+        refs = {"step": _reference(config, student, teacher, batches[0]),
+                "fault": _reference(config, student, teacher, fault_batch)}
         out["reference_s"] = time.perf_counter() - t
-        del state, step, grads, m
         torch.cuda.empty_cache()
     dist.barrier()
+    _clock(marks, "reference", t0)
 
-    layout = param_layout(student, group.size)
-    t_layout = param_layout(teacher, group.size)
-    local = shard_params(student, group, layout)
-    t_local = shard_params(teacher, group, t_layout)
-    del student, teacher
+    layout = mesh_layout(student, config, mesh.shape)
+    t_layout = mesh_layout(teacher, config, mesh.shape)
+    local = shard_params(student, mesh, layout)
+    t_local = shard_params(teacher, mesh, t_layout)
+    # the tp_train scenario shards the same trees again, after the steps
+    student, teacher = (map_leaves(t, lambda k, v: v.cpu())
+                        for t in (student, teacher))
     torch.cuda.empty_cache()
     state = tt.init_train_state(local, tcfg)
-    out["split"] = sorted(layout)
+    out["split"] = sorted(layout.data)
+    named = tt.named_trainable(state.params)
 
-    # (c), (d): the sharded step's loss and gradients against (b)'s, and
-    # again with rank 1's share of one reduce-scatter dropped
+    # (d) rank 1's share of the down_proj latent's reduce-scatters
+    # dropped: the gradient of that leaf, the one the fault reaches
     down = (config.hidden_size, config.intermediate_size)
-    for name, grp in (("sharded", group),
-                      ("fault", _DropOneReduceScatter(group, down))):
-        step = tt.make_sharded_train_step(
-            config, kd_cfg, tcfg, grp, layout, t_layout,
-            compute_dtype=torch.bfloat16)
-        named = tt.named_trainable(state.params)
-        grads, m = step.grads(state, t_local, batches[0])
-        full = _full_grads(named, grads, layout, group)
-        del grads
-        if group.rank == 0:
-            out[f"{name}_loss"] = m["loss"].item()
-            out[f"{name}_loss_rel_err"] = abs(m["loss"].item() - ref[0]) / \
-                abs(ref[0])
-            out[f"{name}_grad_max_rel_err"] = _host_grad_rel(full, ref[1])
-        del full
-        torch.cuda.empty_cache()
-    out["reference_loss"] = ref[0] if ref else None
-    del ref
+    faulty = dataclasses.replace(
+        mesh, data=_DropOneReduceScatter(mesh.data, down))
+    step = tt.make_sharded_train_step(config, kd_cfg, tcfg, faulty, layout,
+                                      t_layout, compute_dtype=torch.bfloat16)
+    grads, m = step.grads(state, t_local, fault_batch)
+    full = _full_grads(named, grads, layout, mesh,
+                       keys={"layers.down_proj.latent"})
+    del grads
+    if mesh.rank == 0:
+        out["fault_grad_max_rel_err"] = _host_grad_rel(full,
+                                                       refs["fault"][1])
+    del full
+    torch.cuda.empty_cache()
+    out["reference_loss"] = refs["step"][0] if refs else None
+    _clock(marks, "fault", t0)
 
-    # the steps: every count set to 0 before them, the peak reset; (e) the
-    # state after step 1 saved (DCP, each rank its blocks) and kept on the
-    # host
-    step = tt.make_sharded_train_step(config, kd_cfg, tcfg, group, layout,
+    # the steps: every count set to 0 before them, the peak reset; (c)
+    # step 1's loss and gradients against (b)'s; (e) the state after step
+    # 1 saved (DCP, each rank its blocks) and kept
+    step = tt.make_sharded_train_step(config, kd_cfg, tcfg, mesh, layout,
                                       t_layout, compute_dtype=torch.bfloat16)
     torch.cuda.synchronize()
     dist.barrier()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    step_s, metrics, saved, prof = [], [], None, None
-    for i, batch in enumerate(batches):
-        t = time.perf_counter()
-        if i == PAR_STEPS - 1 and group.rank == 0:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                state, m = step(state, t_local, batch)
-                torch.cuda.synchronize()
+    step_s, metrics, saved = [], [], None
+    for i, batch in enumerate(batches[:PAR_STEPS]):
+        if i == 0:
+            state, m, seconds = _first_step(
+                step, state, t_local, batch, named, layout, mesh,
+                refs and refs["step"], out, "sharded")
         else:
+            t = time.perf_counter()
             state, m = step(state, t_local, batch)
             torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t)
+            seconds = time.perf_counter() - t
+        step_s.append(seconds)
         metrics.append({k: v.item() for k, v in m.items()})
         if i == 0:
+            _clock(marks, "step_1", t0)
+            importer.join()
+            _clock(marks, "imported", t0)
             t = time.perf_counter()
-            save_train_state(ckpt_dir, state, sharded=True, group=group,
+            save_train_state(ckpt_dir, state, sharded=True, mesh=mesh,
                              layout=layout)
-            saved = {k: v.detach().cpu().clone()
-                     for k, v in tt.state_tensors(state).items()}
             out["save_s"] = time.perf_counter() - t
+            saved = {k: v.detach().clone()
+                     for k, v in tt.state_tensors(state).items()}
+            _clock(marks, "save", t0)
     counts = read_counts()
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
     out["launches"] = {k: v for k, v in counts.items() if v}
@@ -3308,9 +3393,7 @@ def _parallel_rank(tp_group, ckpt_dir):
                             fc.FLASH_DKV_BF16.name: PAR_LAYERS * PAR_STEPS,
                             fc.FLASH_DQ_BF16.name: PAR_LAYERS * PAR_STEPS}
     out["step_s"], out["metrics"] = step_s, metrics
-    if prof is not None:
-        out["profiled_step_device_ms"], out["top_kernels"] = \
-            _device_ms(prof)
+    _clock(marks, "steps", t0)
 
     # (e) a fresh sharded state of the same shapes reads the saved one
     t = time.perf_counter()
@@ -3319,13 +3402,199 @@ def _parallel_rank(tp_group, ckpt_dir):
         tt.AdamState(0, [torch.empty_like(x) for x in state.opt_state.mu],
                      [torch.empty_like(x) for x in state.opt_state.nu]), 0)
     del state
-    fresh = load_train_state(ckpt_dir, fresh, group=group, layout=layout)
+    fresh = load_train_state(ckpt_dir, fresh, mesh=mesh, layout=layout)
+    out["load_s"] = time.perf_counter() - t
     got = tt.state_tensors(fresh)
     out["ckpt_same_bits"] = sorted(got) == sorted(saved) and all(
-        torch.equal(got[k].cpu(), saved[k]) for k in saved)
+        torch.equal(got[k].to(saved[k].device), saved[k]) for k in saved)
     out["ckpt_step"] = fresh.step
-    out["load_s"] = time.perf_counter() - t
+    del fresh, got, saved, local, named, t_local, step
+    torch.cuda.empty_cache()
+    _clock(marks, "load", t0)
+    out["tp"] = _tp_train_rank(mesh, config, student, teacher, batches,
+                               fault_batch, refs, marks, t0)
     return out
+
+
+@contextlib.contextmanager
+def _stats_fault(rank, layers: int, kind: str):
+    """A planted fault in the backward of ``kernels/bitlinear_sharded.py``
+    ``sum_stats``, the all-reduce of a column-parallel LayerNorm's
+    statistics (part c of the tp_train scenario). ``"drop"``: rank 1's
+    share of the gradient of layer 0's q/k/v statistics dropped (zeros in
+    its place) before their all-reduces; a step's backward calls them four
+    a layer, from the last layer down: gate/up's centred squares and
+    means, then q/k/v's, so layer 0's q/k/v are the last two.
+    ``"local"``: no all-reduce in any layer's backward (each rank keeps
+    its own share)."""
+    from onebit_tpu_torch.kernels import bitlinear_sharded as bs
+    keep = bs._SumStats.backward
+    seen = [0]
+
+    def drop(ctx, d):
+        if rank == 1 and seen[0] >= 4 * layers - 2:
+            d = torch.zeros_like(d)
+        seen[0] += 1
+        return keep(ctx, d)
+
+    def local(ctx, d):
+        return d, None
+    bs._SumStats.backward = staticmethod({"drop": drop, "local": local}[kind])
+    try:
+        yield
+    finally:
+        bs._SumStats.backward = keep
+
+
+# the leaves that layer 0's q/k/v statistics reach in the backward, on
+# which the faults' gradients are read: every other leaf's gradient under
+# "drop" equals the sound pass's; under "local" a subset's largest error
+# bounds the whole's from below (on an H100 80GB HBM3 at 700 W: 0.0752 on
+# these leaves at 4 rows, 0.0787 on every leaf at 2 rows)
+_QKV_LEAVES = {f"layers.{n}.{f}" for n in ("q_proj", "k_proj", "v_proj")
+               for f in ("latent", "input_factor", "weight_scale")} | {
+    "layers.input_layernorm"}
+
+
+def _tp_train_rank(data_mesh, config, student, teacher, batches,
+                   fault_batch, refs, marks, t0) -> dict:
+    """The tp_train scenario on one rank of the mesh ``(1, PAR_RANKS)``
+    (``parallel/mesh.py`` ``create_mesh`` over the phase's ranks; the
+    trees on the host, split by ``mesh_layout``): (c) the two planted
+    faults of :func:`_stats_fault` on the faults' rows, then
+    TP_TRAIN_STEPS steps, every count set to 0 before them: (b) step 1's
+    loss and gradients on the global batch against the single-device
+    step's (``refs``, rank 0's), rank 0's last step profiled. Numbers
+    only."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from onebit_tpu_torch.kernels import attention_cuda as fc
+    from onebit_tpu_torch.parallel.mesh import create_mesh
+    from onebit_tpu_torch.parallel.sharding import mesh_layout, shard_params
+    from onebit_tpu_torch.train import trainer as tt
+    kd_cfg, tcfg = kd_recipe(), _par_train_cfg()
+    mesh = create_mesh((1, PAR_RANKS), data_mesh.device.type)
+    layout = mesh_layout(student, config, mesh.shape)
+    t_layout = mesh_layout(teacher, config, mesh.shape)
+    state = tt.init_train_state(shard_params(student, mesh, layout), tcfg)
+    t_local = shard_params(teacher, mesh, t_layout)
+    step = tt.make_sharded_train_step(config, kd_cfg, tcfg, mesh, layout,
+                                      t_layout, compute_dtype=torch.bfloat16)
+    named = tt.named_trainable(state.params)
+    out = {"model_split": sorted(layout.model),
+           "heads_per_rank": config.num_attention_heads // mesh.model.size}
+    _clock(marks, "tp_shard", t0)
+    for kind in ("drop", "local"):
+        t = time.perf_counter()
+        with _stats_fault(mesh.rank, PAR_LAYERS, kind):
+            grads, m = step.grads(state, t_local, fault_batch)
+        full = _full_grads(named, grads, layout, mesh, keys=_QKV_LEAVES)
+        del grads
+        out[f"{kind}_s"] = time.perf_counter() - t
+        if mesh.rank == 0:
+            out[f"{kind}_grad_max_rel_err"] = _host_grad_rel(
+                full, refs["fault"][1])
+        del full
+        torch.cuda.empty_cache()
+        _clock(marks, f"tp_fault_{kind}", t0)
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    step_s, metrics, prof = [], [], None
+    for i, batch in enumerate(batches):
+        if i == 0:
+            state, m, seconds = _first_step(
+                step, state, t_local, batch, named, layout, mesh,
+                refs and refs["step"], out, "tp")
+        else:
+            t = time.perf_counter()
+            if i == TP_TRAIN_STEPS - 1 and mesh.rank == 0:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    state, m = step(state, t_local, batch)
+                    torch.cuda.synchronize()
+            else:
+                state, m = step(state, t_local, batch)
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t
+        step_s.append(seconds)
+        metrics.append({k: v.item() for k, v in m.items()})
+    counts = read_counts()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["launches"] = {k: v for k, v in counts.items() if v}
+    out["want_launches"] = {
+        fc.FLASH_BF16.name: 2 * PAR_LAYERS * TP_TRAIN_STEPS,
+        fc.FLASH_DKV_BF16.name: PAR_LAYERS * TP_TRAIN_STEPS,
+        fc.FLASH_DQ_BF16.name: PAR_LAYERS * TP_TRAIN_STEPS}
+    out["step_s"], out["metrics"] = step_s, metrics
+    _clock(marks, "tp_steps", t0)
+    if prof is not None:
+        out["profiled_step_device_ms"], out["top_kernels"] = \
+            _device_ms(prof)
+    _clock(marks, "tp_profile_read", t0)
+    return out
+
+
+def _tp_train_line(ranks, plan) -> dict:
+    """The tp_train scenario's line from the ranks' results, and whether
+    it passed: the step within TRAIN_GRAD_TOL[bfloat16] of the
+    single-device step, both faults beyond it, finite losses equal on both
+    ranks, exact B11 launches, each rank's peak within PAR_MEM_BAND of
+    the plan."""
+    tol = TRAIN_GRAD_TOL[torch.bfloat16]
+    lo, hi = PAR_MEM_BAND
+    tp = [r["tp"] for r in ranks]
+    per_rank = []
+    for r in tp:
+        steady = sum(r["step_s"][1:]) / (TP_TRAIN_STEPS - 1)
+        per_rank.append({
+            "step_s": r["step_s"], "ms_per_step": steady * 1e3,
+            "tok_per_s": PAR_BATCH * PAR_SEQLEN / steady,
+            "peak_bytes": r["peak_bytes"],
+            "peak_over_plan": r["peak_bytes"] / plan.peak_bytes,
+            "launches": r["launches"], "drop_fault_s": r["drop_s"],
+            "local_fault_s": r["local_s"]})
+    t0 = tp[0]
+    busy = t0["profiled_step_device_ms"] / (t0["step_s"][-1] * 1e3)
+    line = {"phase": "tp_train", "mesh": [1, PAR_RANKS],
+            "backend": TP_BACKEND, "layers": PAR_LAYERS,
+            "batch": [PAR_BATCH, PAR_SEQLEN], "dtype": "bfloat16",
+            "heads_per_rank": t0["heads_per_rank"],
+            "model_split": t0["model_split"],
+            "reference_loss": ranks[0]["reference_loss"],
+            "tp_loss": t0["tp_loss"], "loss_rel_err": t0["tp_loss_rel_err"],
+            "grad_max_rel_err": t0["tp_grad_max_rel_err"], "rel_tol": tol,
+            "fault": "rank 1's share of the gradient of layer 0's q/k/v "
+                     "LayerNorm statistics dropped before their all-reduces",
+            "fault_grad_max_rel_err": t0["drop_grad_max_rel_err"],
+            "fault_local": "no all-reduce in the statistics' backward, "
+                           "every layer",
+            "fault_local_grad_max_rel_err": t0["local_grad_max_rel_err"],
+            "fault_leaves": sorted(_QKV_LEAVES),
+            "fault_rows": FAULT_ROWS,
+            "metrics": t0["metrics"], "want_launches": t0["want_launches"],
+            "per_rank": per_rank, "mem_band": list(PAR_MEM_BAND),
+            "plan_peak_bytes": plan.peak_bytes,
+            "rank0_profiled_step_device_ms": t0["profiled_step_device_ms"],
+            "rank0_busy_share": busy,
+            "rank0_top_kernels": t0["top_kernels"],
+            "step_s_of": "step 1: its gradients and update, not the "
+                         "gradients' gather to the host between them",
+            "rate_of": "two gloo ranks share one card and gloo's host "
+                       "collectives: a path check, not a multi-card rate"}
+    finite = all(math.isfinite(v) for r in tp for m in r["metrics"]
+                 for v in m.values())
+    ok = (finite and t0["tp_loss_rel_err"] <= tol
+          and t0["tp_grad_max_rel_err"] <= tol
+          and t0["drop_grad_max_rel_err"] > tol
+          and t0["local_grad_max_rel_err"] > tol
+          and all({k: v for k, v in r["launches"].items() if "flash" in k}
+                  == r["want_launches"] for r in tp)
+          and all(lo <= p["peak_over_plan"] <= hi for p in per_rank)
+          and all(r["metrics"] == t0["metrics"] for r in tp))
+    return line, ok
 
 
 def parallel_checks(dev) -> dict:
@@ -3338,24 +3607,41 @@ def parallel_checks(dev) -> dict:
         the ranks' sum held against the card's memory before anything
         launches;
     (b) rank 0 alone: the single-device step (``make_train_step``) on the
-        global batch PAR_BATCH x PAR_SEQLEN, kernel path: the loss and the
-        gradients, moved to the host, then freed;
-    (c) the sharded step on the same global batch: the loss's relative
-        error and the gradients' largest relative error (the shards
-        gathered to the host) within TRAIN_GRAD_TOL[bfloat16]; then
-        PAR_STEPS steps, every count set to 0 before them: finite losses,
-        each rank's B11 bf16 exactly 2 x PAR_LAYERS a step (student,
-        teacher) and B11-dkv, B11-dq PAR_LAYERS a step; per rank the ms a
-        step, the tokens/s, ``max_memory_allocated`` beside (a)'s estimate
-        (PAR_MEM_BAND), rank 0's last step profiled (device ms, busy share);
-    (d) rank 1's contribution to one leaf's reduce-scatters dropped
-        (:class:`_DropOneReduceScatter`, the down_proj latent): the
-        gradients must break the limit;
+        global batch PAR_BATCH x PAR_SEQLEN, kernel path, and on its first
+        FAULT_ROWS rows (the planted faults'): the losses and the
+        gradients, moved to the host;
+    (c) PAR_STEPS sharded steps on the first global batches, every count
+        set to 0 before them; step 1's loss's relative error and its
+        gradients' largest relative error (the shards gathered to the
+        host before its update) within TRAIN_GRAD_TOL[bfloat16]; finite
+        losses, each rank's B11 bf16 exactly 2 x PAR_LAYERS a step
+        (student, teacher) and B11-dkv, B11-dq PAR_LAYERS a step; per rank
+        the ms a step (step 1's without the gather), the tokens/s,
+        ``max_memory_allocated`` beside (a)'s estimate (PAR_MEM_BAND);
+    (d) before the steps, on the faults' rows, rank 1's contribution to
+        one leaf's reduce-scatters dropped (:class:`_DropOneReduceScatter`,
+        the down_proj latent): that leaf's gradient must break the
+        limit;
     (e) the state after step 1 saved as DCP files (each rank its blocks,
         ``save_train_state(sharded=True)``) and read into a fresh sharded
-        state: the same bits.
+        state: the same bits;
 
-    Returns B11's launches, rank 0's."""
+    then the ``tp_train`` scenario, the same ranks as the mesh ``(1,
+    PAR_RANKS)`` (tensor-parallel training, ``parallel/sharding.py``
+    ``mesh_layout``: each rank the model shard of every projection and 16
+    of the 32 heads, both ranks the whole global batch), on the same trees
+    and batches (:func:`_tp_train_rank`): its plan beside (a)'s, two
+    planted faults in the backward of the LayerNorm statistics' all-reduce
+    on the faults' rows (:func:`_stats_fault`: one share of one layer
+    dropped, and no all-reduce at all) that must break the limit, and
+    TP_TRAIN_STEPS steps with the same exact B11 launches, step 1's loss
+    and gradients against (b)'s within TRAIN_GRAD_TOL[bfloat16], each
+    rank's ms a step, tokens/s and peak memory beside the plan
+    (PAR_MEM_BAND), rank 0's last step profiled (device ms, busy share).
+
+    Returns B11's launches of rank 0 in the sharded steps
+    (``parallel_launches``) and in the tensor-parallel ones
+    (``tp_train_launches``)."""
     import shutil
 
     from onebit_tpu_torch.parallel.memplan import dry_run_train
@@ -3379,6 +3665,17 @@ def parallel_checks(dev) -> dict:
     emit(line)
     if PAR_RANKS * plan.peak_bytes > card:
         raise RuntimeError(f"the plan does not fit the card: {line}")
+    t0 = time.perf_counter()
+    tp_plan = dry_run_train(config, (1, PAR_RANKS), PAR_BATCH, PAR_SEQLEN,
+                            kd_cfg=kd_recipe(), train_cfg=_par_train_cfg())
+    line = dict(line, phase="tp_train_plan", mesh=[1, PAR_RANKS],
+                batch_per_rank=[PAR_BATCH, PAR_SEQLEN], report=str(tp_plan),
+                peak_bytes=tp_plan.peak_bytes,
+                ranks_sum_bytes=PAR_RANKS * tp_plan.peak_bytes,
+                seconds=time.perf_counter() - t0)
+    emit(line)
+    if PAR_RANKS * tp_plan.peak_bytes > card:
+        raise RuntimeError(f"the plan does not fit the card: {line}")
     ckpt_dir = os.path.join(ROOT, "build", "smoke_parallel")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     t = time.perf_counter()
@@ -3394,7 +3691,7 @@ def parallel_checks(dev) -> dict:
     lo, hi = PAR_MEM_BAND
     per_rank = []
     for r in ranks:
-        steady = sum(r["step_s"][1:]) / (PAR_STEPS - 1)
+        steady = sum(r["step_s"]) / PAR_STEPS
         per_rank.append({
             "rank": r["rank"], "step_s": r["step_s"],
             "ms_per_step": steady * 1e3,
@@ -3414,17 +3711,17 @@ def parallel_checks(dev) -> dict:
             "rel_tol": tol,
             "fault": "rank 1's share of the down_proj latent's "
                      "reduce-scatters (every layer) dropped",
+            "fault_rows": FAULT_ROWS,
             "fault_grad_max_rel_err": r0["fault_grad_max_rel_err"],
             "metrics": r0["metrics"], "want_launches": r0["want_launches"],
             "per_rank": per_rank, "mem_band": list(PAR_MEM_BAND),
             "plan_peak_bytes": plan.peak_bytes,
             "tok_per_s_global": PAR_BATCH * PAR_SEQLEN / max(
-                sum(r["step_s"][1:]) / (PAR_STEPS - 1) for r in ranks),
-            "rank0_profiled_step_device_ms": r0["profiled_step_device_ms"],
-            "rank0_busy_share": r0["profiled_step_device_ms"] / (
-                r0["step_s"][-1] * 1e3),
-            "rank0_top_kernels": r0["top_kernels"],
-            "ckpt_step": r0["ckpt_step"], "wall_s": wall}
+                sum(r["step_s"]) / PAR_STEPS for r in ranks),
+            "step_s_of": "step 1: its gradients and update, not the "
+                         "gradients' gather to the host between them",
+            "ckpt_step": r0["ckpt_step"], "wall_s": wall,
+            "timeline_s": [r["timeline_s"] for r in ranks]}
     emit(line)
     finite = all(math.isfinite(v) for r in ranks for m in r["metrics"]
                  for v in m.values())
@@ -3439,9 +3736,16 @@ def parallel_checks(dev) -> dict:
           and ranks[0]["metrics"] == ranks[1]["metrics"])
     if not ok:
         raise RuntimeError(f"the sharded KD step: {line}")
-    return {k: r0["launches"].get(k, 0)
-            for k in (fc.FLASH_BF16.name, fc.FLASH_DKV_BF16.name,
-                      fc.FLASH_DQ_BF16.name)}
+    line, ok = _tp_train_line(ranks, tp_plan)
+    emit(line)
+    if not ok:
+        raise RuntimeError(f"the tensor-parallel KD step: {line}")
+    names = (fc.FLASH_BF16.name, fc.FLASH_DKV_BF16.name,
+             fc.FLASH_DQ_BF16.name)
+    return {"parallel_launches": {k: r0["launches"].get(k, 0)
+                                  for k in names},
+            "tp_train_launches": {k: r0["tp"]["launches"].get(k, 0)
+                                  for k in names}}
 
 
 # ---------------------------------------------------------------------------
@@ -5013,8 +5317,8 @@ def main() -> int:
          **results[k.name],
          **({"launches_of": "rank 0 of the dense tensor-parallel run"}
             if k.name.startswith("bitlinear_raw") else {}),
-         **({"parallel_launches": parallel[k.name]}
-            if k.name in parallel else {})}
+         **{key: counts[k.name] for key, counts in parallel.items()
+            if k.name in counts}}
         for k in all_kernels()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

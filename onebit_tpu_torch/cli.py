@@ -8,7 +8,7 @@
         [--max-steps N] [KD and optimizer flags] [--device cuda|cpu]
     python -m onebit_tpu_torch train --config FILE.yaml|FILE.json [flags]
     python -m onebit_tpu_torch train --dry-compile --model NAME \\
-        [--mesh 8x1] [--batch-size 8] [--cutoff-len 2048] [--hbm-gb 80]
+        [--mesh 4x2] [--batch-size 8] [--cutoff-len 2048] [--hbm-gb 80]
     python -m onebit_tpu_torch convert TRAIN_CKPT OUT_DIR \\
         [--format native|reference|sharded] [--device ...]
     python -m onebit_tpu_torch build-draft STUDENT_DIR OUT_DIR \\
@@ -43,8 +43,9 @@ with ``--coordinator HOST:PORT --num-processes N --process-id I``, or under
 torchrun with ``--distributed``. Each process is one rank, on
 ``cuda:{rank % device_count}`` (or the CPU with ``--device cpu``), and
 joins the group before it computes anything (``parallel/mesh.py``
-``initialize_distributed``): ``train`` trains fully sharded over the N
-ranks (nccl under ``--device cuda``, a card a rank; gloo on the CPU),
+``initialize_distributed``): ``train`` trains sharded over the N ranks
+on JAX's default ``(data, model)`` mesh, ``(gcd(N, batch), N // gcd)``
+(nccl under ``--device cuda``, a card a rank; gloo on the CPU),
 ``eval`` runs in every rank as one process does, and ``serve --tp N``
 runs rank ``--process-id`` of its N tensor-parallel ranks, rank 0 the front
 end.
@@ -212,10 +213,10 @@ def _report(report, hbm_gb) -> None:
 
 
 def _dry_compile_train(args) -> None:
-    """One rank's fully sharded KD step at the geometry of ``--model`` (or
-    the student's config.json) on ``--mesh``, on fake tensors
-    (``parallel/memplan.py``), with the flags' KD terms and ``--remat``:
-    no weights, no card."""
+    """One rank's sharded KD step at the geometry of ``--model`` (or the
+    student's config.json) on the ``(data, model)`` mesh ``--mesh``, on
+    fake tensors (``parallel/memplan.py``), with the flags' KD terms and
+    ``--remat``: no weights, no card."""
     from onebit_tpu_torch.parallel.memplan import (config_only,
                                                    dry_run_train, parse_mesh)
     from onebit_tpu_torch.train.trainer import TrainConfig
@@ -225,7 +226,7 @@ def _dry_compile_train(args) -> None:
         report = dry_run_train(config, mesh, args.batch_size,
                                args.cutoff_len, kd_cfg=_kd_config(args),
                                train_cfg=TrainConfig(remat=args.remat))
-    except NotImplementedError as e:
+    except ValueError as e:
         raise SystemExit(str(e))
     _report(report, args.hbm_gb)
 
@@ -738,9 +739,8 @@ def build_parser() -> argparse.ArgumentParser:
                    "card")
     t.add_argument("--model", help="named geometry for --dry-compile "
                    "(llama-7b/llama2-7b/llama-13b/llama2-13b)")
-    t.add_argument("--mesh", default="8x1",
-                   help="DATAxMODEL mesh for --dry-compile (default 8x1; "
-                   "the model axis must be 1)")
+    t.add_argument("--mesh", default="4x2",
+                   help="DATAxMODEL mesh for --dry-compile (default 4x2)")
     t.add_argument("--hbm-gb", type=float, default=None,
                    help="exit nonzero when --dry-compile's per-card peak "
                    "passes this budget (H100: 80)")

@@ -348,9 +348,9 @@ def forward(params, input_ids, config: BitLlamaConfig, *,
     non-reentrant; its two halves apart, so that the backward holds one
     half's activations at a time), which runs B11's forward a second time.
     ``proj``
-    replaces :func:`default_proj`'s strategy over ``params``: a data-
-    parallel rank's, which gathers each layer's shards at use
-    (``parallel/sharding.py``)."""
+    replaces :func:`default_proj`'s strategy over ``params``: a sharded
+    rank's, which gathers each layer's shards at use and on a model axis
+    runs its heads (``parallel/sharding.py``)."""
     b, s = input_ids.shape
     device = input_ids.device
     if proj is None:
@@ -376,7 +376,9 @@ def forward(params, input_ids, config: BitLlamaConfig, *,
         mask = _causal_mask(s, s, 0, device)
         if attention_mask is not None:
             mask = mask & (attention_mask[:, None, None, :] > 0)
-    g = config.num_kv_groups
+    # the query heads a KV head serves on the heads the strategy holds (a
+    # tensor-parallel rank may hold fewer than a group of them)
+    g = proj.nh // proj.nkv
 
     def attention_half(x, i):
         probs = []

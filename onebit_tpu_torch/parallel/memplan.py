@@ -7,7 +7,8 @@ port runs the step itself, rank 0's, on fake tensors
 (``torch._subclasses.fake_tensor.FakeTensorMode``: shapes and dtypes, no
 storage) over a fake process group of N ranks
 (``torch.testing._internal.distributed.fake_pg.FakeStore``: every
-collective returns at once), and reads the peak of the bytes its tensors
+collective returns at once; on a ``(data, model)`` mesh its model and data
+groups are fake groups of it), and reads the peak of the bytes its tensors
 hold (:class:`_Peak`, a dispatch mode that counts each storage while it
 lives). These are private or testing APIs of torch (checked on 2.11 and
 2.13).
@@ -39,7 +40,6 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
 from onebit_tpu_torch.model.config import BitLlamaConfig
-from onebit_tpu_torch.parallel.mesh import MODEL_AXIS_WAIT
 
 GIB = 2 ** 30
 
@@ -183,26 +183,24 @@ def dry_run_train(config: BitLlamaConfig, mesh_shape: Tuple[int, int],
                   batch_size: int, seq_len: int, *, kd_cfg=None,
                   train_cfg=None, compute_dtype=torch.bfloat16,
                   teacher_dtype=torch.bfloat16) -> MemReport:
-    """One rank's fully sharded KD step (``train/trainer.py``
-    ``make_sharded_train_step``) at real geometry on a ``(data, 1)`` mesh:
-    the fp32 latent student, its AdamW moments and the teacher split over
-    the ranks, a global batch ``[batch_size, seq_len]``. On ``(1, 1)``:
-    the one-device step."""
+    """Rank 0's sharded KD step (``train/trainer.py``
+    ``make_sharded_train_step``) at real geometry on a ``(data, model)``
+    mesh, its two groups fake ones of the fake process group: the fp32
+    latent student, its AdamW moments and the teacher split over the ranks
+    as ``parallel/sharding.py`` ``mesh_layout`` splits them, a global batch
+    ``[batch_size, seq_len]``. On ``(1, 1)``: the one-device step."""
     from onebit_tpu_torch.model.bitllama import init_params
-    from onebit_tpu_torch.parallel.mesh import DataGroup
-    from onebit_tpu_torch.parallel.sharding import param_layout, shard_params
+    from onebit_tpu_torch.parallel.mesh import create_mesh
+    from onebit_tpu_torch.parallel.sharding import mesh_layout, shard_params
     from onebit_tpu_torch.train import trainer as tt
     from onebit_tpu_torch.train.losses import KDConfig
 
     data, model = mesh_shape
-    if model != 1:
-        raise NotImplementedError(f"mesh {tuple(mesh_shape)}: a model axis "
-                                  f"> 1 waits for {MODEL_AXIS_WAIT}")
     kd_cfg = kd_cfg or KDConfig()
     train_cfg = train_cfg or tt.TrainConfig()
     label = (f"train ({data}, {model}) B={batch_size} S={seq_len}"
              f"{' remat' if train_cfg.remat else ''}")
-    with _FakeRanks(data):
+    with _FakeRanks(data * model):
         cpu = torch.device("cpu")
         student = init_params(config, mode="latent", dtype=torch.float32,
                               device=cpu)
@@ -210,19 +208,19 @@ def dry_run_train(config: BitLlamaConfig, mesh_shape: Tuple[int, int],
                               device=cpu)
         ids = torch.zeros((batch_size, seq_len), dtype=torch.long)
         batch = {"input_ids": ids, "labels": ids}
-        if data == 1:
+        if data * model == 1:
             state = tt.init_train_state(student, train_cfg)
             step = tt.make_train_step(config, kd_cfg, train_cfg,
                                       compute_dtype=compute_dtype)
         else:
-            group = DataGroup(dist.group.WORLD, 0, data, cpu)
-            layout = param_layout(student, data)
-            t_layout = param_layout(teacher, data)
+            mesh = create_mesh((data, model), "cpu")
+            layout = mesh_layout(student, config, mesh.shape)
+            t_layout = mesh_layout(teacher, config, mesh.shape)
             state = tt.init_train_state(
-                shard_params(student, group, layout), train_cfg)
-            teacher = shard_params(teacher, group, t_layout)
+                shard_params(student, mesh, layout), train_cfg)
+            teacher = shard_params(teacher, mesh, t_layout)
             step = tt.make_sharded_train_step(
-                config, kd_cfg, train_cfg, group, layout, t_layout,
+                config, kd_cfg, train_cfg, mesh, layout, t_layout,
                 compute_dtype=compute_dtype)
         del student
         return _measure(label, (state.params, state.opt_state.mu,
@@ -326,10 +324,10 @@ def _tree_bytes(config: BitLlamaConfig, student_dtype, teacher_dtype):
 
 
 def parse_mesh(spec: str) -> Tuple[int, int]:
-    """``"8x1"`` -> ``(8, 1)`` (``onebit_tpu/cli.py`` ``_parse_mesh``)."""
+    """``"4x2"`` -> ``(4, 2)`` (``onebit_tpu/cli.py`` ``_parse_mesh``)."""
     parts = spec.lower().split("x")
     if len(parts) != 2:
-        raise SystemExit(f"--mesh must be DATAxMODEL (e.g. 8x1), got {spec}")
+        raise SystemExit(f"--mesh must be DATAxMODEL (e.g. 4x2), got {spec}")
     return int(parts[0]), int(parts[1])
 
 

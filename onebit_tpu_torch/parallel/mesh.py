@@ -9,7 +9,16 @@ collectives that GSPMD or the shard_map bodies insert become
 * :class:`TPGroup`, the ``model`` axis of tensor-parallel serving: each
   rank holds its slices of the weights and of the KV heads;
 * :class:`DataGroup`, the ``data`` axis of fully sharded training
-  (``parallel/sharding.py``): all-gather, reduce-scatter and all-reduce.
+  (``parallel/sharding.py``): all-gather, reduce-scatter and all-reduce;
+* :class:`Mesh2D`, one rank's place on a ``(data, model)`` mesh of
+  training: its model group (a ``TPGroup`` of the ``m`` ranks that share
+  its data index) and its data group (a ``DataGroup`` of the ``d`` ranks
+  that share its model index), in JAX's rank order
+  (``np.asarray(devices).reshape(shape)``): rank ``r`` at data index
+  ``r // m`` and model index ``r % m``.
+
+A group of one rank holds no process group, and its collectives return
+their input: the sum or the concatenation over one rank.
 
 The backend and the device are always the caller's explicit choice, and
 nothing here switches either on its own:
@@ -41,7 +50,7 @@ import queue as queue_mod
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, Optional, Sequence
+from typing import Any, Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -53,10 +62,6 @@ _ALL_GATHER = getattr(dist, "all_gather_single", None) or \
     dist.all_gather_into_tensor
 _REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or \
     dist.reduce_scatter_tensor
-# what training on a model axis > 1 waits for
-MODEL_AXIS_WAIT = ("tensor-parallel training, whose BitLinear backward "
-                   "reduces the LayerNorm statistics across shards "
-                   "(ROADMAP.md §1 item 8)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +76,8 @@ class TPGroup:
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """Sum ``t`` over the ranks, in place; returns it."""
-        dist.all_reduce(t, group=self.group)
+        if self.size > 1:
+            dist.all_reduce(t, group=self.group)
         return t
 
     def all_gather(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -109,6 +115,8 @@ class DataGroup:
 
     def all_gather(self, shard: torch.Tensor) -> torch.Tensor:
         """Every rank's ``shard`` concatenated along axis 0, rank order."""
+        if self.size == 1:
+            return shard.clone(memory_format=torch.contiguous_format)
         shard = shard.contiguous()
         out = shard.new_empty((self.size * shard.shape[0], *shard.shape[1:]))
         _ALL_GATHER(out, shard, group=self.group)
@@ -117,6 +125,8 @@ class DataGroup:
     def reduce_scatter(self, full: torch.Tensor) -> torch.Tensor:
         """Block ``rank`` along axis 0 of the sum of every rank's
         ``full``."""
+        if self.size == 1:
+            return full
         full = full.contiguous()
         if full.shape[0] % self.size:
             raise ValueError(f"{full.shape[0]} rows do not split over "
@@ -127,21 +137,52 @@ class DataGroup:
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """Sum ``t`` over the ranks, in place; returns it."""
-        dist.all_reduce(t, group=self.group)
+        if self.size > 1:
+            dist.all_reduce(t, group=self.group)
         return t
 
 
-def create_data_group(device: str) -> DataGroup:
-    """This process's :class:`DataGroup` over the default process group
-    (every rank of it on the data axis); sets a CUDA rank's device."""
+@dataclasses.dataclass(frozen=True)
+class Mesh2D:
+    """One rank's place on a ``(data, model)`` mesh: the shape, the rank
+    in the launch, its data group (the ``data`` ranks that share its model
+    index; group rank = data index) and its model group (the ``model``
+    ranks that share its data index; group rank = model index)."""
+    shape: Tuple[int, int]
+    rank: int
+    data: DataGroup
+    model: TPGroup
+    device: torch.device
+
+
+def create_mesh(shape: Sequence[int], device: str) -> Mesh2D:
+    """This process's :class:`Mesh2D` over the default process group,
+    whose ``d·m`` ranks all call this (``new_group`` is collective: every
+    rank makes every group, in one order). Sets a CUDA rank's device."""
     if not dist.is_initialized():
         raise RuntimeError("torch.distributed is not initialised: call "
                            "initialize_distributed first")
-    rank = dist.get_rank()
+    d, m = (int(x) for x in shape)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if d * m != world:
+        raise ValueError(f"mesh shape {(d, m)} needs {d * m} ranks, the "
+                         f"process group has {world}")
     dev = rank_device(rank, device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    return DataGroup(dist.group.WORLD, rank, dist.get_world_size(), dev)
+    di, mj = divmod(rank, m)
+
+    def mine(size: int, rows, want: int):
+        if size == 1:
+            return None
+        if size == world:
+            return dist.group.WORLD
+        groups = [dist.new_group(list(r)) for r in rows]
+        return groups[want]
+    model = mine(m, [range(i * m, (i + 1) * m) for i in range(d)], di)
+    data = mine(d, [range(j, world, m) for j in range(m)], mj)
+    return Mesh2D((d, m), rank, DataGroup(data, di, d, dev),
+                  TPGroup(model, mj, m, dev), dev)
 
 
 def rank_device(rank: int, device: str) -> torch.device:

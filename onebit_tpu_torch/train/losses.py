@@ -22,7 +22,13 @@ means over the global batch. So each loss takes the global batch's
 denominators (``batch_size``, ``valid_tokens``): a rank's loss is then its
 share of the global one, and the ranks' shares sum to it
 (``train/trainer.py`` ``make_sharded_train_step``). Without them the
-denominators are the tensors' own.
+denominators are the tensors' own. A rank of a model axis holds the whole
+logits and hidden states, but only its heads' attention maps: the
+attention-map loss then takes the model group (``heads_group``), counts
+its rows over every rank's heads, and sums the ranks' shares forward
+(``kernels/bitlinear_sharded.py`` ``reduce_from_model``: each rank's
+share is the only path to its heads, so the backward passes the gradient
+as it is).
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+from onebit_tpu_torch.kernels.bitlinear_sharded import reduce_from_model
 
 IGNORE_INDEX = -100  # HF convention (llamafactory/extras.py IGNORE_INDEX)
 
@@ -111,15 +119,23 @@ def hidden_state_loss(student_hidden, teacher_hidden, num_layers: int,
 
 
 def attention_map_loss(student_attn, teacher_attn, num_layers: int,
-                       batch_size: Optional[int] = None):
+                       batch_size: Optional[int] = None, heads_group=None):
     """Attention-map MSE (reference kd.py:100-111) on stacked
-    ``[L, B, H, S, T]`` maps; rows are not normalized."""
+    ``[L, B, H, S, T]`` maps; rows are not normalized. ``heads_group``: the
+    model group whose ranks hold the other heads (see the module
+    docstring)."""
     rows = _global_rows(student_attn, 1, batch_size)
+    if heads_group is not None:
+        if rows is None:
+            rows = student_attn[0].numel() // student_attn.shape[-1]
+        rows *= heads_group.size
     s = student_attn[:num_layers].float().reshape(num_layers, -1,
                                                  student_attn.shape[-1])
     t = teacher_attn[:num_layers].float().reshape(num_layers, -1,
                                                  teacher_attn.shape[-1])
-    return _row_mean(((t - s) ** 2).sum(-1), rows).sum()
+    loss = _row_mean(((t - s) ** 2).sum(-1), rows).sum()
+    return loss if heads_group is None else reduce_from_model(loss,
+                                                              heads_group)
 
 
 def kd_total_loss(cfg: KDConfig, *, student_logits, teacher_logits, labels,
@@ -129,12 +145,14 @@ def kd_total_loss(cfg: KDConfig, *, student_logits, teacher_logits, labels,
                   teacher_attn: Optional[torch.Tensor] = None,
                   num_layers: Optional[int] = None,
                   batch_size: Optional[int] = None,
-                  valid_tokens: Optional[torch.Tensor] = None):
+                  valid_tokens: Optional[torch.Tensor] = None,
+                  heads_group=None):
     """The combined KD objective (reference kd.py:71-111) -> ``(total,
     metrics)``; the metrics are 0-d tensors keyed ``kd_loss``,
     ``student_loss`` and ``loss``, plus ``pkd_loss`` / ``attn_loss`` when
     their terms are on. ``batch_size`` and ``valid_tokens``: the global
-    batch's denominators (see the module docstring)."""
+    batch's denominators; ``heads_group``: the model group of split heads
+    (see the module docstring)."""
     kl = (kd_kl_loss(student_logits, teacher_logits, batch_size)
           if cfg.kd_loss_scale > 0 else student_logits.new_zeros(()))
     ce = causal_ce_loss(student_logits, labels, valid_tokens=valid_tokens)
@@ -147,7 +165,7 @@ def kd_total_loss(cfg: KDConfig, *, student_logits, teacher_logits, labels,
         metrics["pkd_loss"] = pkd
     if cfg.kd_gamma > 0 and student_attn is not None:
         attn = attention_map_loss(student_attn, teacher_attn, num_layers,
-                                  batch_size)
+                                  batch_size, heads_group)
         total = total + cfg.kd_gamma * attn
         metrics["attn_loss"] = attn
     metrics["loss"] = total

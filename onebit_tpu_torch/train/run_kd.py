@@ -3,18 +3,22 @@
 Port of ``onebit_tpu/train/run_kd.py``: pre-chunked token blocks -> the
 train loop with jsonl logging, held-out evaluation, periodic checkpoints
 with rotation, resume, the final native checkpoint under ``final/`` and
-loss plots. On one device, or fully sharded over the ranks of a data axis
-(``parallel/sharding.py``, ``train/trainer.py``
+loss plots. On one device, or sharded over the ranks of a ``(data,
+model)`` mesh (``parallel/sharding.py``, ``train/trainer.py``
 ``make_sharded_train_step``) when the default process group has more than
-one rank: a mesh ``(N, 1)``, params, teacher and moments split over all N.
-Rank 0 alone writes the jsonl log, the plots and the final checkpoint.
+one rank: params, teacher and moments split over every rank, the model
+axis tensor-parallel. The mesh is ``mesh_shape`` or JAX's default
+(:func:`pick_mesh`). Rank 0 alone writes the jsonl log, the plots and the
+final checkpoint.
 
 The resume state is the port's own: ``train_state.pt`` (the params under
 their native-checkpoint keys, the Adam moments, the step; in a group
-gathered to rank 0, which writes it once), or with ``sharded_ckpt`` a
+gathered over both axes to rank 0, which writes it once: the file of a
+one-device run, which any mesh resumes), or with ``sharded_ckpt`` a
 ``train_state.dcp/`` directory of ``torch.distributed.checkpoint`` files that
 each rank writes its blocks into and reads them from
-(``ckpt/sharded.py``). optax's state pytree has no torch counterpart, so
+(``ckpt/sharded.py``; each block written with its place in the full
+tensor, so that another mesh reads the blocks it needs). optax's state pytree has no torch counterpart, so
 the JAX package's ``train_state.npz`` and orbax states do not load here,
 nor the port's there.
 """
@@ -35,9 +39,10 @@ import torch.distributed as dist
 from onebit_tpu_torch.ckpt.native import save_native
 from onebit_tpu_torch.ckpt.sharded import load_dcp, save_dcp
 from onebit_tpu_torch.model.config import BitLlamaConfig
-from onebit_tpu_torch.parallel.mesh import MODEL_AXIS_WAIT, DataGroup
-from onebit_tpu_torch.parallel.sharding import (Layout, gather_leaf,
-                                                gather_params, param_layout,
+from onebit_tpu_torch.parallel.mesh import Mesh2D, create_mesh
+from onebit_tpu_torch.parallel.sharding import (MeshLayout, block,
+                                                gather_full,
+                                                gather_params, mesh_layout,
                                                 shard_params)
 from onebit_tpu_torch.train.data import batch_iterator, split_dataset
 from onebit_tpu_torch.train.losses import KDConfig
@@ -59,47 +64,50 @@ STATE_DIR = "train_state.dcp"
 JAX_STATES = ("train_state.npz", "train_state")
 
 
-def state_split(state: TrainState, layout: Layout) -> Dict[str, int]:
-    """The split axis of each of :func:`state_tensors`' keys that is split
-    over the ranks: a split param's, and its moments'."""
-    split = {f"params.{k}": a for k, a in layout.items()}
-    for i, (key, _) in enumerate(named_trainable(state.params)):
-        if key in layout:
-            split[f"mu.{i}"] = split[f"nu.{i}"] = layout[key]
-    return split
+def state_split(state: TrainState, layout: MeshLayout) -> MeshLayout:
+    """The split axes of :func:`state_tensors`' keys: a split param's, and
+    its moments'."""
+    def of(split):
+        out = {f"params.{k}": a for k, a in split.items()}
+        for i, (key, _) in enumerate(named_trainable(state.params)):
+            if key in split:
+                out[f"mu.{i}"] = out[f"nu.{i}"] = split[key]
+        return out
+    return MeshLayout(of(layout.data), of(layout.model))
 
 
 def save_train_state(path: str, state: TrainState, sharded: bool = False,
-                     *, group: Optional[DataGroup] = None,
-                     layout: Optional[Layout] = None) -> None:
+                     *, mesh: Optional[Mesh2D] = None,
+                     layout: MeshLayout = MeshLayout({}, {})) -> None:
     """``sharded``: ``path/train_state.dcp/`` in DCP's files, each rank's
     blocks written by that rank. Else ``path/train_state.pt`` on the host;
-    in a group every leaf is gathered (a collective: every rank calls this)
+    on a mesh every leaf is gathered (a collective: every rank calls this)
     and rank 0 alone writes the file."""
     flat = state_tensors(state)
-    split = state_split(state, layout or {}) if group is not None else {}
+    split = state_split(state, layout)
     if sharded:
         save_dcp(os.path.join(os.path.abspath(path), STATE_DIR), flat,
-                 split, group)
+                 split, mesh)
         return
-    host = {k: gather_leaf(v, split.get(k), group).cpu()
-            if k in split else v.detach().cpu() for k, v in flat.items()}
-    if group is None or group.rank == 0:
+    host = {k: (v.detach() if mesh is None
+                else gather_full(v, k, split, mesh)).cpu()
+            for k, v in flat.items()}
+    if mesh is None or mesh.rank == 0:
         os.makedirs(path, exist_ok=True)
         torch.save(host, os.path.join(path, STATE_FILE))
 
 
 def load_train_state(path: str, template: TrainState, *,
-                     group: Optional[DataGroup] = None,
-                     layout: Optional[Layout] = None) -> TrainState:
-    """The state saved under ``path`` (either layout), copied into
-    ``template``'s tensors (the params and moments of
-    :func:`init_train_state`; in a group the rank's blocks)."""
+                     mesh: Optional[Mesh2D] = None,
+                     layout: MeshLayout = MeshLayout({}, {})) -> TrainState:
+    """The state saved under ``path`` (either layout, from any mesh),
+    copied into ``template``'s tensors (the params and moments of
+    :func:`init_train_state`; on a mesh the rank's blocks)."""
     flat = state_tensors(template)
-    split = state_split(template, layout or {}) if group is not None else {}
+    split = state_split(template, layout)
     if os.path.isdir(os.path.join(path, STATE_DIR)):
         load_dcp(os.path.join(os.path.abspath(path), STATE_DIR), flat, split,
-                 group)
+                 mesh)
     elif not os.path.exists(os.path.join(path, STATE_FILE)):
         jax = [n for n in JAX_STATES if os.path.exists(os.path.join(path, n))]
         if jax:
@@ -109,11 +117,12 @@ def load_train_state(path: str, template: TrainState, *,
                 f"own, {STATE_FILE} or {STATE_DIR}/")
         raise FileNotFoundError(f"no {STATE_FILE} or {STATE_DIR}/ in {path}")
     else:
-        saved = torch.load(os.path.join(path, STATE_FILE), weights_only=True)
-        for k, axis in split.items():
-            size = saved[k].shape[axis] // group.size
-            saved[k] = saved[k].narrow(axis, group.rank * size, size)
-        flat = saved
+        flat = torch.load(os.path.join(path, STATE_FILE), weights_only=True)
+        if mesh is not None:
+            for axes, g in ((split.model, mesh.model), (split.data,
+                                                        mesh.data)):
+                for k, axis in axes.items():
+                    flat[k] = block(flat[k], axis, g.size, g.rank, "cpu")
     return load_state_tensors(template, flat)
 
 
@@ -138,7 +147,7 @@ class KDRunConfig:
     max_steps: Optional[int] = None
     log_steps: int = 10
     save_steps: int = 5000          # reference llama_7b.sh:46
-    mesh_shape: Optional[tuple] = None   # (data, model); model must be 1
+    mesh_shape: Optional[tuple] = None   # (data, model); default pick_mesh
     compute_dtype: Any = torch.bfloat16
     resume_from: Optional[str] = None
     plot: bool = True
@@ -156,26 +165,22 @@ class KDRunConfig:
     save_total_limit: Optional[int] = None
 
 
-def data_axis(run_cfg: KDRunConfig, world: int) -> int:
-    """The data axis of the run's mesh over ``world`` ranks: ``mesh_shape``
-    or JAX's default ``(gcd(world, batch), world // gcd)``
-    (``onebit_tpu/train/run_kd.py:150-159``); a model axis > 1 raises."""
+def pick_mesh(run_cfg: KDRunConfig, world: int) -> tuple:
+    """The run's ``(data, model)`` mesh over ``world`` ranks:
+    ``mesh_shape``, or JAX's default ``(gcd(world, batch), world // gcd)``
+    (``onebit_tpu/train/run_kd.py:150-162``)."""
     shape = run_cfg.mesh_shape
     if shape is None:
         d = math.gcd(world, run_cfg.batch_size)
         shape = (d, world // d)
     data, model = (int(x) for x in shape)
-    if model != 1:
-        raise NotImplementedError(
-            f"mesh_shape {(data, model)}: a model axis > 1 waits for "
-            f"{MODEL_AXIS_WAIT}; run_kd trains on meshes (N, 1)")
-    if data != world:
-        raise ValueError(f"mesh_shape {(data, model)} needs {data} ranks, "
-                         f"the process group has {world}")
+    if data * model != world:
+        raise ValueError(f"mesh shape {(data, model)} needs {data * model} "
+                         f"ranks, the process group has {world}")
     if run_cfg.batch_size % data != 0:
         raise ValueError(f"batch_size {run_cfg.batch_size} not divisible by "
                          f"data axis {data}")
-    return data
+    return data, model
 
 
 def run_kd(config: BitLlamaConfig, student_params, teacher_params,
@@ -183,24 +188,29 @@ def run_kd(config: BitLlamaConfig, student_params, teacher_params,
            train_cfg: TrainConfig = TrainConfig(),
            run_cfg: KDRunConfig = KDRunConfig(),
            eval_blocks: Optional[np.ndarray] = None,
-           device: Optional[str] = None) -> TrainState:
+           device: Optional[str] = None,
+           mesh: Optional[Mesh2D] = None) -> TrainState:
     """Train the student against the teacher on pre-chunked token blocks
     ``[N, S]``. The caller's student params are not changed: the run
     trains a copy. One process: on the device the params live on. When
     the default process group holds N > 1 ranks (``initialize_distributed``
     or ``spawn_tp``), every rank calls this with the full params (on any
     device, the host is best) and the same blocks, and trains its shards
-    on its device: ``cuda:{rank % device_count}`` for ``device="cuda"``,
-    the CPU for ``"cpu"`` (default: the params' device type). The
-    returned state then holds the rank's shards."""
-    world = dist.get_world_size() if dist.is_initialized() else 1
-    n_data = data_axis(run_cfg, world)
-    group = None
-    if n_data > 1:
-        from onebit_tpu_torch.parallel.mesh import create_data_group
-        group = create_data_group(device or student_params[
-            "embed_tokens"].device.type)
-    is_main = group is None or group.rank == 0
+    of the mesh (:func:`pick_mesh`) on its device: ``cuda:{rank %
+    device_count}`` for ``device="cuda"``, the CPU for ``"cpu"`` (default:
+    the params' device type). ``mesh``: the ranks' mesh, made by the
+    caller, in place of the default process group's. The returned state
+    then holds the rank's shards."""
+    if mesh is None:
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        shape = pick_mesh(run_cfg, world)
+        if world > 1:
+            mesh = create_mesh(shape, device or student_params[
+                "embed_tokens"].device.type)
+    elif run_cfg.batch_size % mesh.shape[0]:
+        raise ValueError(f"batch_size {run_cfg.batch_size} not divisible by "
+                         f"data axis {mesh.shape[0]}")
+    is_main = mesh is None or mesh.rank == 0
     if eval_blocks is None and run_cfg.val_split > 0:
         blocks, eval_blocks = split_dataset(blocks, run_cfg.val_split,
                                             seed=run_cfg.seed)
@@ -219,25 +229,25 @@ def run_kd(config: BitLlamaConfig, student_params, teacher_params,
     validate_train_run(config, kd_cfg, train_cfg, run_cfg,
                        n_blocks=len(blocks), block_len=int(blocks.shape[1]))
 
-    layout: Layout = {}
-    if group is None:
+    layout = MeshLayout({}, {})
+    if mesh is None:
         state = init_train_state(clone_params(student_params), train_cfg)
         step_fn = make_train_step(config, kd_cfg, train_cfg,
                                   compute_dtype=run_cfg.compute_dtype)
         eval_fn = make_eval_step(config, kd_cfg, train_cfg,
                                  compute_dtype=run_cfg.compute_dtype)
     else:
-        layout = param_layout(student_params, group.size)
-        t_layout = param_layout(teacher_params, group.size)
+        layout = mesh_layout(student_params, config, mesh.shape)
+        t_layout = mesh_layout(teacher_params, config, mesh.shape)
         state = init_train_state(
-            shard_params(student_params, group, layout), train_cfg)
-        teacher_params = shard_params(teacher_params, group, t_layout)
+            shard_params(student_params, mesh, layout), train_cfg)
+        teacher_params = shard_params(teacher_params, mesh, t_layout)
         step_fn = make_sharded_train_step(
-            config, kd_cfg, train_cfg, group, layout, t_layout,
+            config, kd_cfg, train_cfg, mesh, layout, t_layout,
             compute_dtype=run_cfg.compute_dtype)
         eval_fn = step_fn.eval_step
     if run_cfg.resume_from:
-        state = load_train_state(run_cfg.resume_from, state, group=group,
+        state = load_train_state(run_cfg.resume_from, state, mesh=mesh,
                                  layout=layout)
         logger.info(f"resumed from {run_cfg.resume_from} at step "
                     f"{state.step}")
@@ -293,7 +303,7 @@ def run_kd(config: BitLlamaConfig, student_params, teacher_params,
             # every rank takes part (DCP's writes and the gathers are
             # collectives); rank 0 alone writes train_state.pt
             save_train_state(ckpt_dir, state, sharded=run_cfg.sharded_ckpt,
-                             group=group, layout=layout)
+                             mesh=mesh, layout=layout)
             if is_main:
                 logger.info(f"saved {ckpt_dir}")
             if is_main and run_cfg.save_total_limit:
@@ -304,8 +314,8 @@ def run_kd(config: BitLlamaConfig, student_params, teacher_params,
     # end-of-run save_pretrained): convert and eval read it; the
     # checkpoint-* states are resume state, not a model
     final_dir = os.path.join(run_cfg.output_dir, "final")
-    params_out = (state.params if group is None
-                  else gather_params(state.params, layout, group, dst=0))
+    params_out = (state.params if mesh is None
+                  else gather_params(state.params, layout, mesh, dst=0))
     if is_main:
         save_native(final_dir, config, params_out)
         logger.info(f"final model -> {final_dir}")

@@ -1,8 +1,8 @@
 """The KD train step: masked AdamW over the trainable BitLinear leaves.
 
 Port of ``onebit_tpu/train/trainer.py``, on one device
-(:func:`make_train_step`) or fully sharded over the ranks of a data axis
-(:func:`make_sharded_train_step`, ``parallel/sharding.py``):
+(:func:`make_train_step`) or sharded over the ranks of a ``(data, model)``
+mesh (:func:`make_sharded_train_step`, ``parallel/sharding.py``):
 
 * only BitLinear float params train (latent weight, weight_scale,
   input_factor, bias): ``requires_grad`` is set on those leaves and cleared
@@ -36,9 +36,10 @@ import torch
 from onebit_tpu_torch.kernels.bitlinear import BitLinearWeights
 from onebit_tpu_torch.model.bitllama import forward
 from onebit_tpu_torch.model.config import BitLlamaConfig
-from onebit_tpu_torch.parallel.mesh import DataGroup
-from onebit_tpu_torch.parallel.sharding import (Layout, ShardGrads,
-                                                named_leaves, sharded_proj)
+from onebit_tpu_torch.parallel.mesh import Mesh2D
+from onebit_tpu_torch.parallel.sharding import (MeshLayout, ShardGrads,
+                                                model_partial, named_leaves,
+                                                sharded_proj)
 from onebit_tpu_torch.train.losses import (IGNORE_INDEX, KDConfig,
                                            kd_total_loss)
 
@@ -232,12 +233,13 @@ def _on(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
 
 def _build_loss(config: BitLlamaConfig, kd_cfg: KDConfig,
                 train_cfg: TrainConfig, compute_dtype, impl: str,
-                student_proj=None, teacher_proj=None):
+                student_proj=None, teacher_proj=None, heads_group=None):
     """Shared loss plumbing of the train and eval steps: ``(loss_fn(params,
     teacher_out, batch, **denominators) -> (total, metrics),
     teacher_fwd(teacher_params, batch) -> teacher_out | None)``.
     ``student_proj``/``teacher_proj``: ``params -> Proj``, a sharded
-    rank's strategies (default: one device's)."""
+    rank's strategies (default: one device's); ``heads_group``: the model
+    group whose ranks hold the other attention heads."""
     need_hidden = kd_cfg.kd_beta > 0
     need_attn = kd_cfg.kd_gamma > 0
     use_teacher = kd_cfg.kd_loss_scale > 0 or need_hidden or need_attn
@@ -272,7 +274,7 @@ def _build_loss(config: BitLlamaConfig, kd_cfg: KDConfig,
             labels=batch["labels"], student_hidden=s_hidden,
             teacher_hidden=t_hidden, student_attn=s_attn,
             teacher_attn=t_attn, num_layers=config.num_hidden_layers,
-            **denominators)
+            heads_group=heads_group, **denominators)
 
     @torch.no_grad()
     def teacher_fwd(teacher_params, batch):
@@ -364,35 +366,49 @@ def make_eval_step(config: BitLlamaConfig, kd_cfg: KDConfig,
 
 
 def make_sharded_train_step(config: BitLlamaConfig, kd_cfg: KDConfig,
-                            train_cfg: TrainConfig, group: DataGroup,
-                            layout: Layout, teacher_layout: Layout, *,
+                            train_cfg: TrainConfig, mesh: Mesh2D,
+                            layout: MeshLayout, teacher_layout: MeshLayout,
+                            *,
                             compute_dtype=torch.bfloat16,
                             impl: str = "auto"):
-    """The KD train step of one rank of a data axis, over its trees
-    (``parallel/sharding.py`` ``shard_params``; the student's split by
-    ``layout``, the teacher's by ``teacher_layout``), with its moments
+    """The KD train step of one rank of a ``(data, model)`` mesh, over its
+    trees (``parallel/sharding.py`` ``shard_params``; the student's split
+    by ``layout``, the teacher's by ``teacher_layout``), with its moments
     (:func:`init_train_state` of its tree): the function JAX's
-    ``make_train_step`` computes on ``shard_params(..., mesh)`` with the
-    mesh's data axis of ``group.size``.
+    ``make_train_step`` computes on ``shard_params(..., mesh)``.
 
     ``step(state, teacher_params, batch)`` takes the GLOBAL batch, the
     same on every rank. Micro-batch ``m`` is rows ``[m·B/A, (m+1)·B/A)``
-    of it (JAX's reshape), and the rank takes block ``rank`` of those rows
-    (so ``B/A`` must divide by the ranks). The losses are the rank's
-    shares of the micro-batch's global losses (its global batch size and
-    count of valid tokens; ``train/losses.py``); the split latent planes'
-    gradients are reduce-scattered into the rank's shards as the backward
-    reaches each layer, the whole leaves' are all-reduced after the last
-    micro-batch; the clip takes the global norm (the shards' squares
-    all-reduced), and AdamW updates the rank's shards and their moments.
-    ``metrics`` are the global ones, the same on every rank.
-    ``step.grads(state, teacher_params, batch) -> (grads, metrics)``: the
-    step without the update; a split leaf's gradient is the list of its
-    layers' shards. ``step.eval_step(params, teacher_params, batch)``:
-    the global metrics of the whole batch at once (``make_eval_step``'s),
-    without gradients."""
+    of it (JAX's reshape), and the rank takes block ``data index`` of
+    those rows (so ``B/A`` must divide by the data ranks): every rank of a
+    model group sees the same rows. The losses are the data rank's shares
+    of the micro-batch's global losses (its global batch size and count of
+    valid tokens; ``train/losses.py``). Gradients:
+
+    * a data-split latent plane's is reduce-scattered into the rank's
+      shards as the backward reaches each layer, every other leaf's
+      all-reduced over the data group after the last micro-batch;
+    * a leaf split over the model ranks keeps its own gradient; a leaf
+      whole over them of which each rank's backward gives a part
+      (``model_partial``: a column-parallel projection's g, and the leaves
+      of k and v kept whole) is summed over the model group first;
+    * the clip takes the global norm: each leaf's squares summed over the
+      ranks that hold distinct blocks of it, a leaf whole over an axis
+      counted once;
+
+    and AdamW updates the rank's shards and their moments. ``metrics`` are
+    the global ones, the same on every rank. ``step.grads(state,
+    teacher_params, batch) -> (grads, metrics)``: the step without the
+    update; a data-split leaf's gradient is the list of its layers'
+    shards. ``step.update(state, grads, metrics) -> (state, metrics)``:
+    the update of that output (``step`` is ``grads`` then ``update``).
+    ``step.eval_step(params, teacher_params, batch)``: the global
+    metrics of the whole batch at once (``make_eval_step``'s), without
+    gradients."""
     accum = max(train_cfg.grad_accum_steps, 1)
     schedule = make_schedule(train_cfg)
+    data, model = mesh.data, mesh.model
+    heads_group = model if model.size > 1 else None
 
     def step_losses(params, teacher_params, batch, parts, grads=None):
         """Yield ``(loss, metrics)`` of the rank's rows of each of the
@@ -401,24 +417,25 @@ def make_sharded_train_step(config: BitLlamaConfig, kd_cfg: KDConfig,
         device = params["embed_tokens"].device
         batch = _on(batch, device)
         n = batch["input_ids"].shape[0]
-        if n % parts or (n // parts) % group.size:
+        if n % parts or (n // parts) % data.size:
             raise ValueError(
                 f"batch {n} is not a multiple of {parts} micro-batch(es) x "
-                f"{group.size} data ranks")
+                f"{data.size} data ranks")
         micro_n = n // parts
-        per = micro_n // group.size
+        per = micro_n // data.size
 
         def proj(tree, layout_):
-            return sharded_proj(tree, layout_, config, group, impl=impl,
+            return sharded_proj(tree, layout_, config, mesh, impl=impl,
                                 compute_dtype=compute_dtype, grads=grads)
 
         loss_fn, teacher_fwd = _build_loss(
             config, kd_cfg, train_cfg, compute_dtype, impl,
             student_proj=lambda p: proj(p, layout),
-            teacher_proj=lambda p: proj(p, teacher_layout))
+            teacher_proj=lambda p: proj(p, teacher_layout),
+            heads_group=heads_group)
         for m in range(parts):
             lo = m * micro_n
-            mine = slice(lo + group.rank * per, lo + (group.rank + 1) * per)
+            mine = slice(lo + data.rank * per, lo + (data.rank + 1) * per)
             micro = {k: v[mine] for k, v in batch.items()}
             labels = batch["labels"][lo:lo + micro_n, 1:]
             teacher_out = teacher_fwd(teacher_params, micro)
@@ -427,7 +444,7 @@ def make_sharded_train_step(config: BitLlamaConfig, kd_cfg: KDConfig,
 
     def global_metrics(sums, parts):
         keys = sorted(sums)
-        total = group.all_reduce(torch.stack([sums[k] for k in keys]))
+        total = data.all_reduce(torch.stack([sums[k] for k in keys]))
         return dict(zip(keys, (total / parts).unbind()))
 
     def grads_of(state: TrainState, teacher_params, batch):
@@ -443,35 +460,47 @@ def make_sharded_train_step(config: BitLlamaConfig, kd_cfg: KDConfig,
             for k, v in metrics.items():
                 v = v.detach()
                 sums[k] = v if k not in sums else sums[k] + v
-        split_sq = whole_sq = torch.zeros((), device=sums["loss"].device)
+        # the squares by (split over model, split over data)
+        sq = {(a, b): torch.zeros((), device=sums["loss"].device)
+              for a in (True, False) for b in (True, False)}
         out = []
         for key, p in named:
-            if key in layout:
+            partial = model_partial(key, layout)
+            if key in layout.data:
                 g = [torch.zeros_like(p[i]) if x is None else x
                      for i, x in enumerate(grads.grads.get(key)
                                            or [None] * p.shape[0])]
+                g = [model.all_reduce(x) if partial else x for x in g]
                 g = [x / accum for x in g] if accum > 1 else g
-                split_sq = split_sq + sum((x.float() ** 2).sum() for x in g)
+                part = sum((x.float() ** 2).sum() for x in g)
             else:
-                g = group.all_reduce(p.grad if p.grad is not None
-                                     else torch.zeros_like(p))
+                g = p.grad if p.grad is not None else torch.zeros_like(p)
+                g = data.all_reduce(model.all_reduce(g) if partial else g)
                 g = g / accum if accum > 1 else g
-                whole_sq = whole_sq + (g.float() ** 2).sum()
+                part = (g.float() ** 2).sum()
+            bucket = (key in layout.model, key in layout.data)
+            sq[bucket] = sq[bucket] + part
             out.append(g)
         del grads
         for _, p in named:
             p.grad = None
         metrics = global_metrics(sums, accum)
-        metrics["grad_norm"] = torch.sqrt(group.all_reduce(split_sq)
-                                          + whole_sq)
+        both, m_only = model.all_reduce(
+            torch.stack([sq[True, True], sq[True, False]])).unbind()
+        both, d_only = data.all_reduce(
+            torch.stack([both, sq[False, True]])).unbind()
+        metrics["grad_norm"] = torch.sqrt(both + m_only + d_only
+                                          + sq[False, False])
         return out, metrics
 
-    def train_step(state: TrainState, teacher_params, batch):
-        grads, metrics = grads_of(state, teacher_params, batch)
+    def update(state: TrainState, grads, metrics):
         opt = _adamw_update(train_cfg, schedule,
                             trainable_leaves(state.params), grads,
                             state.opt_state, norm=metrics["grad_norm"])
         return TrainState(state.params, opt, state.step + 1), metrics
+
+    def train_step(state: TrainState, teacher_params, batch):
+        return update(state, *grads_of(state, teacher_params, batch))
 
     @torch.no_grad()
     def eval_step(params, teacher_params, batch):
@@ -482,6 +511,7 @@ def make_sharded_train_step(config: BitLlamaConfig, kd_cfg: KDConfig,
         return global_metrics(sums, 1)
 
     train_step.grads = grads_of
+    train_step.update = update
     train_step.eval_step = eval_step
     return train_step
 

@@ -1,7 +1,8 @@
 """Run ``chip_smoke.py``'s serving-surface, task-harness, task-registry
 and SFT phases alone on one card, and on request its decode-attention
 kernel checks, its paged fp8 served runs, its tensor-parallel phase and
-its parallel (fully sharded KD training) phase.
+its parallel phase (fully sharded KD training, then tensor-parallel KD
+training on the mesh (1, 2)).
 
     python scripts/torch_smoke_phases.py [serve_surface] [tasks] [registry]
         [sft] [attention_kernels] [paged_fp8] [tp] [serve_cli] [parallel]

@@ -1,7 +1,8 @@
 """Memory plans of the port (``parallel/memplan.py``) against the JAX
 package's hand model and the assertions of its ``tests/test_memplan.py``,
 restated for 80 GiB cards: the fully sharded 7B KD step at (8, 1) fits a
-card and lies within JAX's 0.7-1.3 band of the hand model; a 13B
+card and lies within JAX's 0.7-1.3 band of the hand model; a rank of a
+(data, model) mesh is planned over its two fake groups; a 13B
 tensor-parallel decode rank at TP 8 stays under 4 GiB; overflow raises with
 its accounting; both ``--dry-compile`` command lines run. The dry runs
 count the kernel path: a plain attention or BitLinear called on fake
@@ -17,8 +18,8 @@ from onebit_tpu_torch.kernels import attention as tattn
 from onebit_tpu_torch.kernels import bitlinear_cuda as tbc
 from onebit_tpu_torch.model.config import BitLlamaConfig
 from onebit_tpu_torch.parallel import memplan
-from onebit_tpu_torch.parallel.mesh import DataGroup
-from onebit_tpu_torch.parallel.sharding import param_layout, shard_params
+from onebit_tpu_torch.parallel.mesh import DataGroup, Mesh2D, TPGroup
+from onebit_tpu_torch.parallel.sharding import mesh_layout, shard_params
 from onebit_tpu_torch.train.trainer import TrainConfig, init_train_state
 
 
@@ -33,15 +34,16 @@ def kernel_path_only(monkeypatch):
         monkeypatch.setattr(tbc, name, refuse)
 
 
+@pytest.mark.parametrize("mesh", [(8, 1), (4, 2), (2, 2)], ids=str)
 @pytest.mark.parametrize("name", ["llama2-7b", "llama2-13b"])
-def test_analytic_train_bytes_equals_jax(name):
+def test_analytic_train_bytes_equals_jax(name, mesh):
     """The hand model is JAX's arithmetic on the same shapes: the same
-    bytes at (8, 1), batch 8 x 2048."""
+    bytes on each mesh, batch 8 x 2048."""
     from onebit_tpu.model.config import BitLlamaConfig as JaxConfig
     from onebit_tpu.parallel.memplan import analytic_train_bytes as jax_bytes
-    got = memplan.analytic_train_bytes(BitLlamaConfig.named(name), (8, 1),
+    got = memplan.analytic_train_bytes(BitLlamaConfig.named(name), mesh,
                                        8, 2048)
-    assert got == jax_bytes(JaxConfig.named(name), (8, 1), 8, 2048)
+    assert got == jax_bytes(JaxConfig.named(name), mesh, 8, 2048)
 
 
 def test_7b_sharded_kd_step_fits_a_card(kernel_path_only):
@@ -69,9 +71,18 @@ def test_overflow_raises_with_accounting(kernel_path_only):
     assert report.temp_bytes > 0 and report.argument_bytes > 0
 
 
-def test_model_axis_waits():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        memplan.dry_run_train(BitLlamaConfig.named("tiny"), (2, 2), 8, 64)
+def test_model_axis_plan(kernel_path_only):
+    """A rank of (2, 2) is planned over its two fake groups: its resident
+    inputs are a quarter of one device's and more (the vectors and norms
+    stay whole), and its peak is below one device's."""
+    config = BitLlamaConfig.named("tiny")
+    report = memplan.dry_run_train(config, (2, 2), 8, 64)
+    one = memplan.dry_run_train(config, (1, 1), 8, 64)
+    assert isinstance(report, memplan.MemReport)
+    assert report.label == "train (2, 2) B=8 S=64"
+    assert one.argument_bytes / 4 < report.argument_bytes \
+        < one.argument_bytes / 3
+    assert 0 < report.peak_bytes < one.peak_bytes
 
 
 def test_13b_tp8_serving_fits_easily(kernel_path_only):
@@ -92,9 +103,11 @@ def test_moments_are_sharded():
     from onebit_tpu_torch.model.bitllama import init_params
     config = BitLlamaConfig.named("tiny")
     full = init_params(config, mode="latent", device="cpu")
-    group = DataGroup(None, 1, 4, torch.device("cpu"))
-    layout = param_layout(full, 4)
-    state = init_train_state(shard_params(full, group, layout),
+    cpu = torch.device("cpu")
+    mesh = Mesh2D((4, 1), 1, DataGroup(None, 1, 4, cpu),
+                  TPGroup(None, 0, 1, cpu), cpu)
+    layout = mesh_layout(full, config, mesh.shape)
+    state = init_train_state(shard_params(full, mesh, layout),
                              TrainConfig())
     latent = state.params["layers"]["q_proj"].latent
     assert latent.shape[1] * 4 == full["layers"]["q_proj"].latent.shape[1]

@@ -29,9 +29,9 @@ import torch
 from onebit_tpu_torch.ckpt import sharded as tsh
 from onebit_tpu_torch.ckpt.native import load_native
 from onebit_tpu_torch.model.config import BitLlamaConfig
-from onebit_tpu_torch.parallel.mesh import DataGroup, spawn_tp
+from onebit_tpu_torch.parallel.mesh import create_mesh, spawn_tp
 from onebit_tpu_torch.parallel.sharding import (block, gather_params,
-                                                named_leaves, param_layout,
+                                                mesh_layout, named_leaves,
                                                 shard_params, unflatten)
 from onebit_tpu_torch.train import run_kd as trun
 from onebit_tpu_torch.train import trainer as tt
@@ -82,21 +82,21 @@ def _np_tree(params):
 def _rank_main(tp_group, work):
     """Every scenario on one rank; returns numpy results."""
     torch.set_num_threads(1)
-    group = DataGroup.of(tp_group)
+    mesh = create_mesh((N, 1), "cpu")
     out = {}
     cfg = BitLlamaConfig.named("tiny")
     student = load_native(work["student"], device="cpu")["params"]
     teacher = load_native(work["teacher"], device="cpu")["params"]
 
     # the sharded step: 3 steps of AdamW with clipping and accumulation
-    layout = param_layout(student, N)
-    t_layout = param_layout(teacher, N)
-    state = tt.init_train_state(shard_params(student, group, layout),
+    layout = mesh_layout(student, cfg, mesh.shape)
+    t_layout = mesh_layout(teacher, cfg, mesh.shape)
+    state = tt.init_train_state(shard_params(student, mesh, layout),
                                 tt.TrainConfig(**TRAIN))
     step = tt.make_sharded_train_step(
-        cfg, KDConfig(**KD), tt.TrainConfig(**TRAIN), group, layout,
+        cfg, KDConfig(**KD), tt.TrainConfig(**TRAIN), mesh, layout,
         t_layout, compute_dtype=torch.float32)
-    t_local = shard_params(teacher, group, t_layout)
+    t_local = shard_params(teacher, mesh, t_layout)
     metrics = []
     for batch in _batches():
         state, m = step(state, t_local, batch)
@@ -104,21 +104,22 @@ def _rank_main(tp_group, work):
     out["metrics"] = metrics
     out["eval"] = {k: float(v) for k, v in step.eval_step(
         state.params, t_local, _batches()[0]).items()}
-    out["params"] = _np_tree(gather_params(state.params, layout, group))
+    out["params"] = _np_tree(gather_params(state.params, layout, mesh))
     out["moment_shapes"] = [tuple(m.shape) for m in state.opt_state.mu]
-    out["layout"] = layout
+    out["layout"] = layout.data
+    out["model_layout"] = layout.model
 
     # a sharded checkpoint written from the ranks' shards, and one written
     # on the host read into the ranks' shards
-    tsh.save_sharded(work["from_ranks"], cfg, state.params, group=group,
+    tsh.save_sharded(work["from_ranks"], cfg, state.params, mesh=mesh,
                      layout=layout)
-    back = tsh.load_sharded(work["from_ranks"], group=group)
+    back = tsh.load_sharded(work["from_ranks"], mesh=mesh)
     out["reread_same"] = all(
         torch.equal(a, b) for (_, a), (_, b) in
         zip(named_leaves(back["params"]), named_leaves(state.params)))
-    host = tsh.load_sharded(work["from_host"], group=group)
+    host = tsh.load_sharded(work["from_host"], mesh=mesh)
     out["host_blocks"] = _np_tree(host["params"])
-    out["host_layout"] = host["layout"]
+    out["host_layout"] = host["layout"].data
 
     # run_kd: unbroken, resumed from its sharded step-2 state, and the
     # command line's run in process
@@ -288,6 +289,7 @@ def test_layout_and_sharded_moments(ranks):
     two ranks (the vectors stay whole), and each rank's moments have its
     shards' shapes: the moments are sharded as the params are."""
     layout = ranks[0]["layout"]
+    assert not ranks[0]["model_layout"]
     assert layout["embed_tokens"] == layout["lm_head"] == 0
     assert all(layout[f"layers.{n}.latent"] == 1 for n in
                ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",

@@ -124,9 +124,9 @@ def test_run_kd_matches_jax(models, tmp_path):
 
 def test_run_kd_resume_and_one_device(models, tmp_path):
     """A run resumed from its step-2 state ends where the unbroken run
-    ends, bit for bit; a mesh with a model axis > 1 raises naming ROADMAP.md
-    §1 item 8 (tensor-parallel training), and a resume from the JAX
-    package's orbax train state raises naming it."""
+    ends, bit for bit; the same run on a mesh (1, 2), two spawned gloo
+    ranks training tensor-parallel, ends within 1e-5 of the one-device run;
+    a resume from the JAX package's orbax train state raises naming it."""
     jc, teacher, student, c, blocks = models
     kw = dict(batch_size=2, max_steps=4, save_steps=2, plot=False,
               compute_dtype=torch.float32)
@@ -146,10 +146,20 @@ def test_run_kd_resume_and_one_device(models, tmp_path):
     for name in jb.PROJ_NAMES:
         for field, arr in a["layers"][name].items():
             assert arr.tobytes() == b["layers"][name][field].tobytes()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        trun.run_kd(c, _port(student, c), _port(teacher, c), blocks,
-                    run_cfg=trun.KDRunConfig(output_dir=str(tmp_path / "c"),
-                                             mesh_shape=(1, 2)))
+    from onebit_tpu_torch.parallel.mesh import spawn_tp
+    from tests.test_torch_tp_train import run_kd_rank
+    save_native(str(tmp_path / "student"), c, _port(student, c))
+    save_native(str(tmp_path / "teacher"), c, _port(teacher, c))
+    np.save(tmp_path / "blocks.npy", blocks)
+    steps = spawn_tp(run_kd_rank, 2, backend="gloo", device="cpu",
+                     timeout=240, args=(
+                         str(tmp_path / "student"), str(tmp_path / "teacher"),
+                         str(tmp_path / "blocks.npy"), KD,
+                         dict(output_dir=str(tmp_path / "c"),
+                              mesh_shape=(1, 2), **kw)))
+    assert steps == [4, 4]
+    tp = load_native(str(tmp_path / "c" / "final"), device="cpu")["params"]
+    _same_params(params_to_numpy(tp), a, _tree(student))
     orbax = tmp_path / "jax_ckpt"
     (orbax / "train_state").mkdir(parents=True)
     with pytest.raises(ValueError, match="JAX package's train state"):
@@ -254,14 +264,12 @@ def test_cli_pipeline(models, tmp_path, capsys):
 
 @pytest.mark.parametrize("cmd", [
     ["train", "--data", "d", "--dataset", "kd"], ["train", "--tokenizer", "t"],
-    ["train", "--dry-compile", "--model", "llama2-7b", "--mesh", "4x2"],
     ["train", "--sharded-ckpt"],
     ["convert", "ORBAX", "y", "--format", "sharded"]],
-    ids=["text", "tokenizer", "dry-compile", "sharded", "convert-sharded"])
+    ids=["text", "tokenizer", "sharded", "convert-sharded"])
 def test_cli_unported_exit_nonzero(cmd, tmp_path):
-    """What the port refuses exits nonzero, saying why: a model axis > 1
-    (``--dry-compile --mesh 4x2``) names ROADMAP.md §1 item 8, and the JAX
-    package's orbax checkpoint names orbax. The text dataset flags and
+    """What the port refuses exits nonzero, saying why: the JAX package's
+    orbax checkpoint names orbax. The text dataset flags and
     ``--sharded-ckpt`` are ported: without checkpoints the parser exits
     nonzero (2)."""
     orbax = tmp_path / "orbax"
@@ -276,4 +284,18 @@ def test_cli_unported_exit_nonzero(cmd, tmp_path):
         assert "--student and --teacher" in run.stderr
         return
     assert "not ported yet" not in run.stderr
-    assert ("item 8" if "--dry-compile" in cmd else "orbax") in run.stderr
+    assert "orbax" in run.stderr
+
+
+def test_cli_dry_compile_model_axis(capsys):
+    """``train --dry-compile --model llama2-7b --mesh 4x2``, JAX's default
+    mesh, plans one rank of the tensor-parallel step (batch 4 x 2048, a
+    row a data rank) and prints it; ``--mesh`` defaults to 4x2."""
+    from onebit_tpu_torch import cli
+    cli.main(["train", "--dry-compile", "--model", "llama2-7b", "--mesh",
+              "4x2", "--hbm-gb", "80", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "train (4, 2) B=4 S=2048: peak" in out
+    assert "fits the 80 GiB/card budget" in out
+    args = cli.build_parser().parse_args(["train", "--dry-compile"])
+    assert args.mesh == "4x2"
