@@ -54,6 +54,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import hashlib
 import itertools
 import time
@@ -66,6 +67,7 @@ import torch
 from onebit_tpu_torch.engine.block_graph import BlockGraph, BlockOut
 from onebit_tpu_torch.engine.paged import (PageAllocator,
                                            init_paged_kv_cache,
+                                           paged_chunk_append_row,
                                            paged_chunked_prefill_row,
                                            paged_decode_block,
                                            paged_decode_step,
@@ -78,13 +80,14 @@ from onebit_tpu_torch.model.bitllama import init_kv_cache
 from onebit_tpu_torch.model.config import BitLlamaConfig
 from onebit_tpu_torch.model.kv_cache import (init_quant_kv_cache_kt,
                                              init_quant_kv_cache_kt4)
-from onebit_tpu_torch.model.ragged_decode import (chunked_prefill_row,
+from onebit_tpu_torch.model.ragged_decode import (chunk_append_row,
+                                                  chunked_prefill_row,
                                                   prefill_rows,
                                                   ragged_decode_block,
                                                   ragged_decode_step)
 from onebit_tpu_torch.model.tp_decode import shard_tp_params
 from onebit_tpu_torch.utils.device import resolve_device
-from onebit_tpu_torch.utils.profiling import ThroughputMeter
+from onebit_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass
@@ -97,8 +100,10 @@ class Request:
     # streaming hooks, run on the engine thread: keep them cheap
     on_token: Optional[Callable[[int], None]] = None
     on_done: Optional[Callable[[], None]] = None
-    # latency accounting (perf_counter timestamps)
+    # latency accounting (perf_counter timestamps); t_admit: when it
+    # left the queue for a slot
     t_submit: float = 0.0
+    t_admit: float = 0.0
     t_first_token: float = 0.0
     t_done: float = 0.0
 
@@ -286,7 +291,13 @@ class ContinuousBatchingEngine:
         self.total_tokens = 0
         self.total_requests = 0
         self.completed_requests = 0
-        self.meter = ThroughputMeter()
+        # prefill rows the model ran (padding included) and those the
+        # prompts needed; decode blocks started; pipelines that an
+        # admission flushed
+        self.prefill_rows_run = 0
+        self.prefill_rows_needed = 0
+        self.blocks_dispatched = 0
+        self.pipeline_flushes = 0
         self._lat_ttft = deque(maxlen=1024)
         self._lat_tpot = deque(maxlen=1024)
 
@@ -346,21 +357,46 @@ class ContinuousBatchingEngine:
 
     # -- scheduler ----------------------------------------------------------
     def step(self) -> None:
-        with self._bound():
+        with self._bound(), trace.span("engine.step"):
             self._admit()
-            self._decode()
+            with trace.span("decode"):
+                self._decode()
 
     def _admit(self) -> None:
-        """Admit waiting requests into free slots (batching.py:534-672).
-        Paged: reserve every page the request can need (its padded bucket
-        and its generation), waiting while the pool is short and failing a
-        request that can never fit; with prefix caching, hit pages are
-        retained at lookup, and a request whose first page an admission of
-        this round is about to prefill waits one round to share it."""
-        if self._pending is not None and self.waiting:
-            # admission needs the host's view of the slots: land the block
-            # in flight first
-            self._flush_pending()
+        """Admit waiting requests into free slots (batching.py:534-672):
+        take slots (:meth:`_take_slots`), prefill the planned admissions
+        a bucket at a time, and sample every admitted row's first token."""
+        with trace.span("admit") as sp:
+            if self._pending is not None and self.waiting:
+                # admission needs the host's view of the slots: land the
+                # block in flight first
+                self.pipeline_flushes += 1
+                with trace.span("admit.flush"):
+                    self._flush_pending()
+            with trace.span("admit.reserve"):
+                admitted, planned = self._take_slots()
+            admitted += self._batched_prefill(planned)
+            if not admitted:
+                return
+            if sp:
+                sp.set(uids=[self.slots[slot].uid for slot, _ in admitted])
+            with trace.span("admit.sample"):
+                # one batched sample and one host read for the whole round
+                toks = sample_token(torch.stack([lg for _, lg in admitted]),
+                                    self.generator,
+                                    self.sampling).cpu().numpy()
+                for (slot, _), tok in zip(admitted, toks):
+                    self._emit(slot, int(tok))
+
+    def _take_slots(self):
+        """Give waiting requests free slots, in order. Paged: reserve every
+        page the request can need (its padded bucket and its generation),
+        waiting while the pool is short and failing a request that can
+        never fit; with prefix caching, hit pages are retained at lookup,
+        and a request whose first page an admission of this round is about
+        to prefill waits one round to share it. A chunked admission is
+        prefilled here; returns ``(admitted, planned)``: those, with their
+        logits, and the batched prefills still to run."""
         admitted, planned = [], []
         round_keys = set()   # first-page digests of this round's prefills
         for slot in range(self.max_batch):
@@ -370,7 +406,7 @@ class ContinuousBatchingEngine:
             plen = len(req.prompt)
             bucket = min(_bucket(plen), self.max_len)
             if not self.paged:
-                self.waiting.pop(0)
+                self._leave_queue()
                 if self.prefill_chunk_size:
                     admitted.append((slot, self._chunked_admit(slot, req)))
                 else:
@@ -399,7 +435,7 @@ class ContinuousBatchingEngine:
                 # backpressure: wait until decoding frees pages
                 self.allocator.release(hit_pages)
                 break
-            self.waiting.pop(0)
+            self._leave_queue()
             table = np.zeros(self.max_pages_per_seq, np.int32)
             table[:hits] = hit_pages                   # already retained
             for i in range(hits, total_need):
@@ -413,13 +449,15 @@ class ContinuousBatchingEngine:
                 continue
             admitted.append((slot, self._chunked_admit(slot, req, table,
                                                        hits)))
-        admitted += self._batched_prefill(planned)
-        if admitted:
-            # one batched sample and one host read for the whole round
-            toks = sample_token(torch.stack([lg for _, lg in admitted]),
-                                self.generator, self.sampling).cpu().numpy()
-            for (slot, _), tok in zip(admitted, toks):
-                self._emit(slot, int(tok))
+        return admitted, planned
+
+    def _leave_queue(self) -> None:
+        """The first waiting request leaves the queue for a slot: stamped,
+        and its wait recorded as a span ``request.queue``."""
+        req = self.waiting.pop(0)
+        req.t_admit = time.perf_counter()
+        trace.interval("request.queue", req.t_submit, req.t_admit,
+                       uid=req.uid)
 
     def _chunked_admit(self, slot: int, req, table=None,
                        hits: int = 0) -> torch.Tensor:
@@ -433,15 +471,14 @@ class ContinuousBatchingEngine:
             chunk = self.prefill_chunk_size
             logits, self.cache = chunked_prefill_row(
                 self.params, self.cache, req.prompt, slot, self.config,
-                chunk_size=chunk, step_fn=(None if self._tp is None
-                                           else self._tp.chunk_append), **kw)
+                chunk_size=chunk, step_fn=self._chunk_step(req, False),
+                **kw)
         else:
             chunk = min(self.prefill_chunk_size or 64, self.max_len)
             logits, self.cache = paged_chunked_prefill_row(
                 self.params, self.cache, req.prompt, table, self.config,
                 chunk_size=chunk, start=hits * self.page_size,
-                step_fn=(None if self._tp is None
-                         else self._tp.paged_chunk_append), **kw)
+                step_fn=self._chunk_step(req, True), **kw)
             if self.prefix_cache:
                 self._register_prefix(req.prompt, table)
         if self.draft_params is not None:
@@ -453,6 +490,29 @@ class ContinuousBatchingEngine:
         self.slots[slot] = req
         self.row_pos[slot] = len(req.prompt)
         return logits
+
+    def _chunk_step(self, req, paged: bool):
+        """The chunk program of ``req``'s chunked prefill (the
+        tensor-parallel rank's, or the one-device ``chunk_append_row`` /
+        ``paged_chunk_append_row``), each chunk counted in the prefill
+        rows and recorded as a span ``admit.chunk``."""
+        if self._tp is not None:
+            inner = (self._tp.paged_chunk_append if paged
+                     else self._tp.chunk_append)
+        else:
+            inner = functools.partial(
+                paged_chunk_append_row if paged else chunk_append_row,
+                config=self.config, impl=self.impl,
+                compute_dtype=self.compute_dtype)
+
+        def step(params, cache, ids, start, length, where):
+            self.prefill_rows_run += len(ids)
+            self.prefill_rows_needed += length
+            with trace.span("admit.chunk") as sp:
+                if sp:
+                    sp.set(uid=req.uid, rows=len(ids), needed=length)
+                return inner(params, cache, ids, start, length, where)
+        return step
 
     def _batched_prefill(self, planned):
         """One ``prefill_rows`` (``paged_prefill_rows``) call per prompt
@@ -477,33 +537,14 @@ class ContinuousBatchingEngine:
                 rows[j] = slot
             for j in range(len(group), r_pad):
                 ids[j], lens[j], rows[j] = ids[0], lens[0], rows[0]
-            dev = self.device
-            ids_t, lens_t = (torch.from_numpy(ids).to(dev),
-                             torch.from_numpy(lens).to(dev))
-            kw = dict(impl=self.impl, compute_dtype=self.compute_dtype)
-            if self.paged:
-                tables = torch.from_numpy(self.page_tables[rows]).to(dev)
-                if self._tp is not None:
-                    logits, self.cache = self._tp.paged_prefill_rows(
-                        self.params, self.cache, ids_t, lens_t, tables)
-                else:
-                    logits, self.cache = paged_prefill_rows(
-                        self.params, self.cache, ids_t, lens_t, tables,
-                        self.config, **kw)
-            else:
-                rows_t = torch.from_numpy(rows).to(dev)
-                if self._tp is not None:
-                    logits, self.cache = self._tp.prefill_rows(
-                        self.params, self.cache, ids_t, lens_t, rows_t)
-                else:
-                    logits, self.cache = prefill_rows(
-                        self.params, self.cache, ids_t, lens_t, rows_t,
-                        self.config, **kw)
-            if self.draft_params is not None:
-                # the draft's slots mirror the engine's (batching.py:723-758)
-                prefill_rows(self.draft_params, self.draft_cache, ids_t,
-                             lens_t, torch.from_numpy(rows).to(dev),
-                             self.draft_config, **kw)
+            needed = sum(item[2] for item in group)
+            self.prefill_rows_run += r_pad * bucket
+            self.prefill_rows_needed += needed
+            with trace.span("admit.prefill") as sp:
+                if sp:
+                    sp.set(bucket=bucket, rows=r_pad * bucket, needed=needed,
+                           uids=[item[1].uid for item in group])
+                logits = self._prefill_bucket(ids, lens, rows)
             for j, (slot, req, plen, _, table) in enumerate(group):
                 if self.prefix_cache:
                     self._register_prefix(req.prompt, table)
@@ -511,6 +552,39 @@ class ContinuousBatchingEngine:
                 self.row_pos[slot] = plen
                 admitted.append((slot, logits[j]))
         return admitted
+
+    def _prefill_bucket(self, ids, lens, rows) -> torch.Tensor:
+        """One bucket's ``prefill_rows`` (``paged_prefill_rows``) call
+        over ``ids [R, bucket]`` into slots ``rows``, the draft's too;
+        returns the logits of each row's last prompt token."""
+        dev = self.device
+        ids_t, lens_t = (torch.from_numpy(ids).to(dev),
+                         torch.from_numpy(lens).to(dev))
+        kw = dict(impl=self.impl, compute_dtype=self.compute_dtype)
+        if self.paged:
+            tables = torch.from_numpy(self.page_tables[rows]).to(dev)
+            if self._tp is not None:
+                logits, self.cache = self._tp.paged_prefill_rows(
+                    self.params, self.cache, ids_t, lens_t, tables)
+            else:
+                logits, self.cache = paged_prefill_rows(
+                    self.params, self.cache, ids_t, lens_t, tables,
+                    self.config, **kw)
+        else:
+            rows_t = torch.from_numpy(rows).to(dev)
+            if self._tp is not None:
+                logits, self.cache = self._tp.prefill_rows(
+                    self.params, self.cache, ids_t, lens_t, rows_t)
+            else:
+                logits, self.cache = prefill_rows(
+                    self.params, self.cache, ids_t, lens_t, rows_t,
+                    self.config, **kw)
+        if self.draft_params is not None:
+            # the draft's slots mirror the engine's (batching.py:723-758)
+            prefill_rows(self.draft_params, self.draft_cache, ids_t,
+                         lens_t, torch.from_numpy(rows).to(dev),
+                         self.draft_config, **kw)
+        return logits
 
     # -- prefix caching (paged only, batching.py:767-835) -------------------
     def _page_keys(self, prompt, n_pages: int) -> List[bytes]:
@@ -580,7 +654,8 @@ class ContinuousBatchingEngine:
     def _decode(self) -> None:
         active = np.asarray([s is not None for s in self.slots])
         if not active.any():
-            self._flush_pending()
+            with trace.span("decode.flush"):
+                self._flush_pending()
             return
         if self.draft_params is not None:
             self._decode_spec(active)
@@ -689,6 +764,7 @@ class ContinuousBatchingEngine:
         of the block in flight. On the card a graph replay (TP excepted);
         eager elsewhere."""
         tables = self.page_tables if self.paged else None
+        self.blocks_dispatched += 1
         if self._graph is not None:
             if self.cache is not self._graph.cache:
                 raise RuntimeError("the cache was replaced after the decode "
@@ -697,19 +773,22 @@ class ContinuousBatchingEngine:
             return self._graph.dispatch(
                 host=(self.next_token, self.row_pos, active, budget, tables),
                 chain=chain)
-        if chain is not None:
-            tok, pos, done, budget_d = chain
-            act = ~done
-        else:
-            dev = self.device
-            tok, pos, budget_d = (torch.as_tensor(x, dtype=torch.long,
-                                                  device=dev)
-                                  for x in (self.next_token, self.row_pos,
-                                            budget))
-            act = torch.as_tensor(active, device=dev)
-        if tables is not None:
-            tables = torch.as_tensor(tables, device=self.device)
-        return BlockOut(*self._block(tok, pos, act, budget_d, tables))
+        with trace.span("decode.inputs"):
+            if chain is not None:
+                tok, pos, done, budget_d = chain
+                act = ~done
+            else:
+                dev = self.device
+                tok, pos, budget_d = (torch.as_tensor(x, dtype=torch.long,
+                                                      device=dev)
+                                      for x in (self.next_token, self.row_pos,
+                                                budget))
+                act = torch.as_tensor(active, device=dev)
+            if tables is not None:
+                tables = torch.as_tensor(tables, device=self.device)
+        # eager, the block's launches stand in for a replay
+        with trace.span("decode.replay"):
+            return BlockOut(*self._block(tok, pos, act, budget_d, tables))
 
     def _decode_block(self, active) -> None:
         """``block_steps`` tokens a row in one block, EOS and budgets
@@ -731,7 +810,8 @@ class ContinuousBatchingEngine:
         prev = self._pending
         if prev is not None and not more:
             # the tail may end inside prev: land it, and finish unpipelined
-            self._flush_pending()
+            with trace.span("decode.flush"):
+                self._flush_pending()
             return
         out = self._dispatch_block(
             active, budget, chain=None if prev is None else prev.finals)
@@ -748,33 +828,30 @@ class ContinuousBatchingEngine:
         """Bookkeeping of a block's ``toks`` and ``valid`` ``[n_steps, B]``
         a slot at a time; rows with an ``on_token`` callback keep the
         per-token path."""
-        now = time.perf_counter()
-        emitted = 0
-        for slot in range(self.max_batch):
-            req = self.slots[slot]
-            if req is None:
-                continue
-            col = toks[:, slot][valid[:, slot]]
-            if not len(col):
-                continue
-            if req.on_token is not None:
-                for tok in col:
-                    if self.slots[slot] is None:
-                        break
-                    self.row_pos[slot] += 1
-                    self._emit(slot, int(tok))
-                continue
-            seq = [int(t) for t in col]
-            if not req.generated:
-                req.t_first_token = now
-            req.generated.extend(seq)
-            self.row_pos[slot] += len(seq)
-            self.next_token[slot] = seq[-1]
-            self.total_tokens += len(seq)
-            emitted += len(seq)
-            self._maybe_finish(slot, seq[-1])
-        if emitted:
-            self.meter.tick(emitted)
+        with trace.span("decode.emit"):
+            now = time.perf_counter()
+            for slot in range(self.max_batch):
+                req = self.slots[slot]
+                if req is None:
+                    continue
+                col = toks[:, slot][valid[:, slot]]
+                if not len(col):
+                    continue
+                if req.on_token is not None:
+                    for tok in col:
+                        if self.slots[slot] is None:
+                            break
+                        self.row_pos[slot] += 1
+                        self._emit(slot, int(tok))
+                    continue
+                seq = [int(t) for t in col]
+                if not req.generated:
+                    req.t_first_token = now
+                req.generated.extend(seq)
+                self.row_pos[slot] += len(seq)
+                self.next_token[slot] = seq[-1]
+                self.total_tokens += len(seq)
+                self._maybe_finish(slot, seq[-1])
 
     def _emit(self, slot: int, tok: int) -> None:
         """Record one generated token: bookkeeping, streaming callback,
@@ -785,25 +862,33 @@ class ContinuousBatchingEngine:
         req.generated.append(tok)
         self.next_token[slot] = tok
         self.total_tokens += 1
-        self.meter.tick(1)
         if req.on_token:
             req.on_token(tok)
         self._maybe_finish(slot, tok)
 
     def metrics(self) -> Dict[str, float]:
-        """Engine counters for a metrics endpoint."""
+        """Engine counters for a metrics endpoint. Paged, pages reserved
+        (handed out: prompts and whole output budgets) stand beside pages
+        written (those the live rows' positions fill)."""
         out = {
             "total_requests": self.total_requests,
             "completed_requests": self.completed_requests,
             "total_tokens": self.total_tokens,
-            "tokens_per_second_ema": self.meter.rate or 0.0,
             "queue_depth": len(self.waiting),
             "active_slots": sum(s is not None for s in self.slots),
             "max_batch": self.max_batch,
+            "prefill_rows_run": self.prefill_rows_run,
+            "prefill_rows_needed": self.prefill_rows_needed,
+            "blocks_dispatched": self.blocks_dispatched,
+            "pipeline_flushes": self.pipeline_flushes,
         }
         if self.paged:
             out["free_pages"] = len(self.allocator.free)
             out["total_pages"] = self.total_pages
+            out["pages_reserved"] = self.total_pages - out["free_pages"]
+            out["pages_written"] = sum(
+                -(-int(self.row_pos[slot]) // self.page_size)
+                for slot, req in enumerate(self.slots) if req is not None)
             if self.prefix_cache:
                 out["prefix_cache_entries"] = len(self._prefix_map)
                 out["prefix_pages_reused"] = self.prefix_hits

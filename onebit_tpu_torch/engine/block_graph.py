@@ -57,6 +57,7 @@ import torch
 
 from onebit_tpu_torch.kernels import (attention_cuda, bitlinear_cuda,
                                       kv_attention_cuda, paged_attention_cuda)
+from onebit_tpu_torch.utils import trace
 
 KERNELS = (bitlinear_cuda.KERNELS + kv_attention_cuda.KERNELS
            + paged_attention_cuda.KERNELS + attention_cuda.KERNELS)
@@ -82,10 +83,11 @@ class BlockOut:
             raise RuntimeError("a block's host buffers were reused by the "
                                "replay after next: fetch a block before "
                                "dispatching two more")
-        if self.event is not None:
-            self.event.synchronize()
-        return (self.toks.cpu().numpy().copy(),
-                self.valid.cpu().numpy().copy())
+        with trace.span("decode.wait"):
+            if self.event is not None:
+                self.event.synchronize()
+            return (self.toks.cpu().numpy().copy(),
+                    self.valid.cpu().numpy().copy())
 
 
 class BlockGraph:
@@ -195,22 +197,25 @@ class BlockGraph:
         tok, pos, act, budget = self.inputs
         toks, valid = self._host[self.replays % 2]
         with torch.cuda.stream(self.stream):
-            if chain is not None:
-                tok_f, pos_f, done_f, budget_f = chain
-                tok.copy_(tok_f)
-                pos.copy_(pos_f)
-                act.copy_(~done_f)
-                budget.copy_(budget_f)
-            else:
-                for buf, value in zip(self.inputs, host[:4]):
-                    buf.copy_(torch.from_numpy(np.asarray(value)))
-                if self.tables is not None:
-                    self.tables.copy_(torch.from_numpy(np.asarray(host[4])))
-            self.graph.replay()
-            toks.copy_(self.out[0], non_blocking=True)
-            valid.copy_(self.out[1], non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(self.stream)
+            with trace.span("decode.inputs"):
+                if chain is not None:
+                    tok_f, pos_f, done_f, budget_f = chain
+                    tok.copy_(tok_f)
+                    pos.copy_(pos_f)
+                    act.copy_(~done_f)
+                    budget.copy_(budget_f)
+                else:
+                    for buf, value in zip(self.inputs, host[:4]):
+                        buf.copy_(torch.from_numpy(np.asarray(value)))
+                    if self.tables is not None:
+                        self.tables.copy_(
+                            torch.from_numpy(np.asarray(host[4])))
+            with trace.span("decode.replay"):
+                self.graph.replay()
+                toks.copy_(self.out[0], non_blocking=True)
+                valid.copy_(self.out[1], non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(self.stream)
         self.replays += 1
         for k in KERNELS:
             n = self.per_replay.get(k.name, 0)

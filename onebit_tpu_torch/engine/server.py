@@ -12,7 +12,15 @@ Port of ``onebit_tpu/engine/server.py``:
   ``tokenizer(text)["input_ids"]``, and adds ``"text"``, the decoded
   tokens, to both final replies; one built without a tokenizer answers a
   ``text`` body 400, naming it.
-* ``GET /metrics``: the engine's counters as JSON.
+* ``GET /metrics``: the engine's counters as JSON
+  (``ContinuousBatchingEngine.metrics``): requests, tokens, queue depth,
+  active slots, TTFT and TPOT quantiles, ``prefill_rows_run`` and
+  ``prefill_rows_needed`` (prefill rows the model ran, padding included,
+  and those the prompts needed), ``blocks_dispatched``,
+  ``pipeline_flushes`` (pipelines an admission flushed) and, paged,
+  ``free_pages``, ``total_pages``, ``pages_reserved`` and
+  ``pages_written``. ``tokens_per_second_ema`` is gone: rates come from
+  two readings of ``total_tokens``.
 * ``GET /health``: liveness.
 
 Threading: the handlers of a stdlib ``ThreadingHTTPServer`` add requests

@@ -42,6 +42,7 @@ from onebit_tpu_torch.parallel.sharding import (MeshLayout, ShardGrads,
                                                 sharded_proj)
 from onebit_tpu_torch.train.losses import (IGNORE_INDEX, KDConfig,
                                            kd_total_loss)
+from onebit_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -298,7 +299,10 @@ def make_train_step(config: BitLlamaConfig, kd_cfg: KDConfig,
     ``"auto"`` (B11 and its backward kernels on the card) or ``"torch"``
     (the plain attention). ``step.grads(state, teacher_params, batch) ->
     (grads, metrics)``: the step without the update, the trainable leaves'
-    averaged gradients in the moments' order."""
+    averaged gradients in the moments' order. With tracing on
+    (``utils/trace.py``) a step records ``kd.step`` around ``kd.teacher``,
+    ``kd.forward`` and ``kd.backward`` (each a micro-batch) and
+    ``kd.update`` (the clip and AdamW), each with its CUDA events."""
     accum = max(train_cfg.grad_accum_steps, 1)
     loss_fn, teacher_fwd = _build_loss(config, kd_cfg, train_cfg,
                                        compute_dtype, impl)
@@ -318,10 +322,13 @@ def make_train_step(config: BitLlamaConfig, kd_cfg: KDConfig,
         for m in range(accum):
             micro = {k: v[m * n // accum:(m + 1) * n // accum]
                      for k, v in batch.items()}
-            teacher_out = teacher_fwd(teacher_params, micro)
-            loss, metrics = loss_fn(params, teacher_out, micro)
+            with trace.span("kd.teacher", device=True):
+                teacher_out = teacher_fwd(teacher_params, micro)
+            with trace.span("kd.forward", device=True):
+                loss, metrics = loss_fn(params, teacher_out, micro)
             del teacher_out
-            loss.backward()
+            with trace.span("kd.backward", device=True):
+                loss.backward()
             for k, v in metrics.items():
                 v = v.detach()
                 sums[k] = v if k not in sums else sums[k] + v
@@ -336,10 +343,12 @@ def make_train_step(config: BitLlamaConfig, kd_cfg: KDConfig,
         return grads, sums
 
     def train_step(state: TrainState, teacher_params, batch):
-        grads, sums = grads_of(state, teacher_params, batch)
-        opt = _adamw_update(train_cfg, schedule,
-                            trainable_leaves(state.params), grads,
-                            state.opt_state, norm=sums["grad_norm"])
+        with trace.span("kd.step", device=True):
+            grads, sums = grads_of(state, teacher_params, batch)
+            with trace.span("kd.update", device=True):
+                opt = _adamw_update(train_cfg, schedule,
+                                    trainable_leaves(state.params), grads,
+                                    state.opt_state, norm=sums["grad_norm"])
         return TrainState(state.params, opt, state.step + 1), sums
 
     train_step.grads = grads_of
