@@ -4,8 +4,10 @@ Port of ``onebit_tpu/kernels/bitlinear.py``, its three weight modes:
 
 * ``latent``: the full-precision latent weight ``[out, in]`` of training
   (QAT), its sign taken through the straight-through estimator
-  (``core/bitlinear.py``). No kernel: a plain fp32-accumulated matmul, as
-  the JAX package leaves it to XLA (``kernels/bitlinear.py:185-192``);
+  (``core/bitlinear.py``). No kernel of its own: an fp32-accumulated
+  product, as the JAX package leaves it to XLA
+  (``kernels/bitlinear.py:185-192``), on the tensor cores for bf16 on the
+  card (``core/bitlinear.py`` ``project_f32``);
 * ``dense_sign``: a materialized ±1 matrix;
 * ``packed``: int32 sign words in the port's K-major layout ``[in//32,
   out]`` (``core/packing.py``), served by the kernels.

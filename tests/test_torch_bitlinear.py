@@ -234,3 +234,169 @@ def test_wrappers_refuse_other_devices():
         bc.large_m(meta(torch.from_numpy(x)), meta(pw.packed),
                    meta(pw.input_factor[None]), meta(pw.weight_scale),
                    n_true=64)
+
+
+# ---------------------------------------------------------------------------
+# The KD projections' product (core/bitlinear.py project_f32)
+# ---------------------------------------------------------------------------
+# On the card bf16 operands take the tensor cores (_Bf16Product): an fp32
+# result of bf16 products, and a backward that splits its fp32 gradient into
+# two bf16 parts. Here the Function runs with the fp32 product of the upcast
+# operands standing in for the card's product (_mm_f32 on CPU tensors).
+
+def _bf16_ulp(v):
+    """One bf16 ulp at |v| (2**-133 below the least normal)."""
+    v = v.abs().float().clamp(min=2.0 ** -126)
+    return torch.ldexp(torch.ones_like(v), torch.frexp(v)[1] - 8)
+
+
+def test_bf16_split_reconstructs_fp32():
+    """hi + lo is d to within 2**-17 |d| (the worst case of two bf16 parts:
+    lo's own rounding, half of 2**-8 of |d - hi| <= 2**-8 |d|), and 2**-134
+    where d lies below bf16's subnormal step: a binade every 97th value
+    (the worst case is in it), random values over the whole range, zeros,
+    subnormals and the largest finite values; infinities and NaN carry."""
+    from onebit_tpu_torch.core.bitlinear import split_bf16
+    binade = torch.arange(0x3F800000, 0x40000000, 97,
+                          dtype=torch.int64).to(torch.int32)
+    rng = np.random.default_rng(0)
+    rand = torch.from_numpy(rng.standard_normal(100_000).astype(np.float32)
+                            * np.exp2(rng.integers(-140, 127, 100_000))
+                            .astype(np.float32))
+    f32 = torch.finfo(torch.float32)
+    edges = torch.tensor([0.0, -0.0, 1e-45, -1e-45, 1e-40, 3e-39, f32.tiny,
+                          -f32.tiny, f32.max, -f32.max, 3.39e38, -3.39e38,
+                          np.nextafter(np.float32(3.3895314e38),
+                                       np.float32(np.inf))])
+    d = torch.cat([binade.view(torch.float32), rand, edges])[None]
+    parts = torch.empty((1, 2 * d.shape[1]), dtype=torch.bfloat16)
+    split_bf16(d, parts)
+    hi, lo = parts[:, :d.shape[1]].double(), parts[:, d.shape[1]:].double()
+    err = (hi + lo - d.double()).abs()
+    assert torch.isfinite(hi).all() and torch.isfinite(lo).all()
+    assert (err <= 2.0 ** -17 * d.double().abs() + 2.0 ** -134).all()
+    assert err.max() > 0                       # lo is not the whole of d
+    specials = torch.tensor([[float("inf"), -float("inf"), float("nan")]])
+    parts = torch.empty((1, 6), dtype=torch.bfloat16)
+    split_bf16(specials, parts)
+    total = parts[:, :3].float() + parts[:, 3:].float()
+    assert total[0, 0] == float("inf") and total[0, 1] == -float("inf")
+    assert torch.isnan(total[0, 2])
+
+
+@pytest.mark.parametrize("m,k,n", [(128, 256, 192), (96, 384, 64)])
+def test_bf16_product_backward_matches_fp32_upcast(m, k, n):
+    """The Function's gradients of a and of a ±1 (and 0) b, from an fp32
+    dZ, against autograd of the fp32 product of the upcast operands: each
+    within one bf16 ulp (the rounding to a's dtype may fall either side of
+    a tie) plus 1e-5 of the element's sum of |terms| (the split's 2**-17 a
+    term, and fp32 sums in another order); the forward is the same."""
+    from onebit_tpu_torch.core import bitlinear as cbl
+    gen = torch.Generator().manual_seed(m + k)
+    a = torch.randn(m, k, generator=gen).bfloat16()
+    b = torch.sign(torch.randn(n, k, generator=gen)).bfloat16()
+    b[0, :7] = 0
+    dz = torch.randn(m, n, generator=gen) * torch.rand(m, 1, generator=gen)
+    a1, b1 = a.clone().requires_grad_(), b.clone().requires_grad_()
+    z = cbl._Bf16Product.apply(a1, b1)
+    z.backward(dz)
+    a0, b0 = a.clone().requires_grad_(), b.clone().requires_grad_()
+    z0 = a0.float() @ b0.float().T
+    z0.backward(dz)
+    assert z.dtype == torch.float32
+    torch.testing.assert_close(z, z0, rtol=0, atol=0)
+    terms = {"a": dz.abs() @ b.float().abs(), "b": dz.abs().T @ a.float().abs()}
+    for key, got, want in (("a", a1.grad, a0.grad), ("b", b1.grad, b0.grad)):
+        assert got.dtype == torch.bfloat16
+        err = (got.float() - want.float()).abs()
+        bound = _bf16_ulp(torch.maximum(got.float().abs(), want.float().abs()))
+        assert (err <= bound + 1e-5 * terms[key]).all(), key
+
+
+def test_bf16_product_saves_only_what_it_needs():
+    """A b without a gradient (a dense sign matrix) returns none and needs
+    no a; without a's gradient, no b."""
+    from onebit_tpu_torch.core import bitlinear as cbl
+    a = torch.randn(8, 32).bfloat16().requires_grad_()
+    b = torch.sign(torch.randn(16, 32)).bfloat16()
+    z = cbl._Bf16Product.apply(a, b)
+    saved = z.grad_fn.saved_tensors
+    assert saved[0] is None and saved[1] is not None
+    z.sum().backward()
+    assert a.grad is not None and a.grad.dtype == torch.bfloat16
+
+
+def _kd_projection(tensor_cores, monkeypatch):
+    """One latent BitLinear (g, h, the STE) in bf16 on CPU tensors, its
+    output's gradients; with ``tensor_cores`` through the Function."""
+    from onebit_tpu_torch.core import bitlinear as cbl
+    if tensor_cores:
+        monkeypatch.setattr(cbl, "_on_tensor_cores", lambda a, b: True)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 64, 256, generator=gen).bfloat16().requires_grad_()
+    lat = (0.01 * torch.randn(192, 256, generator=gen)).requires_grad_()
+    g = (1 + 0.25 * torch.randn(256, generator=gen)).requires_grad_()
+    h = (torch.rand(192, generator=gen) + 0.5).requires_grad_()
+    r = torch.randn(2, 64, 192, generator=gen)
+    out = cbl.bitlinear_train_fwd(x, lat, g, h)
+    (out.float() * r).sum().backward()
+    monkeypatch.undo()
+    return out, {"dx": x.grad, "dg": g.grad, "dh": h.grad, "dlat": lat.grad}
+
+
+def test_bf16_product_chain_matches_todays_autograd(monkeypatch):
+    """dx, dg, dh and the latent gradient through the Function against
+    today's autograd path (the fp32 product of the upcasts), both on the
+    CPU: the output is the same; every gradient lies within one bf16 ulp
+    of its largest element, and in norm within 2**-12 of it (what the
+    Function's own rounding to bf16 moves)."""
+    out0, want = _kd_projection(False, monkeypatch)
+    out1, got = _kd_projection(True, monkeypatch)
+    torch.testing.assert_close(out1, out0, rtol=0, atol=0)
+    for key, w in want.items():
+        g, w = got[key].float(), w.float()
+        assert g.dtype == w.dtype and torch.isfinite(g).all()
+        assert (g - w).abs().max() <= 2.0 ** -8 * w.abs().max(), key
+        assert (g - w).norm() <= 2.0 ** -12 * w.norm(), key
+
+
+def _count(fn):
+    from onebit_tpu_torch.core import bitlinear as cbl
+    before = cbl.tensor_core_products, cbl.fp32_products
+    fn()
+    return (cbl.tensor_core_products - before[0],
+            cbl.fp32_products - before[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpu_and_fp32_products_take_the_fp32_path(dtype):
+    """On CPU tensors, and for fp32 operands anywhere, the BitLinear's and
+    the FP teacher's products take the fp32 product of the upcasts: counted
+    on the fp32 path, the tensor-core path untouched."""
+    from onebit_tpu_torch.core.bitlinear import bitlinear_raw
+    from onebit_tpu_torch.kernels.linear import LinearWeights, linear_apply
+    x = torch.randn(4, 64).to(dtype)
+    w = torch.randn(32, 64)
+    assert _count(lambda: bitlinear_raw(x, torch.sign(w), torch.ones(64),
+                                        torch.ones(32))) == (0, 1)
+    assert _count(lambda: linear_apply(x, LinearWeights(w))) == (0, 1)
+
+
+@pytest.mark.parametrize("dtype,path", [(torch.bfloat16, (1, 0)),
+                                        (torch.float32, (0, 1))])
+def test_fake_operands_take_the_card_path(dtype, path):
+    """A memory plan's fake tensors take the card's path: bf16 the
+    tensor cores (an fp32 result of the Function's shape), fp32 the fp32
+    product."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from onebit_tpu_torch.core.bitlinear import bitlinear_raw
+    with FakeTensorMode():
+        x = torch.empty(2, 3, 64, dtype=dtype, requires_grad=True)
+        sign, g, h = torch.empty(32, 64), torch.empty(64), torch.empty(32)
+        out = []
+        assert _count(lambda: out.append(bitlinear_raw(x, sign, g,
+                                                       h))) == path
+        assert out[0].shape == (2, 3, 32) and out[0].dtype == torch.float32
+        out[0].sum().backward()
+        assert x.grad.shape == x.shape and x.grad.dtype == dtype

@@ -1445,6 +1445,95 @@ def test_train_step_kernel_path_matches_plain(dev, dtype, remat):
         assert (a - w).norm().item() <= tol * w.norm().item()
 
 
+def _bf16_ulp(v):
+    """One bf16 ulp at |v| (2**-133 below the least normal)."""
+    v = v.abs().float().clamp(min=2.0 ** -126)
+    return torch.ldexp(torch.ones_like(v), torch.frexp(v)[1] - 8)
+
+
+@pytest.mark.parametrize("k,n", [(4096, 14336), (14336, 4096)])
+def test_kd_projection_on_tensor_cores_matches_fp32(dev, k, n, monkeypatch):
+    """A Mistral KD projection's product at M = 2048 (gate/up 4096 ->
+    14336, down 14336 -> 4096) on the tensor cores against today's fp32
+    product of the upcasts: z to 1e-5 of the row's sum of |terms| (the
+    same bf16 products, summed in another order); the bf16 gradients of y
+    and of the signs within one bf16 ulp plus 1e-5 of the element's sum of
+    |terms| (the split's 2**-17 a term, other sums; a tie may round either
+    way), the latent gradient within the same after the STE."""
+    from onebit_tpu_torch.core import bitlinear as cbl
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(k)
+    m = 2048
+    y0 = torch.randn(m, k, generator=gen, device=dev).bfloat16()
+    lat0 = 0.01 * torch.randn(n, k, generator=gen, device=dev)
+    dz = (torch.randn(m, n, generator=gen, device=dev)
+          * torch.rand(m, 1, generator=gen, device=dev))
+
+    def run(tensor_cores):
+        monkeypatch.setattr(cbl, "_on_tensor_cores",
+                            lambda a, b: tensor_cores)
+        y, lat = y0.clone().requires_grad_(), lat0.clone().requires_grad_()
+        s = cbl.sign_ste(lat).to(torch.bfloat16)
+        s.retain_grad()
+        before = cbl.tensor_core_products, cbl.fp32_products
+        z = cbl.project_f32(y, s)
+        assert (cbl.tensor_core_products - before[0],
+                cbl.fp32_products - before[1]) == (
+            (1, 0) if tensor_cores else (0, 1))
+        z.backward(dz)
+        torch.cuda.synchronize()
+        monkeypatch.undo()
+        return z, y.grad, s.grad, lat.grad
+
+    z1, dy1, ds1, dl1 = run(True)
+    z0, dy0, ds0, dl0 = run(False)
+    s0 = torch.sign(lat0)
+    assert z1.dtype == torch.float32 and dy1.dtype == ds1.dtype == y0.dtype
+    row = y0.float().abs().sum(-1, keepdim=True)
+    assert ((z1 - z0).abs() <= 1e-5 * row).all()
+
+    def within(got, want, terms):
+        assert torch.isfinite(got).all()
+        bound = _bf16_ulp(torch.maximum(got.float().abs(),
+                                        want.float().abs())) + 1e-5 * terms
+        assert ((got.float() - want.float()).abs() <= bound).all()
+        return bound
+
+    within(dy1, dy0, dz.abs() @ s0.abs())
+    bound = within(ds1, ds0, dz.abs().T @ y0.float().abs())
+    ste = cbl.STE_SLOPE_OFFSET - torch.tanh(lat0) ** 2
+    assert ((dl1 - dl0).abs() <= bound * ste + 2.0 ** -22 * dl0.abs()).all()
+
+
+def test_bf16_kd_step_takes_only_tensor_core_products(dev):
+    """One bf16 KD step of a 1-layer tiny config on the card: the
+    teacher's and the student's seven projections each take the tensor
+    cores, none the fp32 product."""
+    from onebit_tpu_torch import BitLlamaConfig
+    from onebit_tpu_torch.core import bitlinear as cbl
+    from onebit_tpu_torch.model.bitllama import init_params
+    from onebit_tpu_torch.train import trainer as tt
+    from onebit_tpu_torch.train.losses import KDConfig
+    config = BitLlamaConfig.named("tiny", num_hidden_layers=1,
+                                  max_position_embeddings=512)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    teacher = init_params(config, gen, mode="linear", device=dev)
+    student = init_params(config, gen, device=dev)
+    ids = torch.randint(0, config.vocab_size, (2, 300), generator=gen,
+                        device=dev)
+    cfg = tt.TrainConfig(learning_rate=1e-3, warmup_steps=0, total_steps=4)
+    state = tt.init_train_state(student, cfg)
+    step = tt.make_train_step(config, KDConfig(kd_beta=1.0), cfg,
+                              compute_dtype=torch.bfloat16)
+    before = cbl.tensor_core_products, cbl.fp32_products
+    state, metrics = step(state, teacher, {"input_ids": ids, "labels": ids})
+    torch.cuda.synchronize()
+    assert torch.isfinite(metrics["loss"]).all()
+    assert (cbl.tensor_core_products - before[0],
+            cbl.fp32_products - before[1]) == (14, 0)
+
+
 # ---------------------------------------------------------------------------
 # Decode blocks as CUDA graphs (engine/block_graph.py)
 # ---------------------------------------------------------------------------
